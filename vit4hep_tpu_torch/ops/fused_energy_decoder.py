@@ -1,0 +1,127 @@
+"""Energy-transformer decoder: 4 post-LN decoder layers + final LayerNorm +
+2-layer head (port of ``vit4hep_tpu/ops/fused_energy_decoder.py``).
+
+:func:`fused_energy_decoder` takes the JAX function's arguments, with the
+weights in its Dense layout ``(in, out)``. On CPU tensors it runs
+:func:`_reference`, the plain PyTorch version. On CUDA tensors it launches
+the hand-written kernel ``csrc/energy_decoder.cu`` (one CTA per batch
+element, the activation resident in shared memory across all layers) or
+raises; there is no fallback between the two.
+
+The cross-attention enters as a per-layer bias: with a one-token encoder
+memory, softmax over one key is 1 and the cross-attention output is
+``out_proj(v_proj(memory))`` for every query (the caller computes it). The
+TPU kernel grouped ``group`` batch elements into one block-diagonal score
+matmul to feed its matrix unit; per-element attention is exact without it,
+so ``group`` is accepted and does not change the CUDA kernel's work.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from vit4hep_tpu_torch.ops import _cuda
+
+_LN_EPS = 1e-5
+_ACTS = {"relu": 1, "gelu": 2, "silu": 3}
+_SIGNATURES = {
+    "energy_decoder_forward": [_cuda.P] * 20 + [_cuda.I] * 9 + [_cuda.F, _cuda.P],
+}
+
+ENERGY_DECODER = _cuda.LaunchCounter("energy_decoder")
+
+
+def _act(name):
+    return {"relu": F.relu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "silu": F.silu}[name]
+
+
+def _ln_affine(x, scale, bias):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + _LN_EPS) * scale + bias
+
+
+def _reference(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2,
+               b2, fs, fb, hw0, hb0, hw1, hb1, num_heads, activation):
+    """Plain PyTorch version (f32): the CPU path and the kernel's oracle."""
+    b, n, dm = tgt.shape
+    d = dm // num_heads
+    scale = float(d) ** -0.5
+    act = _act(activation)
+    x = tgt.float()
+    for li in range(wqkv.shape[0]):
+        qkv = x @ wqkv[li] + bqkv[li]
+        q, k, v = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+        s = (q @ k.transpose(-1, -2)) * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        ctx = (p @ v) / p.sum(-1, keepdim=True)
+        ctx = ctx.permute(0, 2, 1, 3).reshape(b, n, dm)
+        x = _ln_affine(x + (ctx @ wo[li] + bo[li]), ln_s[li, 0], ln_b[li, 0])
+        x = _ln_affine(x + cross[:, li, None, :], ln_s[li, 1], ln_b[li, 1])
+        y = act(x @ w1[li] + b1[li]) @ w2[li] + b2[li]
+        x = _ln_affine(x + y, ln_s[li, 2], ln_b[li, 2])
+    x = _ln_affine(x, fs, fb)
+    hcat = torch.cat([tf.float()[:, None, :].expand(b, n, tf.shape[1]), x], dim=-1)
+    hid = F.silu(hcat @ hw0 + hb0)
+    return (hid @ hw1 + hb1)[..., 0]
+
+
+def smem_bytes(n, dm, fdim, hdim0, num_heads):
+    """Shared memory the CUDA kernel needs per element (energy_decoder.cu)."""
+    buf = max(n * (3 * dm + 1), n * fdim, n * hdim0)
+    return 4 * (2 * n * dm + buf + max(num_heads * n * n, hdim0) + num_heads * n)
+
+
+def fused_energy_decoder(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                         w1, b1, w2, b2, fs, fb, hw0, hb0, hw1, hb1,
+                         num_heads, activation="relu", group=16):
+    """Decoder stack + head. tgt (B, N, D) embedded target; tf (B, TE) time
+    features; cross (B, L, D) per-layer cross-attention outputs; ln_s/ln_b
+    (L, 3, D) LayerNorm scales/biases (after self-attn, after cross-attn,
+    after FFN); fs/fb the final LayerNorm; hw0 (TE + D, HN), hb0, hw1
+    (HN, 1), hb1 the velocity head on [tf, h]. Returns (B, N) velocities."""
+    args = (tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2, b2,
+            fs, fb, hw0, hb0, hw1, hb1)
+    if tgt.device.type == "cpu":
+        return _reference(*args, num_heads=num_heads, activation=activation)
+    return energy_decoder_kernel(*args, num_heads=num_heads, activation=activation)
+
+
+def energy_decoder_kernel(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                          w1, b1, w2, b2, fs, fb, hw0, hb0, hw1, hb1,
+                          num_heads, activation):
+    """Launch ``csrc/energy_decoder.cu`` on the current stream."""
+    b, n, dm = tgt.shape
+    depth, fdim = w1.shape[0], w1.shape[-1]
+    te, hdim0 = tf.shape[1], hw0.shape[1]
+    args = [a.contiguous() for a in (tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
+                                     w1, b1, w2, b2, fs, fb, hw0, hb0, hw1, hb1)]
+    _cuda.require_cuda("fused_energy_decoder", *args)
+    expect = [(b, n, dm), (b, te), (b, depth, dm), (depth, 3, dm), (depth, 3, dm),
+              (depth, dm, 3 * dm), (depth, 3 * dm), (depth, dm, dm), (depth, dm),
+              (depth, dm, fdim), (depth, fdim), (depth, fdim, dm), (depth, dm),
+              (dm,), (dm,), (te + dm, hdim0), (hdim0,), (hdim0, 1), (1,)]
+    for i, (a, shape) in enumerate(zip(args, expect)):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"fused_energy_decoder: argument {i} has shape "
+                             f"{tuple(a.shape)}, expected {shape}")
+    if activation not in _ACTS:
+        raise ValueError(f"fused_energy_decoder: activation '{activation}' not supported")
+    if dm % num_heads:
+        raise ValueError(f"fused_energy_decoder: d_model {dm} not divisible by {num_heads} heads")
+    need = smem_bytes(n, dm, fdim, hdim0, num_heads)
+    if need > _cuda.MAX_SMEM_BYTES:
+        raise ValueError(f"fused_energy_decoder: {need} bytes of shared memory needed per "
+                         f"element, above the card's {_cuda.MAX_SMEM_BYTES}")
+    out = torch.empty((b, n), dtype=torch.float32, device=tgt.device)
+    lib = _cuda.load("energy_decoder", _SIGNATURES)
+    code = lib.energy_decoder_forward(
+        *[a.data_ptr() for a in args], out.data_ptr(),
+        b, n, dm, te, fdim, hdim0, depth, num_heads, _ACTS[activation],
+        float(dm // num_heads) ** -0.5, _cuda.stream())
+    _cuda.check(code, "energy_decoder")
+    ENERGY_DECODER.add()
+    return out
