@@ -161,12 +161,18 @@ def test_device_u_chain_matches_staged_numpy(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port's modules and chip_smoke.py load nothing of JAX and nothing of
-    the JAX package."""
+    """The port's modules, its launcher and chip_smoke.py load nothing of JAX
+    and nothing of the JAX package."""
     code = ("import importlib.util, sys, vit4hep_tpu_torch.utils.serving, "
             "vit4hep_tpu_torch.utils.config, vit4hep_tpu_torch.utils.jax_params, "
             "vit4hep_tpu_torch.models.calochallenge, "
-            "vit4hep_tpu_torch.data.calochallenge.transforms; "
+            "vit4hep_tpu_torch.data.calochallenge.transforms, "
+            "vit4hep_tpu_torch.data.calochallenge.datasets, "
+            "vit4hep_tpu_torch.experiments.main, vit4hep_tpu_torch.experiments.calochallenge, "
+            "vit4hep_tpu_torch.experiments.base, vit4hep_tpu_torch.experiments.train_state, "
+            "vit4hep_tpu_torch.ops.fused_qkv_attention, vit4hep_tpu_torch.utils.checkpoint; "
+            "from vit4hep_tpu_torch.experiments.main import get_experiment; "
+            "get_experiment('calochallenge'); "
             "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py'); "
             "spec.loader.exec_module(importlib.util.module_from_spec(spec)); "
             "bad = [m for m in sys.modules "
@@ -191,6 +197,18 @@ def test_chip_smoke_configs_equal_yaml():
         "data"]["transforms"]
     assert smoke.DS2_ENERGY_TRANSFORMS == load("calochallenge/cfm/calochallenge_ds2_energy.yaml")[
         "data"]["transforms"]
+
+
+def test_chip_smoke_training_configs_equal_yaml():
+    """The smoke's training dicts are configs/training/default.yaml with
+    cfm/shape.yaml and cfm/energy.yaml on top."""
+    smoke = _chip_smoke()
+    load = lambda rel: yaml.safe_load((ROOT / "configs" / rel).read_text())  # noqa: E731
+    default = {k: (float(v) if k in ("eps", "lr") else v)  # YAML 1.1 reads "1e-8" as a string
+               for k, v in load("training/default.yaml").items()}
+    for name, want in (("shape", smoke.DS2_SHAPE_TRAINING), ("energy", smoke.DS2_ENERGY_TRAINING)):
+        top = {k: v for k, v in load(f"training/cfm/{name}.yaml").items() if k != "defaults"}
+        assert want == {**default, **top}, name
 
 
 def test_chip_smoke_fails_without_cuda():

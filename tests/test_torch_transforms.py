@@ -117,6 +117,10 @@ def test_xml_handler_matches_jax(tmp_path):
 def test_unported_steps_and_missing_statistics_raise(run_dir, tmp_path_factory):
     with pytest.raises(NotImplementedError, match="AddAngularBins"):
         ttf.build_pipeline({"AddAngularBins": {}}, str(run_dir))
+    # no statistics yet: the step builds (a forward call fits them), and
+    # reversing before that raises
     empty = tmp_path_factory.mktemp("untrained")
+    (step,) = ttf.build_pipeline({"StandardizeUsFromFile": {"n_us": L, "model_dir": None}},
+                                 str(empty))
     with pytest.raises(FileNotFoundError, match="training"):
-        ttf.build_pipeline({"StandardizeUsFromFile": {"n_us": L, "model_dir": None}}, str(empty))
+        step(np.zeros((2, V + L), np.float32), np.ones((2, 1), np.float32), rev=True)

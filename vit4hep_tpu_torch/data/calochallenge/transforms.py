@@ -1,20 +1,21 @@
-"""Invertible CaloChallenge preprocessing steps of the ds2 serving path (port
-of ``vit4hep_tpu/data/calochallenge/transforms.py``; numpy, on the host).
+"""Invertible CaloChallenge preprocessing steps of the ds2 path (port of
+``vit4hep_tpu/data/calochallenge/transforms.py``; numpy, on the host).
 
 Every step keeps the JAX package's class name, constructor keywords and
-protocol ``__call__(shower, energy, rev=False) -> (shower, energy)``,
-so the ``data.transforms`` mappings of the shared configs resolve unchanged
-through :func:`build_pipeline`. The marker attributes ``u_transform`` and
-``cond_transform`` select the steps applied to sampled u-vectors and to
-conditions at generation time.
+protocol ``__call__(shower, energy, rev=False, rank=0) -> (shower,
+energy)``, so the ``data.transforms`` mappings of the shared configs resolve
+unchanged through :func:`build_pipeline`. The marker attributes
+``u_transform`` and ``cond_transform`` select the steps applied to sampled
+u-vectors and to conditions at generation time.
 
-The port serves and does not train yet: the ``*FromFile`` standardizations
-load the statistics that training wrote into the run directory and raise
-when they are missing. The other families' steps (``SelectiveUniformNoise``,
-``ScaleVoxels``, ``AddAngularBins``, ``AddLEMURSConditions``) are not ported
-yet.
+The ``*FromFile`` standardizations load the statistics that an earlier
+training wrote into the run directory; when there are none, the first
+forward call fits them on its input (``ddof=1``; ``exclude_zeros`` drops the
+saturated logits) and rank 0 writes ``means.npy``/``stds.npy`` (or
+``means_u.npy``/``stds_u.npy``), as training does in the JAX package. The
+other families' steps (``SelectiveUniformNoise``, ``ScaleVoxels``,
+``AddAngularBins``, ``AddLEMURSConditions``) are not ported yet.
 """
-
 from __future__ import annotations
 
 import os
@@ -34,40 +35,81 @@ def logit(array, alpha=1.0e-6, inv=False):
 
 
 def _load_stats(model_dir, *names):
+    """The saved statistics, or None when training has not written them yet."""
     paths = [os.path.join(model_dir, n) for n in names]
-    missing = [p for p in paths if not os.path.exists(p)]
-    if missing:
-        raise FileNotFoundError(f"no fitted statistics {missing}: they are written by "
-                                "training, which the port does not run yet")
+    if not all(os.path.exists(p) for p in paths):
+        return None
     return [np.load(p) for p in paths]
 
 
+def _unfitted(model_dir, *names):
+    return FileNotFoundError(f"no fitted statistics {list(names)} in {model_dir}: training "
+                             "fits them on its first forward call")
+
+
 class GlobalStandardizeFromFile:
-    """Scalar standardization with the run dir's ``means.npy``/``stds.npy``."""
+    """Scalar standardization with the run dir's ``means.npy``/``stds.npy``,
+    fitted on the first forward call when they are missing."""
 
-    def __init__(self, model_dir, eps=1.0e-6):
-        del eps  # only fitting reads it
+    def __init__(self, model_dir, exclude_zeros=True, eps=1.0e-6):
+        self.model_dir = model_dir
         self.u_transform = True
-        self.mean, self.std = _load_stats(model_dir, "means.npy", "stds.npy")
+        self.exclude_zeros = exclude_zeros
+        self.eps = float(np.log(eps / (1 - eps)))  # logit(eps)
+        stats = _load_stats(model_dir, "means.npy", "stds.npy")
+        self.written = stats is not None
+        if self.written:
+            self.mean, self.std = stats
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         if rev:
+            if not self.written:
+                raise _unfitted(self.model_dir, "means.npy", "stds.npy")
             return shower * self.std + self.mean, energy
+        if not self.written:
+            if self.exclude_zeros:  # |x| < -logit(eps): the logits that did not saturate
+                mask = (shower > self.eps) & (shower < -self.eps)
+            else:
+                mask = np.ones_like(shower, dtype=bool)
+            vals = shower[mask]
+            self.mean = vals.mean()
+            self.std = vals.std(ddof=1)
+            if rank == 0:
+                np.save(os.path.join(self.model_dir, "means.npy"), np.asarray(self.mean))
+                np.save(os.path.join(self.model_dir, "stds.npy"), np.asarray(self.std))
+            self.written = True
         return (shower - self.mean) / self.std, energy
 
 
 class StandardizeUsFromFile:
     """Per-dimension standardization of the trailing ``n_us`` u-features with
-    the run dir's ``means_u.npy``/``stds_u.npy``."""
+    the run dir's ``means_u.npy``/``stds_u.npy``, fitted on the first
+    forward call when they are missing."""
 
     def __init__(self, n_us, model_dir):
+        self.model_dir = model_dir
         self.n_us = n_us
         self.u_transform = True
-        self.mean_u, self.std_u = _load_stats(model_dir, "means_u.npy", "stds_u.npy")
+        stats = _load_stats(model_dir, "means_u.npy", "stds_u.npy")
+        self.written = stats is not None
+        if self.written:
+            self.mean_u, self.std_u = stats
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         us, voxels = shower[:, -self.n_us:], shower[:, :-self.n_us]
-        trafo = us * self.std_u + self.mean_u if rev else (us - self.mean_u) / self.std_u
+        if rev:
+            if not self.written:
+                raise _unfitted(self.model_dir, "means_u.npy", "stds_u.npy")
+            trafo = us * self.std_u + self.mean_u
+        else:
+            if not self.written:
+                self.mean_u = us.mean(0)
+                self.std_u = us.std(0, ddof=1)
+                if rank == 0:
+                    np.save(os.path.join(self.model_dir, "means_u.npy"), np.asarray(self.mean_u))
+                    np.save(os.path.join(self.model_dir, "stds_u.npy"), np.asarray(self.std_u))
+                self.written = True
+            trafo = (us - self.mean_u) / self.std_u
         return np.concatenate((voxels, trafo), axis=1), energy
 
 
@@ -78,7 +120,7 @@ class SelectDims:
     def __init__(self, start, end):
         self.indices = np.arange(start, end)
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         return (shower if rev else shower[..., self.indices]), energy
 
 
@@ -88,7 +130,7 @@ class AddFeaturesToCond:
     def __init__(self, split_index):
         self.split_index = split_index
 
-    def __call__(self, x, c, rev=False):
+    def __call__(self, x, c, rev=False, rank=0):
         if rev:
             return np.concatenate([x, c[:, :-1]], axis=1), c[:, -1:]
         return x[:, :self.split_index], np.concatenate([x[:, self.split_index:], c], axis=1)
@@ -99,7 +141,7 @@ class LogEnergy:
         self.alpha = alpha
         self.cond_transform = True
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         if rev:
             return shower, np.exp(energy) - self.alpha
         return shower, np.log(energy + self.alpha)
@@ -113,7 +155,7 @@ class ScaleTotalEnergy:
         self.n_layers = n_layers
         self.u_transform = True
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         shower = shower.copy()
         if rev:
             shower[..., -self.n_layers] /= self.factor
@@ -130,7 +172,7 @@ class ScaleEnergy:
         self.e_max = e_max
         self.cond_transform = True
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         if rev:
             return shower, energy * (self.e_max - self.e_min) + self.e_min
         return shower, (energy - self.e_min) / (self.e_max - self.e_min)
@@ -145,7 +187,7 @@ class ExclusiveLogitTransform:
         self.rescale = rescale
         self.u_transform = True
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         if self.rescale:
             transformed = logit(shower, alpha=self.delta, inv=rev)
         elif rev:
@@ -166,7 +208,7 @@ class CutValues:
         self.cut = cut
         self.n_layers = n_layers
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         if rev and self.cut:
             shower = shower.copy()
             mask = shower <= self.cut
@@ -181,7 +223,7 @@ class Reshape:
     def __init__(self, shape):
         self.shape = tuple(shape)
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         if rev:
             return shower.reshape(-1, int(np.prod(self.shape))), energy
         return shower.reshape(-1, *self.shape), energy
@@ -210,7 +252,7 @@ class NormalizeByElayer:
     def _per_voxel(self, per_layer):
         return np.repeat(per_layer, self.layer_sizes, axis=1)
 
-    def __call__(self, shower, energy, rev=False):
+    def __call__(self, shower, energy, rev=False, rank=0):
         if not rev:
             layer_es = self._layer_sums(shower)
             voxels = shower / self._per_voxel(layer_es + self.eps)
@@ -254,8 +296,8 @@ def build_pipeline(transforms_cfg, run_dir: str):
     return steps
 
 
-def apply_pipeline(steps, shower, energy, rev=False):
+def apply_pipeline(steps, shower, energy, rev=False, rank=0):
     """Apply a chain of steps, in reverse order when ``rev``."""
     for fn in reversed(steps) if rev else steps:
-        shower, energy = fn(shower, energy, rev=rev)
+        shower, energy = fn(shower, energy, rev=rev, rank=rank)
     return shower, energy

@@ -1,0 +1,217 @@
+"""Training state and the train step (port of
+``vit4hep_tpu/experiments/train_state.py``).
+
+One step is: loss and gradients, the gradient-hygiene chain (global norm of
+the raw gradients, clip by value, global norm, clip by global norm), the
+update-skip guard, the optimizer update scaled by ``lr_scale``, and the EMA
+update. The semantics are the JAX package's:
+
+- ``grad_norm_net`` is taken before any clip; then clip by value, then
+  ``grad_norm``, then clip by global norm with the scale
+  ``min(1, max / (norm + 1e-6))`` (torch's ``clip_grad_norm_``);
+- a nonfinite ``grad_norm`` always skips the update; a spike above
+  ``max_grad_norm`` skips it only once ``step > MIN_STEP_SKIP``;
+- a skipped step leaves the parameters, the optimizer state, the EMA and the
+  learning-rate schedule untouched (in optax the schedule counter lives in
+  the optimizer state), while ``step`` still advances;
+- updates are multiplied by ``lr_scale`` (the host-driven
+  ReduceLROnPlateau factor): the optimizer steps with ``lr * lr_scale``;
+- the EMA decay is ``min(decay, (1 + n) / (10 + n))`` with the
+  post-increment update count ``n``, applied to the new parameters.
+
+Parameters that get no gradient are given zero gradients, so that weight
+decay and the moments treat them as optax does. Optimizers: ``AdamW`` (the
+ds2 default), ``Adam`` and ``RAdam`` with torch's coupled L2 weight decay
+(optax chains ``add_decayed_weights`` before them). torch's RAdam adds eps to
+sqrt(v) before the bias correction, optax after it, which differs only in
+the rectified phase (after ~5 steps at beta2 0.999) where sqrt(v) is of the
+order of eps. Schedules are the optax formulas
+(``cosine_decay_schedule``, which holds its end value;
+``cosine_onecycle_schedule``), driven by a ``LambdaLR`` whose counter
+advances with each applied update. ``Lion`` and ``Ranger`` are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# the spike-skip is only active after this many steps
+MIN_STEP_SKIP = 1000
+
+
+class TrainState:
+    """The model, its optimizer and schedule, the EMA shadow and the
+    counters ``step`` (steps taken, skipped ones included), ``ema_updates``
+    and ``lr_scale``."""
+
+    def __init__(self, model, optimizer, schedule, use_ema: bool):
+        self.model = model
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.ema = [p.detach().clone() for p in self.params] if use_ema else None
+        self.step = 0
+        self.ema_updates = 0
+        self.lr_scale = 1.0
+
+    def lr(self) -> float:
+        """The learning rate of the next applied update."""
+        return self.schedule.get_last_lr()[0] * self.lr_scale
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "schedule": self.schedule.state_dict(),
+                "ema": None if self.ema is None else [e.clone() for e in self.ema],
+                "step": self.step, "ema_updates": self.ema_updates, "lr_scale": self.lr_scale}
+
+    def load_state_dict(self, sd: dict):
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.schedule.load_state_dict(sd["schedule"])
+        if self.ema is not None:
+            if sd.get("ema") is None:
+                self.ema = [p.detach().clone() for p in self.params]
+            else:
+                for e, s in zip(self.ema, sd["ema"], strict=True):
+                    e.copy_(s)
+        self.step = int(sd["step"])
+        self.ema_updates = int(sd["ema_updates"])
+        self.lr_scale = float(sd["lr_scale"])
+
+
+def create_train_state(model, training_cfg, use_ema: bool) -> TrainState:
+    lr = float(training_cfg.lr)
+    fn = make_schedule(training_cfg)
+    optimizer = make_optimizer(training_cfg, [p for p in model.parameters() if p.requires_grad])
+    schedule = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda count: fn(count) / lr if lr else 0.0)
+    return TrainState(model, optimizer, schedule, use_ema)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+
+
+def _ema_decay(base_decay: float, num_updates: int) -> float:
+    """torch_ema's warm-up: the first update uses n = 1 (decay 2/11)."""
+    return min(base_decay, (1.0 + num_updates) / (10.0 + num_updates))
+
+
+def make_train_step(loss_fn, *, clip_grad_value=None, clip_grad_norm=None, max_grad_norm=None,
+                    ema_decay=None):
+    """``train_step(state, batch) -> metrics``, with ``loss_fn(*batch)`` the
+    scalar loss of the state's model. Metrics are tensors on the model's
+    device: ``loss``, ``grad_norm``, ``grad_norm_net`` and ``skipped``."""
+
+    def train_step(state: TrainState, batch) -> dict:
+        if state.ema is not None and ema_decay is None:
+            raise ValueError("the train state keeps an EMA: make_train_step needs ema_decay")
+        params = state.params
+        loss = loss_fn(*batch)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+        grad_norm_net = global_norm(grads)
+        if clip_grad_value is not None:
+            grads = [g.clamp(-clip_grad_value, clip_grad_value) for g in grads]
+        grad_norm = global_norm(grads)
+        if clip_grad_norm is not None:
+            scale = torch.clamp(clip_grad_norm / (grad_norm + 1e-6), max=1.0)
+            grads = [g * scale for g in grads]
+
+        norm = float(grad_norm)  # the skip decision is taken on the host
+        ok = math.isfinite(norm) and (
+            max_grad_norm is None or state.step <= MIN_STEP_SKIP or norm <= max_grad_norm)
+        if ok:
+            lr = state.lr()
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            for p, g in zip(params, grads):
+                p.grad = g
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+            state.schedule.step()
+            if state.ema is not None:
+                state.ema_updates += 1
+                decay = _ema_decay(ema_decay, state.ema_updates)
+                with torch.no_grad():
+                    for e, p in zip(state.ema, params):
+                        e.mul_(decay).add_(p.detach(), alpha=1.0 - decay)
+        state.step += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm, "grad_norm_net": grad_norm_net,
+                "skipped": int(not ok)}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# schedules and optimizers
+# ---------------------------------------------------------------------------
+def _cosine_decay(init_value, decay_steps, alpha):
+    def fn(count):
+        count = min(float(count), float(decay_steps))
+        return init_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+                             + alpha)
+
+    return fn
+
+
+def _cosine_onecycle(transition_steps, peak_value, pct_start, div_factor=25.0,
+                     final_div_factor=1e4):
+    """optax.cosine_onecycle_schedule: a piecewise cosine interpolation
+    between peak/div, peak and peak/(div * final_div)."""
+    bounds = [0, int(pct_start * transition_steps), int(transition_steps)]
+    init = peak_value / div_factor
+    values = [init, init * div_factor, init * div_factor / (div_factor * final_div_factor)]
+
+    def fn(count):
+        for i in range(2):
+            if bounds[i] <= count < bounds[i + 1]:
+                pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+                start, end = values[i], values[i + 1]
+                return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1.0)
+        return values[-1] if count >= bounds[-1] else 0.0
+
+    return fn
+
+
+def make_schedule(training_cfg, lr=None):
+    """The learning rate of the update with a given count of earlier applied
+    updates, as a function of that count (the optax schedule of the JAX
+    package)."""
+    lr = float(training_cfg.lr if lr is None else lr)
+    name = training_cfg.get("scheduler")
+    if name is None:
+        return lambda count: lr
+    steps = max(1, int(int(training_cfg.iterations)
+                       * float(training_cfg.get("scheduler_scale", 1))))
+    if name == "CosineAnnealingLR":
+        eta_min = float(training_cfg.get("cosanneal_eta_min", 0.0))
+        return _cosine_decay(lr, steps, eta_min / lr if lr else 0.0)
+    if name == "OneCycleLR":
+        return _cosine_onecycle(steps, lr * float(training_cfg.get("onecycle_max_lr", 10)),
+                                float(training_cfg.get("onecycle_pct_start", 0.2)))
+    if name == "ReduceLROnPlateau":  # host-driven through TrainState.lr_scale
+        return lambda count: lr
+    raise ValueError(f"Learning rate scheduler {name} not implemented")
+
+
+def make_optimizer(training_cfg, params) -> torch.optim.Optimizer:
+    name = training_cfg.get("optimizer", "AdamW")
+    lr = float(training_cfg.lr)
+    betas = tuple(float(b) for b in training_cfg.get("betas", (0.9, 0.999)))
+    eps = float(training_cfg.get("eps", 1e-8))
+    wd = float(training_cfg.get("weight_decay", 0.0))
+    if name == "AdamW":
+        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
+    if name == "Adam":  # coupled L2: grad += wd * param before the moments
+        return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
+    if name == "RAdam":
+        return torch.optim.RAdam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
+    if name in ("Lion", "Ranger"):
+        raise NotImplementedError(f"optimizer {name} is not ported yet (ROADMAP.md queue 1)")
+    raise ValueError(f"Optimizer {name} not implemented")

@@ -60,11 +60,18 @@ class CFM(nn.Module):
         """Velocity field. x: (B, *shape); t: (B, 1); c: (B, K)."""
         return self._net_out(self.net(*self._net_args(x, t, c)), x.shape)
 
-    def batch_loss(self, x, c, generator=None):
-        """Flow-matching loss of one batch (plain PyTorch, no kernel)."""
+    def batch_loss(self, x, c, generator=None, t=None, x_0=None):
+        """Flow-matching loss of one batch: t ~ U(0, 1) per element (shape
+        (B, 1, ...) broadcasting over x) and x_0 ~ N(0, 1) are drawn from
+        ``generator`` unless given, as ``sample_batch`` takes ``x_T``."""
         bcast = (x.shape[0],) + (1,) * (x.ndim - 1)
-        t = torch.rand(bcast, generator=generator, device=x.device, dtype=x.dtype)
-        x_0 = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        if t is None:
+            t = torch.rand(bcast, generator=generator, device=x.device, dtype=x.dtype)
+        if x_0 is None:
+            x_0 = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        if tuple(t.shape) != bcast or x_0.shape != x.shape:
+            raise ValueError(f"t {tuple(t.shape)} / x_0 {tuple(x_0.shape)} do not fit x "
+                             f"{tuple(x.shape)}")
         x_t, x_t_dot = self.trajectory(x_0, x, t)
         velocity = self.forward(x_t, t.reshape(-1, 1), c)
         return torch.mean((velocity - x_t_dot) ** 2)

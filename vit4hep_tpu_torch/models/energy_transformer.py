@@ -13,7 +13,9 @@ onto these names. Attention is the port's own plain attention, not
 ``fused_block: true`` (and ``"sample"`` through :func:`sampling_variant`)
 runs the decoder stack + head as one hand-written kernel per batch element
 (``ops/fused_energy_decoder.py``), valid when the encoder memory collapses
-to one token: ``dims_c == 1``, or no condition.
+to one token: ``dims_c == 1``, or no condition. The kernel has no backward
+yet, so ``fused_block: true`` with gradients enabled raises; the ds2 default
+(``fused_block: sample``) trains the composed layers.
 """
 
 from __future__ import annotations
@@ -249,6 +251,11 @@ class ParallelTransformerNet(nn.Module):
         # the decoder kernel is valid when the cross-attention memory is one
         # effective token: a 1-token encoder or the all-zero memory
         if p.fused_block is True and (condition is None or p.dims_c == 1):
+            if torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "fused_block: true with gradients enabled needs the decoder kernel's "
+                    "backward, not ported yet (ROADMAP.md queue 2); train the composed path "
+                    "(fused_block: false or 'sample') or run under torch.no_grad()")
             return self._fused_decoder(tgt, t_feats, memory)
 
         h = tgt

@@ -7,15 +7,20 @@ Parameter names follow the reference torch ViT (``x_embedder``,
 the JAX param tree onto them.
 
 LayerNorms have no affine and eps 1e-6, GELU is the tanh form, adaLN and the
-final projection are zero-initialised. ``fused_block: true`` (and
-``"sample"`` through :func:`sampling_variant`) runs the embedder, every block
-and the FinalLayer through ``ops/fused_dit_block.fused_vit_forward``; the
-per-block adaLN products stay plain PyTorch, as they sit outside the Pallas
-kernel in JAX. Not ported yet: ``ViT1D`` (the cINN subnet), the fine-tuning
-mappers, the fixed sin-cos positional embeddings, ``fused_mlp``, the
-block-stack / per-block kernel fallbacks (``fused_stack: false``) and the
-training knobs (``checkpoint_grads`` is accepted and only keeps the composed
-path, as in JAX; the port does not train yet).
+final projection are zero-initialised. The composed path trains: its
+attention goes through ``ops/attention.qkv_attention``, whose ``auto``
+dispatch runs kernel K1 (``fused_qkv_attention``, forward and backward) from
+128 tokens, and ``checkpoint_grads: true`` recomputes each block in the
+backward (``torch.utils.checkpoint``, the JAX ``nn.remat``).
+``fused_block: true`` (and ``"sample"`` through :func:`sampling_variant`)
+runs the embedder, every block and the FinalLayer through
+``ops/fused_dit_block.fused_vit_forward``, forward only: the per-block adaLN
+products stay plain PyTorch, as they sit outside the Pallas kernel in JAX,
+and training through that path (``fused_block: true``/``"hybrid"`` with
+gradients enabled) needs the K5 kernels and raises. Not ported yet:
+``ViT1D`` (the cINN subnet), the fine-tuning mappers, the fixed sin-cos
+positional embeddings, ``fused_mlp`` and the block-stack / per-block kernel
+fallbacks (``fused_stack: false``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import logging
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from vit4hep_tpu_torch.ops import pos_embed as pe_ops
@@ -251,14 +257,23 @@ class ViTNet(nn.Module):
         cond = self.t_embedder(t) + self.c_embedder(c.float())
         mask = self._attn_mask()
         if p.fused_block in (True, "hybrid") and not p.checkpoint_grads and not p.pad_attn_heads:
+            if torch.is_grad_enabled():
+                raise NotImplementedError(
+                    f"fused_block: {p.fused_block!r} with gradients enabled needs the training "
+                    "kernels K5a-c, not ported yet (ROADMAP.md queue 2); train the composed "
+                    "path (fused_block: false or 'sample') or run under torch.no_grad()")
             if not p.fused_stack:
                 raise NotImplementedError(
                     "fused_stack: false needs the per-block kernel (K2b), not ported yet")
             return self._fused_vit(x, cond, mask)
 
         x = self.x_embedder(x) + self.pos_embedding()
+        remat = p.checkpoint_grads and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, cond, mask)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(block, x, cond, mask, use_reentrant=False)
+            else:
+                x = block(x, cond, mask)
         return self.final_layer(x, cond)
 
     def _fused_vit(self, tokens, cond, mask):

@@ -1,26 +1,42 @@
-"""Attention, plain PyTorch (port of the plain part of ``vit4hep_tpu/ops/attention.py``).
+"""Attention dispatch (port of ``vit4hep_tpu/ops/attention.py``).
 
-This is the composed ViT path's attention and the energy transformer's
-attention: matmul, softmax in float32, matmul, with no fused library
-operator, so that it stays an independent oracle for the hand-written
-kernels. The TPU dispatch names (``auto``, ``xla``, ``fused``, ``flash``,
-``vmem``) are accepted and all run this plain version: the kernels they pick
-on the TPU (``fused_qkv_attention``, ``flash_qkv_attention``,
-``flash_attention``, ``vmem_attention``) are still to be ported (ROADMAP.md,
-queue 2).
+``xla`` is the plain version everywhere: matmul, softmax in float32, matmul,
+with no fused library operator, so that it stays an independent oracle for
+the hand-written kernels (the energy transformer's default).
+
+:func:`qkv_attention` keeps the JAX dispatch on the native (B, N, 3*H*D)
+layout: ``auto`` picks ``fused`` (``ops/fused_qkv_attention``, kernel K1,
+forward and backward, on the card) from 128 tokens while the TPU kernel's
+working-set bound ``fused_fits`` holds, and the plain version below 128;
+an explicit ``fused`` beyond the bound raises ``ValueError`` as in JAX.
+``flash`` and ``vmem``, and ``auto`` past the bound, name kernels K6/K7/K8
+that are not ported yet (ROADMAP.md queue 2): on CUDA tensors they raise
+``NotImplementedError``, on CPU tensors they run the plain version.
+:func:`dot_product_attention` does the same for (B, H, N, D) inputs, whose
+``auto`` picks ``vmem`` at 288-1024 tokens and ``flash`` above.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vit4hep_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+
 _NEG_INF = -1e30
 _IMPLS = ("auto", "xla", "fused", "flash", "vmem")
+_KERNELS = {"flash": "K6 flash_qkv_attention / K7 flash_attention", "vmem": "K8 vmem_attention"}
 
 
 def _check_impl(impl):
     if impl not in _IMPLS:
         raise ValueError(f"Unknown attention impl '{impl}'")
+
+
+def _unported(impl, t):
+    """Raise for a kernel impl that is not ported when the tensor is on the card."""
+    if t.device.type != "cpu":
+        raise NotImplementedError(f"attn_impl '{impl}' needs kernel {_KERNELS[impl]}, not "
+                                  "ported yet (ROADMAP.md queue 2)")
 
 
 def xla_attention(q, k, v, mask=None, scale=None):
@@ -38,7 +54,34 @@ def xla_attention(q, k, v, mask=None, scale=None):
 def dot_product_attention(q, k, v, mask=None, impl="auto", scale=None):
     """Scaled dot-product attention on (B, H, N, D) tensors."""
     _check_impl(impl)
+    n, d = q.shape[-2], q.shape[-1]
+    if impl == "auto":
+        kernel_ok = mask is None or mask.ndim == 2
+        if kernel_ok and 288 <= n <= 1024:
+            impl = "vmem"
+        elif kernel_ok and n > 1024:
+            impl = "flash"
+        else:
+            impl = "xla"
+    if impl == "vmem" and (n > 1024 or 16 * n * d + 20 * n * n > 120 * 1024 * 1024):
+        raise ValueError(f"attn_impl 'vmem': N={n} x D={d} exceeds the one-shot kernel's "
+                         "VMEM working set; use attn_impl 'flash' (or 'auto')")
+    if impl == "fused":  # the native-layout kernel only; JAX raises here too
+        raise ValueError("Unknown attention impl 'fused' for separated q, k, v")
+    if impl in ("flash", "vmem"):
+        _unported(impl, q)
     return xla_attention(q, k, v, mask, scale=scale)
+
+
+def fused_fits(n, hd, num_heads) -> bool:
+    """The TPU kernel's VMEM working-set bound, which the dispatch keeps
+    (``vit4hep_tpu/ops/attention.py:127-138``); head_dim <= 64 is its
+    head-packed body."""
+    packed = hd // num_heads <= 64
+    score_mult = num_heads if packed else 1
+    packed_panels = 14 * num_heads * n * hd if packed else 0
+    return n <= 2048 and (16 * n * hd + 20 * n * n * score_mult + packed_panels
+                          <= 120 * 1024 * 1024)
 
 
 def qkv_attention(qkv, num_heads, mask=None, impl="auto", scale=None):
@@ -47,7 +90,22 @@ def qkv_attention(qkv, num_heads, mask=None, impl="auto", scale=None):
     context."""
     _check_impl(impl)
     b, n, three_hd = qkv.shape
+    fits = fused_fits(n, three_hd // 3, num_heads)
+    if impl == "auto":
+        kernel_ok = mask is None or mask.ndim == 2
+        if kernel_ok and n >= 128 and fits:
+            impl = "fused"
+        elif kernel_ok and n >= 128:
+            impl = "flash"
+        else:
+            impl = "xla"
+    if impl == "fused":
+        if not fits:
+            raise ValueError(f"attn_impl 'fused': N={n} tokens x head_dim "
+                             f"{three_hd // 3 // num_heads} exceeds the fused-layout kernel's "
+                             "working-set bound; use attn_impl 'flash' (or 'auto')")
+        return fused_qkv_attention(qkv, num_heads, mask, scale)
     d = three_hd // 3 // num_heads
     q, k, v = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    out = xla_attention(q, k, v, mask, scale=scale)
+    out = dot_product_attention(q, k, v, mask, impl=impl, scale=scale)
     return out.permute(0, 2, 1, 3).reshape(b, n, num_heads * d)

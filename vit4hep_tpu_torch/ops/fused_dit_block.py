@@ -70,7 +70,7 @@ def dit_block_reference(x, mod6, wqkv, bqkv, wout, bout, w1, b1, w2, b2,
     mod = mod6.float()
     h = _ln(x) * (1.0 + mod[:, 1:2]) + mod[:, 0:1]
     qkv = h @ wqkv + bqkv
-    ctx = qkv_attention(qkv, num_heads, mask, scale=scale)
+    ctx = qkv_attention(qkv, num_heads, mask, impl="xla", scale=scale)
     x1 = x + mod[:, 2:3] * (ctx @ wout + bout)
     h2 = _ln(x1) * (1.0 + mod[:, 4:5]) + mod[:, 3:4]
     y = _gelu(h2 @ w1 + b1) @ w2 + b2
@@ -114,7 +114,7 @@ def modln_plain(x, shift, scale, n_tok):
 
 def attention_plain(qkv, num_heads, scale):
     """Plain version of :func:`attention`."""
-    return qkv_attention(qkv, num_heads, scale=scale).to(torch.bfloat16)
+    return qkv_attention(qkv, num_heads, impl="xla", scale=scale).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ weights in its Dense layout ``(in, out)``. On CPU tensors it runs
 :func:`_reference`, the plain PyTorch version. On CUDA tensors it launches
 the hand-written kernel ``csrc/energy_decoder.cu`` (one CTA per batch
 element, the activation resident in shared memory across all layers) or
-raises; there is no fallback between the two.
+raises; there is no fallback between the two. The kernel is forward-only:
+the energy net raises for ``fused_block: true`` with gradients enabled
+(its backward is not ported yet, ROADMAP.md queue 2).
 
 The cross-attention enters as a per-layer bias: with a one-token encoder
 memory, softmax over one key is 1 and the cross-attention output is
