@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 two-stage shower
-generator and the ds2 training slice at full width, through the
-hand-written CUDA kernels.
+generators (CFM and cINN shape models) and the ds2 training slice at full
+width, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -17,7 +17,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    events, median). The serving kernels (K3, K2v) run at the ds2 sampling
    shapes (batch 256); K1 (``fused_qkv_attention``, forward and backward)
    at the ds2 training shape (qkv (64, 135, 1440), 6 heads) and at ds3's
-   token count (16, 450, 1440);
+   token count (16, 450, 1440); K4 (``fused_binned_rqs_inverse``) at the
+   ds2 cINN shape (y (256, 3240), theta (256, 3240, 31)) and, untimed, on
+   its other branch (identity tails, domain clamping) at a small shape; K1's
+   forward at the cINN subnet shape (qkv (256, 135, 576), 4 heads x 48);
 4. slice: builds the ds2 energy model (cfm_ds2_energy) and shape model
    (cfm_ds2_electrons) at full width with random weights from a seed
    (non-zero adaLN and final-layer weights), and answers REQUESTS requests
@@ -29,6 +32,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 5. profile: one more request timed by layer (energy stage, shape stage, host
    transforms) and under ``torch.profiler`` (device time per kernel, the
    device's idle share);
+5c. cinn: the same two stages with the ds2 cINN shape model
+   (cinn_ds2_electrons: 20 coupling blocks, 40 ViT1D subnets of hidden 192,
+   depth 3, 4 heads x 48, 135 tokens x 24; 90.7 M params) behind the same
+   energy model, through ``calochallenge_ds2_noise``'s transforms: REQUESTS
+   requests of BATCH showers, launch counts per request K4 40, K1 forward
+   120, K3 80 (counters set to 0 just before, read just after), the checks
+   of phase 4 and the comparison with the composed plain generator (plain
+   spline, plain attention, plain energy decoder) on the same noise; then
+   one more request by layer and under ``torch.profiler``, grouped by
+   kernel;
 6. train: the ds2 shape model at full width (hidden 480, depth 6, 6 heads x
    80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
    clip_grad_norm 1000) through the port's ``CaloChallenge`` experiment and
@@ -78,6 +91,7 @@ from vit4hep_tpu_torch.ops import _cuda
 from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import fused_energy_decoder as fed
 from vit4hep_tpu_torch.ops import fused_qkv_attention as fqa
+from vit4hep_tpu_torch.ops import fused_spline as fsp
 from vit4hep_tpu_torch.utils.config import Config, instantiate
 from vit4hep_tpu_torch.utils.serving import Generator
 
@@ -132,6 +146,42 @@ DS2_ENERGY_MODEL = {
     },
 }
 
+# configs/model/cinn/cinn_ds2_electrons.yaml
+DS2_CINN_MODEL = {
+    "_target_": "vit4hep_tpu.models.calochallenge.CaloChallengeCINN",
+    "in_channels": 1,
+    "shape": [45, 16, 9],
+    "patch_shape": [[3, 8, 1]],
+    "coupling_block": "CaloRQSplineFrEIA",
+    "nblocks": 20,
+    "is_spatial": [False] * 20,
+    "cinn_kwargs": {
+        "fused_spline": True, "bins": 10, "min_bin_sizes": [0.001, 0.001],
+        "default_domain": [-8.0, 8.0, -8.0, 8.0], "identity_tails": False,
+        "domain_clamping": None,
+    },
+    "vit_kwargs": {
+        "dim": 1, "condition_dim": 46, "hidden_dim": 192, "out_channels": 1, "depth": 3,
+        "num_heads": 4, "mlp_ratio": 4.0, "attn_drop": 0, "proj_drop": 0,
+        "temperature": 10000, "learn_pos_embed": True, "causal_attn": False,
+        "checkpoint_grads": False,
+    },
+}
+
+# data.transforms of configs/calochallenge/cinn/calochallenge_ds2_noise.yaml
+DS2_CINN_TRANSFORMS = {
+    "NormalizeByElayer": {"ptype": "${data_dir}/binning_dataset_2.xml", "xml_file": "electron"},
+    "ScaleTotalEnergy": {"n_layers": 45, "factor": 0.35},
+    "SelectiveUniformNoise": {"a": 1.0e-7, "b": 1.0e-6, "cut": True,
+                              "exclusions": list(range(-45, 0))},
+    "ExclusiveLogitTransform": {"delta": 1.0e-6, "rescale": True},
+    "GlobalStandardizeFromFile": {"model_dir": None},
+    "LogEnergy": {},
+    "ScaleEnergy": {"e_min": 6.907755, "e_max": 13.815510},
+    "AddFeaturesToCond": {"split_index": 6480},
+    "Reshape": {"shape": [1, 45, 16, 9]},
+}
+
 # data.transforms of configs/calochallenge/cfm/calochallenge_ds2.yaml
 DS2_SHAPE_TRANSFORMS = {
     "NormalizeByElayer": {"ptype": "${data_dir}/binning_dataset_2.xml", "xml_file": "electron"},
@@ -178,9 +228,14 @@ DS2_ENERGY_TRAINING = dict(DS2_TRAINING, iterations=250000, batchsize=256)
 # ulp is 2^-8 = 3.9e-3 relative, so one rounding flip is within 8e-3; the
 # whole forward takes bf16 multiplicands through 6 blocks against an f32
 # plain version (the TPU kernel's precision contract).
+# K4 (binned_rqs_inverse) is f32 like its plain version; its knots are
+# summed in another order, so a point at a knot may take the neighbouring
+# bin (the spline is C^1 there); it is held on x and on the log-determinant,
+# each against its own scale.
 TOL = {"energy_decoder": 1e-3, "vit_gemm": 8e-3, "vit_modln": 8e-3,
        "vit_attention": 8e-3, "fused_vit_forward": 2e-2, "qkv_attn_fwd": 1e-4,
-       "qkv_attn_bwd_delta": 1e-4, "qkv_attn_bwd_dkv": 1e-4, "qkv_attn_bwd_dq": 1e-4}
+       "qkv_attn_bwd_delta": 1e-4, "qkv_attn_bwd_dkv": 1e-4, "qkv_attn_bwd_dq": 1e-4,
+       "binned_rqs_inverse": 1e-4}
 # train parity, K1 against the plain attention from one state: per-step
 # loss relative 1e-4 (f32 both, summation order only); each parameter within
 # half of one step's lr (5e-5 at lr 1e-4) -- Adam divides every gradient
@@ -201,11 +256,18 @@ REPLACES = {
     "qkv_attn_bwd_delta": (K1, "vit4hep_tpu/ops/fused_qkv_attention.py:252"),
     "qkv_attn_bwd_dkv": (K1, "vit4hep_tpu/ops/fused_qkv_attention.py:252"),
     "qkv_attn_bwd_dq": (K1, "vit4hep_tpu/ops/fused_qkv_attention.py:252"),
+    "binned_rqs_inverse": ("vit4hep_tpu_torch/csrc/binned_rqs.cu",
+                           "vit4hep_tpu/ops/fused_spline.py:55"),
 }
 SERVING = {"energy_decoder": fed.ENERGY_DECODER, "vit_gemm": fdb.GEMM,
            "vit_modln": fdb.MODLN, "vit_attention": fdb.ATTENTION}
 TRAINING = {"qkv_attn_fwd": fqa.FWD, "qkv_attn_bwd_delta": fqa.BWD_DELTA,
             "qkv_attn_bwd_dkv": fqa.BWD_DKV, "qkv_attn_bwd_dq": fqa.BWD_DQ}
+# the cINN request: launches per request of each kernel on its path (40
+# coupling sides, 40 subnets x 3 blocks, 80 energy net evals)
+CINN = {"binned_rqs_inverse": fsp.INVERSE, "qkv_attn_fwd": fqa.FWD,
+        "energy_decoder": fed.ENERGY_DECODER}
+CINN_PER_REQUEST = {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120, "energy_decoder": 80}
 
 # NVIDIA H100 SXM peaks (data sheet, dense, at 700 W): HBM bytes/s, f32 on
 # the CUDA cores, bf16 on the tensor cores. The attention products (K1, K2v)
@@ -218,18 +280,21 @@ class PhaseError(RuntimeError):
     pass
 
 
-def _time_ms(fn, reps=10, warmup=2):
-    """Median device time of one call, from CUDA events."""
+def _time_ms(fn, reps=10, warmup=2, inner=1):
+    """Median device time of one call, from CUDA events around ``inner``
+    back-to-back calls (for a kernel about as short as the host's launch of
+    one call, so that the events do not time the host's gap)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
 
 
@@ -246,19 +311,24 @@ def _bound(nbytes, flops, rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None):
+def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None, inner=1):
     """Hold a kernel's output against its plain version and time both (and
-    the library call); repeated calls under one name add up (vit_gemm's six
-    product shapes)."""
+    the library call; ``inner`` calls per timing, see _time_ms); repeated
+    calls under one name add up (vit_gemm's six product shapes).
+    ``out``/``ref`` may be tuples of outputs, each held to the tolerance
+    against its own scale."""
     torch.cuda.synchronize()
-    err, scale = _rel_err(out, ref)
-    ok = math.isfinite(err) and err <= TOL[name] * scale
+    pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
+    errs = [_rel_err(o, r) for o, r in pairs]
+    ok = all(math.isfinite(e) and e <= TOL[name] * sc for e, sc in errs)
+    err, scale = max(errs, key=lambda es: es[0] / es[1])
     prev = results.get(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "ok": True,
                               "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                               "library_ms": 0.0 if library_fn else None})
     b_ms, _ = bound
-    res = {"max_abs_err": max(prev["max_abs_err"], err), "ms": prev["ms"] + _time_ms(kernel_fn),
-           "plain_ms": prev["plain_ms"] + _time_ms(plain_fn),
+    res = {"max_abs_err": max(prev["max_abs_err"], err),
+           "ms": prev["ms"] + _time_ms(kernel_fn, inner=inner),
+           "plain_ms": prev["plain_ms"] + _time_ms(plain_fn, inner=inner),
            "ok": prev["ok"] and ok, "bound_ms": prev["bound_ms"] + b_ms,
            "bytes_ms": prev["bytes_ms"] + (b_ms if bound[1] == "bytes" else 0.0),
            "ops_ms": prev["ops_ms"] + (b_ms if bound[1] == "operations" else 0.0),
@@ -370,25 +440,34 @@ def serving_kernel_phases(results):
     _check("fused_vit_forward", ker(), pla(), results, ker, pla, (0.0, "operations"))
 
 
-def k1_kernel_phase(results, b, n, heads=6, d=80):
-    """K1's forward and backward kernels against their plain versions at
-    qkv (b, n, 3 * heads * d) f32; prints the kernel, plain and SDPA times of
-    the forward and of forward + backward."""
+def k1_fwd_phase(results, b, n, heads, d):
+    """K1's forward against its plain version at qkv (b, n, 3 * heads * d)
+    f32, timed beside SDPA. Returns (generator, qkv, context, lse, (q, k, v))."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + n)
     qkv = _rand(gen, b, n, 3 * heads * d)
-    g = _rand(gen, b, n, heads * d)
     scale = d ** -0.5
-    hd = heads * d
     out, lse = fqa.attention_fwd_kernel(qkv, heads, scale)
     out_p, lse_p = fqa.attention_fwd_plain(qkv, heads, scale)
     q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
-    fwd_flops = 4 * b * heads * n * n * d
     _check("qkv_attn_fwd", torch.cat([out.flatten(), lse.flatten()]),
            torch.cat([out_p.flatten(), lse_p.flatten()]), results,
            lambda: fqa.attention_fwd_kernel(qkv, heads, scale),
            lambda: fqa.attention_fwd_plain(qkv, heads, scale),
-           _bound(4 * (qkv.numel() + out.numel() + lse.numel()), fwd_flops, BF16_FLOPS),
+           _bound(4 * (qkv.numel() + out.numel() + lse.numel()), 4 * b * heads * n * n * d,
+                  BF16_FLOPS),
            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    return gen, qkv, out, lse, (q, k, v)
+
+
+def k1_kernel_phase(results, b, n, heads=6, d=80):
+    """K1's forward and backward kernels against their plain versions at
+    qkv (b, n, 3 * heads * d) f32; prints the kernel, plain and SDPA times of
+    the forward and of forward + backward."""
+    gen, qkv, out, lse, (q, k, v) = k1_fwd_phase(results, b, n, heads, d)
+    g = _rand(gen, b, n, heads * d)
+    scale = d ** -0.5
+    hd = heads * d
+    fwd_flops = 4 * b * heads * n * n * d
 
     delta = fqa.attention_bwd_delta_kernel(g, out, heads)
     _check("qkv_attn_bwd_delta", delta, fqa.delta_plain(g, out, heads), results,
@@ -433,7 +512,62 @@ def k1_kernel_phase(results, b, n, heads=6, d=80):
             t.grad = None
         F.scaled_dot_product_attention(*xs, scale=scale).backward(g_heads)
 
-    return {"K1": _time_ms(k1_run), "plain": _time_ms(plain_run), "sdpa": _time_ms(sdpa_run)}
+    sdpa_out = F.scaled_dot_product_attention(*xs, scale=scale)  # the graph the backward reuses
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, g_heads, retain_graph=True)  # noqa: E731
+    return {"K1": _time_ms(k1_run), "plain": _time_ms(plain_run), "sdpa": _time_ms(sdpa_run),
+            "sdpa_bwd": _time_ms(sdpa_bwd)}
+
+
+def _k4_ops(bins):
+    """f32 operations per scalar of the binned-RQS inverse, counting a
+    softplus (max, abs, exp, log1p, add, negate) as 6 and every other
+    arithmetic, comparison, select and transcendental as 1: the constrain
+    (2 * bins softplus widths/heights with shift and minimum, bins - 1
+    derivatives, 2 * bins knot sums, edges, scale, shift), the searchsorted
+    and the one-hot selection of the bin, and the bin solve (Citardauq root,
+    two Newton steps, log-derivative)."""
+    constrain = 2 * bins * 8 + (bins - 1) * 7 + 2 * bins + 9
+    search = 3 * (bins + 1) + 6 * (bins - 1) + 6
+    solve = 30 + 2 * 31 + 26
+    return constrain + search + solve
+
+
+def k4_kernel_phase(results):
+    """K4 against its plain version at the ds2 cINN sampling shape: y (BATCH,
+    3240) ~ 6 N(0, 1) and theta (BATCH, 3240, 31) ~ N(0, 1), so that points
+    fall in every bin and in both tails; x and the log-determinant are each
+    held to TOL against their own scale. Then, untimed, the softmax branch
+    (identity tails) with domain clamping at a small shape, and two launches
+    that must agree bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, d, bins = BATCH, 3240, 10
+    spline = (bins, (0.001, 0.001), (-8.0, 8.0, -8.0, 8.0), False, None)
+    y = _rand(gen, b, d, std=6.0)
+    theta = _rand(gen, b, d, 3 * bins + 1)
+    ker = lambda: fsp.fused_binned_rqs_inverse(y, theta, *spline)  # noqa: E731
+    pla = lambda: fsp.inverse_plain(y, theta, *spline)  # noqa: E731
+    out, ref = ker(), pla()
+    nbytes = 4 * (y.numel() + theta.numel() + out[0].numel() + out[1].numel())
+    # one K4 launch (~0.07 ms) is as short as the host's work for one call
+    _check("binned_rqs_inverse", out, ref, results, ker, pla,
+           _bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS), inner=10)
+    again = ker()
+    torch.cuda.synchronize()
+    if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
+        raise PhaseError("binned_rqs_inverse: two launches on the same inputs differ")
+
+    other = (bins, (0.001, 0.001), (-8.0, 8.0, -8.0, 8.0), True, 15.0)
+    y2, theta2 = _rand(gen, 16, 1000, std=6.0), _rand(gen, 16, 1000, 3 * bins)
+    for name, o, r in zip(("x", "logdet"), fsp.fused_binned_rqs_inverse(y2, theta2, *other),
+                          fsp.inverse_plain(y2, theta2, *other)):
+        err, scale = _rel_err(o, r)
+        ok = err <= TOL["binned_rqs_inverse"] * scale
+        print(f"  binned_rqs_inverse, identity tails and domain clamping 15, (16, 1000): {name} "
+              f"max_abs_err {err:.3e} (bound {TOL['binned_rqs_inverse']:g} x {scale:.3g}) "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise PhaseError("binned_rqs_inverse disagrees with its plain version on the "
+                             "identity-tails branch")
 
 
 def _binning_xml(path: Path):
@@ -468,7 +602,9 @@ def _randomize(model, gen, std=0.02):
                 p.copy_(std * noise)
 
 
-def slice_phase(tmp: Path):
+def _run_dirs(tmp: Path, shape_cfg: dict):
+    """(shape transforms, energy transforms) on the ds2 geometry with
+    synthetic statistics in the run dirs under ``tmp``."""
     data_dir, shape_dir, energy_dir = tmp / "data", tmp / "shape_run", tmp / "energy_run"
     for d in (data_dir, shape_dir, energy_dir):
         d.mkdir()
@@ -478,21 +614,15 @@ def slice_phase(tmp: Path):
     np.save(shape_dir / "stds.npy", np.float32(4.0))
     np.save(energy_dir / "means_u.npy", rng.normal(0.0, 0.3, 45).astype(np.float32))
     np.save(energy_dir / "stds_u.npy", rng.uniform(0.8, 1.5, 45).astype(np.float32))
-    shape_tf = _transforms(DS2_SHAPE_TRANSFORMS, data_dir, shape_dir)
-    energy_tf = _transforms(DS2_ENERGY_TRANSFORMS, data_dir, energy_dir)
+    return (_transforms(shape_cfg, data_dir, shape_dir),
+            _transforms(DS2_ENERGY_TRANSFORMS, data_dir, energy_dir))
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    shape_model = instantiate(DS2_SHAPE_MODEL).cuda().eval()
-    energy_model = instantiate(DS2_ENERGY_MODEL).cuda().eval()
-    _randomize(shape_model, gen)
-    _randomize(energy_model, gen)
-    evals = shape_model.net_evals_per_sample()
-    print(f"  shape model {shape_model.param_count()} params, energy model "
-          f"{energy_model.param_count()} params, {evals} net evals per model per request",
-          flush=True)
-    generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
 
-    for c in SERVING.values():
+def _serve(generator, counters):
+    """REQUESTS requests of BATCH showers through ``sample_showers``, each
+    checked (shape, finite, non-negative); the counters are set to 0 just
+    before and read just after. Returns (launches, seconds per request)."""
+    for c in counters.values():
         c.reset()
     times, showers = [], None
     for i in range(REQUESTS):
@@ -513,7 +643,48 @@ def slice_phase(tmp: Path):
             raise PhaseError(f"request {i}: " + ", ".join(bad))
         print(f"  request {i}: {BATCH} showers in {times[-1]:.3f} s, total energy "
               f"{showers.sum(1).mean():.1f} MeV mean", flush=True)
-    launches = {k: c.launches for k, c in SERVING.items()}
+    return {k: c.launches for k, c in counters.items()}, times
+
+
+def _compare_generators(kern, plain, noise, counters):
+    """The kernel generator against the plain one on the same noise at
+    REFERENCE_BATCH: u 1e-3 absolute, the shower in the training basis 5e-2
+    of its scale, layer energies in MeV 1e-3 relative. The plain generator
+    must launch none of the ``counters``' kernels."""
+    nb = REFERENCE_BATCH
+    e_inc = 10 ** np.random.default_rng(SEED).uniform(3, 6, nb)
+    cond = kern.condition(e_inc)
+    basis_k, full_k = kern.generate(cond, noise=noise)
+    before = {k: c.launches for k, c in counters.items()}
+    basis_p, full_p = plain.generate(cond, noise=noise)
+    if {k: c.launches for k, c in counters.items()} != before:
+        raise PhaseError("the plain reference generator launched a kernel")
+    u_err = (full_k - full_p).abs().max().item()
+    s_err, s_scale = _rel_err(basis_k, basis_p)
+    mev_k = kern.sample_showers(e_inc, noise=noise)
+    mev_p = plain.sample_showers(e_inc, noise=noise)
+    layer_k, layer_p = (m.reshape(nb, 45, -1).sum(-1) for m in (mev_k, mev_p))
+    layer_rel = float(np.abs(layer_k - layer_p).max() / max(1e-30, np.abs(layer_p).max()))
+    print(f"  reference (batch {nb}, composed plain nets, same noise): u max_abs_err "
+          f"{u_err:.3e}, shower max_abs_err {s_err:.3e} (scale {s_scale:.3g}), layer-energy "
+          f"max rel err {layer_rel:.3e}", flush=True)
+    if not (u_err <= 1e-3 and s_err <= 5e-2 * s_scale and layer_rel <= 1e-3):
+        raise PhaseError("kernel generator disagrees with the composed plain generator")
+
+
+def slice_phase(tmp: Path):
+    shape_tf, energy_tf = _run_dirs(tmp, DS2_SHAPE_TRANSFORMS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape_model = instantiate(DS2_SHAPE_MODEL).cuda().eval()
+    energy_model = instantiate(DS2_ENERGY_MODEL).cuda().eval()
+    _randomize(shape_model, gen)
+    _randomize(energy_model, gen)
+    evals = shape_model.net_evals_per_sample()
+    print(f"  shape model {shape_model.param_count()} params, energy model "
+          f"{energy_model.param_count()} params, {evals} net evals per model per request",
+          flush=True)
+    generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
+    launches, times = _serve(generator, SERVING)
     per_eval = {"energy_decoder": 1, "vit_gemm": 2 + 4 * 6, "vit_modln": 2 * 6 + 1,
                 "vit_attention": 6}
     for k, per in per_eval.items():
@@ -524,7 +695,9 @@ def slice_phase(tmp: Path):
     print(f"  launches on the main path: {launches}", flush=True)
 
     # the same generator on the composed plain-PyTorch nets (plain attention
-    # too: `auto` would launch K1 at 135 tokens), same noise
+    # too: `auto` would launch K1 at 135 tokens), same noise. Energy stage:
+    # f32 kernel vs f32 composed -> u and layer energies agree to ~1e-4;
+    # shape stage: bf16 multiplicands over 80 evals -> 5e-2 of scale
     plain_shape = instantiate(_with_net_param(DS2_SHAPE_MODEL, fused_block=False,
                                               attn_impl="xla")).cuda().eval()
     plain_energy = instantiate(_with_net_param(DS2_ENERGY_MODEL, fused_block=False)).cuda().eval()
@@ -533,28 +706,47 @@ def slice_phase(tmp: Path):
     nb = REFERENCE_BATCH
     noise = (torch.randn(nb, 45, generator=gen, device="cuda"),
              torch.randn(nb, 135, 48, generator=gen, device="cuda"))
-    e_inc = 10 ** np.random.default_rng(SEED).uniform(3, 6, nb)
-    kern = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb)
-    plain = Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb)
-    cond = kern.condition(e_inc)
-    k1_before = fqa.FWD.launches
-    basis_k, full_k = kern.generate(cond, noise=noise)
-    basis_p, full_p = plain.generate(cond, noise=noise)
-    if fqa.FWD.launches != k1_before:
-        raise PhaseError("the plain reference generator launched K1")
-    u_err = (full_k - full_p).abs().max().item()
-    s_err, s_scale = _rel_err(basis_k, basis_p)
-    mev_k = kern.sample_showers(e_inc, noise=noise)
-    mev_p = plain.sample_showers(e_inc, noise=noise)
-    layer_k, layer_p = (m.reshape(nb, 45, -1).sum(-1) for m in (mev_k, mev_p))
-    layer_rel = float(np.abs(layer_k - layer_p).max() / max(1e-30, np.abs(layer_p).max()))
-    # energy stage: f32 kernel vs f32 composed -> u and layer energies agree
-    # to ~1e-4; shape stage: bf16 multiplicands over 80 evals -> 5e-2 of scale
-    print(f"  reference (batch {nb}, composed plain nets, same noise): u max_abs_err "
-          f"{u_err:.3e}, shower max_abs_err {s_err:.3e} (scale {s_scale:.3g}), layer-energy "
-          f"max rel err {layer_rel:.3e}", flush=True)
-    if not (u_err <= 1e-3 and s_err <= 5e-2 * s_scale and layer_rel <= 1e-3):
-        raise PhaseError("kernel generator disagrees with the composed plain generator")
+    _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
+                        Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
+                        noise, {"qkv_attn_fwd": fqa.FWD, **SERVING})
+    return launches, times, generator
+
+
+def cinn_phase(tmp: Path):
+    """The ds2 cINN shape model behind the ds2 energy model, at full width
+    with random weights (final layers included, so that theta is not 0)."""
+    shape_tf, energy_tf = _run_dirs(tmp, DS2_CINN_TRANSFORMS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    shape_model = instantiate(DS2_CINN_MODEL).cuda().eval()
+    energy_model = instantiate(DS2_ENERGY_MODEL).cuda().eval()
+    _randomize(shape_model, gen)
+    _randomize(energy_model, gen)
+    print(f"  cINN shape model {shape_model.param_count()} params (20 coupling blocks, 40 ViT1D "
+          f"subnets), energy model {energy_model.param_count()} params", flush=True)
+    generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
+    launches, times = _serve(generator, CINN)
+    want = {k: REQUESTS * per for k, per in CINN_PER_REQUEST.items()}
+    if launches != want:
+        raise PhaseError(f"cinn: launches {launches} on the main path, expected {want} "
+                         f"({CINN_PER_REQUEST} per request, {REQUESTS} requests)")
+    print(f"  launches on the main path: {launches}", flush=True)
+
+    # the composed plain generator: plain spline, plain attention, plain
+    # energy decoder; all f32, so the chain tolerances hold with margin
+    plain_cfg = dict(DS2_CINN_MODEL,
+                     cinn_kwargs=dict(DS2_CINN_MODEL["cinn_kwargs"], fused_spline=False),
+                     vit_kwargs=dict(DS2_CINN_MODEL["vit_kwargs"], attn_impl="xla"))
+    plain_shape = instantiate(plain_cfg).cuda().eval()
+    plain_energy = instantiate(_with_net_param(DS2_ENERGY_MODEL, fused_block=False)).cuda().eval()
+    plain_shape.load_state_dict(shape_model.state_dict())
+    plain_energy.load_state_dict(energy_model.state_dict())
+    nb = REFERENCE_BATCH
+    noise = (torch.randn(nb, 45, generator=gen, device="cuda"),
+             torch.randn(nb, 1, 45, 16, 9, generator=gen, device="cuda"))
+    _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
+                        Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
+                        noise, CINN)
+    del plain_shape, plain_energy
     return launches, times, generator
 
 
@@ -576,12 +768,39 @@ def _clock(fn):
     return time.perf_counter() - t0
 
 
-def profile_phase(generator, card, top=15):
+def _is_gemm(key):
+    key = key.lower()
+    return "gemm" in key or "cutlass" in key or "xmma" in key
+
+
+# device-time groups of a cINN request: (label, does a kernel name belong)
+CINN_GROUPS = [
+    ("K4 binned_rqs_inverse", lambda k: "binned_rqs_inverse_kernel" in k
+     or "logdet_reduce_kernel" in k),
+    ("K1 forward", lambda k: "::fwd_kernel<" in k),
+    ("K3 energy_decoder", lambda k: "energy_decoder_kernel" in k),
+    ("cuBLAS products", _is_gemm),
+]
+
+
+def _grouped(rows, groups):
+    """Device ms per group, the first group that claims a kernel taking it;
+    the rest (elementwise, LayerNorm, reductions, copies) under 'rest'."""
+    sums = {label: 0.0 for label, _ in groups}
+    sums["rest"] = 0.0
+    for ms, _, key in rows:
+        label = next((lb for lb, claims in groups if claims(key)), "rest")
+        sums[label] += ms
+    return sums
+
+
+def profile_phase(generator, card, top=15, groups=None):
     """One more request of BATCH showers, measured by layer: the energy
-    stage (energy ODE), the chain (+ u map + shape ODE) and the whole
+    stage (energy ODE), the chain (+ u map + shape stage) and the whole
     request (+ host transforms) on the host clock; then the request under
-    torch.profiler: device time per kernel and the device's idle share of
-    the request's wall time (one stream, so idle = 1 - kernel time / wall)."""
+    torch.profiler: device time per kernel (and per group of ``groups``)
+    and the device's idle share of the request's wall time (one stream, so
+    idle = 1 - kernel time / wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     e_inc = 10 ** np.random.default_rng(SEED + REQUESTS + 1).uniform(3, 6, BATCH)
@@ -601,6 +820,9 @@ def profile_phase(generator, card, top=15):
     wall_ms = wall_s * 1e3
     print(f"  torch.profiler ({card}): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
+    if groups:
+        print("  " + ", ".join(f"{k} {v:.3f} ms" for k, v in _grouped(rows, groups).items()),
+              flush=True)
     for ms, count, key in rows[:top]:
         print(f"  {ms:10.2f} ms {count:6d}x  {key[:100]}", flush=True)
     rest = rows[top:]
@@ -802,16 +1024,9 @@ def train_profile_phase(exp, card, top=12):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = _clock(lambda: exp._train_step(exp.state, batch))
     rows = _device_rows(prof)
-    groups = {"K1 forward": 0.0, "K1 backward": 0.0, "cuBLAS products": 0.0, "rest": 0.0}
-    for ms, _, key in rows:
-        if "::fwd_kernel<" in key:
-            groups["K1 forward"] += ms
-        elif "::bwd_d" in key:
-            groups["K1 backward"] += ms
-        elif "gemm" in key.lower() or "cutlass" in key.lower() or "xmma" in key.lower():
-            groups["cuBLAS products"] += ms
-        else:
-            groups["rest"] += ms
+    groups = _grouped(rows, [("K1 forward", lambda k: "::fwd_kernel<" in k),
+                             ("K1 backward", lambda k: "::bwd_d" in k),
+                             ("cuBLAS products", _is_gemm)])
     busy_ms, wall_ms = sum(groups.values()), wall_s * 1e3
     print(f"  host clock ({card}): one step {step_s * 1e3:.2f} ms; under torch.profiler: wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
@@ -846,10 +1061,17 @@ def main() -> int:
     ds3: dict = {}
     print("K1 vs plain, ds3 token count: qkv (16, 450, 1440) f32, 6 heads x 80", flush=True)
     k1_ms_ds3 = k1_kernel_phase(ds3, 16, 450)
-    failed = [k for r in (results, ds3) for k, v in r.items() if not v["ok"]]
+    print("K4 vs plain, ds2 cINN sampling shape: y (256, 3240), theta (256, 3240, 31) f32",
+          flush=True)
+    k4_kernel_phase(results)
+    cinn_k1: dict = {}
+    print("K1 forward vs plain, cINN subnet shape: qkv (256, 135, 576) f32, 4 heads x 48",
+          flush=True)
+    k1_fwd_phase(cinn_k1, BATCH, 135, 4, 48)
+    failed = [k for r in (results, ds3, cinn_k1) for k, v in r.items() if not v["ok"]]
     if failed:
         raise PhaseError(f"kernels disagree with their plain versions: {failed}")
-    for label, res in (("", results), (" at N=450", ds3)):
+    for label, res in (("", results), (" at N=450", ds3), (" at the cINN subnet shape", cinn_k1)):
         for k, r in res.items():
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
             bound = "" if k not in REPLACES else \
@@ -858,7 +1080,8 @@ def main() -> int:
                   f"({card})", flush=True)
     for label, ms in (("ds2 training shape", k1_ms), ("N=450", k1_ms_ds3)):
         print(f"  K1 forward + backward through autograd, {label}: K1 {ms['K1']:.4f} ms, plain "
-              f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms ({card})", flush=True)
+              f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms; SDPA backward alone "
+              f"{ms['sdpa_bwd']:.4f} ms ({card})", flush=True)
 
     print("slice: ds2 two-stage generator at full width", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -869,6 +1092,17 @@ def main() -> int:
               f"on {card}", flush=True)
         print("profile: one more request, by layer", flush=True)
         profile_phase(generator, card)
+        del generator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        print("cinn: ds2 two-stage generator with the cINN shape model at full width", flush=True)
+        cinn_launches, times, generator = cinn_phase(Path(tmp))
+        print(f"cinn: {BATCH * len(times) / sum(times):.2f} showers/s over all {len(times)} "
+              f"requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady (first "
+              f"request excluded); batch {BATCH}, requests {[round(t, 4) for t in times]} s; "
+              f"on {card}", flush=True)
+        print("cinn profile: one more request, by layer and by kernel", flush=True)
+        profile_phase(generator, card, groups=CINN_GROUPS)
         del generator
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -885,6 +1119,7 @@ def main() -> int:
         print("energy: ds2 energy model at full width", flush=True)
         energy_phase(Path(tmp))
     launches.update(train_launches)
+    launches["binned_rqs_inverse"] = cinn_launches["binned_rqs_inverse"]
 
     summary = [{"name": k, "route": "cuda", "source": REPLACES[k][0], "replaces": REPLACES[k][1],
                 "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
@@ -892,11 +1127,13 @@ def main() -> int:
                 "plain_ms": results[k]["plain_ms"], "bound_ms": results[k]["bound_ms"],
                 "bound_by": results[k]["bound_by"], "library_ms": results[k]["library_ms"]}
                for k in REPLACES]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
     for entry in summary:
         if entry["name"] in ds3:
-            r = ds3[entry["name"]]
-            entry["n450"] = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                               "library_ms")}
+            entry["n450"] = {k: ds3[entry["name"]][k] for k in keys}
+        if entry["name"] in cinn_k1:  # K1 forward at the cINN subnet shape, on the cINN path
+            entry["cinn"] = {"launches": cinn_launches[entry["name"]],
+                             **{k: cinn_k1[entry["name"]][k] for k in keys}}
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -170,7 +170,9 @@ def test_port_imports_no_jax():
             "vit4hep_tpu_torch.data.calochallenge.datasets, "
             "vit4hep_tpu_torch.experiments.main, vit4hep_tpu_torch.experiments.calochallenge, "
             "vit4hep_tpu_torch.experiments.base, vit4hep_tpu_torch.experiments.train_state, "
-            "vit4hep_tpu_torch.ops.fused_qkv_attention, vit4hep_tpu_torch.utils.checkpoint; "
+            "vit4hep_tpu_torch.ops.fused_qkv_attention, vit4hep_tpu_torch.utils.checkpoint, "
+            "vit4hep_tpu_torch.ops.fused_spline, vit4hep_tpu_torch.ops.rqs, "
+            "vit4hep_tpu_torch.models.bijectors, vit4hep_tpu_torch.models.cinn; "
             "from vit4hep_tpu_torch.experiments.main import get_experiment; "
             "get_experiment('calochallenge'); "
             "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py'); "
@@ -196,6 +198,9 @@ def test_chip_smoke_configs_equal_yaml():
     assert smoke.DS2_SHAPE_TRANSFORMS == load("calochallenge/cfm/calochallenge_ds2.yaml")[
         "data"]["transforms"]
     assert smoke.DS2_ENERGY_TRANSFORMS == load("calochallenge/cfm/calochallenge_ds2_energy.yaml")[
+        "data"]["transforms"]
+    assert smoke.DS2_CINN_MODEL == load("model/cinn/cinn_ds2_electrons.yaml")
+    assert smoke.DS2_CINN_TRANSFORMS == load("calochallenge/cinn/calochallenge_ds2_noise.yaml")[
         "data"]["transforms"]
 
 

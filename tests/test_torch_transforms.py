@@ -1,10 +1,11 @@
 """The port's host transforms (vit4hep_tpu_torch.data) against the JAX
 package's, on the CPU.
 
-Each ds2 step is built through each package's ``build_pipeline`` from the
-same config mapping and applied forward and reversed to the same numpy
-inputs. Both sides run the same numpy operations in the same order, so the
-results must be bit-identical.
+Each ds2 step (and the cINN chain's ``SelectiveUniformNoise``) is built
+through each package's ``build_pipeline`` from the same config mapping and
+applied forward and reversed to the same numpy inputs. Both sides run the
+same numpy operations in the same order (and draw noise from generators
+seeded alike), so the results must be bit-identical.
 """
 
 import numpy as np
@@ -97,6 +98,57 @@ def test_pipeline_round_trip_matches_jax(run_dir):
     np.testing.assert_array_equal(e_p, e_r)
     # and the chain inverts: float32 logit/exp round trip, 1e-3 relative
     np.testing.assert_allclose(back_p, showers, rtol=1e-3, atol=1e-3 * showers.max())
+
+
+@pytest.mark.parametrize("cut,exclusions", [(True, list(range(-L, 0))), (False, None),
+                                             (True, [0, 3])])
+def test_selective_uniform_noise_matches_jax(cut, exclusions):
+    """The reverse (a threshold cut sparing the exclusions) bit-identical;
+    the forward draws the same noise from the same seed: the JAX package's
+    module-level generator, the port's explicit one."""
+    kwargs = {"a": 1.0e-7, "b": 1.0e-6, "cut": cut, "exclusions": exclusions}
+    (port,), (ref,) = (ttf.build_pipeline({"SelectiveUniformNoise": kwargs}, "."),
+                       jtf.build_pipeline({"SelectiveUniformNoise": kwargs}, "."))
+    assert not hasattr(port, "u_transform") and not hasattr(ref, "u_transform")
+    rng = np.random.default_rng(14)
+    x = rng.uniform(0, 2e-6, (B, V + L)).astype(np.float32)
+    x[:, 5] = 1.0  # values equal to 1 take no noise
+    c = rng.uniform(size=(B, 1)).astype(np.float32)
+    x_p, c_p = port(x.copy(), c.copy(), rev=True)
+    x_r, c_r = ref(x.copy(), c.copy(), rev=True)
+    np.testing.assert_array_equal(x_p, x_r)
+    np.testing.assert_array_equal(c_p, c_r)
+    jtf.seed_transforms(15)
+    port.rng = np.random.default_rng(15)
+    np.testing.assert_array_equal(port(x.copy(), c)[0], ref(x.copy(), c)[0])
+
+
+def test_cinn_ds2_pipeline_matches_jax(run_dir):
+    """The shape chain of calochallenge/cinn/calochallenge_ds2_noise,
+    forward (with the same noise seed) and reversed."""
+    cfg = {"NormalizeByElayer": {"ptype": str(run_dir / "binning.xml"), "xml_file": "electron"},
+           "ScaleTotalEnergy": {"n_layers": L, "factor": 0.35},
+           "SelectiveUniformNoise": {"a": 1.0e-7, "b": 1.0e-6, "cut": True,
+                                     "exclusions": list(range(-L, 0))},
+           "ExclusiveLogitTransform": {"delta": 1.0e-6, "rescale": True},
+           "GlobalStandardizeFromFile": {"model_dir": None},
+           "LogEnergy": {}, "ScaleEnergy": {"e_min": 6.907755, "e_max": 13.815510},
+           "AddFeaturesToCond": {"split_index": V}, "Reshape": {"shape": [1, L, A, R]}}
+    rng = np.random.default_rng(16)
+    e_inc = (10 ** rng.uniform(3, 6, (B, 1))).astype(np.float32)
+    showers = (rng.exponential(1.0, (B, V)) * (rng.random((B, V)) > 0.4)).astype(np.float32)
+    showers *= e_inc / V
+    port, ref = ttf.build_pipeline(cfg, str(run_dir)), jtf.build_pipeline(cfg, str(run_dir))
+    jtf.seed_transforms(17)
+    port[2].rng = np.random.default_rng(17)
+    x_p, c_p = ttf.apply_pipeline(port, showers, e_inc)
+    x_r, c_r = jtf.apply_pipeline(ref, showers, e_inc)
+    np.testing.assert_array_equal(x_p, x_r)
+    np.testing.assert_array_equal(c_p, c_r)
+    back_p, e_p = ttf.apply_pipeline(port, x_p, c_p, rev=True)
+    back_r, e_r = jtf.apply_pipeline(ref, x_r, c_r, rev=True)
+    np.testing.assert_array_equal(back_p, back_r)
+    np.testing.assert_array_equal(e_p, e_r)
 
 
 def test_xml_handler_matches_jax(tmp_path):

@@ -12,9 +12,11 @@ The ``*FromFile`` standardizations load the statistics that an earlier
 training wrote into the run directory; when there are none, the first
 forward call fits them on its input (``ddof=1``; ``exclude_zeros`` drops the
 saturated logits) and rank 0 writes ``means.npy``/``stds.npy`` (or
-``means_u.npy``/``stds_u.npy``), as training does in the JAX package. The
-other families' steps (``SelectiveUniformNoise``, ``ScaleVoxels``,
-``AddAngularBins``, ``AddLEMURSConditions``) are not ported yet.
+``means_u.npy``/``stds_u.npy``), as training does in the JAX package.
+``SelectiveUniformNoise`` (the cINN chains) draws its training noise from
+an explicit numpy ``Generator``. The other families' steps
+(``ScaleVoxels``, ``AddAngularBins``, ``AddLEMURSConditions``) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -200,6 +202,37 @@ class ExclusiveLogitTransform:
         return transformed, energy
 
 
+class SelectiveUniformNoise:
+    """Forward (training): U(a, b) noise added to every value other than 1,
+    sparing the ``exclusions`` columns, drawn from ``rng`` (a numpy
+    ``Generator``; an unseeded one when none is given). Reverse: with
+    ``cut``, the values below ``b`` outside the exclusions become 0. No
+    ``u_transform`` marker: the u mapping between the two models skips it."""
+
+    def __init__(self, a, b, exclusions=None, cut=False, rng=None):
+        self.a = a
+        self.b = b
+        self.exclusions = exclusions
+        self.cut = cut
+        self.rng = np.random.default_rng() if rng is None else rng
+
+    def __call__(self, shower, energy, rev=False, rank=0):
+        shower = shower.copy()
+        if rev:
+            mask = shower < self.b
+            if self.exclusions:
+                mask[:, self.exclusions] = False
+            if self.cut:
+                shower[mask] = 0.0
+        else:
+            noise = self.rng.uniform(self.a, self.b, size=shower.shape).astype(shower.dtype)
+            if self.exclusions:
+                noise[:, self.exclusions] = 0.0
+            mask = shower != 1
+            shower[mask] = (shower + noise)[mask]
+        return shower, energy
+
+
 class CutValues:
     """Reverse only: zero the voxels at or below ``cut`` in normalized space,
     sparing the trailing ``n_layers`` u-features."""
@@ -277,8 +310,8 @@ class NormalizeByElayer:
 
 _STEPS = {cls.__name__: cls for cls in (
     GlobalStandardizeFromFile, StandardizeUsFromFile, SelectDims, AddFeaturesToCond,
-    LogEnergy, ScaleTotalEnergy, ScaleEnergy, ExclusiveLogitTransform, CutValues, Reshape,
-    NormalizeByElayer)}
+    LogEnergy, ScaleTotalEnergy, ScaleEnergy, ExclusiveLogitTransform, SelectiveUniformNoise,
+    CutValues, Reshape, NormalizeByElayer)}
 
 
 def build_pipeline(transforms_cfg, run_dir: str):

@@ -113,15 +113,18 @@ def make_fused_generate(shape_model, energy_model, energy_transforms, shape_tran
     """``generate(cond, generator=None, noise=None) -> (shower, full_cond)``
     for the TRANSFORMED condition ``cond``; the shower is in the shape
     model's training basis and ``full_cond = [u | cond]``, as CaloChallenge
-    trains it. ``noise`` is ``(x_T_energy, x_T_shape)`` when the caller
-    supplies the initial noise of both ODEs; otherwise both are drawn from
-    ``generator``, energy first."""
+    trains it. The shape model is a CFM or a cINN. ``noise`` is
+    ``(x_T_energy, shape_noise)`` when the caller supplies the noise of both
+    stages (the shape model's is a CFM's initial ODE state ``x_T`` in token
+    shape, or a cINN's latent ``z`` in x shape); otherwise both are drawn
+    from ``generator``, energy first."""
     u_map = device_u_chain(energy_transforms, shape_transforms)
 
     def generate(cond, generator=None, noise=None):
         x_u, x_s = (None, None) if noise is None else noise
         u = u_map(energy_model.sample_batch(cond, generator=generator, x_T=x_u))
         full_cond = torch.cat([u, cond], dim=1)
-        return shape_model.sample_batch(full_cond, generator=generator, x_T=x_s), full_cond
+        # the noise is sample_batch's third argument in both families (x_T, z)
+        return shape_model.sample_batch(full_cond, generator, x_s), full_cond
 
     return generate

@@ -17,10 +17,15 @@ runs the embedder, every block and the FinalLayer through
 ``ops/fused_dit_block.fused_vit_forward``, forward only: the per-block adaLN
 products stay plain PyTorch, as they sit outside the Pallas kernel in JAX,
 and training through that path (``fused_block: true``/``"hybrid"`` with
-gradients enabled) needs the K5 kernels and raises. Not ported yet:
-``ViT1D`` (the cINN subnet), the fine-tuning mappers, the fixed sin-cos
-positional embeddings, ``fused_mlp`` and the block-stack / per-block kernel
-fallbacks (``fused_stack: false``).
+gradients enabled) needs the K5 kernels and raises.
+
+``ViT1D`` is the cINN coupling subnet: no time input, a 1-D learnable
+positional embedding over ``prod_num_patches`` tokens, and ``x_out``
+outputs per patch value. It runs the composed path, whose attention reaches
+K1 from 128 tokens as in JAX; its ``fused_block`` twin (K2v over a ViT1D)
+is not ported yet and raises. Not ported yet either: the fine-tuning
+mappers, the fixed sin-cos positional embeddings, ``fused_mlp`` and the
+block-stack / per-block kernel fallbacks (``fused_stack: false``).
 """
 
 from __future__ import annotations
@@ -206,6 +211,39 @@ class ConditionEmbedder(nn.Sequential):
                          _xavier_linear(hidden, hidden))
 
 
+def _check_ported(p: ViTParams):
+    if p.in_patch_dim is not None or p.in_condition_dim is not None \
+            or p.out_patch_dim is not None:
+        raise NotImplementedError("fine-tuning mappers are not ported yet (ROADMAP.md)")
+    if not p.learn_pos_embed:
+        raise NotImplementedError("fixed sin-cos positional embeddings are not ported yet")
+    if p.fused_mlp:
+        raise NotImplementedError("fused_mlp (kernel K9) is not ported yet (ROADMAP.md)")
+    if p.compute_dtype not in ("float32", "fp32"):
+        raise NotImplementedError("the port's ViT runs in float32")
+
+
+def _attn_mask(p: ViTParams, device):
+    """The layer-causal (T, T) mask when ``causal_attn`` is set, else None."""
+    if not p.causal_attn:
+        return None
+    if p.dim != 3:
+        raise ValueError("A layer-causal attention mask should only be used in 3d")
+    return torch.from_numpy(pe_ops.layer_causal_mask(p.num_patches[0])).to(device)
+
+
+def _run_blocks(blocks, x, cond, mask, checkpoint_grads):
+    """The DiT blocks in order; with ``checkpoint_grads`` each is recomputed
+    in the backward."""
+    remat = checkpoint_grads and torch.is_grad_enabled()
+    for block in blocks:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, x, cond, mask, use_reentrant=False)
+        else:
+            x = block(x, cond, mask)
+    return x
+
+
 class ViTNet(nn.Module):
     """3-D voxel-patch DiT predicting the CFM velocity per patch.
 
@@ -217,15 +255,7 @@ class ViTNet(nn.Module):
     def __init__(self, cfg: ViTParams):
         super().__init__()
         p = cfg
-        if p.in_patch_dim is not None or p.in_condition_dim is not None \
-                or p.out_patch_dim is not None:
-            raise NotImplementedError("fine-tuning mappers are not ported yet (ROADMAP.md)")
-        if not p.learn_pos_embed:
-            raise NotImplementedError("fixed sin-cos positional embeddings are not ported yet")
-        if p.fused_mlp:
-            raise NotImplementedError("fused_mlp (kernel K9) is not ported yet (ROADMAP.md)")
-        if p.compute_dtype not in ("float32", "fp32"):
-            raise NotImplementedError("the port's ViT runs in float32")
+        _check_ported(p)
         self.cfg = cfg
         h = p.hidden_dim
         self.x_embedder = _xavier_linear(p.patch_dim, h)
@@ -242,20 +272,11 @@ class ViTNet(nn.Module):
         pos_z, pos_y, pos_x = (g.to(dev) for g in self._grid)
         return pe_ops.learnable_fourier_pos_embed_3d(self.pos_embed_freqs, pos_z, pos_y, pos_x)
 
-    def _attn_mask(self):
-        p = self.cfg
-        if not p.causal_attn:
-            return None
-        if p.dim != 3:
-            raise ValueError("A layer-causal attention mask should only be used in 3d")
-        return torch.from_numpy(pe_ops.layer_causal_mask(p.num_patches[0])).to(
-            self.pos_embed_freqs.device)
-
     def forward(self, x, t, c):
         p = self.cfg
         x = x.float()
         cond = self.t_embedder(t) + self.c_embedder(c.float())
-        mask = self._attn_mask()
+        mask = _attn_mask(p, self.pos_embed_freqs.device)
         if p.fused_block in (True, "hybrid") and not p.checkpoint_grads and not p.pad_attn_heads:
             if torch.is_grad_enabled():
                 raise NotImplementedError(
@@ -267,13 +288,8 @@ class ViTNet(nn.Module):
                     "fused_stack: false needs the per-block kernel (K2b), not ported yet")
             return self._fused_vit(x, cond, mask)
 
-        x = self.x_embedder(x) + self.pos_embedding()
-        remat = p.checkpoint_grads and torch.is_grad_enabled()
-        for block in self.blocks:
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(block, x, cond, mask, use_reentrant=False)
-            else:
-                x = block(x, cond, mask)
+        x = _run_blocks(self.blocks, self.x_embedder(x) + self.pos_embedding(), cond, mask,
+                        p.checkpoint_grads)
         return self.final_layer(x, cond)
 
     def _fused_vit(self, tokens, cond, mask):
@@ -331,5 +347,51 @@ def sampling_variant(net):
     return net
 
 
+class ViT1DNet(nn.Module):
+    """ViT with a 1-D positional embedding and no time input: the coupling
+    subnet of the cINN flow.
+
+    forward(x (B, T, patch_dim), c (B, condition_dim))
+    -> (B, T, out_channels * x_out * patch_dim)."""
+
+    def __init__(self, cfg: ViTParams):
+        super().__init__()
+        p = cfg
+        _check_ported(p)
+        if p.fused_block is not False:
+            raise NotImplementedError(
+                f"fused_block: {p.fused_block!r} in a ViT1D needs the whole-ViT kernel (K2v) over "
+                "the 1-D subnet, not ported yet (ROADMAP.md queue 1, cINN)")
+        self.cfg = cfg
+        h = p.hidden_dim
+        n = p.prod_num_patches
+        self.x_embedder = _xavier_linear(p.patch_dim, h)
+        self.c_embedder = ConditionEmbedder(p.condition_dim, h)
+        self.pos_embed_freqs = nn.Parameter(torch.randn(h // 2))
+        self.blocks = nn.ModuleList(
+            DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl) for _ in range(p.depth))
+        self.final_layer = FinalLayer(h, p.out_channels * (p.x_out or 1) * p.patch_dim)
+        # arange(T) / T in float32, as JAX computes it
+        self.register_buffer("_grid", torch.from_numpy(
+            np.arange(n, dtype=np.float32) / np.float32(n)), persistent=False)
+
+    def pos_embedding(self):
+        return pe_ops.learnable_fourier_pos_embed_1d(self.pos_embed_freqs, self._grid)
+
+    def forward(self, x, c):
+        p = self.cfg
+        cond = self.c_embedder(c.float())
+        mask = _attn_mask(p, self.pos_embed_freqs.device)
+        x = _run_blocks(self.blocks, self.x_embedder(x.float()) + self.pos_embedding(), cond,
+                        mask, p.checkpoint_grads)
+        return self.final_layer(x, cond)
+
+
 def ViT(param: dict) -> ViTNet:
     return ViTNet(ViTParams.create(param))
+
+
+def ViT1D(param: dict) -> ViT1DNet:
+    p = dict(param)
+    p.setdefault("prod_num_patches", int(np.prod(np.asarray(p.get("num_patches", [[15, 4, 9]])))))
+    return ViT1DNet(ViTParams.create(p))

@@ -2,8 +2,7 @@
 
 The static grids are numpy constants, as in the JAX module; only the
 learnable-frequency products run as tensor ops. The fixed sin-cos embeddings
-(cylindrical, cartesian, 1-D) and the 1-D learnable embedding are not ported
-yet.
+(cylindrical, cartesian, 1-D) are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +46,12 @@ def learnable_fourier_pos_embed_3d(freqs, pos_z, pos_y, pos_x):
         (torch.sin(x), torch.cos(x), torch.sin(y), torch.cos(y), torch.sin(z), torch.cos(z)),
         dim=1,
     )
+
+
+def learnable_fourier_pos_embed_1d(freqs, grid):
+    """[sin(pw), cos(pw)] over the 1-D grid p -> (T, 2*|freqs|) (the ViT1D subnet's)."""
+    pos = grid[:, None] * (freqs * (2.0 * math.pi))[None, :]
+    return torch.cat((torch.sin(pos), torch.cos(pos)), dim=1)
 
 
 def timestep_embedding(t, dim, max_period=10000):

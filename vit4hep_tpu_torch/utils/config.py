@@ -37,6 +37,8 @@ _CFM = f"{_MODELS}.cfm.CFM"
 _VIT = f"{_MODELS}.vit.ViT"
 _ENERGY = f"{_MODELS}.energy_transformer.ParallelTransformer"
 _CALO_CFM = f"{_MODELS}.calochallenge.CaloChallengeCFM"
+_CALO_CINN = f"{_MODELS}.calochallenge.CaloChallengeCINN"
+_VIT1D = f"{_MODELS}.vit.ViT1D"
 
 TARGET_REMAP = {
     # the shared configs' own targets
@@ -44,6 +46,8 @@ TARGET_REMAP = {
     "vit4hep_tpu.models.vit.ViT": _VIT,
     "vit4hep_tpu.models.energy_transformer.ParallelTransformer": _ENERGY,
     "vit4hep_tpu.models.calochallenge.CaloChallengeCFM": _CALO_CFM,
+    "vit4hep_tpu.models.calochallenge.CaloChallengeCINN": _CALO_CINN,
+    "vit4hep_tpu.models.vit.ViT1D": _VIT1D,
     # the reference's paths, as the JAX package maps them
     "models.base_model.CFM": _CFM,
     "nn.vit.ViT": _VIT,
@@ -51,6 +55,9 @@ TARGET_REMAP = {
     "nn.cfm.transformer_cfm.ParallelTransformer": _ENERGY,
     "nn.cfm.mlp_transformer.MLPTransformer2": _ENERGY,
     "experiments.calochallenge.calochallenge_cfm.model.CaloChallengeCFM": _CALO_CFM,
+    "nn.vit.ViT1D": _VIT1D,
+    "experiments.calochallenge.calochallenge_cinn.model.CaloChallengeCINN": _CALO_CINN,
+    "experiments.calochallenge.model.CaloChallengeCINN": _CALO_CINN,
 }
 
 

@@ -1,10 +1,10 @@
 """JAX -> port weight conversion.
 
 Turns a Flax param tree (nested dicts of arrays; numpy or anything
-``np.asarray`` accepts) into the ``state_dict`` of the port's ``ViTNet`` or
-``ParallelTransformerNet``. The name map is ``convert_vit_state_dict`` /
-``convert_energy_state_dict`` of ``vit4hep_tpu/utils/torch_migration.py``
-run in reverse: a Dense ``kernel (in, out)`` becomes a Linear ``weight
+``np.asarray`` accepts) into the ``state_dict`` of the port's ``ViTNet``,
+``ParallelTransformerNet`` or ``CaloChallengeCINN`` flow. The name map is
+``convert_vit_state_dict`` / ``convert_energy_state_dict`` of
+``vit4hep_tpu/utils/torch_migration.py`` run in reverse: a Dense ``kernel (in, out)`` becomes a Linear ``weight
 (out, in)``, a LayerNorm ``scale``/``bias`` becomes ``weight``/``bias``, an
 ``nn.Embed`` table becomes an ``nn.Embedding`` weight, and the energy
 transformer's q/k/v Dense triples are packed into ``in_proj_weight`` rows.
@@ -53,13 +53,15 @@ class _Converter:
 
 
 def convert_vit_params(variables) -> dict[str, torch.Tensor]:
-    """Flax ``ViTNet`` params -> the port's ``ViTNet`` state dict."""
+    """Flax ``ViTNet`` (or ``ViT1DNet``, which has no time embedder) params
+    -> the port's ``ViTNet`` (``ViT1DNet``) state dict."""
     c = _Converter(variables)
+    if "t_embedder" in c.params:
+        c.dense("t_embedder.mlp.0", "t_embedder", "Dense_0")
+        c.dense("t_embedder.mlp.2", "t_embedder", "Dense_1")
     c.dense("x_embedder", "x_embedder")
     c.dense("c_embedder.0", "c_embedder", "Dense_0")
     c.dense("c_embedder.2", "c_embedder", "Dense_1")
-    c.dense("t_embedder.mlp.0", "t_embedder", "Dense_0")
-    c.dense("t_embedder.mlp.2", "t_embedder", "Dense_1")
     if "pos_embed_freqs" in c.params:
         c.sd["pos_embed_freqs"] = _t(c.node("pos_embed_freqs"))
     i = 0
@@ -73,6 +75,20 @@ def convert_vit_params(variables) -> dict[str, torch.Tensor]:
         i += 1
     c.dense("final_layer.adaLN_modulation.1", "final_layer", "adaLN_modulation")
     c.dense("final_layer.linear", "final_layer", "Dense_0")
+    return c.finish()
+
+
+def convert_cinn_params(variables) -> dict[str, torch.Tensor]:
+    """Flax ``FlowChain`` params of a ``CaloChallengeCINN`` (coupling block
+    ``blocks_<j>`` with ViT1D subnets ``subnet1``/``subnet2``; the
+    permutations have none) -> the state dict of the port's flow
+    (``model.net``)."""
+    c = _Converter(variables)
+    for block in [k for k in c.params if k.startswith("blocks_")]:
+        j = block[len("blocks_"):]
+        for sub in ("subnet1", "subnet2"):
+            sd = convert_vit_params(c.node(block, sub))
+            c.sd.update({f"blocks.{j}.{sub}.{k}": v for k, v in sd.items()})
     return c.finish()
 
 

@@ -19,7 +19,7 @@ from vit4hep_tpu_torch.experiments.fused_chain import make_fused_generate
 
 class Generator:
     """Fixed-batch two-stage generator over an energy model and a shape
-    model, with their transform pipelines (lists of the steps of
+    model (a CaloChallenge CFM or cINN), with their transform pipelines (lists of the steps of
     ``vit4hep_tpu_torch.data.calochallenge.transforms``)."""
 
     def __init__(self, shape_model, energy_model, energy_transforms, shape_transforms,
