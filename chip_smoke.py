@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 two-stage shower
-generators (CFM and cINN shape models) and the ds2 training slice at full
-width, through the hand-written CUDA kernels.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 and ds3 two-stage
+shower generators (CFM and cINN shape models), the layer-causal ViT and the
+ds2 training slice at full width, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -10,40 +10,52 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. device: requires CUDA (no CPU path); prints the card's name and power limit;
 2. build: compiles every kernel of the port from ``vit4hep_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and prints the seconds;
-3. kernels: calls each kernel's wrapper at the shapes of its main path and
+3. kernels: calls each kernel's wrapper at the shapes of its main paths and
    holds it against its plain PyTorch version on the same inputs, with the
    tolerance stated in ``TOL``; times the kernel, the plain version and,
    where one PyTorch call computes the same function, that call (CUDA
-   events, median). The serving kernels (K3, K2v) run at the ds2 sampling
-   shapes (batch 256); K1 (``fused_qkv_attention``, forward and backward)
-   at the ds2 training shape (qkv (64, 135, 1440), 6 heads) and at ds3's
-   token count (16, 450, 1440); K4 (``fused_binned_rqs_inverse``) at the
-   ds2 cINN shape (y (256, 3240), theta (256, 3240, 31)) and, untimed, on
-   its other branch (identity tails, domain clamping) at a small shape; K1's
-   forward at the cINN subnet shape (qkv (256, 135, 576), 4 heads x 48);
-4. slice: builds the ds2 energy model (cfm_ds2_energy) and shape model
-   (cfm_ds2_electrons) at full width with random weights from a seed
-   (non-zero adaLN and final-layer weights), and answers REQUESTS requests
-   of BATCH incident energies through ``Generator.sample_showers``. The
-   launch counters are set to 0 just before and read just after: every
-   kernel must have run on every net eval. The MeV showers must be finite,
-   non-negative and of shape (BATCH, 6480); a small batch is held against
-   the same generator on the composed plain-PyTorch nets with the same noise;
-5. profile: one more request timed by layer (energy stage, shape stage, host
-   transforms) and under ``torch.profiler`` (device time per kernel, the
-   device's idle share);
-5c. cinn: the same two stages with the ds2 cINN shape model
-   (cinn_ds2_electrons: 20 coupling blocks, 40 ViT1D subnets of hidden 192,
-   depth 3, 4 heads x 48, 135 tokens x 24; 90.7 M params) behind the same
-   energy model, through ``calochallenge_ds2_noise``'s transforms: REQUESTS
-   requests of BATCH showers, launch counts per request K4 40, K1 forward
-   120, K3 80 (counters set to 0 just before, read just after), the checks
-   of phase 4 and the comparison with the composed plain generator (plain
-   spline, plain attention, plain energy decoder) on the same noise; then
-   one more request by layer and under ``torch.profiler``, grouped by
-   kernel;
-6. train: the ds2 shape model at full width (hidden 480, depth 6, 6 heads x
-   80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
+   events, median; SDPA with the boolean mask for a masked kernel). The
+   shape groups (``SHAPE_GROUPS``): K3 and K2v at the ds2 sampling shapes
+   (batch 256); K1 (``fused_qkv_attention``, forward and backward) at the
+   ds2 training shape (qkv (64, 135, 1440), 6 heads) and at ds3's token
+   count (16, 450, 1440); K4 (``fused_binned_rqs_inverse``) at the ds2 cINN
+   shape (y (256, 3240), theta (256, 3240, 31)) and, untimed, on its other
+   branch (identity tails, domain clamping); K1's forward at the ds2 cINN
+   subnet shape (qkv (256, 135, 576), 4 heads x 48); at ds3: K2v (products,
+   LayerNorm, attention at qkv (256, 450, 1440), whole forward), K1's
+   forward at the ds3 cINN subnet shape (256, 225, 576) and K4 at y (256,
+   20250); with the layer-causal mask of ds2's (15, 1, 9) token grid: K2v's
+   attention and whole forward, and K1's four kernels at the training shape;
+4. serving paths, each at full width with random weights from a seed
+   (non-zero adaLN and final-layer weights) behind the energy model
+   (cfm_ds2_energy = cfm_ds3_energy), answering REQUESTS requests of BATCH
+   incident energies through ``Generator.sample_showers``. The launch
+   counters are set to 0 just before and read just after: every kernel of
+   the path must have run as often as the path needs. The MeV showers must
+   be finite, non-negative and of shape (BATCH, voxels); a small batch is
+   held against the same generator on the composed plain-PyTorch nets with
+   the same noise; then one more request by layer (energy stage, shape
+   stage, host transforms) and under ``torch.profiler`` (device time per
+   kernel and per group, the device's idle share). The paths:
+   - ds2_cfm: cfm_ds2_electrons (ViT hidden 480, depth 6, 6 heads x 80, 135
+     tokens x 48) through calochallenge_ds2's transforms, 6480 voxels; per
+     net eval K2v GEMM 26, modln 13, attention 6 and K3 1 launches;
+   - ds2_cinn: cinn_ds2_electrons (20 coupling blocks, 40 ViT1D subnets of
+     hidden 192, depth 3, 4 heads x 48, 135 tokens x 24; 90.7 M params)
+     through calochallenge_ds2_noise's transforms: K4 40, K1 forward 120 and
+     K3 80 launches per request;
+   - ds3_cfm: cfm_ds3_electrons (450 tokens x 90, 26.1 M params) through
+     calochallenge_ds3's transforms, 40500 voxels (45 layers x 50 alpha x
+     18 radial bins; the radial edges are synthetic), the launches of
+     ds2_cfm;
+   - ds3_cinn: cinn_ds3_electrons (10 coupling blocks, 20 ViT1D subnets of
+     225 tokens x 90; 53.5 M params) through calochallenge_ds3_noise's
+     transforms: K4 20, K1 forward 60 and K3 80 launches per request;
+   - causal_cfm: cfm_ds2_electrons with ``causal_attn: true``, the
+     reference's layer-causal ViT: K2v's attention takes the shared mask,
+     and the plain generator the masked plain attention;
+5. ds2_train: the ds2 shape model at full width (hidden 480, depth 6, 6
+   heads x 80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
    clip_grad_norm 1000) through the port's ``CaloChallenge`` experiment and
    its ``train()``: TRAIN_STEPS steps validating every VALIDATE_EVERY, then
    ``model_run0.pt``. The card's machine has no h5py and no dataset, so a
@@ -55,19 +67,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    steps. Every loss and grad norm must be finite and no step skipped. A
    warm start from ``model_run0.pt`` must restore the saved state exactly
    and train on as run 1;
-7. train parity: from one initial state, with the same batches and the same
+6. train parity: from one initial state, with the same batches and the same
    (t, x_0), TRAIN_PARITY_STEPS steps with ``attn_impl: auto`` (K1) and with
-   ``attn_impl: xla`` (plain) must agree (``TRAIN_TOL``);
-8. energy: a few steps of the ds2 energy experiment at full width (batch
-   256; no kernel on its path), which fits ``means_u.npy``/``stds_u.npy``;
-9. train profile: one train step under ``torch.profiler``: device ms of K1's
+   ``attn_impl: xla`` (plain) must agree (``TRAIN_TOL``); causal_train: the
+   same with ``causal_attn: true``, K1's masked forward and backward against
+   the plain masked attention, every K1 kernel launched on every block of
+   every step;
+7. train profile: one train step under ``torch.profiler``: device ms of K1's
    forward and backward kernels, the cuBLAS products and the rest, and the
-   step's idle share.
+   step's idle share;
+8. energy: a few steps of the ds2 energy experiment at full width (batch
+   256; no kernel on its path), which fits ``means_u.npy``/``stds_u.npy``.
 
-The line before the last is the ``{"kernels": [...]}`` summary; the last line
-is ``{"ok": true, "device": {...}}``. Needs no network, no PyYAML, no h5py
-and nothing of JAX or of the JAX package: the ds2 configs are written out
-below (tests/test_torch_chain.py holds them equal to the YAML files).
+The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
+its main-path shape's numbers, its launches by path and their sum, and its
+numbers at the other shapes); the last line is ``{"ok": true, "device":
+{...}}``. Needs no network, no PyYAML, no h5py and nothing of JAX or of the
+JAX package: the ds2 and ds3 configs are written out below
+(tests/test_torch_chain.py holds them equal to the YAML files).
 """
 
 from __future__ import annotations
@@ -92,6 +109,7 @@ from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import fused_energy_decoder as fed
 from vit4hep_tpu_torch.ops import fused_qkv_attention as fqa
 from vit4hep_tpu_torch.ops import fused_spline as fsp
+from vit4hep_tpu_torch.ops.pos_embed import layer_causal_mask
 from vit4hep_tpu_torch.utils.config import Config, instantiate
 from vit4hep_tpu_torch.utils.serving import Generator
 
@@ -207,6 +225,51 @@ DS2_ENERGY_TRANSFORMS = {
     "Reshape": {"shape": [45]},
 }
 
+# configs/model/cfm/cfm_ds3_electrons.yaml
+DS3_SHAPE_MODEL = dict(DS2_SHAPE_MODEL, shape=[45, 50, 18], patch_shape=[3, 10, 3], net=dict(
+    DS2_SHAPE_MODEL["net"], param=dict(DS2_SHAPE_MODEL["net"]["param"], num_patches=[[15, 5, 6]],
+                                       patch_dim=90)))
+
+# configs/model/cfm/cfm_ds3_energy.yaml (byte-identical to cfm_ds2_energy.yaml)
+DS3_ENERGY_MODEL = DS2_ENERGY_MODEL
+
+# configs/model/cinn/cinn_ds3_electrons.yaml
+DS3_CINN_MODEL = dict(DS2_CINN_MODEL, shape=[45, 50, 18], patch_shape=[[3, 10, 3]], nblocks=10,
+                      is_spatial=[False] * 10)
+
+# data.transforms of configs/calochallenge/cfm/calochallenge_ds3.yaml (no
+# standardization eps, unlike ds2)
+DS3_SHAPE_TRANSFORMS = {
+    "NormalizeByElayer": {"ptype": "${data_dir}/binning_dataset_3.xml", "xml_file": "electron"},
+    "ScaleTotalEnergy": {"n_layers": 45, "factor": 0.35},
+    "CutValues": {"cut": 1.0e-7, "n_layers": 45},
+    "ExclusiveLogitTransform": {"delta": 1.0e-6, "rescale": True},
+    "GlobalStandardizeFromFile": {"model_dir": None},
+    "LogEnergy": {},
+    "ScaleEnergy": {"e_min": 6.907755, "e_max": 13.815510},
+    "AddFeaturesToCond": {"split_index": 40500},
+    "Reshape": {"shape": [1, 45, 50, 18]},
+}
+
+# data.transforms of configs/calochallenge/cinn/calochallenge_ds3_noise.yaml
+DS3_CINN_TRANSFORMS = dict(
+    DS2_CINN_TRANSFORMS,
+    NormalizeByElayer={"ptype": "${data_dir}/binning_dataset_3.xml", "xml_file": "electron"},
+    AddFeaturesToCond={"split_index": 40500}, Reshape={"shape": [1, 45, 50, 18]})
+
+# data.transforms of configs/calochallenge/cfm/calochallenge_ds3_energy.yaml
+DS3_ENERGY_TRANSFORMS = dict(
+    DS2_ENERGY_TRANSFORMS,
+    NormalizeByElayer={"ptype": "${data_dir}/binning_dataset_3.xml", "xml_file": "electron"})
+
+# the CaloChallenge geometries: (alpha bins, radial bin edges) of each of the
+# 45 layers. ds2's edges are the dataset's; ds3's real binning file is not in
+# the repository, so its 18 radial bins take synthetic edges
+GEOMETRY = {
+    "ds2": (16, (0, 4, 8, 13, 19, 27, 38, 54, 80, 150)),
+    "ds3": (50, (0, 2, 4, 6, 8, 10, 13, 16, 20, 24, 29, 35, 42, 50, 60, 75, 95, 120, 150)),
+}
+
 # configs/training/default.yaml with configs/training/cfm/shape.yaml and
 # cfm/energy.yaml on top (iterations are cut to the smoke's step counts)
 DS2_TRAINING = {
@@ -231,7 +294,9 @@ DS2_ENERGY_TRAINING = dict(DS2_TRAINING, iterations=250000, batchsize=256)
 # K4 (binned_rqs_inverse) is f32 like its plain version; its knots are
 # summed in another order, so a point at a knot may take the neighbouring
 # bin (the spline is C^1 there); it is held on x and on the log-determinant,
-# each against its own scale.
+# each against its own scale. The masked kernels and the ds3 shapes keep
+# these bounds: the mask only replaces scores by -1e30, and 450 tokens sum
+# 3.3x more softmax terms in f32.
 TOL = {"energy_decoder": 1e-3, "vit_gemm": 8e-3, "vit_modln": 8e-3,
        "vit_attention": 8e-3, "fused_vit_forward": 2e-2, "qkv_attn_fwd": 1e-4,
        "qkv_attn_bwd_delta": 1e-4, "qkv_attn_bwd_dkv": 1e-4, "qkv_attn_bwd_dq": 1e-4,
@@ -246,16 +311,24 @@ TOL = {"energy_decoder": 1e-3, "vit_gemm": 8e-3, "vit_modln": 8e-3,
 TRAIN_TOL = {"loss": 1e-4, "param_abs": 5e-5, "update_rel": 1e-2}
 K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
 K2V = "vit4hep_tpu_torch/csrc/vit_forward.cu"
+# the TPU bodies each kernel covers: K2v's unmasked, masked and grouped
+# whole-ViT kernels; K1's per-head and head-packed forwards, each unmasked
+# and masked, and its unmasked and masked backward
+K2V_BODIES = "vit4hep_tpu/ops/fused_dit_block.py:1315, :1281 and :1325"
+K1_BWD_BODIES = "vit4hep_tpu/ops/fused_qkv_attention.py:252 and :260"
 REPLACES = {
     "energy_decoder": ("vit4hep_tpu_torch/csrc/energy_decoder.cu",
                        "vit4hep_tpu/ops/fused_energy_decoder.py:124"),
-    "vit_gemm": (K2V, "vit4hep_tpu/ops/fused_dit_block.py:1315"),
-    "vit_modln": (K2V, "vit4hep_tpu/ops/fused_dit_block.py:1315"),
-    "vit_attention": (K2V, "vit4hep_tpu/ops/fused_dit_block.py:1315"),
-    "qkv_attn_fwd": (K1, "vit4hep_tpu/ops/fused_qkv_attention.py:58"),
-    "qkv_attn_bwd_delta": (K1, "vit4hep_tpu/ops/fused_qkv_attention.py:252"),
-    "qkv_attn_bwd_dkv": (K1, "vit4hep_tpu/ops/fused_qkv_attention.py:252"),
-    "qkv_attn_bwd_dq": (K1, "vit4hep_tpu/ops/fused_qkv_attention.py:252"),
+    "vit_gemm": (K2V, K2V_BODIES),
+    "vit_modln": (K2V, K2V_BODIES),
+    "vit_attention": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
+                      "vit4hep_tpu_torch/csrc/vit_forward.cu)", K2V_BODIES),
+    "qkv_attn_fwd": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
+                     "vit4hep_tpu_torch/csrc/qkv_attention.cu)",
+                     "vit4hep_tpu/ops/fused_qkv_attention.py:58, :65, :94 and :156"),
+    "qkv_attn_bwd_delta": (K1, K1_BWD_BODIES),
+    "qkv_attn_bwd_dkv": (K1, K1_BWD_BODIES),
+    "qkv_attn_bwd_dq": (K1, K1_BWD_BODIES),
     "binned_rqs_inverse": ("vit4hep_tpu_torch/csrc/binned_rqs.cu",
                            "vit4hep_tpu/ops/fused_spline.py:55"),
 }
@@ -263,17 +336,35 @@ SERVING = {"energy_decoder": fed.ENERGY_DECODER, "vit_gemm": fdb.GEMM,
            "vit_modln": fdb.MODLN, "vit_attention": fdb.ATTENTION}
 TRAINING = {"qkv_attn_fwd": fqa.FWD, "qkv_attn_bwd_delta": fqa.BWD_DELTA,
             "qkv_attn_bwd_dkv": fqa.BWD_DKV, "qkv_attn_bwd_dq": fqa.BWD_DQ}
-# the cINN request: launches per request of each kernel on its path (40
-# coupling sides, 40 subnets x 3 blocks, 80 energy net evals)
+# the CFM request: launches per net eval of each kernel on its path (embed,
+# 6 x 4 block products and the final product; 2 LayerNorms per block and the
+# final one; one attention per block; the energy net's decoder)
+CFM_PER_EVAL = {"energy_decoder": 1, "vit_gemm": 2 + 4 * 6, "vit_modln": 2 * 6 + 1,
+                "vit_attention": 6}
+# the cINN request: launches per request of each kernel on its path (ds2: 40
+# coupling sides, 40 subnets x 3 blocks, 80 energy net evals; ds3: 20, 60, 80)
 CINN = {"binned_rqs_inverse": fsp.INVERSE, "qkv_attn_fwd": fqa.FWD,
         "energy_decoder": fed.ENERGY_DECODER}
-CINN_PER_REQUEST = {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120, "energy_decoder": 80}
+CINN_PER_REQUEST = {"ds2": {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120, "energy_decoder": 80},
+                    "ds3": {"binned_rqs_inverse": 20, "qkv_attn_fwd": 60, "energy_decoder": 80}}
 
 # NVIDIA H100 SXM peaks (data sheet, dense, at 700 W): HBM bytes/s, f32 on
 # the CUDA cores, bf16 on the tensor cores. The attention products (K1, K2v)
 # are bounded at the bf16 rate: the TPU kernels they replace take bf16
 # multiplicands with f32 accumulation, whatever arithmetic a port uses
 HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+
+
+# the kernel phase's shape groups: each kernel's main-path shape (ds2
+# sampling; K1 at the ds2 training shape), then the others it is held at
+SHAPE_GROUPS = {
+    "main": "ds2",
+    "n450": "K1 at qkv (16, 450, 1440)",
+    "cinn": "K1 forward at the ds2 cINN subnet, qkv (256, 135, 576)",
+    "ds3": "ds3: K2v at tokens (256, 450, 90), K1 forward at qkv (256, 225, 576), K4 at "
+           "(256, 20250)",
+    "causal": "ds2 with the layer-causal mask: K2v at (256, 135), K1 at (64, 135, 1440)",
+}
 
 
 class PhaseError(RuntimeError):
@@ -343,11 +434,9 @@ def _rand(gen, *shape, std=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * std
 
 
-def serving_kernel_phases(results):
-    """K3 and K2v against their plain versions at the ds2 sampling shapes,
-    batch BATCH. ms/plain_ms/bound_ms of vit_gemm add up one call at each
-    of the six product shapes of a forward (embed, qkv, out-proj, fc1, fc2,
-    final)."""
+def k3_kernel_phase(results):
+    """K3 against its plain version at the energy net's sampling shape,
+    batch BATCH (the same for ds2 and ds3)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # K3: tgt (B, 45, 128), 4 layers, 4 heads, F 512, TE 64, head 512
     b, n, dm, te, fdim, hn, depth = BATCH, 45, 128, 64, 512, 512, 4
@@ -368,128 +457,156 @@ def serving_kernel_phases(results):
     _check("energy_decoder", k3(), k3_plain(), results, k3, k3_plain,
            _bound(k3_bytes, k3_flops, F32_FLOPS))
 
-    # K2v: tokens (B, 135, 48), H 480, 6 heads x 80, F 1920, L 6, OUT 48
-    n, pdim, h, heads, fdim, depth, out_dim = 135, 48, 480, 6, 1920, 6, 48
+
+def _causal_mask(grid):
+    """The layer-causal (T, T) bool mask of a token grid on the card."""
+    return torch.from_numpy(layer_causal_mask(grid)).cuda()
+
+
+def _attn_flops(b, heads, n, d, mask):
+    """Operations of softmax(q k^T) v: 4 b h n^2 d, over the (query, key)
+    pairs the mask keeps (the work this run's data needs)."""
+    pairs = n * n if mask is None else int(mask.sum().item())
+    return 4 * b * heads * pairs * d
+
+
+def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
+    """K2v against its plain versions at the sampling shape of n tokens x
+    pdim (ds2: 135 x 48, ds3: 450 x 90), batch BATCH, H 480, 6 heads x 80,
+    F 1920, L 6: with ``gemms`` the six product shapes of a forward (embed,
+    qkv, out-proj, fc1, fc2, final; ms/plain_ms/bound_ms of vit_gemm add up
+    one call at each) and the modulated LayerNorm; then the attention and
+    the whole forward, with the shared ``mask`` when given."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n)
+    b, h, heads, fdim, depth, out_dim = BATCH, 480, 6, 1920, 6, pdim
     m = b * n
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     tokens = _rand(gen, b, n, pdim)
     pos = _rand(gen, n, h)
     mods = _rand(gen, b, depth, 6, h, std=0.1)
     fmod = _rand(gen, b, 2, h, std=0.1)
-    x = _rand(gen, m, h)
-    xs = x.clone()
     ws = {"embed": (pdim, h), "qkv": (h, 3 * h), "out": (h, h), "fc1": (h, fdim),
           "fc2": (fdim, h), "final": (h, out_dim)}
     w = {k: _rand(gen, *s, std=0.05) for k, s in ws.items()}
     bias = {k: _rand(gen, s[1], std=0.05) for k, s in ws.items()}
-    h_bf = bf(_rand(gen, m, h))
-    hid_bf = bf(_rand(gen, m, fdim))
-    gate = mods[:, 0, 2]
-    gemms = [
-        ("embed", tokens.reshape(m, pdim), fdb.EPI_BIAS_POS, dict(pos=pos)),
-        ("qkv", h_bf, fdb.EPI_BIAS, {}),
-        ("out", h_bf, fdb.EPI_GATED_RESID, dict(gate=gate)),
-        ("fc1", h_bf, fdb.EPI_BIAS_GELU, {}),
-        ("fc2", hid_bf, fdb.EPI_GATED_RESID, dict(gate=gate)),
-        ("final", h_bf, fdb.EPI_BIAS, {}),
-    ]
-    for key, a, epi, kw in gemms:
-        wk = bf(w[key])
-        a_bf = bf(a)
-        resid = epi == fdb.EPI_GATED_RESID
-        ker = lambda: fdb.linear(a, wk, bias[key], epi, out=x if resid else None,  # noqa: E731
-                                 n_tok=n, **kw)
-        pla = lambda: fdb.linear_plain(a, wk, bias[key], epi, out=x if resid else None,  # noqa: E731
-                                       n_tok=n, **kw)
-        lib = lambda: torch.matmul(a_bf, wk)  # noqa: E731  (the product only)
-        kk, nn_ = wk.shape
-        out_bytes = 2 if epi == fdb.EPI_BIAS_GELU else (8 if resid else 4)  # resid: read + write
-        g_bytes = (a.numel() * a.element_size() + wk.numel() * 2 + nn_ * 4 + m * nn_ * out_bytes
-                   + (pos.numel() * 4 if epi == fdb.EPI_BIAS_POS else 0)
-                   + (b * nn_ * 4 if resid else 0))
-        bound = _bound(g_bytes, 2 * m * nn_ * kk, BF16_FLOPS)
-        if resid:  # in place: compare one update of the same starting residual
-            x.copy_(xs)
-            out = ker().clone()
-            x.copy_(xs)
-            ref = pla().clone()
-        else:
-            out, ref = ker(), pla()
-        _check("vit_gemm", out, ref, results, ker, pla, bound, lib)
-
-    shift, scl = mods[:, 0, 0], mods[:, 0, 1]
-    ker = lambda: fdb.modln(x, shift, scl, n)  # noqa: E731
-    pla = lambda: fdb.modln_plain(x, shift, scl, n)  # noqa: E731
-    _check("vit_modln", ker(), pla(), results, ker, pla,
-           _bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
+    if gemms:
+        x = _rand(gen, m, h)
+        xs = x.clone()
+        h_bf = bf(_rand(gen, m, h))
+        hid_bf = bf(_rand(gen, m, fdim))
+        gate = mods[:, 0, 2]
+        for key, a, epi, kw in [
+                ("embed", tokens.reshape(m, pdim), fdb.EPI_BIAS_POS, dict(pos=pos)),
+                ("qkv", h_bf, fdb.EPI_BIAS, {}),
+                ("out", h_bf, fdb.EPI_GATED_RESID, dict(gate=gate)),
+                ("fc1", h_bf, fdb.EPI_BIAS_GELU, {}),
+                ("fc2", hid_bf, fdb.EPI_GATED_RESID, dict(gate=gate)),
+                ("final", h_bf, fdb.EPI_BIAS, {})]:
+            wk = bf(w[key])
+            a_bf = bf(a)
+            resid = epi == fdb.EPI_GATED_RESID
+            ker = lambda: fdb.linear(a, wk, bias[key], epi,  # noqa: E731
+                                     out=x if resid else None, n_tok=n, **kw)
+            pla = lambda: fdb.linear_plain(a, wk, bias[key], epi,  # noqa: E731
+                                           out=x if resid else None, n_tok=n, **kw)
+            lib = lambda: torch.matmul(a_bf, wk)  # noqa: E731  (the product only)
+            kk, nn_ = wk.shape
+            out_bytes = 2 if epi == fdb.EPI_BIAS_GELU else (8 if resid else 4)  # resid: r + w
+            g_bytes = (a.numel() * a.element_size() + wk.numel() * 2 + nn_ * 4
+                       + m * nn_ * out_bytes + (pos.numel() * 4 if epi == fdb.EPI_BIAS_POS else 0)
+                       + (b * nn_ * 4 if resid else 0))
+            bound = _bound(g_bytes, 2 * m * nn_ * kk, BF16_FLOPS)
+            if resid:  # in place: compare one update of the same starting residual
+                x.copy_(xs)
+                out = ker().clone()
+                x.copy_(xs)
+                ref = pla().clone()
+            else:
+                out, ref = ker(), pla()
+            _check("vit_gemm", out, ref, results, ker, pla, bound, lib)
+        del h_bf, hid_bf
+        shift, scl = mods[:, 0, 0], mods[:, 0, 1]
+        ker = lambda: fdb.modln(x, shift, scl, n)  # noqa: E731
+        pla = lambda: fdb.modln_plain(x, shift, scl, n)  # noqa: E731
+        _check("vit_modln", ker(), pla(), results, ker, pla,
+               _bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
+        del x, xs
 
     qkv = _rand(gen, b, n, 3 * h)
     q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, 80).permute(2, 0, 3, 1, 4))
-    ker = lambda: fdb.attention(qkv, heads, 80 ** -0.5)  # noqa: E731
-    pla = lambda: fdb.attention_plain(qkv, heads, 80 ** -0.5)  # noqa: E731
-    lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    ker = lambda: fdb.attention(qkv, heads, 80 ** -0.5, mask)  # noqa: E731
+    pla = lambda: fdb.attention_plain(qkv, heads, 80 ** -0.5, mask)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
+    a_bytes = qkv.numel() * 4 + b * n * h * 2 + (0 if mask is None else mask.numel())
     _check("vit_attention", ker(), pla(), results, ker, pla,
-           _bound(qkv.numel() * 4 + b * n * h * 2, 4 * b * heads * n * n * 80, BF16_FLOPS), lib)
+           _bound(a_bytes, _attn_flops(b, heads, n, 80, mask), BF16_FLOPS), lib)
+    del qkv, q, k, v
 
     wl = lambda s: _rand(gen, depth, *s, std=0.05)  # noqa: E731
     va = [tokens, pos, mods, fmod, w["embed"], bias["embed"],
           wl((h, 3 * h)), wl((3 * h,)), wl((h, h)), wl((h,)), wl((h, fdim)), wl((fdim,)),
           wl((fdim, h)), wl((h,)), w["final"], bias["final"]]
-    ker = lambda: fdb.fused_vit_forward(*va, None, heads, None)  # noqa: E731
-    pla = lambda: fdb.vit_forward_reference(*va, None, heads, 80 ** -0.5)  # noqa: E731
+    ker = lambda: fdb.fused_vit_forward(*va, mask, heads, None)  # noqa: E731
+    pla = lambda: fdb.vit_forward_reference(*va, mask, heads, 80 ** -0.5)  # noqa: E731
     _check("fused_vit_forward", ker(), pla(), results, ker, pla, (0.0, "operations"))
 
 
-def k1_fwd_phase(results, b, n, heads, d):
+def k1_fwd_phase(results, b, n, heads, d, mask=None):
     """K1's forward against its plain version at qkv (b, n, 3 * heads * d)
-    f32, timed beside SDPA. Returns (generator, qkv, context, lse, (q, k, v))."""
+    f32, with the shared ``mask`` when given, timed beside SDPA (with the
+    boolean mask). Returns (generator, qkv, context, lse, (q, k, v))."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + n)
     qkv = _rand(gen, b, n, 3 * heads * d)
     scale = d ** -0.5
-    out, lse = fqa.attention_fwd_kernel(qkv, heads, scale)
-    out_p, lse_p = fqa.attention_fwd_plain(qkv, heads, scale)
+    out, lse = fqa.attention_fwd_kernel(qkv, heads, scale, mask)
+    out_p, lse_p = fqa.attention_fwd_plain(qkv, heads, scale, mask)
     q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+    mask_bytes = 0 if mask is None else mask.numel()
     _check("qkv_attn_fwd", torch.cat([out.flatten(), lse.flatten()]),
            torch.cat([out_p.flatten(), lse_p.flatten()]), results,
-           lambda: fqa.attention_fwd_kernel(qkv, heads, scale),
-           lambda: fqa.attention_fwd_plain(qkv, heads, scale),
-           _bound(4 * (qkv.numel() + out.numel() + lse.numel()), 4 * b * heads * n * n * d,
-                  BF16_FLOPS),
-           lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+           lambda: fqa.attention_fwd_kernel(qkv, heads, scale, mask),
+           lambda: fqa.attention_fwd_plain(qkv, heads, scale, mask),
+           _bound(4 * (qkv.numel() + out.numel() + lse.numel()) + mask_bytes,
+                  _attn_flops(b, heads, n, d, mask), BF16_FLOPS),
+           lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
     return gen, qkv, out, lse, (q, k, v)
 
 
-def k1_kernel_phase(results, b, n, heads=6, d=80):
+def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
     """K1's forward and backward kernels against their plain versions at
-    qkv (b, n, 3 * heads * d) f32; prints the kernel, plain and SDPA times of
-    the forward and of forward + backward."""
-    gen, qkv, out, lse, (q, k, v) = k1_fwd_phase(results, b, n, heads, d)
+    qkv (b, n, 3 * heads * d) f32, with the shared ``mask`` when given;
+    prints the kernel, plain and SDPA times of the forward and of forward +
+    backward."""
+    gen, qkv, out, lse, (q, k, v) = k1_fwd_phase(results, b, n, heads, d, mask)
     g = _rand(gen, b, n, heads * d)
     scale = d ** -0.5
     hd = heads * d
-    fwd_flops = 4 * b * heads * n * n * d
+    pair_flops = _attn_flops(b, heads, n, d, mask) // 4  # b h pairs d
 
     delta = fqa.attention_bwd_delta_kernel(g, out, heads)
     _check("qkv_attn_bwd_delta", delta, fqa.delta_plain(g, out, heads), results,
            lambda: fqa.attention_bwd_delta_kernel(g, out, heads),
            lambda: fqa.delta_plain(g, out, heads),
            _bound(4 * (2 * g.numel() + delta.numel()), 2 * g.numel(), F32_FLOPS))
-    want = fqa.attention_bwd_plain(qkv, g, lse, heads, scale)
+    want = fqa.attention_bwd_plain(qkv, g, lse, heads, scale, mask)
     dqkv = torch.zeros_like(qkv)
-    fqa.attention_bwd_dkv_kernel(qkv, g, lse, delta, heads, scale, dqkv)
-    fqa.attention_bwd_dq_kernel(qkv, g, lse, delta, heads, scale, dqkv)
-    small = 4 * (qkv.numel() + g.numel() + 2 * lse.numel())  # what both kernels read
+    fqa.attention_bwd_dkv_kernel(qkv, g, lse, delta, heads, scale, dqkv, mask)
+    fqa.attention_bwd_dq_kernel(qkv, g, lse, delta, heads, scale, dqkv, mask)
+    # what both kernels read
+    small = 4 * (qkv.numel() + g.numel() + 2 * lse.numel()) + (0 if mask is None else mask.numel())
     for name, cols, flops, kernel, writes in (
-            ("qkv_attn_bwd_dkv", slice(hd, 3 * hd), 8 * b * heads * n * n * d,
+            ("qkv_attn_bwd_dkv", slice(hd, 3 * hd), 8 * pair_flops,
              fqa.attention_bwd_dkv_kernel, 2 * b * n * hd),
-            ("qkv_attn_bwd_dq", slice(0, hd), 6 * b * heads * n * n * d,
+            ("qkv_attn_bwd_dq", slice(0, hd), 6 * pair_flops,
              fqa.attention_bwd_dq_kernel, b * n * hd)):
         _check(name, dqkv[..., cols], want[..., cols], results,
-               lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv),
-               lambda: fqa.attention_bwd_plain(qkv, g, lse, heads, scale),
+               lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv, mask),
+               lambda: fqa.attention_bwd_plain(qkv, g, lse, heads, scale, mask),
                _bound(small + 4 * writes, flops, BF16_FLOPS))
     # the products' own ceiling in this kernel's f32 CUDA-core arithmetic
-    simt = {"fwd": fwd_flops, "dkv": 8 * b * heads * n * n * d, "dq": 6 * b * heads * n * n * d}
+    # (every (query, key) pair, masked or not, is computed)
+    full = b * heads * n * n * d
+    simt = {"fwd": 4 * full, "dkv": 8 * full, "dq": 6 * full}
     print("  f32 CUDA-core ceiling of K1's products: " + ", ".join(
         f"{k} {f / F32_FLOPS * 1e3:.4f} ms" for k, f in simt.items()), flush=True)
 
@@ -501,18 +618,19 @@ def k1_kernel_phase(results, b, n, heads=6, d=80):
 
     def k1_run():
         xk.grad = None
-        fqa.fused_qkv_attention(xk, heads).backward(g)
+        fqa.fused_qkv_attention(xk, heads, mask).backward(g)
 
     def plain_run():
-        _, lse_run = fqa.attention_fwd_plain(qkv, heads, scale)
-        fqa.attention_bwd_plain(qkv, g, lse_run, heads, scale)
+        _, lse_run = fqa.attention_fwd_plain(qkv, heads, scale, mask)
+        fqa.attention_bwd_plain(qkv, g, lse_run, heads, scale, mask)
 
     def sdpa_run():
         for t in xs:
             t.grad = None
-        F.scaled_dot_product_attention(*xs, scale=scale).backward(g_heads)
+        F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale).backward(g_heads)
 
-    sdpa_out = F.scaled_dot_product_attention(*xs, scale=scale)  # the graph the backward reuses
+    # the graph the backward reuses
+    sdpa_out = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, g_heads, retain_graph=True)  # noqa: E731
     return {"K1": _time_ms(k1_run), "plain": _time_ms(plain_run), "sdpa": _time_ms(sdpa_run),
             "sdpa_bwd": _time_ms(sdpa_bwd)}
@@ -532,15 +650,16 @@ def _k4_ops(bins):
     return constrain + search + solve
 
 
-def k4_kernel_phase(results):
-    """K4 against its plain version at the ds2 cINN sampling shape: y (BATCH,
-    3240) ~ 6 N(0, 1) and theta (BATCH, 3240, 31) ~ N(0, 1), so that points
-    fall in every bin and in both tails; x and the log-determinant are each
-    held to TOL against their own scale. Then, untimed, the softmax branch
-    (identity tails) with domain clamping at a small shape, and two launches
-    that must agree bit for bit."""
+def k4_kernel_phase(results, d, other_branch=True):
+    """K4 against its plain version at a cINN sampling shape: y (BATCH, d)
+    ~ 6 N(0, 1) and theta (BATCH, d, 31) ~ N(0, 1) (ds2 d = 3240, ds3
+    20250), so that points fall in every bin and in both tails; x and the
+    log-determinant are each held to TOL against their own scale, and two
+    launches must agree bit for bit. With ``other_branch``, then, untimed,
+    the softmax branch (identity tails) with domain clamping at a small
+    shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    b, d, bins = BATCH, 3240, 10
+    b, bins = BATCH, 10
     spline = (bins, (0.001, 0.001), (-8.0, 8.0, -8.0, 8.0), False, None)
     y = _rand(gen, b, d, std=6.0)
     theta = _rand(gen, b, d, 3 * bins + 1)
@@ -548,13 +667,15 @@ def k4_kernel_phase(results):
     pla = lambda: fsp.inverse_plain(y, theta, *spline)  # noqa: E731
     out, ref = ker(), pla()
     nbytes = 4 * (y.numel() + theta.numel() + out[0].numel() + out[1].numel())
-    # one K4 launch (~0.07 ms) is as short as the host's work for one call
+    # one K4 launch (~0.07 ms at ds2) is as short as the host's work for one call
     _check("binned_rqs_inverse", out, ref, results, ker, pla,
            _bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS), inner=10)
     again = ker()
     torch.cuda.synchronize()
     if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
         raise PhaseError("binned_rqs_inverse: two launches on the same inputs differ")
+    if not other_branch:
+        return
 
     other = (bins, (0.001, 0.001), (-8.0, 8.0, -8.0, 8.0), True, 15.0)
     y2, theta2 = _rand(gen, 16, 1000, std=6.0), _rand(gen, 16, 1000, 3 * bins)
@@ -570,12 +691,20 @@ def k4_kernel_phase(results):
                              "identity-tails branch")
 
 
-def _binning_xml(path: Path):
-    """ds2 geometry: 45 layers of 16 alpha x 9 radial bins (6480 voxels)."""
-    r_edges = ",".join(str(v) for v in (0, 4, 8, 13, 19, 27, 38, 54, 80, 150))
-    layers = [f'    <Layer id="{i}" r_edges="{r_edges}" n_bin_alpha="16"/>' for i in range(45)]
+def _binning_xml(path: Path, geometry: str):
+    """45 layers of a geometry's alpha x radial bins (ds2: 16 x 9 = 6480
+    voxels; ds3: 50 x 18 = 40500)."""
+    n_alpha, r_edges = GEOMETRY[geometry]
+    edges = ",".join(str(v) for v in r_edges)
+    layers = [f'    <Layer id="{i}" r_edges="{edges}" n_bin_alpha="{n_alpha}"/>'
+              for i in range(45)]
     path.write_text("\n".join(['<Bins>', '  <Particle name="electron">', *layers,
                                '  </Particle>', '</Bins>']))
+
+
+def _voxels(geometry: str) -> int:
+    n_alpha, r_edges = GEOMETRY[geometry]
+    return 45 * n_alpha * (len(r_edges) - 1)
 
 
 def _transforms(cfg: dict, data_dir: Path, run_dir: Path):
@@ -602,26 +731,27 @@ def _randomize(model, gen, std=0.02):
                 p.copy_(std * noise)
 
 
-def _run_dirs(tmp: Path, shape_cfg: dict):
-    """(shape transforms, energy transforms) on the ds2 geometry with
-    synthetic statistics in the run dirs under ``tmp``."""
+def _run_dirs(tmp: Path, geometry: str, shape_cfg: dict, energy_cfg: dict):
+    """(shape transforms, energy transforms) on a geometry ("ds2" or
+    "ds3") with synthetic statistics in the run dirs under ``tmp``."""
     data_dir, shape_dir, energy_dir = tmp / "data", tmp / "shape_run", tmp / "energy_run"
     for d in (data_dir, shape_dir, energy_dir):
         d.mkdir()
-    _binning_xml(data_dir / "binning_dataset_2.xml")
+    _binning_xml(data_dir / f"binning_dataset_{geometry[-1]}.xml", geometry)
     rng = np.random.default_rng(SEED)
     np.save(shape_dir / "means.npy", np.float32(-9.0))
     np.save(shape_dir / "stds.npy", np.float32(4.0))
     np.save(energy_dir / "means_u.npy", rng.normal(0.0, 0.3, 45).astype(np.float32))
     np.save(energy_dir / "stds_u.npy", rng.uniform(0.8, 1.5, 45).astype(np.float32))
     return (_transforms(shape_cfg, data_dir, shape_dir),
-            _transforms(DS2_ENERGY_TRANSFORMS, data_dir, energy_dir))
+            _transforms(energy_cfg, data_dir, energy_dir))
 
 
-def _serve(generator, counters):
+def _serve(generator, counters, voxels):
     """REQUESTS requests of BATCH showers through ``sample_showers``, each
-    checked (shape, finite, non-negative); the counters are set to 0 just
-    before and read just after. Returns (launches, seconds per request)."""
+    checked (shape (BATCH, voxels), finite, non-negative); the counters are
+    set to 0 just before and read just after. Returns (launches, seconds
+    per request)."""
     for c in counters.values():
         c.reset()
     times, showers = [], None
@@ -633,8 +763,8 @@ def _serve(generator, counters):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         bad = []
-        if showers.shape != (BATCH, 6480):
-            bad.append(f"shape {showers.shape}")
+        if showers.shape != (BATCH, voxels):
+            bad.append(f"shape {showers.shape}, expected {(BATCH, voxels)}")
         if not np.isfinite(showers).all():
             bad.append("non-finite values")
         if (showers < 0).any():
@@ -672,77 +802,85 @@ def _compare_generators(kern, plain, noise, counters):
         raise PhaseError("kernel generator disagrees with the composed plain generator")
 
 
-def slice_phase(tmp: Path):
-    shape_tf, energy_tf = _run_dirs(tmp, DS2_SHAPE_TRANSFORMS)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    shape_model = instantiate(DS2_SHAPE_MODEL).cuda().eval()
-    energy_model = instantiate(DS2_ENERGY_MODEL).cuda().eval()
+def _models(shape_cfg, energy_cfg, seed):
+    """The shape and energy models on the card in eval mode, with random
+    weights from ``seed`` (final layers included, so that nothing is 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape_model = instantiate(shape_cfg).cuda().eval()
+    energy_model = instantiate(energy_cfg).cuda().eval()
     _randomize(shape_model, gen)
     _randomize(energy_model, gen)
+    return shape_model, energy_model, gen
+
+
+def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg):
+    """A CFM shape model (ds2, ds3, or ds2 with ``causal_attn``) behind its
+    energy model at full width: REQUESTS requests with every kernel counted
+    on every net eval, then the composed plain generator (plain attention,
+    masked where the model is: ``auto`` would launch K1 from 128 tokens) on
+    the same noise. Energy stage: f32 kernel vs f32 composed -> u and layer
+    energies agree to ~1e-4; shape stage: bf16 multiplicands over 80 evals
+    -> 5e-2 of scale."""
+    shape_tf, energy_tf = _run_dirs(tmp, geometry, shape_tf_cfg, energy_tf_cfg)
+    shape_model, energy_model, gen = _models(shape_cfg, energy_cfg, SEED)
     evals = shape_model.net_evals_per_sample()
-    print(f"  shape model {shape_model.param_count()} params, energy model "
+    print(f"  shape model {shape_model.param_count()} params ({shape_model.token_shape(1)[1:]} "
+          f"tokens x patch, causal_attn {shape_model.net.cfg.causal_attn}), energy model "
           f"{energy_model.param_count()} params, {evals} net evals per model per request",
           flush=True)
     generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
-    launches, times = _serve(generator, SERVING)
-    per_eval = {"energy_decoder": 1, "vit_gemm": 2 + 4 * 6, "vit_modln": 2 * 6 + 1,
-                "vit_attention": 6}
-    for k, per in per_eval.items():
+    launches, times = _serve(generator, SERVING, _voxels(geometry))
+    for k, per in CFM_PER_EVAL.items():
         want = REQUESTS * evals * per
         if launches[k] != want:
             raise PhaseError(f"{k}: {launches[k]} launches on the main path, expected {want} "
                              f"({per} per net eval, {evals} evals, {REQUESTS} requests)")
     print(f"  launches on the main path: {launches}", flush=True)
 
-    # the same generator on the composed plain-PyTorch nets (plain attention
-    # too: `auto` would launch K1 at 135 tokens), same noise. Energy stage:
-    # f32 kernel vs f32 composed -> u and layer energies agree to ~1e-4;
-    # shape stage: bf16 multiplicands over 80 evals -> 5e-2 of scale
-    plain_shape = instantiate(_with_net_param(DS2_SHAPE_MODEL, fused_block=False,
+    plain_shape = instantiate(_with_net_param(shape_cfg, fused_block=False,
                                               attn_impl="xla")).cuda().eval()
-    plain_energy = instantiate(_with_net_param(DS2_ENERGY_MODEL, fused_block=False)).cuda().eval()
+    plain_energy = instantiate(_with_net_param(energy_cfg, fused_block=False)).cuda().eval()
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
     nb = REFERENCE_BATCH
     noise = (torch.randn(nb, 45, generator=gen, device="cuda"),
-             torch.randn(nb, 135, 48, generator=gen, device="cuda"))
+             torch.randn(shape_model.token_shape(nb), generator=gen, device="cuda"))
     _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
                         Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
                         noise, {"qkv_attn_fwd": fqa.FWD, **SERVING})
     return launches, times, generator
 
 
-def cinn_phase(tmp: Path):
-    """The ds2 cINN shape model behind the ds2 energy model, at full width
-    with random weights (final layers included, so that theta is not 0)."""
-    shape_tf, energy_tf = _run_dirs(tmp, DS2_CINN_TRANSFORMS)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    shape_model = instantiate(DS2_CINN_MODEL).cuda().eval()
-    energy_model = instantiate(DS2_ENERGY_MODEL).cuda().eval()
-    _randomize(shape_model, gen)
-    _randomize(energy_model, gen)
-    print(f"  cINN shape model {shape_model.param_count()} params (20 coupling blocks, 40 ViT1D "
-          f"subnets), energy model {energy_model.param_count()} params", flush=True)
+def cinn_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg):
+    """A cINN shape model (ds2: 20 coupling blocks, 40 ViT1D subnets of 135
+    tokens; ds3: 10 and 20 of 225) behind its energy model at full width:
+    REQUESTS requests with CINN_PER_REQUEST launches each, then the composed
+    plain generator (plain spline, plain attention, plain energy decoder;
+    all f32, so the chain tolerances hold with margin) on the same noise."""
+    shape_tf, energy_tf = _run_dirs(tmp, geometry, shape_tf_cfg, energy_tf_cfg)
+    shape_model, energy_model, gen = _models(shape_cfg, energy_cfg, SEED + 5)
+    print(f"  cINN shape model {shape_model.param_count()} params ({shape_cfg['nblocks']} "
+          f"coupling blocks, {2 * shape_cfg['nblocks']} ViT1D subnets), energy model "
+          f"{energy_model.param_count()} params", flush=True)
     generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
-    launches, times = _serve(generator, CINN)
-    want = {k: REQUESTS * per for k, per in CINN_PER_REQUEST.items()}
+    launches, times = _serve(generator, CINN, _voxels(geometry))
+    per_request = CINN_PER_REQUEST[geometry]
+    want = {k: REQUESTS * per for k, per in per_request.items()}
     if launches != want:
         raise PhaseError(f"cinn: launches {launches} on the main path, expected {want} "
-                         f"({CINN_PER_REQUEST} per request, {REQUESTS} requests)")
+                         f"({per_request} per request, {REQUESTS} requests)")
     print(f"  launches on the main path: {launches}", flush=True)
 
-    # the composed plain generator: plain spline, plain attention, plain
-    # energy decoder; all f32, so the chain tolerances hold with margin
-    plain_cfg = dict(DS2_CINN_MODEL,
-                     cinn_kwargs=dict(DS2_CINN_MODEL["cinn_kwargs"], fused_spline=False),
-                     vit_kwargs=dict(DS2_CINN_MODEL["vit_kwargs"], attn_impl="xla"))
+    plain_cfg = dict(shape_cfg,
+                     cinn_kwargs=dict(shape_cfg["cinn_kwargs"], fused_spline=False),
+                     vit_kwargs=dict(shape_cfg["vit_kwargs"], attn_impl="xla"))
     plain_shape = instantiate(plain_cfg).cuda().eval()
-    plain_energy = instantiate(_with_net_param(DS2_ENERGY_MODEL, fused_block=False)).cuda().eval()
+    plain_energy = instantiate(_with_net_param(energy_cfg, fused_block=False)).cuda().eval()
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
     nb = REFERENCE_BATCH
     noise = (torch.randn(nb, 45, generator=gen, device="cuda"),
-             torch.randn(nb, 1, 45, 16, 9, generator=gen, device="cuda"))
+             torch.randn(shape_model.x_shape(nb), generator=gen, device="cuda"))
     _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
                         Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
                         noise, CINN)
@@ -773,7 +911,15 @@ def _is_gemm(key):
     return "gemm" in key or "cutlass" in key or "xmma" in key
 
 
-# device-time groups of a cINN request: (label, does a kernel name belong)
+# device-time groups of a CFM and of a cINN request: (label, does a kernel
+# name belong); K2v's attention is the shared forward writing bf16
+CFM_GROUPS = [
+    ("K2v gemm_kernel", lambda k: "gemm_kernel<" in k),
+    ("K2v attention", lambda k: "fwd_kernel<" in k and "bfloat16" in k),
+    ("K2v modln_kernel", lambda k: "modln_kernel" in k),
+    ("K3 energy_decoder", lambda k: "energy_decoder_kernel" in k),
+    ("cuBLAS products", _is_gemm),
+]
 CINN_GROUPS = [
     ("K4 binned_rqs_inverse", lambda k: "binned_rqs_inverse_kernel" in k
      or "logdet_reduce_kernel" in k),
@@ -950,15 +1096,20 @@ def train_phase(tmp: Path, card):
     return launches, exp
 
 
-def train_parity_phase(exp):
+def train_parity_phase(exp, causal=False):
     """TRAIN_PARITY_STEPS steps from one state with K1 (attn_impl auto) and
-    with the plain attention (xla), on the same batches and (t, x_0)."""
+    with the plain attention (xla), on the same batches and (t, x_0); with
+    ``causal`` the layer-causal ViT, whose mask runs through K1's masked
+    forward and backward. K1's counters are set to 0 just before and read
+    just after: each kernel must have run on every block of every step.
+    Returns (worst errors, K1 launches)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     models, states, steps = {}, {}, {}
     init = None
     for impl in ("auto", "xla"):
         torch.manual_seed(SEED)
-        model = instantiate(_with_net_param(DS2_SHAPE_MODEL, attn_impl=impl)).cuda()
+        model = instantiate(_with_net_param(DS2_SHAPE_MODEL, attn_impl=impl,
+                                            causal_attn=causal)).cuda()
         if init is None:
             _randomize(model, gen)
             init = {k: v.clone() for k, v in model.state_dict().items()}
@@ -970,7 +1121,8 @@ def train_parity_phase(exp):
             clip_grad_norm=DS2_SHAPE_TRAINING["clip_grad_norm"])
     layers, energy = exp.train_dataset.layers, exp.train_dataset.energy
     worst = {"loss": 0.0}
-    counts = fqa.FWD.launches
+    for c in TRAINING.values():
+        c.reset()
     for i in range(TRAIN_PARITY_STEPS):
         sl = slice(64 * i, 64 * (i + 1))
         x = torch.as_tensor(layers[sl], device="cuda")
@@ -980,20 +1132,23 @@ def train_parity_phase(exp):
         m = {impl: steps[impl](states[impl], (x, c, t, x_0)) for impl in steps}
         rel = abs(float(m["auto"]["loss"]) - float(m["xla"]["loss"])) / abs(float(m["xla"]["loss"]))
         worst["loss"] = max(worst["loss"], rel)
-    if fqa.FWD.launches - counts != 6 * TRAIN_PARITY_STEPS:
-        raise PhaseError("train parity: the auto model did not run K1 on every block")
+    launches = {k: c.launches for k, c in TRAINING.items()}
+    if launches != {k: 6 * TRAIN_PARITY_STEPS for k in TRAINING}:
+        raise PhaseError(f"train parity: K1 launches {launches}, expected 6 blocks x "
+                         f"{TRAIN_PARITY_STEPS} steps of each kernel")
     pk, pp = (dict(models[i].named_parameters()) for i in ("auto", "xla"))
     worst["param_abs"] = max((pk[n] - pp[n]).abs().max().item() for n in pp)
     du = torch.cat([(pk[n] - init[n]).flatten() for n in pp])
     dp = torch.cat([(pp[n] - init[n]).flatten() for n in pp])
     worst["update_rel"] = ((du - dp).norm() / dp.norm()).item()
     ok = all(worst[k] <= TRAIN_TOL[k] for k in TRAIN_TOL)
-    print(f"  {TRAIN_PARITY_STEPS} steps, K1 vs plain attention: loss rel {worst['loss']:.3e}, "
+    print(f"  {TRAIN_PARITY_STEPS} steps, K1 vs plain attention{' (masked)' if causal else ''}: "
+          f"K1 launches {launches}, loss rel {worst['loss']:.3e}, "
           f"param max abs {worst['param_abs']:.3e}, update rel {worst['update_rel']:.3e} "
           f"(bounds {TRAIN_TOL}) {'ok' if ok else 'FAILED'}", flush=True)
     if not ok:
         raise PhaseError("train parity: K1 training disagrees with the plain attention")
-    return worst
+    return worst, launches
 
 
 def energy_phase(tmp: Path):
@@ -1053,87 +1208,109 @@ def main() -> int:
     compiled = _cuda.build()
     print(f"build: {time.perf_counter() - t0:.2f} s ({compiled or 'all current'})", flush=True)
 
-    results: dict = {}
+    # kernel results by shape group; "main" holds each kernel's first shape
+    groups = {g: {} for g in SHAPE_GROUPS}
     print("kernels vs plain versions (ds2 sampling shapes, batch 256):", flush=True)
-    serving_kernel_phases(results)
+    k3_kernel_phase(groups["main"])
+    k2v_kernel_phase(groups["main"], 135, 48)
     print("K1 vs plain, ds2 training shape: qkv (64, 135, 1440) f32, 6 heads x 80", flush=True)
-    k1_ms = k1_kernel_phase(results, 64, 135)
-    ds3: dict = {}
+    k1_ms = {"ds2 training shape": k1_kernel_phase(groups["main"], 64, 135)}
     print("K1 vs plain, ds3 token count: qkv (16, 450, 1440) f32, 6 heads x 80", flush=True)
-    k1_ms_ds3 = k1_kernel_phase(ds3, 16, 450)
+    k1_ms["N=450"] = k1_kernel_phase(groups["n450"], 16, 450)
     print("K4 vs plain, ds2 cINN sampling shape: y (256, 3240), theta (256, 3240, 31) f32",
           flush=True)
-    k4_kernel_phase(results)
-    cinn_k1: dict = {}
-    print("K1 forward vs plain, cINN subnet shape: qkv (256, 135, 576) f32, 4 heads x 48",
+    k4_kernel_phase(groups["main"], 3240)
+    print("K1 forward vs plain, ds2 cINN subnet shape: qkv (256, 135, 576) f32, 4 heads x 48",
           flush=True)
-    k1_fwd_phase(cinn_k1, BATCH, 135, 4, 48)
-    failed = [k for r in (results, ds3, cinn_k1) for k, v in r.items() if not v["ok"]]
+    k1_fwd_phase(groups["cinn"], BATCH, 135, 4, 48)
+    print("K2v vs plain versions, ds3 sampling shapes: tokens (256, 450, 90), qkv (256, 450, "
+          "1440), unmasked", flush=True)
+    k2v_kernel_phase(groups["ds3"], 450, 90)
+    print("K1 forward vs plain, ds3 cINN subnet shape: qkv (256, 225, 576) f32, 4 heads x 48",
+          flush=True)
+    k1_fwd_phase(groups["ds3"], BATCH, 225, 4, 48)
+    print("K4 vs plain, ds3 cINN sampling shape: y (256, 20250), theta (256, 20250, 31) f32",
+          flush=True)
+    k4_kernel_phase(groups["ds3"], 20250, other_branch=False)
+    mask = _causal_mask((15, 1, 9))
+    print("K2v attention and forward vs plain, ds2 with the layer-causal mask of (15, 1, 9)",
+          flush=True)
+    k2v_kernel_phase(groups["causal"], 135, 48, mask=mask, gemms=False)
+    print("K1 vs plain, ds2 training shape with the layer-causal mask of (15, 1, 9)", flush=True)
+    k1_ms["ds2 training shape, masked"] = k1_kernel_phase(groups["causal"], 64, 135, mask=mask)
+    del mask
+    failed = [f"{k} ({g})" for g, r in groups.items() for k, v in r.items() if not v["ok"]]
     if failed:
         raise PhaseError(f"kernels disagree with their plain versions: {failed}")
-    for label, res in (("", results), (" at N=450", ds3), (" at the cINN subnet shape", cinn_k1)):
+    for g, res in groups.items():
         for k, r in res.items():
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
             bound = "" if k not in REPLACES else \
                 f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-            print(f"  {k}{label}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{lib}{bound} "
-                  f"({card})", flush=True)
-    for label, ms in (("ds2 training shape", k1_ms), ("N=450", k1_ms_ds3)):
+            print(f"  {k} [{SHAPE_GROUPS[g]}]: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
+                  f"{lib}{bound} ({card})", flush=True)
+    for label, ms in k1_ms.items():
         print(f"  K1 forward + backward through autograd, {label}: K1 {ms['K1']:.4f} ms, plain "
               f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms; SDPA backward alone "
               f"{ms['sdpa_bwd']:.4f} ms ({card})", flush=True)
 
-    print("slice: ds2 two-stage generator at full width", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        launches, times, generator = slice_phase(Path(tmp))
-        print(f"slice: {BATCH * len(times) / sum(times):.2f} showers/s over all {len(times)} "
-              f"requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady (first "
-              f"request excluded); batch {BATCH}, requests {[round(t, 4) for t in times]} s; "
-              f"on {card}", flush=True)
-        print("profile: one more request, by layer", flush=True)
-        profile_phase(generator, card)
-        del generator
-
-    with tempfile.TemporaryDirectory() as tmp:
-        print("cinn: ds2 two-stage generator with the cINN shape model at full width", flush=True)
-        cinn_launches, times, generator = cinn_phase(Path(tmp))
-        print(f"cinn: {BATCH * len(times) / sum(times):.2f} showers/s over all {len(times)} "
-              f"requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady (first "
-              f"request excluded); batch {BATCH}, requests {[round(t, 4) for t in times]} s; "
-              f"on {card}", flush=True)
-        print("cinn profile: one more request, by layer and by kernel", flush=True)
-        profile_phase(generator, card, groups=CINN_GROUPS)
-        del generator
+    # each path runs with the counters set to 0 just before and read just
+    # after; launches[path] = {kernel: launches}
+    launches = {}
+    serving = [
+        ("ds2_cfm", "ds2 CFM", cfm_phase, "ds2", DS2_SHAPE_MODEL, DS2_ENERGY_MODEL,
+         DS2_SHAPE_TRANSFORMS, DS2_ENERGY_TRANSFORMS, CFM_GROUPS),
+        ("ds2_cinn", "ds2 cINN", cinn_phase, "ds2", DS2_CINN_MODEL, DS2_ENERGY_MODEL,
+         DS2_CINN_TRANSFORMS, DS2_ENERGY_TRANSFORMS, CINN_GROUPS),
+        ("ds3_cfm", "ds3 CFM", cfm_phase, "ds3", DS3_SHAPE_MODEL, DS3_ENERGY_MODEL,
+         DS3_SHAPE_TRANSFORMS, DS3_ENERGY_TRANSFORMS, CFM_GROUPS),
+        ("ds3_cinn", "ds3 cINN", cinn_phase, "ds3", DS3_CINN_MODEL, DS3_ENERGY_MODEL,
+         DS3_CINN_TRANSFORMS, DS3_ENERGY_TRANSFORMS, CINN_GROUPS),
+        ("causal_cfm", "ds2 CFM, layer-causal ViT", cfm_phase, "ds2",
+         _with_net_param(DS2_SHAPE_MODEL, causal_attn=True), DS2_ENERGY_MODEL,
+         DS2_SHAPE_TRANSFORMS, DS2_ENERGY_TRANSFORMS, CFM_GROUPS),
+    ]
+    for path, label, phase, geometry, *cfgs, prof_groups in serving:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(f"{path}: {label} two-stage generator at full width", flush=True)
+            launches[path], times, generator = phase(Path(tmp), geometry, *cfgs)
+            print(f"{path}: {BATCH * len(times) / sum(times):.2f} showers/s over all "
+                  f"{len(times)} requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady "
+                  f"(first request excluded); batch {BATCH}, requests "
+                  f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
+            print(f"{path} profile: one more request, by layer and by kernel", flush=True)
+            profile_phase(generator, card, groups=prof_groups)
+            del generator
+            torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
-        _binning_xml(Path(tmp) / "data" / "binning_dataset_2.xml")
-        print("train: ds2 shape model at full width through the CaloChallenge experiment",
+        _binning_xml(Path(tmp) / "data" / "binning_dataset_2.xml", "ds2")
+        print("ds2_train: ds2 shape model at full width through the CaloChallenge experiment",
               flush=True)
-        train_launches, exp = train_phase(Path(tmp), card)
+        launches["ds2_train"], exp = train_phase(Path(tmp), card)
         print("train parity: K1 against the plain attention", flush=True)
         train_parity_phase(exp)
+        print("causal_train: train parity of the layer-causal ViT, K1 masked against the plain "
+              "masked attention", flush=True)
+        _, launches["causal_train"] = train_parity_phase(exp, causal=True)
         print("train profile: one ds2 train step", flush=True)
         train_profile_phase(exp, card)
         del exp
         print("energy: ds2 energy model at full width", flush=True)
         energy_phase(Path(tmp))
-    launches.update(train_launches)
-    launches["binned_rqs_inverse"] = cinn_launches["binned_rqs_inverse"]
 
-    summary = [{"name": k, "route": "cuda", "source": REPLACES[k][0], "replaces": REPLACES[k][1],
-                "launches": launches[k], "max_abs_err": results[k]["max_abs_err"],
-                "tolerance": TOL[k], "ok": results[k]["ok"], "ms": results[k]["ms"],
-                "plain_ms": results[k]["plain_ms"], "bound_ms": results[k]["bound_ms"],
-                "bound_by": results[k]["bound_by"], "library_ms": results[k]["library_ms"]}
-               for k in REPLACES]
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
-    for entry in summary:
-        if entry["name"] in ds3:
-            entry["n450"] = {k: ds3[entry["name"]][k] for k in keys}
-        if entry["name"] in cinn_k1:  # K1 forward at the cINN subnet shape, on the cINN path
-            entry["cinn"] = {"launches": cinn_launches[entry["name"]],
-                             **{k: cinn_k1[entry["name"]][k] for k in keys}}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    summary = []
+    for k in REPLACES:
+        main_r = groups["main"][k]
+        by_path = {p: n[k] for p, n in launches.items() if k in n}
+        summary.append({
+            "name": k, "route": "cuda", "source": REPLACES[k][0], "replaces": REPLACES[k][1],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "tolerance": TOL[k], "ok": main_r["ok"], **{key: main_r[key] for key in keys},
+            "shapes": {SHAPE_GROUPS[g]: {key: r[k][key] for key in keys}
+                       for g, r in groups.items() if g != "main" and k in r}})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,10 +5,12 @@ CPU tests: the same numpy qkv panel goes through JAX ``fused_qkv_attention``
 (its Pallas kernels in interpret mode, f32, as tests/test_attention.py runs
 them) and the port's ``fused_qkv_attention`` (its plain versions through the
 ``autograd.Function``). The context, the per-head log-sum-exp and the
-gradient of sum(out^2) are compared. Tolerances: forward atol 2e-5 (f32 on
-both sides, summation order only, as tests/test_attention.py holds the JAX
-kernel to XLA); gradients atol 1e-4 (the 5-product backward adds two more
-f32 reductions over N).
+gradient of sum(out^2) are compared, unmasked and with a shared (N, N)
+mask: the layer-causal mask of a (2, 2, 3) token grid, and a mask with one
+wholly masked row (whose context is the mean of V). Tolerances: forward
+atol 2e-5 (f32 on both sides, summation order only, as
+tests/test_attention.py holds the JAX kernel to XLA); gradients atol 1e-4
+(the 5-product backward adds two more f32 reductions over N).
 
 CUDA tests (marker ``cuda``) hold each hand-written kernel against its plain
 version on the card; they skip without one. On the card (no JAX there):
@@ -29,6 +31,7 @@ except ModuleNotFoundError:
 
 from vit4hep_tpu_torch.ops import attention as tattn
 from vit4hep_tpu_torch.ops import fused_qkv_attention as tfqa
+from vit4hep_tpu_torch.ops.pos_embed import layer_causal_mask
 
 
 @pytest.fixture
@@ -77,6 +80,52 @@ def test_fused_qkv_attention_masked_matches_jax_interpret():
     np.testing.assert_allclose(grad.numpy(), np.asarray(grad_j), atol=1e-4)
 
 
+def _one_dead_row(n, row=3):
+    """A causal mask whose row ``row`` attends to no key."""
+    mask = np.tril(np.ones((n, n), bool))
+    mask[row] = False
+    return mask
+
+
+MASKS = {"layer_causal": lambda n: layer_causal_mask((2, 2, 3)), "dead_row": _one_dead_row}
+
+
+# d = 80 takes the TPU's per-head body (_fused_kernel_masked), d = 16 its
+# head-packed body (_packed_kernel_masked, d <= 64); N = 12 tokens
+@pytest.mark.parametrize("d", [80, 16], ids=["per_head-d80", "packed-d16"])
+@pytest.mark.parametrize("mask_name", sorted(MASKS))
+def test_masked_fused_qkv_attention_matches_jax_interpret(d, mask_name):
+    b, n, h = 2, 12, 2
+    qkv = _qkv(np.random.default_rng(37), b, n, h, d)
+    mask = MASKS[mask_name](n)
+    jmask = jnp.asarray(mask)
+    out_j, (_, _, lse_j) = jfqa._fused_fwd(jnp.asarray(qkv), h, jmask)
+    grad_j = jax.grad(lambda x: jnp.sum(jfqa.fused_qkv_attention(x, h, jmask) ** 2))(
+        jnp.asarray(qkv))
+    x = torch.from_numpy(qkv).requires_grad_()
+    out = tfqa.fused_qkv_attention(x, h, torch.from_numpy(mask))
+    (grad,) = torch.autograd.grad((out ** 2).sum(), x)
+    _, lse = tfqa.attention_fwd_plain(torch.from_numpy(qkv), h, d ** -0.5, torch.from_numpy(mask))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=2e-5)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(grad_j), atol=1e-4)
+    if mask_name == "dead_row":  # the wholly masked row attends to every key equally
+        v = qkv[..., 2 * h * d:].reshape(b, n, h, d)
+        np.testing.assert_allclose(out.detach().numpy()[:, 3].reshape(b, h, d), v.mean(1),
+                                   atol=2e-5)
+
+
+def test_mask_is_validated():
+    """The mask must be a bool (N, N) on qkv's device."""
+    qkv = torch.zeros(1, 12, 3 * 2 * 8)
+    for bad in (torch.ones(12, 12), torch.ones(12, 11, dtype=torch.bool),
+                torch.ones(12, 12, dtype=torch.bool, device="meta")):
+        with pytest.raises(ValueError, match="mask"):
+            tfqa.fused_qkv_attention(qkv, 2, bad)
+    with pytest.raises(ValueError, match="shared"):
+        tfqa.fused_qkv_attention(qkv, 2, torch.ones(1, 12, 12, dtype=torch.bool))
+
+
 def test_plain_backward_is_the_vjp_of_plain_forward():
     """attention_bwd_plain (from the lse, as the kernels do) equals autograd
     through the plain forward, with a scale override."""
@@ -115,16 +164,18 @@ def test_dispatch_routes_auto_by_length(monkeypatch):
 
 
 def test_unported_kernels_raise_on_the_card_and_run_plain_on_cpu():
-    """flash / vmem (K6-K8) and the masked K1 are not ported: a tensor off the
-    CPU (here the meta device) raises, a CPU tensor runs the plain version."""
+    """flash / vmem (K6-K8) are not ported: a tensor off the CPU (here the
+    meta device) raises, a CPU tensor runs the plain version. A masked K1
+    call off the CPU goes to the kernel wrapper, never to the plain
+    version: on the meta device the wrapper refuses it."""
     meta = torch.zeros(1, 300, 3 * 2 * 8, device="meta")
     for impl in ("flash", "vmem"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tattn.qkv_attention(meta, 2, impl=impl)
     with pytest.raises(NotImplementedError, match="ROADMAP"):  # auto picks vmem at 300
         tattn.dot_product_attention(*(torch.zeros(1, 2, 300, 8, device="meta"),) * 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfqa.fused_qkv_attention(meta, 2, torch.ones(300, 300, dtype=torch.bool))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tfqa.fused_qkv_attention(meta, 2, torch.ones(300, 300, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tfqa.attention_fwd_kernel(torch.zeros(1, 300, 48), 2, 0.25)
     qkv = torch.from_numpy(_qkv(np.random.default_rng(35), 1, 300, 2, 8))
@@ -190,6 +241,54 @@ def test_autograd_launches_the_kernels_on_cuda(cuda_device):
         (tfqa.FWD, tfqa.BWD_DELTA, tfqa.BWD_DKV, tfqa.BWD_DQ), counts)] == [1, 1, 1, 1]
     x = qkv.detach().requires_grad_()
     ref = tattn.qkv_attention(x, h, impl="xla")
+    (grad_p,) = torch.autograd.grad((ref ** 2).sum(), x)
+    _close(out, ref)
+    _close(grad, grad_p)
+
+
+def _kernel_mask(name, n, device):
+    if name == "layer_causal":  # ds2's (15, 1, 9) token grid at N = 135
+        grid = (15, 1, 9) if n == 135 else (n // 5, 1, 5)
+        return torch.from_numpy(layer_causal_mask(grid)).to(device)
+    return torch.from_numpy(_one_dead_row(n, row=n // 2)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,d", [(4, 135, 6, 80), (2, 130, 4, 48), (2, 70, 2, 33)])
+@pytest.mark.parametrize("mask_name", ["layer_causal", "dead_row"])
+def test_masked_kernels_match_plain_on_cuda(cuda_device, b, n, h, d, mask_name):
+    """Each masked kernel against its plain version; every launch counted."""
+    rng = np.random.default_rng(41)
+    qkv = torch.from_numpy(_qkv(rng, b, n, h, d)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(b, n, h * d)).astype(np.float32)).to(cuda_device)
+    mask = _kernel_mask(mask_name, n, cuda_device)
+    scale = d ** -0.5
+    counters = (tfqa.FWD, tfqa.BWD_DELTA, tfqa.BWD_DKV, tfqa.BWD_DQ)
+    counts = [c.launches for c in counters]
+    out, lse = tfqa.attention_fwd_kernel(qkv, h, scale, mask)
+    out_p, lse_p = tfqa.attention_fwd_plain(qkv, h, scale, mask)
+    dqkv = tfqa.attention_bwd_kernel(qkv, g, out, lse, h, scale, mask)
+    torch.cuda.synchronize()
+    assert [c.launches - k for c, k in zip(counters, counts)] == [1, 1, 1, 1]
+    _close(out, out_p)
+    _close(lse, lse_p)
+    _close(dqkv, tfqa.attention_bwd_plain(qkv, g, lse_p, h, scale, mask))
+
+
+@pytest.mark.cuda
+def test_masked_autograd_launches_the_kernels_on_cuda(cuda_device):
+    """The masked dispatch (auto, 135 tokens) runs K1 forward and backward."""
+    b, n, h, d = 2, 135, 6, 80
+    mask = _kernel_mask("layer_causal", n, cuda_device)
+    qkv = torch.randn(b, n, 3 * h * d, device=cuda_device, requires_grad=True)
+    counters = (tfqa.FWD, tfqa.BWD_DELTA, tfqa.BWD_DKV, tfqa.BWD_DQ)
+    counts = [c.launches for c in counters]
+    out = tattn.qkv_attention(qkv, h, mask)
+    (grad,) = torch.autograd.grad((out ** 2).sum(), qkv)
+    torch.cuda.synchronize()
+    assert [c.launches - k for c, k in zip(counters, counts)] == [1, 1, 1, 1]
+    x = qkv.detach().requires_grad_()
+    ref = tattn.qkv_attention(x, h, mask, impl="xla")
     (grad_p,) = torch.autograd.grad((ref ** 2).sum(), x)
     _close(out, ref)
     _close(grad, grad_p)

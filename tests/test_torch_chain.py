@@ -3,12 +3,15 @@ hygiene and the config surface.
 
 - Generator (vit4hep_tpu_torch.utils.serving) against the JAX
   ``make_fused_generate`` on a tiny ds2-like geometry (6 layers x 4 alpha x 3
-  radial bins, tiny ViT and energy transformer, both ``fused_block: sample``)
-  with the JAX params converted and the very noise JAX draws. ``step_size:
-  0.25`` keeps the JAX interpret-mode kernels quick; the ODE rule is the
-  same. Then the port's MeV output against the JAX staged inverse of the JAX
-  sample.
-- The port imports no JAX; chip_smoke.py's ds2 dicts equal the YAML configs.
+  radial bins, patch (3, 4, 1), tiny ViT and energy transformer, both
+  ``fused_block: sample``) with the JAX params converted and the very noise
+  JAX draws. ``step_size: 0.25`` keeps the JAX interpret-mode kernels quick;
+  the ODE rule is the same. Then the port's MeV output against the JAX staged
+  inverse of the JAX sample. The same on a ds3-like geometry (6 x 4 x 6,
+  patch (3, 2, 3): every patch dim > 1, as ds3's (3, 10, 3)), plain and with
+  the layer-causal ViT.
+- The port imports no JAX; chip_smoke.py's ds2 and ds3 dicts equal the YAML
+  configs; the composed ds3 models have JAX's parameter counts.
 """
 
 import importlib.util
@@ -45,11 +48,11 @@ L, A, R = 6, 4, 3
 ODE = {"method": "rk4", "options": {"step_size": 0.25}}
 
 
-def _shape_param():
-    return dict(dim=3, condition_dim=L + 1, hidden_dim=24, out_channels=1, depth=2,
-                num_heads=2, mlp_ratio=2, pos_embedding_coords="cylindrical",
-                learn_pos_embed=True, causal_attn=False, num_patches=[[2, 1, 3]],
-                patch_dim=12, attn_impl="auto", fused_block="sample")
+def _shape_param(**kw):
+    return dict(dict(dim=3, condition_dim=L + 1, hidden_dim=24, out_channels=1, depth=2,
+                     num_heads=2, mlp_ratio=2, pos_embedding_coords="cylindrical",
+                     learn_pos_embed=True, causal_attn=False, num_patches=[[2, 1, 3]],
+                     patch_dim=12, attn_impl="auto", fused_block="sample"), **kw)
 
 
 def _energy_param():
@@ -58,12 +61,15 @@ def _energy_param():
                 encode_t_dim=16, encode_t_scale=30, fused_block="sample", fused_group=8)
 
 
-def _pipelines(tmp_path):
+def _pipelines(tmp_path, radial=R, standardize=None):
     """The ds2 transform chains of configs/calochallenge/cfm/calochallenge_ds2*.yaml
-    at the tiny geometry, with fitted statistics written to the run dirs:
-    ``(port, jax)``, each a ``(shape_tf, energy_tf)`` pair of the same steps
-    built by each package."""
-    xml = make_binning_xml(tmp_path / "binning.xml", n_layers=L, n_r=R, n_alpha=A)
+    (ds3's with ``standardize`` ``{"model_dir": None}``, no eps) at the tiny
+    geometry of ``radial`` bins, with fitted statistics written to the run
+    dirs: ``(port, jax)``, each a ``(shape_tf, energy_tf)`` pair of the same
+    steps built by each package."""
+    a_, r_ = A, radial
+    standardize = standardize or {"model_dir": None, "eps": 1.0e-6}
+    xml = make_binning_xml(tmp_path / "binning.xml", n_layers=L, n_r=r_, n_alpha=a_)
     rng = np.random.default_rng(7)
     shape_dir, energy_dir = tmp_path / "shape", tmp_path / "energy"
     shape_dir.mkdir()
@@ -78,9 +84,9 @@ def _pipelines(tmp_path):
     shape_cfg = {
         **common, "CutValues": {"cut": 1.0e-7, "n_layers": L},
         "ExclusiveLogitTransform": {"delta": 1.0e-6, "rescale": True},
-        "GlobalStandardizeFromFile": {"model_dir": None, "eps": 1.0e-6}, **scale,
-        "AddFeaturesToCond": {"split_index": L * A * R},
-        "Reshape": {"shape": [1, L, A, R]}}
+        "GlobalStandardizeFromFile": standardize, **scale,
+        "AddFeaturesToCond": {"split_index": L * a_ * r_},
+        "Reshape": {"shape": [1, L, a_, r_]}}
     energy_cfg = {
         **common, "SelectDims": {"start": -L, "end": 0},
         "ExclusiveLogitTransform": {"delta": 1.0e-6, "rescale": True},
@@ -97,19 +103,34 @@ def _perturb(params, rng, std):
 
 
 def test_generator_matches_jax_fused_generate(tmp_path):
-    (shape_tf, energy_tf), (jshape_tf, jenergy_tf) = _pipelines(tmp_path)
+    _generator_vs_jax(tmp_path, R, [3, 4, 1], _shape_param())
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["plain", "causal"])
+def test_generator_ds3_patching_matches_jax_fused_generate(tmp_path, causal):
+    """A ds3-like patch shape: (3, 2, 3) on 6 x 4 x 6 voxels, 8 tokens of 18,
+    the radial axis split into patches (ds2 never splits it); the ds3
+    transform chain; the layer-causal ViT (``causal_attn``) through the
+    masked K2v path."""
+    _generator_vs_jax(tmp_path, 6, [3, 2, 3],
+                      _shape_param(num_patches=[[2, 2, 2]], patch_dim=18, causal_attn=causal),
+                      standardize={"model_dir": None})
+
+
+def _generator_vs_jax(tmp_path, radial, patch, shape_param, standardize=None):
+    (shape_tf, energy_tf), (jshape_tf, jenergy_tf) = _pipelines(tmp_path, radial, standardize)
     b = 4
     rng = np.random.default_rng(8)
     e_inc = 10 ** rng.uniform(3, 6, b)
 
-    jshape = JaxCaloChallengeCFM(JaxViT(_shape_param()), patch_shape=[3, 4, 1],
-                                 shape=[L, A, R], odeint_kwargs=ODE)
+    jshape = JaxCaloChallengeCFM(JaxViT(shape_param), patch_shape=patch,
+                                 shape=[L, A, radial], odeint_kwargs=ODE)
     jenergy = JaxCFM(JaxParallelTransformer(_energy_param()), shape=[L], odeint_kwargs=ODE)
     key = jax.random.PRNGKey(3)
     ps = _perturb(jshape.init_params(key), rng, 0.1)  # non-zero adaLN / final layer
     pe = _perturb(jenergy.init_params(key), rng, 0.05)
 
-    shape = CaloChallengeCFM(ViT(_shape_param()), patch_shape=[3, 4, 1], shape=[L, A, R],
+    shape = CaloChallengeCFM(ViT(shape_param), patch_shape=patch, shape=[L, A, radial],
                              odeint_kwargs=ODE)
     energy = CFM(ParallelTransformer(_energy_param()), shape=[L], odeint_kwargs=ODE)
     shape.net.load_state_dict(convert_vit_params(ps))
@@ -137,7 +158,8 @@ def test_generator_matches_jax_fused_generate(tmp_path):
     samples, conds = np.asarray(shower_j)[:, 0], np.asarray(cond_j)
     for fn in jshape_tf[::-1]:
         samples, conds = fn(samples, conds, rev=True)
-    assert mev_t.shape == (b, L * A * R) and np.isfinite(mev_t).all() and (mev_t >= 0).all()
+    assert mev_t.shape == (b, L * A * radial) and np.isfinite(mev_t).all() \
+        and (mev_t >= 0).all()
     # the inverse exponentiates (sigmoid of logits, layer energies up to
     # 1e6 MeV): relative 1e-3, and 1e-3 of the largest voxel
     np.testing.assert_allclose(mev_t, samples, rtol=1e-3, atol=1e-3 * samples.max())
@@ -202,6 +224,44 @@ def test_chip_smoke_configs_equal_yaml():
     assert smoke.DS2_CINN_MODEL == load("model/cinn/cinn_ds2_electrons.yaml")
     assert smoke.DS2_CINN_TRANSFORMS == load("calochallenge/cinn/calochallenge_ds2_noise.yaml")[
         "data"]["transforms"]
+
+
+def test_chip_smoke_ds3_configs_equal_yaml():
+    smoke = _chip_smoke()
+    load = lambda rel: yaml.safe_load((ROOT / "configs" / rel).read_text())  # noqa: E731
+    assert smoke.DS3_SHAPE_MODEL == load("model/cfm/cfm_ds3_electrons.yaml")
+    assert smoke.DS3_ENERGY_MODEL == load("model/cfm/cfm_ds3_energy.yaml")
+    assert smoke.DS3_CINN_MODEL == load("model/cinn/cinn_ds3_electrons.yaml")
+    assert smoke.DS3_SHAPE_TRANSFORMS == load("calochallenge/cfm/calochallenge_ds3.yaml")[
+        "data"]["transforms"]
+    assert smoke.DS3_CINN_TRANSFORMS == load("calochallenge/cinn/calochallenge_ds3_noise.yaml")[
+        "data"]["transforms"]
+    assert smoke.DS3_ENERGY_TRANSFORMS == load("calochallenge/cfm/calochallenge_ds3_energy.yaml")[
+        "data"]["transforms"]
+
+
+@pytest.mark.parametrize("name,count", [("calochallenge/cfm/calochallenge_ds3", 26_082_890),
+                                        ("calochallenge/cinn/calochallenge_ds3_noise", 53_510_520)],
+                         ids=["cfm", "cinn"])
+def test_ds3_models_have_the_jax_parameter_counts(name, count):
+    """The composed ds3 shape models (CFM: hidden 480, depth 6, 450 tokens x
+    90; cINN: 10 couplings, 20 ViT1D subnets of 225 tokens x 90) build the
+    port's classes with JAX's parameter counts (JAX's from jax.eval_shape)."""
+    import math
+
+    from vit4hep_tpu.utils.config import compose as jax_compose
+    from vit4hep_tpu.utils.config import instantiate as jax_instantiate
+
+    model = instantiate(compose(str(ROOT / "configs"), name, ["data_dir=/nonexistent"])["model"])
+    jmodel = jax_instantiate(jax_compose(str(ROOT / "configs"), name,
+                                         overrides=["data_dir=/nonexistent"]).model)
+    shapes = jax.eval_shape(lambda k: jmodel.init_params(k), jax.random.PRNGKey(0))
+    jcount = sum(math.prod(a.shape) for a in jax.tree.leaves(shapes))
+    assert model.param_count() == jcount == count
+    if isinstance(model, CaloChallengeCFM):
+        assert model.token_shape(2) == (2, 450, 90) and model.net.cfg.fused_block == "sample"
+    else:
+        assert model.num_patches == (15, 5, 6) and len(model.net.blocks) == 20
 
 
 def test_chip_smoke_training_configs_equal_yaml():

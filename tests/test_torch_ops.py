@@ -61,7 +61,10 @@ def test_layer_causal_mask():
     np.testing.assert_array_equal(tpe.layer_causal_mask((3, 2, 2)), jpe.layer_causal_mask((3, 2, 2)))
 
 
-@pytest.mark.parametrize("shape,patch", [((45, 16, 9), (3, 16, 1)), ((6, 4, 3), (3, 2, 1))])
+# ds2 (3, 16, 1), a tiny ds2-like shape, ds3's (3, 10, 3) patch on 45 x 50 x
+# 18 voxels and a tiny ds3-like one: every patch dim > 1 splits the radial axis
+@pytest.mark.parametrize("shape,patch", [((45, 16, 9), (3, 16, 1)), ((6, 4, 3), (3, 2, 1)),
+                                         ((45, 50, 18), (3, 10, 3)), ((6, 4, 6), (3, 2, 3))])
 def test_patching_token_order_bit_exact(shape, patch):
     x = np.random.default_rng(3).normal(size=(2, 1, *shape)).astype(np.float32)
     tok_t = tpatch.to_patches(torch.from_numpy(x), patch)
@@ -128,3 +131,25 @@ def test_trajectories_match_jax(name):
     ref = jtraj.get_trajectory(name)(*map(jnp.asarray, (x0, x1, t)))
     for a, b in zip(port, ref):
         _close(a, b, atol=1e-4, rtol=1e-5)  # vp: exp/sqrt chains, |values| up to ~1e2
+
+
+def test_kernel_library_digest_follows_included_headers(tmp_path, monkeypatch):
+    """A library's digest covers its source and every local header it
+    includes (through other headers too): editing any of them names a new
+    library, so a stale one is never loaded."""
+    from vit4hep_tpu_torch.ops import _cuda
+
+    for name in ("vit_forward", "qkv_attention"):  # K2v and K1 share the forward header
+        assert [p.name for p in _cuda.sources_of(name)] == [f"{name}.cu", "attention_fwd.cuh"]
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b = 1;\n")
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    assert [p.name for p in _cuda.sources_of("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _cuda._lib_path("k")
+    assert _cuda._lib_path("k") == first
+    (tmp_path / "b.cuh").write_text("int b = 2;\n")
+    second = _cuda._lib_path("k")
+    assert second != first and second.name.startswith("libk-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
+    assert _cuda._lib_path("k") not in (first, second)

@@ -5,8 +5,10 @@ CPU tests run at a tiny size (depth 2, hidden 48, 4 heads, 12 tokens): the
 same numpy inputs, or the JAX params converted by
 vit4hep_tpu_torch.utils.jax_params, go through the JAX function and the
 port's counterpart in float32. The JAX Pallas kernel runs in interpret mode
-(f32), as the JAX package's own tests run it here. Tolerance atol=2e-5,
-rtol=1e-5: f32 on both sides, differing only in summation order.
+(f32), as the JAX package's own tests run it here: ``_vit_kernel``, the
+masked ``_vit_kernel_masked`` with the layer-causal mask of the (2, 2, 3)
+token grid, and the grouped ``_vit_kernel_g`` at groups 2 and 4. Tolerance
+atol=2e-5, rtol=1e-5: f32 on both sides, differing only in summation order.
 
 CUDA tests (marker ``cuda``) hold each hand-written kernel against its plain
 version on the card at the ds2 shapes; they skip without one. On the card
@@ -28,6 +30,7 @@ except ModuleNotFoundError:
 
 from vit4hep_tpu_torch.models.vit import ViT, sampling_variant
 from vit4hep_tpu_torch.ops import fused_dit_block as tfdb
+from vit4hep_tpu_torch.ops.pos_embed import layer_causal_mask
 from vit4hep_tpu_torch.utils.jax_params import convert_vit_params
 
 ATOL, RTOL = 2e-5, 1e-5
@@ -74,34 +77,67 @@ def test_dit_block_plain_matches_jax_reference():
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
 
 
+CAUSAL_12 = layer_causal_mask((2, 2, 3))  # the (2, 2, 3) token grid's 12 tokens
+
+
 def test_fused_vit_forward_mask_not_ported():
-    args = [torch.from_numpy(a) for a in _vit_args(np.random.default_rng(3))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfdb.fused_vit_forward(*args, torch.ones(12, 12, dtype=torch.bool), 4, None)
+    """The masked forward (CPU path) against JAX ``_vit_kernel_masked`` in
+    interpret mode; a batched mask is refused as in JAX."""
+    args = _vit_args(np.random.default_rng(3))
+    ref = jfdb.fused_vit_forward(*args, CAUSAL_12, 4, 12 ** -0.5, 1)
+    port = tfdb.fused_vit_forward(*map(torch.from_numpy, args), torch.from_numpy(CAUSAL_12), 4,
+                                  None)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+    unmasked = tfdb.fused_vit_forward(*map(torch.from_numpy, args), None, 4, None)
+    assert (port - unmasked).abs().max() > 1e-3  # the mask changed the result
+    with pytest.raises(ValueError, match="shared"):
+        tfdb.fused_vit_forward(*map(torch.from_numpy, args),
+                               torch.ones(3, 12, 12, dtype=torch.bool), 4, None)
 
 
-def _vit_param(fused):
+@pytest.mark.parametrize("group", [2, 4])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "causal"])
+def test_fused_vit_forward_matches_jax_grouped_kernel(group, masked):
+    """JAX's grouped kernel (G elements per grid cell, block-diagonal mask,
+    batch 3 padded to a multiple of G) computes the ungrouped function,
+    which the port computes for any ``group``."""
+    args = _vit_args(np.random.default_rng(8))
+    mask = CAUSAL_12 if masked else None
+    ref = jfdb.fused_vit_forward(*args, mask, 4, 12 ** -0.5, group)
+    port = tfdb.fused_vit_forward(*map(torch.from_numpy, args),
+                                  None if mask is None else torch.from_numpy(mask), 4, None,
+                                  group)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
+
+
+def _vit_param(fused, causal=False):
     return dict(dim=3, condition_dim=5, hidden_dim=48, out_channels=1, depth=2, num_heads=4,
                 mlp_ratio=2, pos_embedding_coords="cylindrical", learn_pos_embed=True,
-                causal_attn=False, num_patches=[[2, 2, 3]], patch_dim=6, attn_impl="auto",
+                causal_attn=causal, num_patches=[[2, 2, 3]], patch_dim=6, attn_impl="auto",
                 fused_block=fused, compute_dtype="float32")
 
 
-@pytest.mark.parametrize("fused", [False, "sample"])
-def test_vitnet_matches_jax(fused):
+@pytest.mark.parametrize("fused,causal", [(False, False), ("sample", False), (False, True),
+                                          ("sample", True)],
+                         ids=["False", "sample", "False-causal", "sample-causal"])
+def test_vitnet_matches_jax(fused, causal):
     """The composed net and the `fused_block: sample` twin (the whole-ViT
-    kernel path), with non-zero adaLN and final-layer weights."""
+    kernel path), with non-zero adaLN and final-layer weights, plain and
+    layer-causal (``causal_attn``: the mask is a buffer outside the state
+    dict)."""
     rng = np.random.default_rng(4)
     x = rng.normal(size=(3, 12, 6)).astype(np.float32)
     t = rng.uniform(size=(3, 1)).astype(np.float32)
     c = rng.normal(size=(3, 5)).astype(np.float32)
-    jnet = JaxViT(_vit_param(fused))
+    jnet = JaxViT(_vit_param(fused, causal))
     params = jax.tree.map(
         lambda a: np.asarray(a, np.float32) + rng.normal(0, 0.1, a.shape).astype(np.float32),
         jnet.init(jax.random.PRNGKey(0), x, t, c))
     ref = np.asarray(jax_sampling_variant(jnet).apply(params, x, t, c))
 
-    net = ViT(_vit_param(fused))
+    net = ViT(_vit_param(fused, causal))
+    assert "attn_mask" not in net.state_dict()
+    assert (net.attn_mask is not None) == causal
     net.load_state_dict(convert_vit_params(params))
     twin = sampling_variant(net)
     assert twin.cfg.fused_block is (True if fused else False)
@@ -180,6 +216,37 @@ def test_fused_vit_forward_edge_shapes_on_cuda(cuda_device, shape, heads):
             tfdb.ATTENTION.launches - counts[2]) == (2 + 4 * depth, 2 * depth + 1, depth)
     d = shape["h"] // heads
     _bf16_close(out, tfdb.vit_forward_reference(*args, None, heads, d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,mask_grid", [(4, 450, None), (4, 135, (15, 1, 9)),
+                                           (2, 450, (15, 5, 6))],
+                         ids=["ds3", "ds2-causal", "ds3-causal"])
+def test_attention_kernel_matches_plain_on_cuda(cuda_device, b, n, mask_grid):
+    """K2v's streaming attention at ds3's 450 tokens (above what a resident
+    K/V fits) and with the layer-causal mask; each launch counted."""
+    qkv = torch.from_numpy(
+        np.random.default_rng(9).normal(size=(b, n, 1440)).astype(np.float32)).to(cuda_device)
+    mask = None if mask_grid is None else \
+        torch.from_numpy(layer_causal_mask(mask_grid)).to(cuda_device)
+    count = tfdb.ATTENTION.launches
+    ctx = tfdb.attention(qkv, 6, 80 ** -0.5, mask)
+    torch.cuda.synchronize()
+    assert tfdb.ATTENTION.launches - count == 1
+    _bf16_close(ctx, tfdb.attention_plain(qkv, 6, 80 ** -0.5, mask), rel=8e-3)
+
+
+@pytest.mark.cuda
+def test_masked_fused_vit_forward_on_cuda(cuda_device):
+    """The whole masked forward at the ds2 widths against the plain one."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in _vit_args(np.random.default_rng(10), **DS2)]
+    mask = torch.from_numpy(layer_causal_mask((15, 1, 9))).to(cuda_device)
+    count = tfdb.ATTENTION.launches
+    out = tfdb.fused_vit_forward(*args, mask, 6, None)
+    torch.cuda.synchronize()
+    assert tfdb.ATTENTION.launches - count == DS2["depth"]
+    _bf16_close(out, tfdb.vit_forward_reference(*args, mask, 6, 80 ** -0.5))
 
 
 def test_cfm_batch_loss_is_the_flow_matching_loss():

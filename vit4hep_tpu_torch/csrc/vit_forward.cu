@@ -1,8 +1,14 @@
 // Whole-ViT sampler forward for Hopper (sm_90a), as a set of kernels.
 //
-// Replaces the Pallas TPU kernel `_vit_kernel` of `fused_vit_forward`
-// (vit4hep_tpu/ops/fused_dit_block.py:1315, pallas_call at :1463): patch
-// embedding + positional add, L adaLN-Zero DiT blocks, and the FinalLayer.
+// Replaces the Pallas TPU kernels of `fused_vit_forward`
+// (vit4hep_tpu/ops/fused_dit_block.py:1362): `_vit_kernel` (:1315,
+// pallas_call at :1463), the masked `_vit_kernel_masked` (:1281) and the
+// grouped `_vit_kernel_g` (:1325, pallas_call at :1423) -- patch embedding
+// + positional add, L adaLN-Zero DiT blocks, and the FinalLayer. The
+// grouped TPU body packs G elements into one grid cell, with a
+// block-diagonal mask (`_grouped_mask`, :287) so that they do not attend to
+// each other: per element it is the ungrouped function, which these kernels
+// compute over all B*N rows at once for any G.
 //
 // What bounds it on this card: the TPU kernel keeps one element's whole
 // 6-block panel in 128 MiB of VMEM. Here one element's 135 x 480 f32
@@ -24,12 +30,11 @@
 //    + bias) in place on the f32 residual stream.
 //  - modln_kernel: LayerNorm (no affine, eps 1e-6) + adaLN modulate
 //    (1 + scale) * . + shift, one warp per row, written as bf16.
-//  - attention_kernel: one CTA per (batch, head). K and V of that head are
-//    read straight from the native (B, N, 3*H*D) qkv panel into shared
-//    memory (rows padded to D+1 floats: D = 80 is not a power of two, and
-//    lanes walking keys then hit distinct banks); each warp takes one query
-//    row at a time, f32 scores and softmax, and writes its slice of the
-//    merged (B, N, H*D) context as bf16. 94 KB of shared memory at ds2.
+//  - attention: attn::fwd_kernel<DP, bf16> of attention_fwd.cuh, the same
+//    streaming kernel as K1's forward (64-row K/V tiles, online softmax,
+//    f32, optional shared (N, N) mask), writing the merged (B, N, H*D)
+//    context as bf16 and no log-sum-exp. Its shared memory is fixed (81,920 B
+//    at d = 80) whatever N: ds3's 450 tokens run as ds2's 135 do.
 //
 // Simple first: no cp.async/TMA pipelining and no wgmma yet; those are the
 // levers for a later change.
@@ -38,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <mma.h>
+
+#include "attention_fwd.cuh"
 
 using namespace nvcuda;
 
@@ -73,12 +80,6 @@ __device__ __forceinline__ float gelu_tanh(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -176,60 +177,6 @@ __global__ void modln_kernel(const float* __restrict__ x, const float* __restric
     out[(size_t)row * H + c] = __float2bfloat16((xr[c] - mean) * rstd * (1.f + sc[c]) + sh[c]);
 }
 
-constexpr int ATT_THREADS = 256;
-constexpr int ATT_WARPS = ATT_THREADS / 32;
-
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const float* __restrict__ qkv, __nv_bfloat16* __restrict__ ctx, int n_tok,
-                 int num_heads, int head_dim, float scale) {
-  extern __shared__ float smem[];
-  const int ld = head_dim + 1;
-  float* Ks = smem;                           // (n_tok, ld)
-  float* Vs = Ks + n_tok * ld;                // (n_tok, ld)
-  float* qbuf = Vs + n_tok * ld;              // (ATT_WARPS, head_dim)
-  float* pbuf = qbuf + ATT_WARPS * head_dim;  // (ATT_WARPS, n_tok)
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int hd = num_heads * head_dim;
-  const float* base = qkv + (size_t)b * n_tok * 3 * hd;
-  for (int idx = threadIdx.x; idx < n_tok * head_dim; idx += ATT_THREADS) {
-    const int j = idx / head_dim, e = idx % head_dim;
-    Ks[j * ld + e] = base[(size_t)j * 3 * hd + hd + h * head_dim + e];
-    Vs[j * ld + e] = base[(size_t)j * 3 * hd + 2 * hd + h * head_dim + e];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* q = qbuf + warp * head_dim;
-  float* p = pbuf + warp * n_tok;
-  for (int i = warp; i < n_tok; i += ATT_WARPS) {
-    for (int e = lane; e < head_dim; e += 32) q[e] = base[(size_t)i * 3 * hd + h * head_dim + e];
-    __syncwarp();
-    float m = -INFINITY;
-    for (int j = lane; j < n_tok; j += 32) {
-      const float* k = Ks + j * ld;
-      float s = 0.f;
-      for (int e = 0; e < head_dim; ++e) s = fmaf(q[e], k[e], s);
-      s *= scale;
-      p[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < n_tok; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    __syncwarp();
-    for (int e = lane; e < head_dim; e += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < n_tok; ++j) acc = fmaf(p[j], Vs[j * ld + e], acc);
-      ctx[((size_t)b * n_tok + i) * hd + h * head_dim + e] = __float2bfloat16(acc / l);
-    }
-    __syncwarp();
-  }
-}
-
 template <typename TA>
 cudaError_t launch_gemm(const GemmArgs& g, int epi, cudaStream_t s) {
   const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
@@ -252,13 +199,6 @@ cudaError_t launch_gemm(const GemmArgs& g, int epi, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// K and V rows (padded) plus each warp's query row and probabilities; the
-// Python wrapper computes the same total (ops/fused_dit_block.attention_smem_bytes)
-long long attention_smem_bytes(int n_tok, int head_dim) {
-  return (2LL * n_tok * (head_dim + 1) + (long long)ATT_WARPS * (head_dim + n_tok)) *
-         (long long)sizeof(float);
-}
-
 }  // namespace
 
 extern "C" int vit_gemm(const void* A, int a_is_bf16, const void* W, const float* bias, void* out,
@@ -279,15 +219,11 @@ extern "C" int vit_modln(const float* x, const float* shift, const float* scale,
   return (int)cudaGetLastError();
 }
 
-extern "C" int vit_attention(const float* qkv, void* ctx, int B, int n_tok, int num_heads,
-                             int head_dim, float scale, void* stream) {
-  const long long smem = attention_smem_bytes(n_tok, head_dim);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attention_kernel<<<dim3(num_heads, B), ATT_THREADS, (size_t)smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      qkv, static_cast<__nv_bfloat16*>(ctx), n_tok, num_heads, head_dim, scale);
-  return (int)cudaGetLastError();
+extern "C" int vit_attention(const float* qkv, const unsigned char* mask, void* ctx, int B,
+                             int n_tok, int num_heads, int head_dim, float scale, void* stream) {
+  if (attn::bad_dims(B, n_tok, num_heads, head_dim)) return (int)cudaErrorInvalidValue;
+  ATTN_DISPATCH(head_dim,
+                attn::launch_fwd<DP, __nv_bfloat16>(qkv, mask, static_cast<__nv_bfloat16*>(ctx),
+                                                    nullptr, B, n_tok, num_heads, head_dim, scale,
+                                                    static_cast<cudaStream_t>(stream)))
 }

@@ -17,7 +17,12 @@ runs the embedder, every block and the FinalLayer through
 ``ops/fused_dit_block.fused_vit_forward``, forward only: the per-block adaLN
 products stay plain PyTorch, as they sit outside the Pallas kernel in JAX,
 and training through that path (``fused_block: true``/``"hybrid"`` with
-gradients enabled) needs the K5 kernels and raises.
+gradients enabled) needs the K5 kernels and raises. ``causal_attn: true``
+(the reference's layer-causal ViT) reaches the masked kernels on both
+paths: K2v's attention when sampling, K1's forward and backward when
+training. The (T, T) mask is built once, as a non-persistent buffer that
+follows the net to its device (the state dict does not change), not on
+every forward.
 
 ``ViT1D`` is the cINN coupling subnet: no time input, a 1-D learnable
 positional embedding over ``prod_num_patches`` tokens, and ``x_out``
@@ -223,13 +228,19 @@ def _check_ported(p: ViTParams):
         raise NotImplementedError("the port's ViT runs in float32")
 
 
-def _attn_mask(p: ViTParams, device):
-    """The layer-causal (T, T) mask when ``causal_attn`` is set, else None."""
-    if not p.causal_attn:
+def _attn_mask(p: ViTParams):
+    """The layer-causal (T, T) bool mask when ``causal_attn`` is set, else
+    None (also for ``dim != 3``, which the forward refuses, as JAX does)."""
+    if not p.causal_attn or p.dim != 3:
         return None
-    if p.dim != 3:
+    return torch.from_numpy(pe_ops.layer_causal_mask(p.num_patches[0]))
+
+
+def _checked_mask(net):
+    """The net's mask buffer for a forward."""
+    if net.cfg.causal_attn and net.cfg.dim != 3:
         raise ValueError("A layer-causal attention mask should only be used in 3d")
-    return torch.from_numpy(pe_ops.layer_causal_mask(p.num_patches[0])).to(device)
+    return net.attn_mask
 
 
 def _run_blocks(blocks, x, cond, mask, checkpoint_grads):
@@ -266,6 +277,7 @@ class ViTNet(nn.Module):
             DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl) for _ in range(p.depth))
         self.final_layer = FinalLayer(h, p.out_channels * p.patch_dim)
         self._grid = [torch.from_numpy(g) for g in pe_ops.create_meshgrid(p.num_patches)]
+        self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
 
     def pos_embedding(self):
         dev = self.pos_embed_freqs.device
@@ -276,7 +288,7 @@ class ViTNet(nn.Module):
         p = self.cfg
         x = x.float()
         cond = self.t_embedder(t) + self.c_embedder(c.float())
-        mask = _attn_mask(p, self.pos_embed_freqs.device)
+        mask = _checked_mask(self)
         if p.fused_block in (True, "hybrid") and not p.checkpoint_grads and not p.pad_attn_heads:
             if torch.is_grad_enabled():
                 raise NotImplementedError(
@@ -374,6 +386,7 @@ class ViT1DNet(nn.Module):
         # arange(T) / T in float32, as JAX computes it
         self.register_buffer("_grid", torch.from_numpy(
             np.arange(n, dtype=np.float32) / np.float32(n)), persistent=False)
+        self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
 
     def pos_embedding(self):
         return pe_ops.learnable_fourier_pos_embed_1d(self.pos_embed_freqs, self._grid)
@@ -381,7 +394,7 @@ class ViT1DNet(nn.Module):
     def forward(self, x, c):
         p = self.cfg
         cond = self.c_embedder(c.float())
-        mask = _attn_mask(p, self.pos_embed_freqs.device)
+        mask = _checked_mask(self)
         x = _run_blocks(self.blocks, self.x_embedder(x.float()) + self.pos_embedding(), cond,
                         mask, p.checkpoint_grads)
         return self.final_layer(x, cond)

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exports a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``vit4hep_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
-``ctypes``. The library's file name carries a digest of the source, so an
-edited source is rebuilt and a stale library is never loaded. Nothing is
+``ctypes``. The library's file name carries a digest of the source and of
+every ``csrc/`` header it includes (``#include "..."``, followed through
+headers), so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing is
 built or loaded at import time: the package imports on hosts without CUDA.
 
 Pointers and the stream go to C as ``ctypes.c_void_p``; sizes as
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,10 +51,28 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, directly or
+    through another header, in the order first reached."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1()
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, float]:

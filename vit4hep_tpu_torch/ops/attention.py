@@ -8,7 +8,11 @@ the hand-written kernels (the energy transformer's default).
 layout: ``auto`` picks ``fused`` (``ops/fused_qkv_attention``, kernel K1,
 forward and backward, on the card) from 128 tokens while the TPU kernel's
 working-set bound ``fused_fits`` holds, and the plain version below 128;
-an explicit ``fused`` beyond the bound raises ``ValueError`` as in JAX.
+an explicit ``fused`` beyond the bound raises ``ValueError`` as in JAX. A
+shared 2-D (N, N) mask keeps ``auto`` on ``fused`` (``vit4hep_tpu/ops/
+attention.py:140-150``), and K1 runs it on the card: the layer-causal ViT
+trains through the masked kernels; a batched mask goes to the plain
+version.
 ``flash`` and ``vmem``, and ``auto`` past the bound, name kernels K6/K7/K8
 that are not ported yet (ROADMAP.md queue 2): on CUDA tensors they raise
 ``NotImplementedError``, on CPU tensors they run the plain version.

@@ -1,6 +1,7 @@
 """Whole-ViT sampler forward: patch embedding + positional add, L adaLN-Zero
 DiT blocks, FinalLayer (port of ``fused_vit_forward`` in
-``vit4hep_tpu/ops/fused_dit_block.py``).
+``vit4hep_tpu/ops/fused_dit_block.py``: ``_vit_kernel``, its masked twin
+``_vit_kernel_masked`` and its grouped twin ``_vit_kernel_g``).
 
 :func:`fused_vit_forward` takes the JAX function's arguments, weights in the
 Dense layout ``(in, out)``. On CPU tensors it runs
@@ -15,12 +16,15 @@ kernels, each with its own wrapper, launch counter and plain version:
   residual ``x += gate * (. + b)`` in place);
 - :func:`modln`: LayerNorm (no affine, eps 1e-6) + adaLN modulation to bf16;
 - :func:`attention`: softmax(q k^T * scale) v per (batch, head), read from
-  the native (B, N, 3*H*D) qkv panel, merged (B, N, H*D) bf16 context.
+  the native (B, N, 3*H*D) qkv panel, merged (B, N, H*D) bf16 context; K
+  and V stream through shared memory in 64-row tiles (any N), with the
+  optional shared (N, N) mask (the layer-causal ViT). It is K1's forward
+  kernel (``csrc/attention_fwd.cuh``) writing bf16, counted here under
+  its own :data:`ATTENTION` counter.
 
 Products take bf16 multiplicands and accumulate in f32, as the TPU kernel
-does. The block stack ``fused_dit_stack``, the per-block ``fused_dit_block``,
-the masked and grouped variants and the training kernels are still to be
-ported (ROADMAP.md, queue 2).
+does. The block stack ``fused_dit_stack``, the per-block ``fused_dit_block``
+and the training kernels are still to be ported (ROADMAP.md, queue 2).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 
 from vit4hep_tpu_torch.ops import _cuda
 from vit4hep_tpu_torch.ops.attention import qkv_attention
+from vit4hep_tpu_torch.ops.fused_qkv_attention import check_kernel_args, mask_arg
 
 _LN_EPS = 1e-6
 EPI_BIAS, EPI_BIAS_POS, EPI_BIAS_GELU, EPI_GATED_RESID = range(4)
@@ -37,7 +42,7 @@ _P, _I, _LL, _F = _cuda.P, _cuda.I, _cuda.LL, _cuda.F
 _SIGNATURES = {
     "vit_gemm": [_P, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "vit_modln": [_P, _P, _P, _LL, _P, _I, _I, _I, _F, _P],
-    "vit_attention": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "vit_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 GEMM = _cuda.LaunchCounter("vit_gemm")
@@ -112,9 +117,9 @@ def modln_plain(x, shift, scale, n_tok):
     return (_ln(x) * (1.0 + rows(scale)) + rows(shift)).to(torch.bfloat16)
 
 
-def attention_plain(qkv, num_heads, scale):
+def attention_plain(qkv, num_heads, scale, mask=None):
     """Plain version of :func:`attention`."""
-    return qkv_attention(qkv, num_heads, impl="xla", scale=scale).to(torch.bfloat16)
+    return qkv_attention(qkv, num_heads, mask, impl="xla", scale=scale).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -195,23 +200,14 @@ def modln(x, shift, scale, n_tok):
     return out
 
 
-def attention_smem_bytes(n, head_dim):
-    return 4 * (2 * n * (head_dim + 1) + 8 * (head_dim + n))
-
-
-def attention(qkv, num_heads, scale):
-    """Merged (B, N, H*D) bf16 context from the (B, N, 3*H*D) f32 qkv panel."""
-    b, n, three_hd = qkv.shape
+def attention(qkv, num_heads, scale, mask=None):
+    """Merged (B, N, H*D) bf16 context from the (B, N, 3*H*D) f32 qkv panel;
+    ``mask`` an optional shared (N, N) bool on qkv's device, True = attend."""
     _cuda.require_cuda("attention", qkv)
-    if three_hd % (3 * num_heads):
-        raise ValueError(f"attention: width {three_hd} is not 3 * {num_heads} heads")
-    d = three_hd // 3 // num_heads
-    need = attention_smem_bytes(n, d)
-    if need > _cuda.MAX_SMEM_BYTES:
-        raise ValueError(f"attention: {n} tokens x head_dim {d} need {need} bytes of shared "
-                         f"memory, above the card's {_cuda.MAX_SMEM_BYTES}")
+    b, n, d = check_kernel_args("attention", qkv, num_heads)
+    mask, mask_ptr = mask_arg("attention", mask, n, qkv.device)
     out = torch.empty((b, n, num_heads * d), dtype=torch.bfloat16, device=qkv.device)
-    code = _lib().vit_attention(qkv.data_ptr(), out.data_ptr(), b, n, num_heads, d,
+    code = _lib().vit_attention(qkv.data_ptr(), mask_ptr, out.data_ptr(), b, n, num_heads, d,
                                 float(scale), _cuda.stream())
     _cuda.check(code, "vit_attention")
     ATTENTION.add()
@@ -225,18 +221,20 @@ def fused_vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout,
     (B, L, 6, H); fmod (B, 2, H) [shift, scale]; wemb (P, H); block weights
     stacked (L, ...); wfin (H, OUT). Returns (B, N, OUT) f32.
 
-    ``group`` (the TPU's batch elements per grid cell) is accepted and does
-    not change the per-element numerics or the CUDA kernels' work."""
+    ``mask`` is an optional shared (N, N) bool, True = attend (the
+    layer-causal ViT; ``_vit_kernel_masked``). ``group`` is the TPU's batch
+    elements per grid cell (``_vit_kernel_g``, which keeps the G elements
+    apart with a block-diagonal mask): it is accepted and ignored, since
+    every kernel here already spans all B*N rows and attends within each
+    element, which is the grouped kernel's function for any G."""
     del group
-    if mask is not None:
-        raise NotImplementedError(
-            "fused_vit_forward: the masked (layer-causal) variant is not ported yet "
-            "(ROADMAP.md queue 2, K2v masked)")
+    if mask is not None and mask.ndim != 2:
+        raise ValueError("fused_vit_forward supports a shared (N, N) mask")
     d = wemb.shape[1] // num_heads
     scale = d ** -0.5 if scale is None else scale
     if tokens.device.type == "cpu":
         return vit_forward_reference(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv,
-                                     wout, bout, w1, b1, w2, b2, wfin, bfin, None,
+                                     wout, bout, w1, b1, w2, b2, wfin, bfin, mask,
                                      num_heads, scale)
     b, n, pdim = tokens.shape
     depth = wqkv.shape[0]
@@ -248,7 +246,7 @@ def fused_vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout,
     for li in range(depth):
         h = modln(x, mods[:, li, 0], mods[:, li, 1], n)
         qkv = linear(h, wqkv[li], bqkv[li].contiguous(), EPI_BIAS, n_tok=n)
-        ctx = attention(qkv.reshape(b, n, -1), num_heads, scale)
+        ctx = attention(qkv.reshape(b, n, -1), num_heads, scale, mask)
         linear(ctx.reshape(b * n, -1), wout[li], bout[li].contiguous(), EPI_GATED_RESID,
                out=x, gate=mods[:, li, 2], n_tok=n)
         h = modln(x, mods[:, li, 3], mods[:, li, 4], n)

@@ -14,10 +14,15 @@ On CPU tensors it runs the plain versions :func:`attention_fwd_plain` and
 5-product VJP of ``_bwd_kernel_masked``). On CUDA tensors it launches the
 hand-written kernels of ``csrc/qkv_attention.cu`` or raises: the forward
 kernel, then for the gradient a delta pre-pass (rowsum(dO * O)) and the
-dK/dV and dQ kernels. Each kernel has its own wrapper and launch counter.
-The kernels compute in f32 for head dims up to :data:`MAX_HEAD_DIM`, at any
-N. The masked TPU bodies (``_fused_kernel_masked``, ``_bwd_kernel_masked``)
-are not ported: a mask on a CUDA tensor raises.
+dK/dV and dQ kernels. Each kernel has its own wrapper and launch counter,
+which counts masked and unmasked launches alike. The kernels compute in f32
+for head dims up to :data:`MAX_HEAD_DIM`, at any N, with or without the
+mask: it goes to them as a contiguous ``uint8`` view on qkv's device and
+enters each score as ``where(mask, s * scale, -1e30)``, the TPU bodies'
+``_fused_kernel_masked``, ``_packed_kernel_masked`` and
+``_bwd_kernel_masked``. A row whose every key is masked gets the mean of V
+and JAX's backward for it (``csrc/qkv_attention.cu`` explains the one
+adjustment the kernels make there).
 """
 
 from __future__ import annotations
@@ -30,10 +35,10 @@ _NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 _P, _I, _F = _cuda.P, _cuda.I, _cuda.F
 _SIGNATURES = {
-    "qkv_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "qkv_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "qkv_attention_bwd_delta": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "qkv_attention_bwd_dkv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "qkv_attention_bwd_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "qkv_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "qkv_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 FWD = _cuda.LaunchCounter("qkv_attn_fwd")
@@ -115,7 +120,10 @@ def delta_plain(g, out, num_heads):
 # ---------------------------------------------------------------------------
 # kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
-def _check_kernel_args(name, qkv, num_heads):
+def check_kernel_args(name, qkv, num_heads):
+    """(B, N, head_dim) of a (B, N, 3*H*D) qkv panel the kernels take;
+    raises on a width that is not 3 * H * D, a head dim above
+    MAX_HEAD_DIM, or a batch or head count above the grid's 65535."""
     b, n, d = _dims(qkv, num_heads)
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {d} above the kernel's maximum {MAX_HEAD_DIM}")
@@ -124,13 +132,31 @@ def _check_kernel_args(name, qkv, num_heads):
     return b, n, d
 
 
-def attention_fwd_kernel(qkv, num_heads, scale):
-    """Launch the forward kernel: (context (B, N, H*D) f32, lse (B, H, N) f32)."""
+def mask_arg(name, mask, n, device):
+    """The optional shared (N, N) bool mask as the kernels read it: (a
+    contiguous uint8 view, one byte each, 1 = attend, to keep alive across
+    the launch; its pointer), or (None, None); raises unless it is a bool
+    (N, N) tensor on ``device``."""
+    if mask is None:
+        return None, None
+    if mask.dtype != torch.bool or tuple(mask.shape) != (n, n):
+        raise ValueError(f"{name}: expected a bool ({n}, {n}) mask, got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if mask.device != device:
+        raise ValueError(f"{name}: the mask is on {mask.device}, qkv on {device}")
+    mask = mask.contiguous().view(torch.uint8)
+    return mask, mask.data_ptr()
+
+
+def attention_fwd_kernel(qkv, num_heads, scale, mask=None):
+    """Launch the forward kernel: (context (B, N, H*D) f32, lse (B, H, N)
+    f32); ``mask`` an optional shared (N, N) bool on qkv's device."""
     _cuda.require_cuda("qkv_attention_fwd", qkv)
-    b, n, d = _check_kernel_args("qkv_attention_fwd", qkv, num_heads)
+    b, n, d = check_kernel_args("qkv_attention_fwd", qkv, num_heads)
+    mask, mask_ptr = mask_arg("qkv_attention_fwd", mask, n, qkv.device)
     out = torch.empty((b, n, num_heads * d), dtype=torch.float32, device=qkv.device)
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
-    code = _lib().qkv_attention_fwd(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+    code = _lib().qkv_attention_fwd(qkv.data_ptr(), mask_ptr, out.data_ptr(), lse.data_ptr(),
                                     b, n, num_heads, d, float(scale), _cuda.stream())
     _cuda.check(code, "qkv_attention_fwd")
     FWD.add()
@@ -138,7 +164,7 @@ def attention_fwd_kernel(qkv, num_heads, scale):
 
 
 def _check_bwd_args(name, qkv, g, lse, num_heads):
-    b, n, d = _check_kernel_args(name, qkv, num_heads)
+    b, n, d = check_kernel_args(name, qkv, num_heads)
     if tuple(g.shape) != (b, n, num_heads * d) or tuple(lse.shape) != (b, num_heads, n):
         raise ValueError(f"{name}: g {tuple(g.shape)} / lse {tuple(lse.shape)} do not match "
                          f"qkv {tuple(qkv.shape)} with {num_heads} heads")
@@ -160,40 +186,42 @@ def attention_bwd_delta_kernel(g, out, num_heads):
     return delta
 
 
-def attention_bwd_dkv_kernel(qkv, g, lse, delta, num_heads, scale, dqkv):
+def attention_bwd_dkv_kernel(qkv, g, lse, delta, num_heads, scale, dqkv, mask=None):
     """Launch the dK/dV kernel: writes the k and v columns of ``dqkv``."""
     _cuda.require_cuda("qkv_attention_bwd_dkv", qkv, g, lse, delta, dqkv)
     b, n, d = _check_bwd_args("qkv_attention_bwd_dkv", qkv, g, lse, num_heads)
     if delta.shape != lse.shape or dqkv.shape != qkv.shape:
         raise ValueError("qkv_attention_bwd_dkv: delta/dqkv shapes do not match lse/qkv")
+    mask, mask_ptr = mask_arg("qkv_attention_bwd_dkv", mask, n, qkv.device)
     code = _lib().qkv_attention_bwd_dkv(qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                                        delta.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d,
-                                        float(scale), _cuda.stream())
+                                        delta.data_ptr(), mask_ptr, dqkv.data_ptr(), b, n,
+                                        num_heads, d, float(scale), _cuda.stream())
     _cuda.check(code, "qkv_attention_bwd_dkv")
     BWD_DKV.add()
     return dqkv
 
 
-def attention_bwd_dq_kernel(qkv, g, lse, delta, num_heads, scale, dqkv):
+def attention_bwd_dq_kernel(qkv, g, lse, delta, num_heads, scale, dqkv, mask=None):
     """Launch the dQ kernel: writes the q columns of ``dqkv``."""
     _cuda.require_cuda("qkv_attention_bwd_dq", qkv, g, lse, delta, dqkv)
     b, n, d = _check_bwd_args("qkv_attention_bwd_dq", qkv, g, lse, num_heads)
     if delta.shape != lse.shape or dqkv.shape != qkv.shape:
         raise ValueError("qkv_attention_bwd_dq: delta/dqkv shapes do not match lse/qkv")
+    mask, mask_ptr = mask_arg("qkv_attention_bwd_dq", mask, n, qkv.device)
     code = _lib().qkv_attention_bwd_dq(qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                                       delta.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d,
-                                       float(scale), _cuda.stream())
+                                       delta.data_ptr(), mask_ptr, dqkv.data_ptr(), b, n,
+                                       num_heads, d, float(scale), _cuda.stream())
     _cuda.check(code, "qkv_attention_bwd_dq")
     BWD_DQ.add()
     return dqkv
 
 
-def attention_bwd_kernel(qkv, g, out, lse, num_heads, scale):
+def attention_bwd_kernel(qkv, g, out, lse, num_heads, scale, mask=None):
     """dqkv through the three backward kernels."""
     delta = attention_bwd_delta_kernel(g, out, num_heads)
     dqkv = torch.empty_like(qkv)
-    attention_bwd_dkv_kernel(qkv, g, lse, delta, num_heads, scale, dqkv)
-    return attention_bwd_dq_kernel(qkv, g, lse, delta, num_heads, scale, dqkv)
+    attention_bwd_dkv_kernel(qkv, g, lse, delta, num_heads, scale, dqkv, mask)
+    return attention_bwd_dq_kernel(qkv, g, lse, delta, num_heads, scale, dqkv, mask)
 
 
 class _FusedQKVAttention(torch.autograd.Function):
@@ -202,7 +230,7 @@ class _FusedQKVAttention(torch.autograd.Function):
         if qkv.device.type == "cpu":
             out, lse = attention_fwd_plain(qkv, num_heads, scale, mask)
         else:
-            out, lse = attention_fwd_kernel(qkv, num_heads, scale)
+            out, lse = attention_fwd_kernel(qkv, num_heads, scale, mask)
         ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads, ctx.scale, ctx.mask = num_heads, scale, mask
         return out
@@ -214,21 +242,18 @@ class _FusedQKVAttention(torch.autograd.Function):
         if qkv.device.type == "cpu":
             dqkv = attention_bwd_plain(qkv, g, lse, ctx.num_heads, ctx.scale, ctx.mask)
         else:
-            dqkv = attention_bwd_kernel(qkv, g, out, lse, ctx.num_heads, ctx.scale)
+            dqkv = attention_bwd_kernel(qkv, g, out, lse, ctx.num_heads, ctx.scale, ctx.mask)
         return dqkv, None, None, None
 
 
 def fused_qkv_attention(qkv, num_heads, mask=None, scale=None):
     """Merged (B, N, H*D) context from the native (B, N, 3*H*D) qkv panel,
-    differentiable. ``mask``: optional shared (N, N) bool, True = attend
-    (CPU only); ``scale`` overrides 1/sqrt(D)."""
-    _, _, d = _dims(qkv, num_heads)
+    differentiable. ``mask``: optional shared (N, N) bool on qkv's device,
+    True = attend; ``scale`` overrides 1/sqrt(D)."""
+    _, n, d = _dims(qkv, num_heads)
     if mask is not None:
         if mask.ndim != 2:
             raise ValueError("fused_qkv_attention supports a shared (N, N) mask")
-        if qkv.device.type != "cpu":
-            raise NotImplementedError(
-                "fused_qkv_attention: the masked kernels (_fused_kernel_masked, "
-                "_bwd_kernel_masked) are not ported yet (ROADMAP.md queue 2, K1 masked)")
+        mask_arg("fused_qkv_attention", mask, n, qkv.device)
     scale = d ** -0.5 if scale is None else float(scale)
     return _FusedQKVAttention.apply(qkv.contiguous(), num_heads, scale, mask)
