@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 and ds3 two-stage
-shower generators (CFM and cINN shape models), the layer-causal ViT and the
-ds2 training slice at full width, through the hand-written CUDA kernels.
+shower generators (CFM and cINN shape models), the layer-causal ViT, the ds2
+training slice and its megakernel training tier at full width, through the
+hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -26,6 +27,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    forward at the ds3 cINN subnet shape (256, 225, 576) and K4 at y (256,
    20250); with the layer-causal mask of ds2's (15, 1, 9) token grid: K2v's
    attention and whole forward, and K1's four kernels at the training shape;
+   the megakernel tier at the ds2 training shape x (64, 135, 480): the
+   training GEMM's saving epilogues, the NT and split-K TN products of a
+   block's gradient and their reduction, the row passes and the adaLN
+   reduction, K5b (a1 saved; without a1 also at (16, 450, 480)), K2b, K5c
+   and the whole-ViT K5a, unmasked and layer-causal;
 4. serving paths, each at full width with random weights from a seed
    (non-zero adaLN and final-layer weights) behind the energy model
    (cfm_ds2_energy = cfm_ds3_energy), answering REQUESTS requests of BATCH
@@ -76,7 +82,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 7. train profile: one train step under ``torch.profiler``: device ms of K1's
    forward and backward kernels, the cuBLAS products and the rest, and the
    step's idle share;
-8. energy: a few steps of the ds2 energy experiment at full width (batch
+8. ds2_fused_train: the same model with ``fused_block: true`` through the
+   experiment (the megakernel tier: K5a's residual-saving forward and K5b's
+   backward per block; K2v on the validation batches), TRAIN_STEPS steps,
+   every launch counted exactly (``fused_launches``), finite losses and
+   grad norms, no skipped step, steps/s beside ds2_train's;
+9. fused train parity: each of ``fused_block: true``, ``"hybrid"`` (K5a +
+   the plain residual backward), ``fused_stack: false`` (K2b + K5c),
+   ``true`` with ``causal_attn: true`` and ``true`` at ds3 (batch 16, a1
+   recomputed) against the composed net from one state: per-tensor
+   gradient relative L2 on one batch, then TRAIN_PARITY_STEPS steps on the
+   same random batches and draws (``FUSED_TRAIN_TOL``), every kernel
+   launched on every block of every step; then one fused train step
+   profiled by kernel group;
+10. energy: a few steps of the ds2 energy experiment at full width (batch
    256; no kernel on its path), which fits ``means_u.npy``/``stds_u.npy``.
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
@@ -309,8 +328,44 @@ TOL = {"energy_decoder": 1e-3, "vit_gemm": 8e-3, "vit_modln": 8e-3,
 # lr -- and the whole update vector within 1e-2 relative, which a wrong
 # gradient would miss by O(1)
 TRAIN_TOL = {"loss": 1e-4, "param_abs": 5e-5, "update_rel": 1e-2}
+# the DiT megakernel tier's training kernels against their plain versions
+# (bf16 multiplicands on both sides; the attention in f32 on both, as K1):
+# the products agree but for f32 summation order, which reaches a bf16
+# output or an intermediate rounded to bf16 (h, h2, the GELU hidden, a1, y)
+# as one rounding flip, 2^-8 = 3.9e-3 relative, so 8e-3 holds a single
+# block; the ds2 forward K5a compounds such flips through 6 blocks, 2e-2 as
+# K2v's whole forward. The f32 products (NT, split-K TN, reductions) are held
+# to 1e-3: summation order of up to 8640 bf16 products in f32 only. The
+# first card run (NVIDIA H100 80GB HBM3, 700 W) measured, relative to each
+# output's scale: K5b 5.9e-4 (masked 6.7e-4), K2b 1.0e-3, the training GEMM
+# 2.6e-3 (one flip of a bf16 hidden value), K5c 3.5e-3 (its plain version
+# keeps the recomputed a1 in f32, the kernel stores it in bf16 as K5a
+# does), K5a 6.7e-3, the TN products 3.6e-6.
+TOL.update({"vit_train_gemm": 8e-3, "vit_gemm_nt": 1e-3, "vit_gemm_tn": 1e-3,
+            "vit_wgrad_reduce": 1e-4, "vit_bwd_rows": 8e-3, "vit_dmod_reduce": 1e-4,
+            "fused_dit_block": 8e-3, "vit_fwd_train": 2e-2, "fused_dit_block_bwd_res": 8e-3,
+            "fused_dit_block_bwd": 8e-3})
+# fused training (bf16 multiplicands) against the composed f32 path from one
+# state on the same batches and draws: each product's multiplicands are
+# rounded to bf16 (2^-9 relative each, independent), ~1.6e-3 relative per
+# product output; a gradient deep in the net passes ~40 products forward
+# and backward, so its relative L2 error is at most about sqrt(40) x 1.6e-3
+# = 1e-2 (the first card run measured 3.3e-3 at worst, the products'
+# errors being partly independent of each other):
+# per-tensor gradient relative L2 within 3e-2 (the train step's grad_norm
+# likewise); the loss (target-dominated) within 1e-2 relative; a gradient
+# with a missing or wrong term misses these by O(1). Adam's update divides
+# each entry by its own RMS, so entries whose gradient is within bf16 noise
+# of 0 take either sign: the whole update vector after 3 steps within 0.5
+# relative (a wrong gradient gives ~1.4).
+FUSED_TRAIN_TOL = {"loss": 1e-2, "grad_rel_l2": 3e-2, "grad_norm": 3e-2, "update_rel": 0.5}
 K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
 K2V = "vit4hep_tpu_torch/csrc/vit_forward.cu"
+K5 = "vit4hep_tpu_torch/csrc/vit_backward.cu"
+K5A_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1491 (_vit_fwd_train, call :1549)"
+K5B_BODY = "vit4hep_tpu/ops/fused_dit_block.py:745 (fused_dit_block_bwd_res, call :808)"
+K5C_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1204 (fused_dit_block_bwd, call :1261)"
+K2B_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1636 (fused_dit_block, call :1686)"
 # the TPU bodies each kernel covers: K2v's unmasked, masked and grouped
 # whole-ViT kernels; K1's per-head and head-packed forwards, each unmasked
 # and masked, and its unmasked and masked backward
@@ -319,10 +374,10 @@ K1_BWD_BODIES = "vit4hep_tpu/ops/fused_qkv_attention.py:252 and :260"
 REPLACES = {
     "energy_decoder": ("vit4hep_tpu_torch/csrc/energy_decoder.cu",
                        "vit4hep_tpu/ops/fused_energy_decoder.py:124"),
-    "vit_gemm": (K2V, K2V_BODIES),
-    "vit_modln": (K2V, K2V_BODIES),
+    "vit_gemm": (K2V, f"{K2V_BODIES}; {K2B_BODY}"),
+    "vit_modln": (K2V, f"{K2V_BODIES}; {K2B_BODY}"),
     "vit_attention": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
-                      "vit4hep_tpu_torch/csrc/vit_forward.cu)", K2V_BODIES),
+                      "vit4hep_tpu_torch/csrc/vit_forward.cu)", f"{K2V_BODIES}; {K2B_BODY}"),
     "qkv_attn_fwd": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
                      "vit4hep_tpu_torch/csrc/qkv_attention.cu)",
                      "vit4hep_tpu/ops/fused_qkv_attention.py:58, :65, :94 and :156"),
@@ -331,11 +386,57 @@ REPLACES = {
     "qkv_attn_bwd_dq": (K1, K1_BWD_BODIES),
     "binned_rqs_inverse": ("vit4hep_tpu_torch/csrc/binned_rqs.cu",
                            "vit4hep_tpu/ops/fused_spline.py:55"),
+    # the megakernel tier's training kernels (K5a also runs modln and K1's
+    # forward; K5b K1's backward; K5c K5a's block kernels, then K5b's)
+    "vit_train_gemm": (K2V, f"{K5A_BODY}; the products of {K5B_BODY} and {K5C_BODY}"),
+    "vit_gemm_nt": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
+    "vit_gemm_tn": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
+    "vit_wgrad_reduce": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
+    "vit_bwd_rows": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
+    "vit_dmod_reduce": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
 }
+# the tier's functions (fused_dit_block, vit_fwd_train, fused_dit_block_bwd_res,
+# fused_dit_block_bwd) are chains of the kernels above: the kernel phase holds
+# them against their plain versions and prints their times, and the kernels
+# line counts their kernels' launches, not their calls
 SERVING = {"energy_decoder": fed.ENERGY_DECODER, "vit_gemm": fdb.GEMM,
            "vit_modln": fdb.MODLN, "vit_attention": fdb.ATTENTION}
 TRAINING = {"qkv_attn_fwd": fqa.FWD, "qkv_attn_bwd_delta": fqa.BWD_DELTA,
             "qkv_attn_bwd_dkv": fqa.BWD_DKV, "qkv_attn_bwd_dq": fqa.BWD_DQ}
+# every counter a fused train step or its validation can move
+FUSED_TRAINING = {**TRAINING, **SERVING, "vit_train_gemm": fdb.TRAIN_GEMM,
+                  "vit_gemm_nt": fdb.GEMM_NT, "vit_gemm_tn": fdb.GEMM_TN,
+                  "vit_wgrad_reduce": fdb.WGRAD_REDUCE, "vit_bwd_rows": fdb.BWD_ROWS,
+                  "vit_dmod_reduce": fdb.DMOD_REDUCE}
+
+
+def fused_launches(variant, steps, val_batches, depth=6):
+    """The launches of each kernel on a fused training path (steps train
+    steps, val_batches validation batches under no_grad): "true" (K5a, K5b
+    per block, a1 saved), "noa1" (the same, a1 recomputed: ds3), "hybrid"
+    (K5a, the plain residual backward), "nostack" (K2b per block, K5c)."""
+    n = dict.fromkeys(FUSED_TRAINING, 0)
+    per_block_bwd = {"vit_bwd_rows": 3, "vit_gemm_nt": 4, "vit_gemm_tn": 4,
+                     "vit_wgrad_reduce": 4, "vit_dmod_reduce": 1, "qkv_attn_bwd_delta": 1,
+                     "qkv_attn_bwd_dkv": 1, "qkv_attn_bwd_dq": 1}
+    if variant == "nostack":  # K2b forward and validation, K5c's recompute + K5b
+        k2b = {"vit_gemm": 4, "vit_modln": 2, "vit_attention": 1}
+        for k, v in k2b.items():
+            n[k] += v * depth * (steps + val_batches)
+        for k, v in {"vit_train_gemm": 5, "vit_modln": 2, "qkv_attn_fwd": 1,
+                     **per_block_bwd}.items():
+            n[k] += v * depth * steps
+        return n
+    for k, v in {"vit_train_gemm": 2 + 4 * depth, "vit_modln": 2 * depth + 1,
+                 "qkv_attn_fwd": depth}.items():
+        n[k] += v * steps
+    for k in ("vit_gemm", "vit_modln", "vit_attention"):  # K2v on the validation batches
+        n[k] += CFM_PER_EVAL[k] * val_batches
+    if variant != "hybrid":
+        for k, v in {"vit_train_gemm": 2 if variant == "noa1" else 1,
+                     **per_block_bwd}.items():
+            n[k] += v * depth * steps
+    return n
 # the CFM request: launches per net eval of each kernel on its path (embed,
 # 6 x 4 block products and the final product; 2 LayerNorms per block and the
 # final one; one attention per block; the energy net's decoder)
@@ -353,17 +454,21 @@ CINN_PER_REQUEST = {"ds2": {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120, "ener
 # are bounded at the bf16 rate: the TPU kernels they replace take bf16
 # multiplicands with f32 accumulation, whatever arithmetic a port uses
 HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+SPIN_HZ = 1.98e9  # the SM's boost clock: torch.cuda._sleep counts its cycles
 
 
 # the kernel phase's shape groups: each kernel's main-path shape (ds2
 # sampling; K1 at the ds2 training shape), then the others it is held at
 SHAPE_GROUPS = {
     "main": "ds2",
-    "n450": "K1 at qkv (16, 450, 1440)",
+    "n450": "K1 at qkv (16, 450, 1440); K5b without a1 at x (16, 450, 480)",
+    "noa1": "ds2 training shape, K5b without a1 (recomputed): x (64, 135, 480)",
+    "causal_noa1": "ds2 training shape with the layer-causal mask, K5b without a1",
     "cinn": "K1 forward at the ds2 cINN subnet, qkv (256, 135, 576)",
     "ds3": "ds3: K2v at tokens (256, 450, 90), K1 forward at qkv (256, 225, 576), K4 at "
            "(256, 20250)",
-    "causal": "ds2 with the layer-causal mask: K2v at (256, 135), K1 at (64, 135, 1440)",
+    "causal": "ds2 with the layer-causal mask: K2v at (256, 135), K1 at (64, 135, 1440), "
+              "K5b, K2b, K5c and K5a at x (64, 135, 480)",
 }
 
 
@@ -371,21 +476,28 @@ class PhaseError(RuntimeError):
     pass
 
 
-def _time_ms(fn, reps=10, warmup=2, inner=1):
-    """Median device time of one call, from CUDA events around ``inner``
-    back-to-back calls (for a kernel about as short as the host's launch of
-    one call, so that the events do not time the host's gap)."""
+def _time_ms(fn, reps=10, warmup=2):
+    """Median device time of one call, from CUDA events around it. A spin
+    kernel queued just before the start event holds the card until the host
+    has queued the whole call, so that a kernel shorter than the host's work
+    to launch it is timed on the device, not at the host's pace."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_cycles = int(min(max(2 * host_s, 1e-3), 0.2) * SPIN_HZ)
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
         start.record()
-        for _ in range(inner):
-            fn()
+        fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end))
     return float(np.median(times))
 
 
@@ -402,10 +514,10 @@ def _bound(nbytes, flops, rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None, inner=1):
+def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None):
     """Hold a kernel's output against its plain version and time both (and
-    the library call; ``inner`` calls per timing, see _time_ms); repeated
-    calls under one name add up (vit_gemm's six product shapes).
+    the library call); repeated calls under one name add up (vit_gemm's six
+    product shapes).
     ``out``/``ref`` may be tuples of outputs, each held to the tolerance
     against its own scale."""
     torch.cuda.synchronize()
@@ -418,8 +530,8 @@ def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None,
                               "library_ms": 0.0 if library_fn else None})
     b_ms, _ = bound
     res = {"max_abs_err": max(prev["max_abs_err"], err),
-           "ms": prev["ms"] + _time_ms(kernel_fn, inner=inner),
-           "plain_ms": prev["plain_ms"] + _time_ms(plain_fn, inner=inner),
+           "ms": prev["ms"] + _time_ms(kernel_fn),
+           "plain_ms": prev["plain_ms"] + _time_ms(plain_fn),
            "ok": prev["ok"] and ok, "bound_ms": prev["bound_ms"] + b_ms,
            "bytes_ms": prev["bytes_ms"] + (b_ms if bound[1] == "bytes" else 0.0),
            "ops_ms": prev["ops_ms"] + (b_ms if bound[1] == "operations" else 0.0),
@@ -636,6 +748,173 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
             "sdpa_bwd": _time_ms(sdpa_bwd)}
 
 
+def _block_weights(gen, h=480, fdim=1920, std=0.05):
+    """wqkv, bqkv, wout, bout, w1, b1, w2, b2 of one block, f32 on the card."""
+    return [_rand(gen, *shape, std=std) for shape in
+            ((h, 3 * h), (3 * h,), (h, h), (h,), (h, fdim), (fdim,), (fdim, h), (h,))]
+
+
+def _block_flops(m, h, fdim):
+    """Operations of one block's four products over m rows."""
+    return 2 * m * (h * 3 * h + h * h + 2 * h * fdim)
+
+
+def _bwd_flops(m, h, fdim, attn_pairs, d, save_a1=True):
+    """Operations of a block's gradient from saved residuals: the out-
+    projection re-derived, dY @ W^T and A^T @ dY of the four products, the
+    attention backward with its scores recomputed (5 products of b h pairs
+    d), and without a1 the fc1 product again."""
+    return (2 * m * h * h + 2 * _block_flops(m, h, fdim) + 10 * attn_pairs * d
+            + (0 if save_a1 else 2 * m * h * fdim))
+
+
+def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, composites=True):
+    """The megakernel tier's training kernels against their plain versions
+    at x (b, n, 480), 6 heads x 80, F 1920 (ds2 training: b 64, n 135),
+    with the shared ``mask`` when given. With ``primitives``: the training
+    GEMM's two saving epilogues, the four NT and four split-K TN products of
+    a block's gradient, their reduction, the three row passes and the adaLN
+    reduction (ms of a name add up over its calls). Then K5b from the plain
+    forward's residuals (a1 bf16 or, without ``save_a1``, recomputed; y
+    bf16; lse), and with ``composites`` K2b, K5c and the whole-ViT K5a
+    (depth 6, 48-value patches)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + n)
+    h, heads, d, fdim, depth = 480, 6, 80, 1920, 6
+    m, scale, bf = b * n, d ** -0.5, torch.bfloat16
+    x, g = _rand(gen, b, n, h), _rand(gen, b, n, h)
+    mod6 = _rand(gen, b, 6, h, std=0.3)
+    ws = _block_weights(gen)
+    wqkv, bqkv, wout, bout, w1, b1, w2, b2 = ws
+    wbytes = 2 * (4 * h * h + 2 * h * fdim) + 4 * (5 * h + fdim)
+    pairs = _attn_flops(b, heads, n, d, mask) // (4 * d)  # (b, head, query, key) kept
+    mask_bytes = 0 if mask is None else mask.numel()
+    if primitives:
+        hb, hid = _rand(gen, m, h).to(bf), _rand(gen, m, fdim).to(bf)
+        xr = x.reshape(m, h)
+        for a, w, bias, epi, nout in ((hb, w1, b1, fdb.EPI_BIAS_GELU, fdim),
+                                      (hid, w2, b2, fdb.EPI_GATED_RESID, h)):
+            wk = w.to(bf)
+            resid = epi == fdb.EPI_GATED_RESID
+            outs = [torch.empty(m, nout, device="cuda") if resid else None for _ in range(2)]
+            saves = [torch.empty(m, nout, dtype=bf, device="cuda") for _ in range(2)]
+            kw = dict(gate=mod6[:, 5], resid=xr, n_tok=n) if resid else dict(n_tok=n)
+            ker = lambda: fdb.train_linear(  # noqa: E731
+                a, wk, bias, epi, out=outs[0], save=saves[0], **kw)
+            pla = lambda: fdb.linear_plain(  # noqa: E731
+                a, wk, bias, epi, out=outs[1], save=saves[1], **kw)
+            out, ref = ker(), pla()
+            nbytes = (a.numel() * 2 + wk.numel() * 2 + nout * 4
+                      + m * nout * (2 + (4 if resid else 2))
+                      + (m * nout * 4 + b * nout * 4 if resid else 0))
+            _check("vit_train_gemm", (out, saves[0]), (ref, saves[1]), results, ker, pla,
+                   _bound(nbytes, 2 * m * a.shape[1] * nout, BF16_FLOPS),
+                   lambda a=a, wk=wk: torch.matmul(a, wk))
+        a1 = hid
+        dy, da1, dattn, dqkv = (_rand(gen, m, k) for k in (h, fdim, h, 3 * h))
+        for a, w, aux in ((dy, w2, a1), (da1, w1, None), (dattn, wout, None), (dqkv, wqkv, None)):
+            wk = w.to(bf)
+            ker = lambda a=a, wk=wk, aux=aux: fdb.gemm_nt(a, wk, aux)  # noqa: E731
+            pla = lambda a=a, wk=wk, aux=aux: fdb.gemm_nt_plain(a, wk, aux)  # noqa: E731
+            nn_, kk = wk.shape
+            nbytes = (a.numel() * 4 + wk.numel() * 2 + m * nn_ * 4
+                      + (0 if aux is None else m * nn_ * 2))
+            _check("vit_gemm_nt", ker(), pla(), results, ker, pla,
+                   _bound(nbytes, 2 * m * nn_ * kk, BF16_FLOPS),
+                   lambda a=a, wk=wk: torch.matmul(a.to(bf), wk.t()))
+        for a, bb, gelu in ((a1, dy, True), (hb, da1, False), (x.reshape(m, h), dattn, False),
+                            (hb, dqkv, False)):
+            ker = lambda a=a, bb=bb, gelu=gelu: fdb.weight_grad_partial(a, bb, gelu)  # noqa: E731
+            pla = lambda a=a, bb=bb, gelu=gelu: fdb.weight_grad_partial_plain(  # noqa: E731
+                a, bb, gelu)
+            ws_k, cs_k = ker()
+            kk, nn_ = a.shape[1], bb.shape[1]
+            nbytes = (a.numel() * a.element_size() + bb.numel() * 4
+                      + (ws_k.numel() + cs_k.numel()) * 4)
+            _check("vit_gemm_tn", (ws_k, cs_k), pla(), results, ker, pla,
+                   _bound(nbytes, 2 * m * kk * nn_, BF16_FLOPS),
+                   lambda a=a, bb=bb: torch.matmul(a.to(bf).t(), bb.to(bf)))
+            _check("vit_wgrad_reduce", fdb.wgrad_reduce(ws_k, cs_k),
+                   fdb.wgrad_reduce_plain(ws_k, cs_k), results,
+                   lambda ws_k=ws_k, cs_k=cs_k: fdb.wgrad_reduce(ws_k, cs_k),
+                   lambda ws_k=ws_k, cs_k=cs_k: fdb.wgrad_reduce_plain(ws_k, cs_k),
+                   _bound(4 * (ws_k.numel() + cs_k.numel() + kk * nn_ + nn_), ws_k.numel(),
+                          F32_FLOPS),
+                   lambda ws_k=ws_k, cs_k=cs_k: (ws_k.sum(0), cs_k.sum(0)))
+        del hid, dy, da1, dattn, dqkv
+        attn, dz = _rand(gen, b, n, h), _rand(gen, b, n, h)
+        yb = _rand(gen, b, n, h).to(bf)
+        part = torch.zeros(b, fdb.row_chunks(n)[0], 6, h, device="cuda")
+        slots = {1: [5], 2: [2, 3, 4], 3: [0, 1]}
+        dx1 = None
+        for mode, kw, nio in ((1, dict(attn=attn, g=g, y=yb), 3 * 4 + 2 + 2 * 2 + 4),
+                              (2, dict(attn=attn, g=g, dgrad=dz), 4 * 4 + 2 * 4),
+                              (3, None, 3 * 4 + 4)):
+            kw = kw or dict(dgrad=dz, dx1=dx1)
+            ker = lambda mode=mode, kw=kw: fdb.bwd_rows(mode, x, mod6, part, **kw)  # noqa: E731
+            pla = lambda mode=mode, kw=kw: fdb.bwd_rows_plain(mode, x, mod6, **kw)  # noqa: E731
+            outs = ker()
+            want, sums = pla()
+            sl = slots[mode]
+            got_sums = part.sum(1)[:, sl]
+            _check("vit_bwd_rows", (*outs, got_sums), (*want, sums[:, sl]), results, ker, pla,
+                   _bound(m * h * nio + part[:, :, sl].numel() * 4, 20 * m * h, F32_FLOPS))
+            if mode == 2:
+                dx1 = outs[0]
+        _check("vit_dmod_reduce", fdb.dmod_reduce(part), fdb.dmod_reduce_plain(part), results,
+               lambda: fdb.dmod_reduce(part), lambda: fdb.dmod_reduce_plain(part),
+               _bound(4 * (part.numel() + b * 6 * h), part.numel(), F32_FLOPS),
+               lambda: part.sum(1))
+        del attn, dz, yb, part, hb
+
+    # K5b from residuals of the plain forward (the types K5a saves them in)
+    _, qkv, ctx, a1, y, lse = fdb.block_fwd_res_plain(x, mod6, *ws, mask, heads, scale, bf,
+                                                      want_lse=True)
+    a1, y = a1.to(bf), y.to(bf)
+    args = (x, qkv, ctx, a1 if save_a1 else None, y, mod6, wqkv, wout, bout, w1, b1, w2, g, mask,
+            heads, scale)
+    ker = lambda: fdb.fused_dit_block_bwd_res(*args, lse=lse)  # noqa: E731
+    pla = lambda: fdb.block_bwd_res_plain(  # noqa: E731
+        *args, mm_dtype=bf, attn_dtype=torch.float32)
+    nbytes = (4 * m * 6 * h + (2 * m * fdim if save_a1 else 0) + 2 * m * h + 4 * b * 6 * h
+              + wbytes + 4 * lse.numel() + mask_bytes + 4 * (m * h + b * 6 * h)
+              + 2 * wbytes)  # in; dx, dmod; f32 weight and bias grads
+    _check("fused_dit_block_bwd_res", ker(), pla(), results, ker, pla,
+           _bound(nbytes, _bwd_flops(m, h, fdim, pairs, d, save_a1), BF16_FLOPS))
+    del qkv, ctx, a1, y, lse
+    if not composites:
+        return
+    with torch.no_grad():
+        ker = lambda: fdb.fused_dit_block(x, mod6, *ws, mask, heads, None)  # noqa: E731
+        pla = lambda: fdb.block_fwd_res_plain(x, mod6, *ws, mask, heads, scale, bf)[0]  # noqa: E731
+        _check("fused_dit_block", ker(), pla(), results, ker, pla,
+               _bound(4 * (2 * m * h + b * 6 * h) + wbytes + mask_bytes,
+                      _block_flops(m, h, fdim) + 4 * pairs * d, BF16_FLOPS))
+    ker = lambda: fdb.fused_dit_block_bwd(x, mod6, *ws, g, mask, heads, None)  # noqa: E731
+    pla = lambda: fdb.block_bwd_plain(x, mod6, *ws, g, mask, heads, scale, bf,  # noqa: E731
+                                      torch.float32)
+    _check("fused_dit_block_bwd", ker(), pla(), results, ker, pla,
+           _bound(4 * (3 * m * h + 2 * b * 6 * h) + 3 * wbytes + mask_bytes,
+                  _block_flops(m, h, fdim) + 4 * pairs * d + _bwd_flops(m, h, fdim, pairs, d),
+                  BF16_FLOPS))
+    pdim = 48
+    va = [_rand(gen, b, n, pdim), _rand(gen, n, h), _rand(gen, b, depth, 6, h, std=0.3),
+          _rand(gen, b, 2, h, std=0.3), _rand(gen, pdim, h, std=0.05), _rand(gen, h, std=0.05),
+          *(torch.stack([t] * depth) for t in _block_weights(gen)), _rand(gen, h, pdim, std=0.05),
+          _rand(gen, pdim, std=0.05)]
+    ker = lambda: fdb.vit_fwd_train(*va, mask, heads, None)  # noqa: E731
+    pla = lambda: fdb.vit_fwd_train_plain(*va, mask, heads, scale, mm_dtype=bf)  # noqa: E731
+    out, res, lses = ker()
+    pout, pres, plses = pla()
+    pres = pres[:3] + (pres[3].to(bf), pres[4].to(bf))  # a1, y kept in bf16
+    res_bytes = 4 * m * ((depth + 1) * h + depth * 4 * h) + 2 * m * depth * (fdim + h) + \
+        4 * lses.numel()
+    _check("vit_fwd_train", (out, *res, lses), (pout, *pres, plses), results, ker, pla,
+           _bound(4 * (m * pdim + n * h + b * (6 * depth + 2) * h + m * pdim) + depth * wbytes
+                  + 2 * 2 * pdim * h + mask_bytes + res_bytes,
+                  2 * m * pdim * h * 2 + depth * (_block_flops(m, h, fdim) + 4 * pairs * d),
+                  BF16_FLOPS))
+
+
 def _k4_ops(bins):
     """f32 operations per scalar of the binned-RQS inverse, counting a
     softplus (max, abs, exp, log1p, add, negate) as 6 and every other
@@ -667,9 +946,8 @@ def k4_kernel_phase(results, d, other_branch=True):
     pla = lambda: fsp.inverse_plain(y, theta, *spline)  # noqa: E731
     out, ref = ker(), pla()
     nbytes = 4 * (y.numel() + theta.numel() + out[0].numel() + out[1].numel())
-    # one K4 launch (~0.07 ms at ds2) is as short as the host's work for one call
     _check("binned_rqs_inverse", out, ref, results, ker, pla,
-           _bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS), inner=10)
+           _bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS))
     again = ker()
     torch.cuda.synchronize()
     if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
@@ -1151,6 +1429,134 @@ def train_parity_phase(exp, causal=False):
     return worst, launches
 
 
+def fused_train_phase(tmp: Path, card, composed):
+    """The ds2 shape model with ``fused_block: true`` trained TRAIN_STEPS
+    steps through the experiment (the megakernel tier: K5a forward, K5b
+    backward per block; K2v on the validation batches), its launches
+    counted exactly; steps/s beside the composed path's (``composed``, the
+    ds2_train experiment of this run). Returns (launches, the experiment)."""
+    training = dict(DS2_SHAPE_TRAINING, iterations=TRAIN_STEPS,
+                    validate_every_n_steps=VALIDATE_EVERY)
+    cfg = _experiment_config(tmp, _with_net_param(DS2_SHAPE_MODEL, fused_block=True),
+                             DS2_SHAPE_TRANSFORMS, training, "shape", [0.99, 0.01])
+    cfg.exp_name = "smoke_shape_fused"
+    exp = SyntheticCaloChallenge(cfg, device="cuda")
+    for c in FUSED_TRAINING.values():
+        c.reset()
+    exp()
+    launches = {k: c.launches for k, c in FUSED_TRAINING.items()}
+    _check_training(exp, "fused train")
+    steps = len(exp.train_loss)
+    val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
+    want = fused_launches("true", steps, val_batches)
+    if steps != TRAIN_STEPS or launches != want:
+        raise PhaseError(f"fused train: {steps} steps, launches {launches}, expected {want}")
+    print(f"  {steps} steps, {len(exp.val_loss)} validations ({val_batches} batches): loss "
+          f"{exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}, val {exp.val_loss}", flush=True)
+    print(f"  launches on the main path: { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    rate = lambda e: (len(e.train_loss) / e.train_seconds,  # noqa: E731
+                      len(e.step_times[2:]) / sum(e.step_times[2:]))
+    (f_loop, f_step), (c_loop, c_step) = rate(exp), rate(composed)
+    print(f"fused train: {f_loop:.3f} steps/s over the whole train() loop, {f_step:.3f} steady "
+          f"step interior (steps 3-{steps}); composed path (ds2_train, this run): {c_loop:.3f} / "
+          f"{c_step:.3f}; batch {int(cfg.training.batchsize)}; on {card}", flush=True)
+    return {k: v for k, v in launches.items() if v}, exp
+
+
+# the fused-vs-composed parity paths: (path, label, model config, batch,
+# the launch variant of fused_launches)
+FUSED_PARITY = [
+    ("fused_true", "fused_block: true", _with_net_param(DS2_SHAPE_MODEL, fused_block=True), 64,
+     "true"),
+    ("fused_hybrid", "fused_block: hybrid",
+     _with_net_param(DS2_SHAPE_MODEL, fused_block="hybrid"), 64, "hybrid"),
+    ("fused_nostack", "fused_block: true, fused_stack: false",
+     _with_net_param(DS2_SHAPE_MODEL, fused_block=True, fused_stack=False), 64, "nostack"),
+    ("fused_causal", "fused_block: true, causal_attn: true",
+     _with_net_param(DS2_SHAPE_MODEL, fused_block=True, causal_attn=True), 64, "true"),
+    ("fused_ds3", "ds3, fused_block: true (a1 recomputed)",
+     _with_net_param(DS3_SHAPE_MODEL, fused_block=True), 16, "noa1"),
+]
+
+
+def fused_parity_phase(label, cfg, batch, variant):
+    """The fused net against the composed one (``fused_block: false``, K1's
+    attention) from one state: per parameter tensor the relative L2 of the
+    gradients of one batch, then TRAIN_PARITY_STEPS train steps of each on
+    the same random batches and draws (x ~ N(0, 1), c ~ U(0, 1)). The
+    fused steps' launches are counted exactly. Returns (worst errors,
+    launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    fused = instantiate(cfg).cuda()
+    _randomize(fused, gen)
+    composed = instantiate(_with_net_param(cfg, fused_block=False)).cuda()
+    composed.load_state_dict(fused.state_dict())
+    init = {k: v.clone() for k, v in fused.state_dict().items()}
+    shape = (batch, cfg["in_channels"], *cfg["shape"])
+    cdim = cfg["net"]["param"]["condition_dim"]
+    draws = [(torch.randn(shape, generator=gen, device="cuda"),
+              torch.rand((batch, cdim), generator=gen, device="cuda"),
+              torch.rand((batch, 1, 1, 1, 1), generator=gen, device="cuda"),
+              torch.randn(shape, generator=gen, device="cuda"))
+             for _ in range(TRAIN_PARITY_STEPS)]
+    loss = lambda model, d: model.batch_loss(d[0], d[1], t=d[2], x_0=d[3])  # noqa: E731
+    gf, gc = (torch.autograd.grad(loss(m, draws[0]), list(m.parameters()))
+              for m in (fused, composed))
+    names = [n for n, _ in fused.named_parameters()]
+    rel = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, gf, gc)
+           if b.norm() > 0}
+    worst = {"grad_rel_l2": max(rel.values()), "loss": 0.0, "grad_norm": 0.0}
+    worst_name = max(rel, key=rel.get)
+    del gf, gc
+    states = {k: ts.create_train_state(m, Config(DS2_SHAPE_TRAINING), use_ema=False)
+              for k, m in (("fused", fused), ("composed", composed))}
+    steps = {k: ts.make_train_step(lambda *d, m=m: loss(m, d),
+                                   clip_grad_norm=DS2_SHAPE_TRAINING["clip_grad_norm"])
+             for k, m in (("fused", fused), ("composed", composed))}
+    counts = dict.fromkeys(FUSED_TRAINING, 0)
+    for d in draws:
+        before = {k: c.launches for k, c in FUSED_TRAINING.items()}
+        mf = steps["fused"](states["fused"], d)
+        counts = {k: counts[k] + c.launches - before[k] for k, c in FUSED_TRAINING.items()}
+        mc = steps["composed"](states["composed"], d)
+        for key in ("loss", "grad_norm"):
+            worst[key] = max(worst[key], abs(float(mf[key]) - float(mc[key])) / abs(float(mc[key])))
+        if mf["skipped"] or mc["skipped"]:
+            raise PhaseError(f"fused parity ({label}): a step was skipped")
+    want = fused_launches(variant, TRAIN_PARITY_STEPS, 0)
+    if counts != want:
+        raise PhaseError(f"fused parity ({label}): launches {counts}, expected {want}")
+    pf, pc = (dict(m.named_parameters()) for m in (fused, composed))
+    du = torch.cat([(pf[n] - init[n]).flatten() for n in pc])
+    dc = torch.cat([(pc[n] - init[n]).flatten() for n in pc])
+    worst["update_rel"] = ((du - dc).norm() / dc.norm()).item()
+    ok = all(worst[k] <= FUSED_TRAIN_TOL[k] for k in FUSED_TRAIN_TOL)
+    print(f"  {label}, batch {batch}: gradient rel L2 worst {worst['grad_rel_l2']:.3e} "
+          f"({worst_name}), median {float(np.median(list(rel.values()))):.3e}; "
+          f"{TRAIN_PARITY_STEPS} steps: loss rel {worst['loss']:.3e}, grad_norm rel "
+          f"{worst['grad_norm']:.3e}, update rel {worst['update_rel']:.3e} (bounds "
+          f"{FUSED_TRAIN_TOL}) {'ok' if ok else 'FAILED'}", flush=True)
+    print(f"  launches: { {k: v for k, v in counts.items() if v} }", flush=True)
+    if not ok:
+        raise PhaseError(f"fused parity ({label}): fused training disagrees with the composed path")
+    return worst, {k: v for k, v in counts.items() if v}
+
+
+# device-time groups of a fused train step
+FUSED_TRAIN_GROUPS = [
+    ("K5a gemm_kernel", lambda k: "gemm_kernel<" in k),
+    ("K5b gemm_nt", lambda k: "gemm_nt_kernel" in k),
+    ("K5b gemm_tn", lambda k: "gemm_tn_kernel" in k),
+    ("K5b reductions", lambda k: "wgrad_reduce_kernel" in k or "dmod_reduce_kernel" in k),
+    ("K5b bwd_rows", lambda k: "bwd_rows_kernel" in k),
+    ("modln", lambda k: "modln_kernel" in k),
+    ("K1 forward", lambda k: "::fwd_kernel<" in k),
+    ("K1 backward", lambda k: "::bwd_d" in k),
+    ("cuBLAS products", _is_gemm),
+]
+
+
 def energy_phase(tmp: Path):
     training = dict(DS2_ENERGY_TRAINING, iterations=ENERGY_STEPS,
                     validate_every_n_steps=ENERGY_STEPS // 2)
@@ -1167,10 +1573,10 @@ def energy_phase(tmp: Path):
           f"{exp.train_loss[-1]:.4f}, {len(steady) / sum(steady):.2f} steps/s steady", flush=True)
 
 
-def train_profile_phase(exp, card, top=12):
+def train_profile_phase(exp, card, top=12, groups=None):
     """One train step of the trained experiment under torch.profiler:
-    device ms of K1's kernels, the cuBLAS products and the rest, and the
-    step's idle share."""
+    device ms by group (default: K1's kernels, the cuBLAS products; then
+    the rest), and the step's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = exp._batch(next(exp.train_iterator))
@@ -1179,9 +1585,9 @@ def train_profile_phase(exp, card, top=12):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = _clock(lambda: exp._train_step(exp.state, batch))
     rows = _device_rows(prof)
-    groups = _grouped(rows, [("K1 forward", lambda k: "::fwd_kernel<" in k),
-                             ("K1 backward", lambda k: "::bwd_d" in k),
-                             ("cuBLAS products", _is_gemm)])
+    groups = _grouped(rows, groups or [("K1 forward", lambda k: "::fwd_kernel<" in k),
+                                       ("K1 backward", lambda k: "::bwd_d" in k),
+                                       ("cuBLAS products", _is_gemm)])
     busy_ms, wall_ms = sum(groups.values()), wall_s * 1e3
     print(f"  host clock ({card}): one step {step_s * 1e3:.2f} ms; under torch.profiler: wall "
           f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
@@ -1238,6 +1644,19 @@ def main() -> int:
     k2v_kernel_phase(groups["causal"], 135, 48, mask=mask, gemms=False)
     print("K1 vs plain, ds2 training shape with the layer-causal mask of (15, 1, 9)", flush=True)
     k1_ms["ds2 training shape, masked"] = k1_kernel_phase(groups["causal"], 64, 135, mask=mask)
+    print("K5 tier vs plain, ds2 training shape: x (64, 135, 480), 6 heads x 80, F 1920: the "
+          "training GEMM epilogues, NT and split-K TN products, row passes, K5b (a1 saved), K2b, "
+          "K5c, K5a", flush=True)
+    k5_kernel_phase(groups["main"], 64, 135)
+    print("K5b without a1, ds2 training shape", flush=True)
+    k5_kernel_phase(groups["noa1"], 64, 135, primitives=False, save_a1=False, composites=False)
+    print("K5b without a1, N = 450: x (16, 450, 480)", flush=True)
+    k5_kernel_phase(groups["n450"], 16, 450, primitives=False, save_a1=False, composites=False)
+    print("K5b (a1 saved, and without), K2b, K5c, K5a with the layer-causal mask of (15, 1, 9)",
+          flush=True)
+    k5_kernel_phase(groups["causal"], 64, 135, mask=mask, primitives=False)
+    k5_kernel_phase(groups["causal_noa1"], 64, 135, mask=mask, primitives=False, save_a1=False,
+                    composites=False)
     del mask
     failed = [f"{k} ({g})" for g, r in groups.items() for k, v in r.items() if not v["ok"]]
     if failed:
@@ -1245,7 +1664,7 @@ def main() -> int:
     for g, res in groups.items():
         for k, r in res.items():
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
-            bound = "" if k not in REPLACES else \
+            bound = "" if r["bound_ms"] == 0 else \
                 f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
             print(f"  {k} [{SHAPE_GROUPS[g]}]: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
                   f"{lib}{bound} ({card})", flush=True)
@@ -1296,7 +1715,16 @@ def main() -> int:
         _, launches["causal_train"] = train_parity_phase(exp, causal=True)
         print("train profile: one ds2 train step", flush=True)
         train_profile_phase(exp, card)
-        del exp
+        print("ds2_fused_train: ds2 shape model, fused_block: true, through the experiment",
+              flush=True)
+        launches["ds2_fused_train"], fexp = fused_train_phase(Path(tmp), card, exp)
+        print("fused train parity: the megakernel tier against the composed path", flush=True)
+        for path, label, cfg, batch, variant in FUSED_PARITY:
+            _, launches[path] = fused_parity_phase(label, cfg, batch, variant)
+            torch.cuda.empty_cache()
+        print("fused train profile: one ds2 fused train step", flush=True)
+        train_profile_phase(fexp, card, groups=FUSED_TRAIN_GROUPS)
+        del exp, fexp
         print("energy: ds2 energy model at full width", flush=True)
         energy_phase(Path(tmp))
 

@@ -203,6 +203,21 @@ def test_launcher_trains_tiny_ds2_and_warm_starts(tmp_path):
     assert (run / "models" / "model_run2.pt").exists()
 
 
+def test_launcher_evaluates_as_jax_and_trains_the_fused_tier(tmp_path):
+    """The default ``evaluate: true`` runs to its end (``evaluate`` does
+    nothing, as in JAX), here with ``fused_block: true``: the launcher
+    trains through the megakernel tier (K5a/K5b's plain versions on the
+    CPU) and validates through K2v's."""
+    args = [a for a in _tiny_ds2(tmp_path) if a != "evaluate=false"]
+    exp = main(["-cn", "calochallenge/cfm/calochallenge_ds2", *args, "evaluate=true",
+                "model.net.param.fused_block=true", "training.iterations=2",
+                "training.validate_every_n_steps=2"], device="cpu")
+    assert exp.cfg.evaluate is True and exp.model.net.cfg.fused_block is True
+    assert exp.state.step == 2 and len(exp.val_loss) == 1
+    assert all(math.isfinite(v) for v in exp.train_loss + exp.val_loss)
+    assert (tmp_path / "runs" / "Tiny" / "run" / "models" / "model_run0.pt").exists()
+
+
 def test_launcher_surface():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_experiment("calogan")

@@ -67,12 +67,14 @@ def _training(**kw):
     return cfg
 
 
-def _models(kind, rng):
+def _models(kind, rng, **vit_kw):
     """(jax model, jax params, port model) with the same (perturbed) params."""
     key = jax.random.PRNGKey(5)
     if kind == "vit":
-        jmodel = JaxCaloChallengeCFM(JaxViT(_vit_param()), patch_shape=[3, 4, 1], shape=[L, A, R])
-        model = CaloChallengeCFM(ViT(_vit_param()), patch_shape=[3, 4, 1], shape=[L, A, R])
+        jmodel = JaxCaloChallengeCFM(JaxViT(_vit_param(**vit_kw)), patch_shape=[3, 4, 1],
+                                     shape=[L, A, R])
+        model = CaloChallengeCFM(ViT(_vit_param(**vit_kw)), patch_shape=[3, 4, 1],
+                                 shape=[L, A, R])
         convert = convert_vit_params
     else:
         jmodel = JaxCFM(JaxParallelTransformer(_energy_param()), shape=[L])
@@ -118,15 +120,23 @@ def _assert_params(sd_port, jparams, convert, atol):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("kind,tcfg", [
-    ("vit", _training()),  # the ds2 default: AdamW + cosine
-    ("vit", _training(optimizer="Adam", scheduler=None, clip_grad_value=0.05)),
-    ("vit", _training(optimizer="RAdam", scheduler="OneCycleLR")),
-    ("energy", _training()),
-], ids=["vit-adamw-cosine", "vit-adam-l2-clipvalue", "vit-radam-onecycle", "energy-adamw-cosine"])
-def test_train_step_matches_jax(kind, tcfg):
+@pytest.mark.parametrize("kind,tcfg,vit_kw,n_steps", [
+    ("vit", _training(), {}, 3),  # the ds2 default: AdamW + cosine
+    ("vit", _training(optimizer="Adam", scheduler=None, clip_grad_value=0.05), {}, 3),
+    # past RAdam's rectification threshold (rho_t >= 5 from step 6 at beta2 0.999)
+    ("vit", _training(optimizer="RAdam", scheduler="OneCycleLR"), {}, 10),
+    ("energy", _training(), {}, 3),
+    # the megakernel tier: K5a forward, K5b backward / the plain hybrid
+    # backward / per-block K2b with K5c (plain versions on the CPU, JAX's
+    # Pallas kernels in interpret mode)
+    ("vit", _training(), dict(fused_block=True), 3),
+    ("vit", _training(), dict(fused_block="hybrid"), 3),
+    ("vit", _training(), dict(fused_block=True, fused_stack=False), 3),
+], ids=["vit-adamw-cosine", "vit-adam-l2-clipvalue", "vit-radam-onecycle", "energy-adamw-cosine",
+        "vit-fused", "vit-hybrid", "vit-fused-nostack"])
+def test_train_step_matches_jax(kind, tcfg, vit_kw, n_steps):
     rng = np.random.default_rng(50)
-    jmodel, params, model, convert = _models(kind, rng)
+    jmodel, params, model, convert = _models(kind, rng, **vit_kw)
     x_shape = (1, L, A, R) if kind == "vit" else (L,)
     clip = dict(clip_grad_value=tcfg.get("clip_grad_value"), clip_grad_norm=0.5)
 
@@ -136,7 +146,7 @@ def test_train_step_matches_jax(kind, tcfg):
     state = ts.create_train_state(model, Config(tcfg), use_ema=True)
     step = ts.make_train_step(_port_loss(model), ema_decay=0.999, **clip)
 
-    for batch in _batches(rng, x_shape, 3):
+    for batch in _batches(rng, x_shape, n_steps):
         jstate, jm = jstep(jstate, batch, jax.random.PRNGKey(0))
         m = step(state, tuple(torch.from_numpy(a) for a in batch))
         for key in ("loss", "grad_norm", "grad_norm_net"):
@@ -145,7 +155,8 @@ def test_train_step_matches_jax(kind, tcfg):
         _assert_params(model.net.state_dict(), jstate.params, convert, atol=1e-5)
     names = [n.removeprefix("net.") for n, p in model.named_parameters() if p.requires_grad]
     _assert_params(dict(zip(names, state.ema)), jstate.ema_params, convert, atol=1e-5)
-    assert state.step == int(jstate.step) == 3 and state.ema_updates == int(jstate.ema_updates)
+    assert state.step == int(jstate.step) == n_steps
+    assert state.ema_updates == int(jstate.ema_updates)
 
 
 class _ScaledPair:
@@ -333,26 +344,50 @@ def test_checkpoint_grads_gives_the_same_gradients():
         torch.testing.assert_close(a, b)
 
 
-def test_fused_block_training_raises_and_sampling_runs():
-    net = ViT(_vit_param(fused_block=True))
-    args = (torch.randn(2, 6, 12), torch.rand(2, 1), torch.randn(2, L + 1))
-    with pytest.raises(NotImplementedError, match="K5"):
-        net(*args)
+@pytest.mark.parametrize("fused", [dict(fused_block=True), dict(fused_block="hybrid"),
+                                   dict(fused_block=True, fused_stack=False)],
+                         ids=["true", "hybrid", "no-stack"])
+def test_fused_block_trains_with_the_composed_grads(fused):
+    """``fused_block: true`` (K5a + K5b), ``"hybrid"`` (K5a + the plain
+    residual backward) and ``fused_stack: false`` (K2b + K5c) give the
+    composed net's gradients for every parameter (f32 plain versions on the
+    CPU: summation order only), and under no_grad its output."""
+    rng = np.random.default_rng(53)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in
+            (rng.normal(size=(2, 6, 12)), rng.uniform(size=(2, 1)), rng.normal(size=(2, L + 1)))]
+    torch.manual_seed(0)
+    composed = ViT(_vit_param(fused_block=False))
+    with torch.no_grad():  # non-zero adaLN and final-layer weights
+        for p in composed.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    net = ViT(_vit_param(**fused))
+    net.load_state_dict(composed.state_dict())
+    for m in (composed, net):
+        (m(*args) ** 2).sum().backward()
+    for (name, a), b in zip(net.named_parameters(), composed.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4, msg=name)
     with torch.no_grad():
-        assert net(*args).shape == (2, 6, 12)
+        torch.testing.assert_close(net(*args), composed(*args), atol=1e-5, rtol=1e-4)
 
 
-def test_energy_fused_block_training_raises_and_sampling_runs():
-    """fused_block: true has no backward yet: with gradients it raises; under
-    no_grad it equals the composed net (atol 1e-5: f32, summation order)."""
+def test_energy_fused_block_trains_with_the_composed_grads():
+    """``fused_block: true`` trains the energy net through the decoder
+    kernel's forward and the plain decoder's VJP: the composed net's
+    gradients (f32 both, summation order only) and, under no_grad, its
+    output (atol 1e-5)."""
     rng = np.random.default_rng(52)
     param = dict(_energy_param(), fused_block=True)
     fused = ParallelTransformer(param)
     composed = ParallelTransformer(dict(param, fused_block=False))
-    composed.load_state_dict(fused.state_dict())
+    with torch.no_grad():
+        for p in composed.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    fused.load_state_dict(composed.state_dict())
     args = [torch.from_numpy(a.astype(np.float32)) for a in
             (rng.normal(size=(3, L)), rng.uniform(size=(3, 1)), rng.uniform(size=(3, 1)))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused(*args)
+    for m in (fused, composed):
+        (m(*args) ** 2).sum().backward()
+    for (name, a), b in zip(fused.named_parameters(), composed.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-4, msg=name)
     with torch.no_grad():
         torch.testing.assert_close(fused(*args), composed(*args), atol=1e-5, rtol=1e-4)

@@ -26,8 +26,16 @@
 //    memory with zero-filled edges (N = 135 tokens, K = 48 and N = 480 are
 //    not multiples of the tile). A is f32 (converted on load) or bf16. The
 //    epilogue family: bias; bias + positional embedding; bias + tanh-GELU
-//    written as bf16 (the next product's A); gated residual x += gate * (.
-//    + bias) in place on the f32 residual stream.
+//    written as bf16 (the next product's A); gated residual out = resid +
+//    gate * (. + bias) on the f32 residual stream (in place when resid is
+//    out). The training forward (K5a, `_vit_fwd_train`,
+//    vit4hep_tpu/ops/fused_dit_block.py:1491, pallas_call :1549) uses the
+//    same kernel with the residual writes of `_store_block_res` (:489)
+//    fused into two epilogues: the GELU epilogue also stores the pre-GELU
+//    a1 as bf16, and the gated residual also stores y = . + bias as bf16
+//    before the gate (each only where its `save` pointer is set); the
+//    block input stays in its own buffer because the residual epilogue
+//    writes its sum elsewhere.
 //  - modln_kernel: LayerNorm (no affine, eps 1e-6) + adaLN modulate
 //    (1 + scale) * . + shift, one warp per row, written as bf16.
 //  - attention: attn::fwd_kernel<DP, bf16> of attention_fwd.cuh, the same
@@ -67,6 +75,8 @@ struct GemmArgs {
   void* out;
   const float* aux;  // EPI_BIAS_POS: pos (n_tok, N); EPI_GATED_RESID: gate rows (B, *)
   long long aux_stride;
+  const float* resid;     // EPI_GATED_RESID: the residual added to (may be out)
+  __nv_bfloat16* save;    // EPI_BIAS_GELU: a1; EPI_GATED_RESID: y; or nullptr
   int M, N, K, n_tok;
 };
 
@@ -146,9 +156,11 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
       static_cast<float*>(g.out)[o] = v + g.aux[(size_t)(gr % g.n_tok) * g.N + gc];
     } else if (EPI == EPI_BIAS_GELU) {
       static_cast<__nv_bfloat16*>(g.out)[o] = __float2bfloat16(gelu_tanh(v));
+      if (g.save != nullptr) g.save[o] = __float2bfloat16(v);
     } else {
-      float* x = static_cast<float*>(g.out);
-      x[o] += g.aux[(size_t)(gr / g.n_tok) * g.aux_stride + gc] * v;
+      const float r = g.resid[o];  // read before the write: resid may be out
+      static_cast<float*>(g.out)[o] = r + g.aux[(size_t)(gr / g.n_tok) * g.aux_stride + gc] * v;
+      if (g.save != nullptr) g.save[o] = __float2bfloat16(v);
     }
   }
 }
@@ -202,10 +214,12 @@ cudaError_t launch_gemm(const GemmArgs& g, int epi, cudaStream_t s) {
 }  // namespace
 
 extern "C" int vit_gemm(const void* A, int a_is_bf16, const void* W, const float* bias, void* out,
-                        const float* aux, long long aux_stride, int M, int N, int K, int n_tok,
-                        int epi, void* stream) {
+                        const float* aux, long long aux_stride, const float* resid, void* save,
+                        int M, int N, int K, int n_tok, int epi, void* stream) {
   if ((long long)(M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  GemmArgs g{A, static_cast<const __nv_bfloat16*>(W), bias, out, aux, aux_stride, M, N, K, n_tok};
+  if (epi == EPI_GATED_RESID && resid == nullptr) return (int)cudaErrorInvalidValue;
+  GemmArgs g{A, static_cast<const __nv_bfloat16*>(W), bias, out, aux, aux_stride, resid,
+             static_cast<__nv_bfloat16*>(save), M, N, K, n_tok};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(a_is_bf16 ? launch_gemm<__nv_bfloat16>(g, epi, s) : launch_gemm<float>(g, epi, s));
 }

@@ -21,11 +21,12 @@ update. The semantics are the JAX package's:
 
 Parameters that get no gradient are given zero gradients, so that weight
 decay and the moments treat them as optax does. Optimizers: ``AdamW`` (the
-ds2 default), ``Adam`` and ``RAdam`` with torch's coupled L2 weight decay
-(optax chains ``add_decayed_weights`` before them). torch's RAdam adds eps to
-sqrt(v) before the bias correction, optax after it, which differs only in
-the rectified phase (after ~5 steps at beta2 0.999) where sqrt(v) is of the
-order of eps. Schedules are the optax formulas
+ds2 default), ``Adam`` with torch's coupled L2 weight decay (optax chains
+``add_decayed_weights`` before it), and ``RAdam``, :class:`RAdam` below:
+``optax.radam`` behind the same coupled L2, written out because torch's
+RAdam rectifies otherwise (eps added before the bias correction, and
+another rectification term) and drifts from optax once the rectified phase
+starts (step 6 at beta2 0.999). Schedules are the optax formulas
 (``cosine_decay_schedule``, which holds its end value;
 ``cosine_onecycle_schedule``), driven by a ``LambdaLR`` whose counter
 advances with each applied update. ``Lion`` and ``Ranger`` are not ported
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # the spike-skip is only active after this many steps
@@ -200,6 +202,58 @@ def make_schedule(training_cfg, lr=None):
     raise ValueError(f"Learning rate scheduler {name} not implemented")
 
 
+class RAdam(torch.optim.Optimizer):
+    """``optax.chain(optax.add_decayed_weights(wd), optax.radam(lr, b1, b2,
+    eps))``: with g += wd * p, m and v the moments and t the step,
+    rho_t = rho_inf - 2 t b2^t / (1 - b2^t), rho_inf = 2 / (1 - b2) - 1; the
+    update is lr * r_t * m_hat / (sqrt(v_hat) + eps) with r_t =
+    sqrt((rho_t - 4)(rho_t - 2) rho_inf / ((rho_inf - 4)(rho_inf - 2) rho_t))
+    where rho_t >= 5, and lr * m_hat below it. The scalars are computed in
+    float32 as optax computes them (b^t correctly rounded, then each
+    operation rounded): 1 - b2^t cancels, so rho_t, and with it r_t, carry
+    optax's rounding, which a float64 evaluation would not reproduce. Each
+    tensor operation is rounded on its own, as in optax. Its state per
+    parameter is torch's (``step``, ``exp_avg``, ``exp_avg_sq``), so
+    checkpoints and warm starts restore it as they do Adam's."""
+
+    def __init__(self, params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+                 threshold=5.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, threshold=threshold))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        f32 = np.float32
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            rho_inf = 2.0 / (1.0 - b2) - 1.0
+            wd, eps, lr = group["weight_decay"], group["eps"], group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad + wd * p if wd else p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+                t = int(st["step"])
+                m, v = st["exp_avg"], st["exp_avg_sq"]
+                m.copy_((1.0 - b1) * g + b1 * m)
+                v.copy_((1.0 - b2) * (g * g) + b2 * v)
+                b2t = f32(float(f32(b2)) ** t)
+                rho = f32(rho_inf) - f32(2 * t) * b2t / (f32(1.0) - b2t)
+                upd = m / float(f32(1.0) - f32(float(f32(b1)) ** t))
+                if rho >= group["threshold"]:
+                    r = np.sqrt((rho - f32(4.0)) * (rho - f32(2.0)) * f32(rho_inf)
+                                / (f32((rho_inf - 4.0) * (rho_inf - 2.0)) * rho))
+                    upd = float(r) * upd / (torch.sqrt(v / float(f32(1.0) - b2t)) + eps)
+                p.add_(upd * -lr)
+        return loss
+
+
 def make_optimizer(training_cfg, params) -> torch.optim.Optimizer:
     name = training_cfg.get("optimizer", "AdamW")
     lr = float(training_cfg.lr)
@@ -211,7 +265,7 @@ def make_optimizer(training_cfg, params) -> torch.optim.Optimizer:
     if name == "Adam":  # coupled L2: grad += wd * param before the moments
         return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
     if name == "RAdam":
-        return torch.optim.RAdam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
+        return RAdam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
     if name in ("Lion", "Ranger"):
         raise NotImplementedError(f"optimizer {name} is not ported yet (ROADMAP.md queue 1)")
     raise ValueError(f"Optimizer {name} not implemented")

@@ -13,8 +13,9 @@ onto these names. Attention is the port's own plain attention, not
 ``fused_block: true`` (and ``"sample"`` through :func:`sampling_variant`)
 runs the decoder stack + head as one hand-written kernel per batch element
 (``ops/fused_energy_decoder.py``), valid when the encoder memory collapses
-to one token: ``dims_c == 1``, or no condition. The kernel has no backward
-yet, so ``fused_block: true`` with gradients enabled raises; the ds2 default
+to one token: ``dims_c == 1``, or no condition. With gradients enabled,
+``fused_block: true`` trains through that kernel's forward, whose backward
+is the VJP of the plain decoder (as in JAX); the ds2 default
 (``fused_block: sample``) trains the composed layers.
 """
 
@@ -251,11 +252,6 @@ class ParallelTransformerNet(nn.Module):
         # the decoder kernel is valid when the cross-attention memory is one
         # effective token: a 1-token encoder or the all-zero memory
         if p.fused_block is True and (condition is None or p.dims_c == 1):
-            if torch.is_grad_enabled():
-                raise NotImplementedError(
-                    "fused_block: true with gradients enabled needs the decoder kernel's "
-                    "backward, not ported yet (ROADMAP.md queue 2); train the composed path "
-                    "(fused_block: false or 'sample') or run under torch.no_grad()")
             return self._fused_decoder(tgt, t_feats, memory)
 
         h = tgt
@@ -297,8 +293,8 @@ class ParallelTransformerNet(nn.Module):
             ca.out_proj(F.linear(m0, ca.in_proj_weight[2 * dm:], ca.in_proj_bias[2 * dm:]))
             for ca in (layer.multihead_attn for layer in self.transformer.decoder.layers)],
             dim=1)
-        weights = self._sampling_weights
-        if weights is None:
+        weights = None if torch.is_grad_enabled() else self._sampling_weights
+        if weights is None:  # training: the parameters themselves, autograd follows
             weights = self.kernel_weights()
         return fused_energy_decoder(tgt.contiguous(), t_feats.contiguous(), cross, *weights,
                                     p.nhead, p.activation, p.fused_group)

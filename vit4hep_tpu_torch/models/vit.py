@@ -12,25 +12,33 @@ attention goes through ``ops/attention.qkv_attention``, whose ``auto``
 dispatch runs kernel K1 (``fused_qkv_attention``, forward and backward) from
 128 tokens, and ``checkpoint_grads: true`` recomputes each block in the
 backward (``torch.utils.checkpoint``, the JAX ``nn.remat``).
-``fused_block: true`` (and ``"sample"`` through :func:`sampling_variant`)
-runs the embedder, every block and the FinalLayer through
-``ops/fused_dit_block.fused_vit_forward``, forward only: the per-block adaLN
-products stay plain PyTorch, as they sit outside the Pallas kernel in JAX,
-and training through that path (``fused_block: true``/``"hybrid"`` with
-gradients enabled) needs the K5 kernels and raises. ``causal_attn: true``
-(the reference's layer-causal ViT) reaches the masked kernels on both
-paths: K2v's attention when sampling, K1's forward and backward when
-training. The (T, T) mask is built once, as a non-persistent buffer that
-follows the net to its device (the state dict does not change), not on
-every forward.
+``fused_block: true`` and ``"hybrid"`` route as in JAX (``checkpoint_grads``
+wins over both and keeps the composed path): with ``fused_stack: true`` and
+a fitting group (``_fit_group``) the embedder, every block and the
+FinalLayer run through ``ops/fused_dit_block.fused_vit_forward`` -- K2v
+without gradients (also ``"sample"`` through :func:`sampling_variant`);
+with gradients K5a's residual-saving forward, then per block K5b's
+backward (``true``) or the plain residual backward on bf16 multiplicands
+(``"hybrid"``). With ``fused_stack: false``, or a group of 0, the embedder
+and the FinalLayer stay composed and each block runs the per-block kernel
+K2b (``fused_dit_block``), whose backward is K5c. When training, the
+kernels take the f32 weights (``lin.weight.t()``), so that gradients reach
+the parameters; they cast to bf16 inside. The per-block adaLN products
+stay plain PyTorch, as they sit outside the Pallas kernels in JAX. On the
+card this tier trains slower than the composed path for now (about 20%
+fewer steps per second at ds2, PERF.md §5): where speed matters, train
+with ``fused_block: false`` or ``"sample"``.
+``causal_attn: true`` (the reference's layer-causal ViT) reaches the masked
+kernels on every path. The (T, T) mask is built once, as a non-persistent
+buffer that follows the net to its device (the state dict does not
+change), not on every forward.
 
 ``ViT1D`` is the cINN coupling subnet: no time input, a 1-D learnable
 positional embedding over ``prod_num_patches`` tokens, and ``x_out``
 outputs per patch value. It runs the composed path, whose attention reaches
 K1 from 128 tokens as in JAX; its ``fused_block`` twin (K2v over a ViT1D)
 is not ported yet and raises. Not ported yet either: the fine-tuning
-mappers, the fixed sin-cos positional embeddings, ``fused_mlp`` and the
-block-stack / per-block kernel fallbacks (``fused_stack: false``).
+mappers, the fixed sin-cos positional embeddings and ``fused_mlp``.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import warnings
 
 import numpy as np
 import torch
@@ -45,9 +54,9 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import pos_embed as pe_ops
 from vit4hep_tpu_torch.ops.attention import qkv_attention
-from vit4hep_tpu_torch.ops.fused_dit_block import fused_vit_forward
 
 _LN_EPS = 1e-6
 
@@ -243,6 +252,25 @@ def _checked_mask(net):
     return net.attn_mask
 
 
+def _fit_group(p: ViTParams, n: int) -> int:
+    """JAX's ``_fit_group``: the largest group, halving down from
+    ``fused_group`` (each candidate snapped with ``safe_group``), whose TPU
+    block-stack VMEM estimate fits 98 MiB; 0 when none does (the per-block
+    kernel then runs). A TPU budget, kept so that both packages route a
+    configuration alike."""
+    mlp_hidden = int(p.hidden_dim * p.mlp_ratio)
+    g, tried = max(1, int(p.fused_group)), set()
+    while g >= 1:
+        eff = fdb.safe_group(g, n)
+        if eff not in tried:
+            tried.add(eff)
+            if fdb.stack_vmem_estimate(n, p.hidden_dim, mlp_hidden, p.depth, p.num_heads,
+                                       eff) <= 98 * 1024 * 1024:
+                return eff
+        g //= 2
+    return 0
+
+
 def _run_blocks(blocks, x, cond, mask, checkpoint_grads):
     """The DiT blocks in order; with ``checkpoint_grads`` each is recomputed
     in the backward."""
@@ -289,19 +317,16 @@ class ViTNet(nn.Module):
         x = x.float()
         cond = self.t_embedder(t) + self.c_embedder(c.float())
         mask = _checked_mask(self)
-        if p.fused_block in (True, "hybrid") and not p.checkpoint_grads and not p.pad_attn_heads:
-            if torch.is_grad_enabled():
-                raise NotImplementedError(
-                    f"fused_block: {p.fused_block!r} with gradients enabled needs the training "
-                    "kernels K5a-c, not ported yet (ROADMAP.md queue 2); train the composed "
-                    "path (fused_block: false or 'sample') or run under torch.no_grad()")
-            if not p.fused_stack:
-                raise NotImplementedError(
-                    "fused_stack: false needs the per-block kernel (K2b), not ported yet")
+        fused = p.fused_block in (True, "hybrid") and not p.checkpoint_grads \
+            and not p.pad_attn_heads
+        if fused and p.fused_stack and _fit_group(p, x.shape[1]) > 0:
             return self._fused_vit(x, cond, mask)
 
-        x = _run_blocks(self.blocks, self.x_embedder(x) + self.pos_embedding(), cond, mask,
-                        p.checkpoint_grads)
+        x = self.x_embedder(x) + self.pos_embedding()
+        if fused:
+            x = self._fused_blocks(x, cond, mask)
+        else:
+            x = _run_blocks(self.blocks, x, cond, mask, p.checkpoint_grads)
         return self.final_layer(x, cond)
 
     def _fused_vit(self, tokens, cond, mask):
@@ -314,22 +339,48 @@ class ViTNet(nn.Module):
         mods = torch.stack([blk.adaLN_modulation[1](c_act).reshape(b, 6, p.hidden_dim)
                             for blk in self.blocks], dim=1)
         fmod = self.final_layer.adaLN_modulation(cond).reshape(b, 2, p.hidden_dim)
-        weights = self._sampling_weights
-        if weights is None:
-            weights = self.kernel_weights()
+        if torch.is_grad_enabled():
+            weights = self.kernel_weights(train=True)
+        else:
+            weights = self._sampling_weights
+            if weights is None:
+                weights = self.kernel_weights()
         wemb, bemb, *blocks, wfin, bfin = weights
-        return fused_vit_forward(
+        return fdb.fused_vit_forward(
             tokens.contiguous(), self.pos_embedding().contiguous(), mods.contiguous(),
             fmod.contiguous(), wemb, bemb, *blocks, wfin, bfin,
             mask, p.num_heads, float(p.hidden_dim // p.num_heads) ** -0.5, p.fused_group,
+            "xla" if p.fused_block == "hybrid" else "pallas",
         )
 
-    def kernel_weights(self):
+    def _fused_blocks(self, x, cond, mask):
+        """Every block through the per-block kernel K2b
+        (ops/fused_dit_block.fused_dit_block; backward K5c), as JAX's
+        ``_fused_block_stack`` does with ``fused_stack: false`` or a group
+        of 0."""
+        p = self.cfg
+        if p.fused_block == "hybrid":  # shown once: the default warnings filter
+            warnings.warn("fused_block: 'hybrid' selects the plain residual backward only on "
+                          "the whole-ViT path; the per-block kernel (fused_stack: false, or no "
+                          "fitting group) trains with its kernel backward K5c", stacklevel=2)
+        b = x.shape[0]
+        c_act = F.silu(cond)
+        for blk in self.blocks:
+            lins = (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)
+            x = fdb.fused_dit_block(
+                x, blk.adaLN_modulation[1](c_act).reshape(b, 6, p.hidden_dim),
+                *(w for lin in lins for w in (lin.weight.t(), lin.bias)), mask, p.num_heads,
+                float(p.hidden_dim // p.num_heads) ** -0.5)
+        return x
+
+    def kernel_weights(self, train=False):
         """The weights in fused_vit_forward's layout: the embedder, the block
         weights stacked (L, ...), the FinalLayer projection; matrices (in,
-        out), in bf16 on the card (the kernels' multiplicands) and f32 on the
-        CPU (the plain version's)."""
-        dt = torch.bfloat16 if self.pos_embed_freqs.is_cuda else torch.float32
+        out). For sampling, in bf16 on the card (the kernels'
+        multiplicands) and f32 on the CPU (the plain version's); with
+        ``train``, the f32 parameters themselves, through views and stacks
+        that autograd follows back to them."""
+        dt = torch.bfloat16 if self.pos_embed_freqs.is_cuda and not train else torch.float32
         mat = lambda lin: lin.weight.t().to(dt).contiguous()  # noqa: E731
         blocks = []  # wqkv, bqkv, wout, bout, w1, b1, w2, b2
         for lins in zip(*((k.attn.qkv, k.attn.proj, k.mlp.fc1, k.mlp.fc2) for k in self.blocks)):

@@ -6,9 +6,10 @@ weights in its Dense layout ``(in, out)``. On CPU tensors it runs
 :func:`_reference`, the plain PyTorch version. On CUDA tensors it launches
 the hand-written kernel ``csrc/energy_decoder.cu`` (one CTA per batch
 element, the activation resident in shared memory across all layers) or
-raises; there is no fallback between the two. The kernel is forward-only:
-the energy net raises for ``fused_block: true`` with gradients enabled
-(its backward is not ported yet, ROADMAP.md queue 2).
+raises; there is no fallback between the two. With gradients enabled and
+an input requiring them it is a ``torch.autograd.Function`` whose forward
+is that kernel and whose backward is the VJP of the plain version, as
+JAX's ``_bwd`` takes the VJP of its composed reference.
 
 The cross-attention enters as a per-layer bias: with a one-token encoder
 memory, softmax over one key is 1 and the cross-attention output is
@@ -87,9 +88,32 @@ def fused_energy_decoder(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
     (HN, 1), hb1 the velocity head on [tf, h]. Returns (B, N) velocities."""
     args = (tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2, b2,
             fs, fb, hw0, hb0, hw1, hb1)
-    if tgt.device.type == "cpu":
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _FusedEnergyDecoder.apply(num_heads, activation, *args)
+    return _forward(*args, num_heads=num_heads, activation=activation)
+
+
+def _forward(*args, num_heads, activation):
+    if args[0].device.type == "cpu":
         return _reference(*args, num_heads=num_heads, activation=activation)
     return energy_decoder_kernel(*args, num_heads=num_heads, activation=activation)
+
+
+class _FusedEnergyDecoder(torch.autograd.Function):
+    """The kernel forward; the backward is the VJP of :func:`_reference`."""
+
+    @staticmethod
+    def forward(ctx, num_heads, activation, *args):
+        ctx.save_for_backward(*args)
+        ctx.num_heads, ctx.activation = num_heads, activation
+        return _forward(*args, num_heads=num_heads, activation=activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = [a.detach().requires_grad_() for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _reference(*args, num_heads=ctx.num_heads, activation=ctx.activation)
+        return (None, None, *torch.autograd.grad(out, args, g, allow_unused=True))
 
 
 def energy_decoder_kernel(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,

@@ -148,14 +148,22 @@ def mask_arg(name, mask, n, device):
     return mask, mask.data_ptr()
 
 
-def attention_fwd_kernel(qkv, num_heads, scale, mask=None):
+def attention_fwd_kernel(qkv, num_heads, scale, mask=None, out=None, lse=None):
     """Launch the forward kernel: (context (B, N, H*D) f32, lse (B, H, N)
-    f32); ``mask`` an optional shared (N, N) bool on qkv's device."""
+    f32); ``mask`` an optional shared (N, N) bool on qkv's device. ``out``
+    and ``lse`` may be given as contiguous f32 buffers of those shapes (the
+    training forward writes its saved residuals in place)."""
     _cuda.require_cuda("qkv_attention_fwd", qkv)
     b, n, d = check_kernel_args("qkv_attention_fwd", qkv, num_heads)
     mask, mask_ptr = mask_arg("qkv_attention_fwd", mask, n, qkv.device)
-    out = torch.empty((b, n, num_heads * d), dtype=torch.float32, device=qkv.device)
-    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+    if out is None:
+        out = torch.empty((b, n, num_heads * d), dtype=torch.float32, device=qkv.device)
+    if lse is None:
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+    _cuda.require_cuda("qkv_attention_fwd", qkv, out, lse)
+    if tuple(out.shape) != (b, n, num_heads * d) or tuple(lse.shape) != (b, num_heads, n):
+        raise ValueError(f"qkv_attention_fwd: out {tuple(out.shape)} / lse {tuple(lse.shape)} "
+                         f"do not match qkv {tuple(qkv.shape)} with {num_heads} heads")
     code = _lib().qkv_attention_fwd(qkv.data_ptr(), mask_ptr, out.data_ptr(), lse.data_ptr(),
                                     b, n, num_heads, d, float(scale), _cuda.stream())
     _cuda.check(code, "qkv_attention_fwd")
