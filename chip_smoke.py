@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 and ds3 two-stage
 shower generators (CFM and cINN shape models), the layer-causal ViT, the ds2
-training slice and its megakernel training tier at full width, through the
-hand-written CUDA kernels.
+training slice and its megakernel training tier, and ds3 CFM training and
+serving through the composed block's opt-in kernels, at full width, through
+the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -31,7 +32,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    training GEMM's saving epilogues, the NT and split-K TN products of a
    block's gradient and their reduction, the row passes and the adaLN
    reduction, K5b (a1 saved; without a1 also at (16, 450, 480)), K2b, K5c
-   and the whole-ViT K5a, unmasked and layer-causal;
+   and the whole-ViT K5a, unmasked and layer-causal; the composed block's
+   opt-in kernels at the ds3 training shape (batch 64; their "main" shape)
+   and serving shape (batch 256), 450 tokens, 6 heads x 80: K6
+   (``flash_qkv_attention``, qkv panel) and K8 (``vmem_attention``, q, k, v
+   (B, 6, 450, 80)) forward and backward, unmasked and with the
+   layer-causal mask of ds3's (15, 5, 6) grid, against their plain versions
+   on the same bf16-rounded multiplicands, SDPA on bf16 as the forward's
+   library call, and forward + backward through autograd; K9
+   (``fused_mlp_half``: its modulated LayerNorm, its two products and the
+   whole chain) at x (64 / 256, 450, 480), ``torch.matmul`` on bf16 as the
+   products' library call;
 4. serving paths, each at full width with random weights from a seed
    (non-zero adaLN and final-layer weights) behind the energy model
    (cfm_ds2_energy = cfm_ds3_energy), answering REQUESTS requests of BATCH
@@ -60,6 +71,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - causal_cfm: cfm_ds2_electrons with ``causal_attn: true``, the
      reference's layer-causal ViT: K2v's attention takes the shared mask,
      and the plain generator the masked plain attention;
+   - ds3_vmem_cfm, ds3_flash_cfm, ds3_mlp_cfm: cfm_ds3_electrons composed
+     (``fused_block: false``) with ``attn_impl: vmem`` (K8 6 launches per
+     net eval), ``attn_impl: flash`` (K6 6) and ``fused_mlp: true`` (K1's
+     forward 6, K9's modulated LayerNorm 6 and products 12), K3 1 each;
+     DS3_REQUESTS requests, no profile; the plain generator has no opt-in
+     kernel;
 5. ds2_train: the ds2 shape model at full width (hidden 480, depth 6, 6
    heads x 80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
    clip_grad_norm 1000) through the port's ``CaloChallenge`` experiment and
@@ -95,7 +112,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    same random batches and draws (``FUSED_TRAIN_TOL``), every kernel
    launched on every block of every step; then one fused train step
    profiled by kernel group;
-10. energy: a few steps of the ds2 energy experiment at full width (batch
+10. ds3_train, ds3_vmem_train, ds3_flash_train, ds3_mlp_train: the ds3
+   shape model composed at full width (450 tokens x 90, hidden 480, depth
+   6, batch 64, shape.yaml's AdamW) through the experiment on synthetic
+   ds3 showers, with ``attn_impl: auto`` (K1, the steps/s they stand
+   beside), ``vmem`` (K8), ``flash`` (K6, and K1's delta in its backward)
+   and ``fused_mlp: true`` (K9's chain in each block's forward, plain VJP;
+   K1), TRAIN_STEPS steps and their validations, every launch counted
+   exactly (``composed_launches``); then each of ``vmem``, ``flash``,
+   ``fused_mlp`` and ``vmem`` with ``causal_attn: true`` against ``attn_impl:
+   xla``, ``fused_mlp: false`` from one state (``parity_phase``,
+   FUSED_TRAIN_TOL: bf16 products against f32);
+11. energy: a few steps of the ds2 energy experiment at full width (batch
    256; no kernel on its path), which fits ``means_u.npy``/``stds_u.npy``.
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
@@ -124,10 +152,14 @@ from vit4hep_tpu_torch.data.calochallenge.transforms import build_pipeline
 from vit4hep_tpu_torch.experiments import train_state as ts
 from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
 from vit4hep_tpu_torch.ops import _cuda
+from vit4hep_tpu_torch.ops import attention as attn
+from vit4hep_tpu_torch.ops import flash_qkv_attention as ffa
 from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import fused_energy_decoder as fed
+from vit4hep_tpu_torch.ops import fused_mlp as fmlp
 from vit4hep_tpu_torch.ops import fused_qkv_attention as fqa
 from vit4hep_tpu_torch.ops import fused_spline as fsp
+from vit4hep_tpu_torch.ops import vmem_attention as fva
 from vit4hep_tpu_torch.ops.pos_embed import layer_causal_mask
 from vit4hep_tpu_torch.utils.config import Config, instantiate
 from vit4hep_tpu_torch.utils.serving import Generator
@@ -142,6 +174,8 @@ WARM_START_STEPS = 5
 TRAIN_PARITY_STEPS = 3
 ENERGY_STEPS = 10
 N_EVENTS = 2560  # synthetic showers: 39 training batches of 64, 25 validation events
+N_EVENTS_DS3 = 1280  # ds3 (40500 voxels): 19 training batches of 64 (cycled), 13 validation
+DS3_REQUESTS = 2  # requests of the composed ds3 serving paths (fused_block: false)
 
 # configs/model/cfm/cfm_ds2_electrons.yaml
 DS2_SHAPE_MODEL = {
@@ -359,6 +393,27 @@ TOL.update({"vit_train_gemm": 8e-3, "vit_gemm_nt": 1e-3, "vit_gemm_tn": 1e-3,
 # of 0 take either sign: the whole update vector after 3 steps within 0.5
 # relative (a wrong gradient gives ~1.4).
 FUSED_TRAIN_TOL = {"loss": 1e-2, "grad_rel_l2": 3e-2, "grad_norm": 3e-2, "update_rel": 0.5}
+# the composed block's opt-in kernels against their plain versions on the
+# same bf16-rounded multiplicands (mm_dtype bf16), accumulating in f32 on
+# both sides: they differ by summation order and exp only. That moves s, dp
+# or the row sums by ~1e-6 relative, which can flip the bf16 rounding of a p
+# or ds element (2^-8 relative) where it sits at a rounding boundary. A
+# forward output sums p over its row's keys, each flip moving it by 2^-8 of
+# one term's share: 2e-3 of the scale (the first card run, NVIDIA H100 80GB
+# HBM3, 700 W, measured at most 7.8e-4, layer-causal at batch 256). The
+# backward's dK and dV sum ds and p terms over every query, and the
+# layer-causal mask leaves a first-layer row 30 keys, so each of its terms
+# weighs ~1/30: 4e-3 (measured at most 1.8e-3 there, 8.3e-4 unmasked). The
+# lse comes from f32 sums only. K9's chain rounds the modulated LayerNorm and
+# the GELU hidden to bf16 as its plain version does: one rounding flip of a
+# hidden value, 8e-3 as K2b's block.
+TOL.update({"vmem_attn_fwd": 2e-3, "vmem_attn_bwd_dq": 4e-3, "vmem_attn_bwd_dkv": 4e-3,
+            "flash_qkv_fwd": 2e-3, "flash_qkv_bwd_dq": 4e-3, "flash_qkv_bwd_dkv": 4e-3,
+            "mlp_modln": 8e-3, "mlp_gemm": 8e-3, "fused_mlp_half": 8e-3})
+# training with attn_impl vmem / flash (bf16 attention products) or fused_mlp
+# (bf16 MLP products) against attn_impl xla, fused_mlp false (f32) from one
+# state: fewer products are bf16 than in the megakernel tier, so its bounds
+# (FUSED_TRAIN_TOL) hold with more margin
 K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
 K2V = "vit4hep_tpu_torch/csrc/vit_forward.cu"
 K5 = "vit4hep_tpu_torch/csrc/vit_backward.cu"
@@ -366,6 +421,11 @@ K5A_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1491 (_vit_fwd_train, call :1549)
 K5B_BODY = "vit4hep_tpu/ops/fused_dit_block.py:745 (fused_dit_block_bwd_res, call :808)"
 K5C_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1204 (fused_dit_block_bwd, call :1261)"
 K2B_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1636 (fused_dit_block, call :1686)"
+K8 = "vit4hep_tpu_torch/csrc/vmem_attention.cu"
+K6 = "vit4hep_tpu_torch/csrc/flash_qkv_attention.cu"
+K9 = ("vit4hep_tpu_torch/csrc/vit_forward.cu (modln_kernel, gemm_kernel; chained in "
+      "vit4hep_tpu_torch/ops/fused_mlp.py)")
+K9_BODY = "vit4hep_tpu/ops/fused_mlp.py:51 (_kernel, call :114)"
 # the TPU bodies each kernel covers: K2v's unmasked, masked and grouped
 # whole-ViT kernels; K1's per-head and head-packed forwards, each unmasked
 # and masked, and its unmasked and masked backward
@@ -394,6 +454,20 @@ REPLACES = {
     "vit_wgrad_reduce": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
     "vit_bwd_rows": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
     "vit_dmod_reduce": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
+    # the composed block's opt-in kernels (K6's backward also runs K1's delta)
+    "vmem_attn_fwd": (K8, "vit4hep_tpu/ops/vmem_attention.py:47 (_oneshot_kernel, call :111)"),
+    "vmem_attn_bwd_dq": (f"{K8} (bwd_dq_kernel of attention_mma.cuh)",
+                         "vit4hep_tpu/ops/vmem_attention.py:140 (_bwd_kernel, call :193)"),
+    "vmem_attn_bwd_dkv": (f"{K8} (bwd_dkv_kernel of attention_mma.cuh)",
+                          "vit4hep_tpu/ops/vmem_attention.py:140 (_bwd_kernel, call :193)"),
+    "flash_qkv_fwd": (K6, "vit4hep_tpu/ops/flash_qkv_attention.py:62 (_fwd_kernel, call :305)"),
+    "flash_qkv_bwd_dq": (f"{K6} (bwd_dq_kernel of attention_mma.cuh)",
+                         "vit4hep_tpu/ops/flash_qkv_attention.py:119 (_bwd_dq_kernel, call :360)"),
+    "flash_qkv_bwd_dkv": (f"{K6} (bwd_dkv_kernel of attention_mma.cuh)",
+                          "vit4hep_tpu/ops/flash_qkv_attention.py:164 (_bwd_dkv_kernel, "
+                          "call :389)"),
+    "mlp_modln": (K9, K9_BODY),
+    "mlp_gemm": (K9, K9_BODY),
 }
 # the tier's functions (fused_dit_block, vit_fwd_train, fused_dit_block_bwd_res,
 # fused_dit_block_bwd) are chains of the kernels above: the kernel phase holds
@@ -403,6 +477,13 @@ SERVING = {"energy_decoder": fed.ENERGY_DECODER, "vit_gemm": fdb.GEMM,
            "vit_modln": fdb.MODLN, "vit_attention": fdb.ATTENTION}
 TRAINING = {"qkv_attn_fwd": fqa.FWD, "qkv_attn_bwd_delta": fqa.BWD_DELTA,
             "qkv_attn_bwd_dkv": fqa.BWD_DKV, "qkv_attn_bwd_dq": fqa.BWD_DQ}
+# the opt-in kernels of the composed block (attn_impl vmem / flash, fused_mlp)
+OPT_IN = {"vmem_attn_fwd": fva.FWD, "vmem_attn_bwd_dq": fva.BWD_DQ,
+          "vmem_attn_bwd_dkv": fva.BWD_DKV, "flash_qkv_fwd": ffa.FWD,
+          "flash_qkv_bwd_dq": ffa.BWD_DQ, "flash_qkv_bwd_dkv": ffa.BWD_DKV,
+          "mlp_modln": fmlp.MODLN, "mlp_gemm": fmlp.GEMM}
+# every counter a composed ds3 train step, validation or serving request can move
+COMPOSED = {**TRAINING, **SERVING, **OPT_IN}
 # every counter a fused train step or its validation can move
 FUSED_TRAINING = {**TRAINING, **SERVING, "vit_train_gemm": fdb.TRAIN_GEMM,
                   "vit_gemm_nt": fdb.GEMM_NT, "vit_gemm_tn": fdb.GEMM_TN,
@@ -437,6 +518,26 @@ def fused_launches(variant, steps, val_batches, depth=6):
                      **per_block_bwd}.items():
             n[k] += v * depth * steps
     return n
+def composed_launches(setting, steps, val_batches, depth=6):
+    """The launches of each kernel on a composed ds3 path (steps train
+    steps, val_batches forwards without gradients: validation batches, or
+    net evals of a request): "auto" (K1 per block), "vmem" (K8), "flash"
+    (K6, with K1's delta in its backward), "fused_mlp" (K1, and K9's chain
+    per block, whose backward is the plain VJP)."""
+    n = dict.fromkeys(COMPOSED, 0)
+    fwd, bwd = {"vmem": ("vmem_attn_fwd", ("vmem_attn_bwd_dq", "vmem_attn_bwd_dkv")),
+                "flash": ("flash_qkv_fwd", ("qkv_attn_bwd_delta", "flash_qkv_bwd_dq",
+                                            "flash_qkv_bwd_dkv"))}.get(
+        setting, ("qkv_attn_fwd", ("qkv_attn_bwd_delta", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")))
+    n[fwd] += depth * (steps + val_batches)
+    for k in bwd:
+        n[k] += depth * steps
+    if setting == "fused_mlp":
+        n["mlp_modln"] += depth * (steps + val_batches)
+        n["mlp_gemm"] += 2 * depth * (steps + val_batches)
+    return n
+
+
 # the CFM request: launches per net eval of each kernel on its path (embed,
 # 6 x 4 block products and the final product; 2 LayerNorms per block and the
 # final one; one attention per block; the energy net's decoder)
@@ -460,7 +561,8 @@ SPIN_HZ = 1.98e9  # the SM's boost clock: torch.cuda._sleep counts its cycles
 # the kernel phase's shape groups: each kernel's main-path shape (ds2
 # sampling; K1 at the ds2 training shape), then the others it is held at
 SHAPE_GROUPS = {
-    "main": "ds2",
+    "main": "main-path shape: ds2 sampling (K3, K2v, K4), the ds2 training shape (K1, the "
+            "tier), the ds3 training shape (K6, K8, K9)",
     "n450": "K1 at qkv (16, 450, 1440); K5b without a1 at x (16, 450, 480)",
     "noa1": "ds2 training shape, K5b without a1 (recomputed): x (64, 135, 480)",
     "causal_noa1": "ds2 training shape with the layer-causal mask, K5b without a1",
@@ -469,6 +571,11 @@ SHAPE_GROUPS = {
            "(256, 20250)",
     "causal": "ds2 with the layer-causal mask: K2v at (256, 135), K1 at (64, 135, 1440), "
               "K5b, K2b, K5c and K5a at x (64, 135, 480)",
+    "ds3_serve": "K6, K8 and K9 at the ds3 serving shape: qkv (256, 450, 1440), q/k/v (256, 6, "
+                 "450, 80), x (256, 450, 480)",
+    "ds3_causal": "K6 and K8 at the ds3 training shape with the layer-causal mask of (15, 5, 6)",
+    "ds3_serve_causal": "K6 and K8 at the ds3 serving shape with the layer-causal mask of "
+                        "(15, 5, 6)",
 }
 
 
@@ -915,6 +1022,129 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
                   BF16_FLOPS))
 
 
+def _f32_bytes(*tensors):
+    return 4 * sum(t.numel() for t in tensors)
+
+
+def k68_kernel_phase(results, b, n, heads=6, d=80, mask=None):
+    """K6 and K8, forward and backward, against their plain versions on the
+    same bf16-rounded multiplicands at the ds3 path shapes: qkv (b, n, 3 *
+    heads * d) f32 for K6 (flash_qkv_attention), its q, k, v as contiguous
+    (b, heads, n, d) for K8 (vmem_attention), with the shared ``mask`` when
+    given; SDPA on bf16 q, k, v (with the boolean mask) times the forward's
+    library call. Returns the forward + backward times through autograd of
+    K6, K8 (from the qkv panel, as the ViT calls them), the plain f32
+    attention and SDPA on bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60 + n + b)
+    bf, scale, hd = torch.bfloat16, d ** -0.5, heads * d
+    qkv, g = _rand(gen, b, n, 3 * hd), _rand(gen, b, n, hd)
+    q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+    gh = g.reshape(b, n, heads, d).permute(0, 2, 1, 3).contiguous()
+    qb, kb, vb = (t.to(bf) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qb, kb, vb, attn_mask=mask, scale=scale)
+    pair = _attn_flops(b, heads, n, d, mask) // 4  # b h pairs d
+    mb = 0 if mask is None else mask.numel()
+
+    fwd = lambda: ffa.flash_fwd_kernel(qkv, heads, scale, mask)  # noqa: E731
+    fwd_p = lambda: ffa.flash_fwd_plain(qkv, heads, scale, mask, bf)  # noqa: E731
+    out, lse = fwd()
+    _check("flash_qkv_fwd", (out, lse), fwd_p(), results, fwd, fwd_p,
+           _bound(_f32_bytes(qkv, out, lse) + mb, 4 * pair, BF16_FLOPS), sdpa)
+    delta = fqa.attention_bwd_delta_kernel(g, out, heads)
+    bwd_p = lambda: ffa.flash_bwd_plain(qkv, g, out, lse, heads, scale, mask, bf)  # noqa: E731
+    want = bwd_p()
+    dqkv = torch.zeros_like(qkv)
+    ffa.flash_bwd_dq_kernel(qkv, g, lse, delta, heads, scale, dqkv, mask)
+    ffa.flash_bwd_dkv_kernel(qkv, g, lse, delta, heads, scale, dqkv, mask)
+    reads = _f32_bytes(qkv, g, lse, delta) + mb
+    for name, cols, flops, kernel, writes in (
+            ("flash_qkv_bwd_dq", slice(0, hd), 6 * pair, ffa.flash_bwd_dq_kernel, b * n * hd),
+            ("flash_qkv_bwd_dkv", slice(hd, 3 * hd), 8 * pair, ffa.flash_bwd_dkv_kernel,
+             2 * b * n * hd)):
+        _check(name, dqkv[..., cols], want[..., cols], results,
+               lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv, mask), bwd_p,
+               _bound(reads + 4 * writes, flops, BF16_FLOPS))
+    del want, dqkv, delta
+
+    fwd = lambda: fva.vmem_fwd_kernel(q, k, v, scale, mask)  # noqa: E731
+    fwd_p = lambda: fva.vmem_fwd_plain(q, k, v, scale, mask, bf)  # noqa: E731
+    out8, lse8 = fwd()
+    _check("vmem_attn_fwd", (out8, lse8), fwd_p(), results, fwd, fwd_p,
+           _bound(_f32_bytes(q, k, v, out8, lse8) + mb, 4 * pair, BF16_FLOPS), sdpa)
+    bwd_p = lambda: fva.vmem_bwd_plain(q, k, v, gh, lse8, scale, mask, bf)  # noqa: E731
+    want = bwd_p()
+    dq_k = lambda: fva.vmem_bwd_dq_kernel(q, k, v, gh, lse8, scale, mask)  # noqa: E731
+    dq, rowterm = dq_k()
+    _check("vmem_attn_bwd_dq", dq, want[0], results, dq_k, bwd_p,
+           _bound(_f32_bytes(q, k, v, gh, lse8, dq, rowterm) + mb, 6 * pair, BF16_FLOPS))
+    dkv_k = lambda: fva.vmem_bwd_dkv_kernel(q, k, v, gh, lse8, rowterm, scale, mask)  # noqa: E731
+    dk, dv = dkv_k()
+    _check("vmem_attn_bwd_dkv", (dk, dv), want[1:], results, dkv_k, bwd_p,
+           _bound(_f32_bytes(q, k, v, gh, lse8, rowterm, dk, dv) + mb, 8 * pair, BF16_FLOPS))
+    del want, dq, rowterm, dk, dv, out8, lse8
+
+    # forward + backward of the same upstream gradient through autograd
+    xk = qkv.clone().requires_grad_()
+    xs = tuple(t.clone().requires_grad_() for t in (qb, kb, vb))
+    g_bf = gh.to(bf)
+
+    def run(impl):
+        xk.grad = None
+        attn.qkv_attention(xk, heads, mask, impl=impl, scale=scale).backward(g)
+
+    def sdpa_run():
+        for t in xs:
+            t.grad = None
+        F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale).backward(g_bf)
+
+    return {"K6": _time_ms(lambda: run("flash")), "K8": _time_ms(lambda: run("vmem")),
+            "plain": _time_ms(lambda: run("xla")), "sdpa": _time_ms(sdpa_run)}
+
+
+def k9_kernel_phase(results, b, n, h=480, fdim=1920):
+    """K9 (fused_mlp_half) against its plain version on the same bf16
+    roundings at x (b, n, h) f32, F fdim: its modulated LayerNorm, the fc1
+    product with its GELU epilogue and the fc2 product with its gated
+    residual (mlp_gemm's times add up over the two), then the whole chain;
+    torch.matmul on bf16 is the products' library call."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80 + b)
+    m, bf = b * n, torch.bfloat16
+    x = _rand(gen, b, n, h)
+    mod = _rand(gen, b, 6 * h, std=0.3)
+    shift, scl, gate = mod[:, 3 * h:4 * h], mod[:, 4 * h:5 * h], mod[:, 5 * h:]
+    w1, b1, w2, b2 = (_rand(gen, *s, std=0.05) for s in ((h, fdim), (fdim,), (fdim, h), (h,)))
+    xr = x.view(m, h)
+    ker = lambda: fmlp.modln(xr, shift, scl, n)  # noqa: E731
+    pla = lambda: fdb.modln_plain(xr, shift, scl, n)  # noqa: E731
+    _check("mlp_modln", ker(), pla(), results, ker, pla,
+           _bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
+    hb = pla()
+    w1b, w2b = w1.to(bf), w2.to(bf)
+    hid = fdb.linear_plain(hb, w1b, b1, fdb.EPI_BIAS_GELU)
+    for a, wk, bias, epi, nout in ((hb, w1b, b1, fdb.EPI_BIAS_GELU, fdim),
+                                   (hid, w2b, b2, fdb.EPI_GATED_RESID, h)):
+        resid = epi == fdb.EPI_GATED_RESID
+        kw = dict(gate=gate, resid=xr, n_tok=n) if resid else dict(n_tok=n)
+        outs = [torch.empty(m, nout, device="cuda") if resid else None for _ in range(2)]
+        ker = lambda a=a, wk=wk, bias=bias, epi=epi, kw=kw: fmlp.linear(  # noqa: E731
+            a, wk, bias, epi, out=outs[0], **kw)
+        pla = lambda a=a, wk=wk, bias=bias, epi=epi, kw=kw: fdb.linear_plain(  # noqa: E731
+            a, wk, bias, epi, out=outs[1], **kw)
+        nbytes = (a.numel() * 2 + wk.numel() * 2 + nout * 4 + m * nout * (4 if resid else 2)
+                  + (m * nout * 4 + b * nout * 4 if resid else 0))
+        _check("mlp_gemm", ker(), pla(), results, ker, pla,
+               _bound(nbytes, 2 * m * a.shape[1] * nout, BF16_FLOPS),
+               lambda a=a, wk=wk: torch.matmul(a, wk))
+    args = (x, shift, scl, gate, w1, b1, w2, b2)
+    ker = lambda: fmlp.mlp_half_kernel(*args)  # noqa: E731
+    pla = lambda: fmlp.mlp_half_plain(*args, mm_dtype=bf)  # noqa: E731
+    _check("fused_mlp_half", ker(), pla(), results, ker, pla,
+           _bound(4 * (2 * m * h + 3 * b * h + 2 * h * fdim + fdim + h), 4 * m * h * fdim,
+                  BF16_FLOPS),
+           lambda: (torch.matmul(hb, w1b), torch.matmul(hid, w2b)))
+
+
 def _k4_ops(bins):
     """f32 operations per scalar of the binned-RQS inverse, counting a
     softplus (max, abs, exp, log1p, add, negate) as 6 and every other
@@ -1025,15 +1255,15 @@ def _run_dirs(tmp: Path, geometry: str, shape_cfg: dict, energy_cfg: dict):
             _transforms(energy_cfg, data_dir, energy_dir))
 
 
-def _serve(generator, counters, voxels):
-    """REQUESTS requests of BATCH showers through ``sample_showers``, each
-    checked (shape (BATCH, voxels), finite, non-negative); the counters are
-    set to 0 just before and read just after. Returns (launches, seconds
-    per request)."""
+def _serve(generator, counters, voxels, requests=REQUESTS):
+    """``requests`` requests of BATCH showers through ``sample_showers``,
+    each checked (shape (BATCH, voxels), finite, non-negative); the counters
+    are set to 0 just before and read just after. Returns (launches,
+    seconds per request)."""
     for c in counters.values():
         c.reset()
     times, showers = [], None
-    for i in range(REQUESTS):
+    for i in range(requests):
         e_inc = 10 ** np.random.default_rng(SEED + 1 + i).uniform(3, 6, BATCH)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1091,14 +1321,17 @@ def _models(shape_cfg, energy_cfg, seed):
     return shape_model, energy_model, gen
 
 
-def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg):
-    """A CFM shape model (ds2, ds3, or ds2 with ``causal_attn``) behind its
-    energy model at full width: REQUESTS requests with every kernel counted
-    on every net eval, then the composed plain generator (plain attention,
-    masked where the model is: ``auto`` would launch K1 from 128 tokens) on
-    the same noise. Energy stage: f32 kernel vs f32 composed -> u and layer
-    energies agree to ~1e-4; shape stage: bf16 multiplicands over 80 evals
-    -> 5e-2 of scale."""
+def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg,
+              requests=REQUESTS, counters=SERVING, per_eval=CFM_PER_EVAL):
+    """A CFM shape model (ds2, ds3, or ds2 with ``causal_attn``; or ds3
+    composed with an opt-in kernel) behind its energy model at full width:
+    ``requests`` requests with every kernel of ``counters`` counted on every
+    net eval (``per_eval`` launches each, 0 where absent), then the
+    composed plain generator (plain attention, masked where the model is:
+    ``auto`` would launch K1 from 128 tokens; no fused MLP) on the same
+    noise. Energy stage: f32 kernel vs f32 composed -> u and layer energies
+    agree to ~1e-4; shape stage: bf16 multiplicands over 80 evals -> 5e-2 of
+    scale."""
     shape_tf, energy_tf = _run_dirs(tmp, geometry, shape_tf_cfg, energy_tf_cfg)
     shape_model, energy_model, gen = _models(shape_cfg, energy_cfg, SEED)
     evals = shape_model.net_evals_per_sample()
@@ -1107,16 +1340,18 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
           f"{energy_model.param_count()} params, {evals} net evals per model per request",
           flush=True)
     generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
-    launches, times = _serve(generator, SERVING, _voxels(geometry))
-    for k, per in CFM_PER_EVAL.items():
-        want = REQUESTS * evals * per
+    launches, times = _serve(generator, counters, _voxels(geometry), requests)
+    for k in counters:
+        per = per_eval.get(k, 0)
+        want = requests * evals * per
         if launches[k] != want:
             raise PhaseError(f"{k}: {launches[k]} launches on the main path, expected {want} "
-                             f"({per} per net eval, {evals} evals, {REQUESTS} requests)")
+                             f"({per} per net eval, {evals} evals, {requests} requests)")
+    launches = {k: v for k, v in launches.items() if v}
     print(f"  launches on the main path: {launches}", flush=True)
 
-    plain_shape = instantiate(_with_net_param(shape_cfg, fused_block=False,
-                                              attn_impl="xla")).cuda().eval()
+    plain_shape = instantiate(_with_net_param(shape_cfg, fused_block=False, attn_impl="xla",
+                                              fused_mlp=False)).cuda().eval()
     plain_energy = instantiate(_with_net_param(energy_cfg, fused_block=False)).cuda().eval()
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
@@ -1125,7 +1360,7 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
              torch.randn(shape_model.token_shape(nb), generator=gen, device="cuda"))
     _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
                         Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
-                        noise, {"qkv_attn_fwd": fqa.FWD, **SERVING})
+                        noise, COMPOSED)
     return launches, times, generator
 
 
@@ -1257,18 +1492,23 @@ def profile_phase(generator, card, top=15, groups=None):
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
-def _synthetic_showers(n_events, seed):
-    """(E_inc (N, 1), showers (N, 6480) in MeV, layer boundaries) on the ds2
-    geometry: sparse exponential voxel energies summing to 0.5-0.9 of E_inc,
-    with a longitudinal profile peaking in the first third of the layers."""
+def _synthetic_showers(n_events, seed, geometry="ds2"):
+    """(E_inc (N, 1), showers (N, voxels) in MeV, layer boundaries) on a
+    geometry (ds2: 6480 voxels, ds3: 40500): sparse exponential voxel
+    energies summing to 0.5-0.9 of E_inc, with a longitudinal profile
+    peaking in the first third of the layers."""
+    n_alpha, r_edges = GEOMETRY[geometry]
+    per_layer = n_alpha * (len(r_edges) - 1)
     rng = np.random.default_rng(seed)
     e_inc = (10 ** rng.uniform(3, 6, (n_events, 1))).astype(np.float32)
     profile = np.exp(-0.5 * ((np.arange(45) - 12) / 8.0) ** 2)
-    vox = rng.exponential(1.0, (n_events, 45, 144)) * (rng.random((n_events, 45, 144)) > 0.5)
+    shape = (n_events, 45, per_layer)
+    vox = rng.exponential(1.0, shape) * (rng.random(shape) > 0.5)
     vox *= profile[None, :, None]
     vox /= vox.sum((1, 2), keepdims=True)
-    showers = (vox.reshape(n_events, 6480) * e_inc * rng.uniform(0.5, 0.9, (n_events, 1)))
-    return e_inc, showers.astype(np.float32), np.arange(0, 6481, 144)
+    showers = (vox.reshape(n_events, 45 * per_layer) * e_inc
+               * rng.uniform(0.5, 0.9, (n_events, 1)))
+    return e_inc, showers.astype(np.float32), np.arange(0, 45 * per_layer + 1, per_layer)
 
 
 class SyntheticCaloChallenge(CaloChallenge):
@@ -1276,13 +1516,24 @@ class SyntheticCaloChallenge(CaloChallenge):
     ds2 geometry in place of the training file (the card's machine has no
     h5py and no dataset)."""
 
+    geometry, n_events = "ds2", N_EVENTS
+
     def load_showers(self):
-        return _synthetic_showers(N_EVENTS, SEED)
+        return _synthetic_showers(self.n_events, SEED, self.geometry)
 
 
-def _experiment_config(tmp: Path, model, transforms, training, model_type, train_val_frac):
-    """The composed calochallenge_ds2(_energy) config with the run dir under
-    ``tmp`` and the binning XML in ``tmp/data``."""
+class SyntheticCaloChallengeDS3(SyntheticCaloChallenge):
+    """The same on the ds3 geometry (40500 voxels)."""
+
+    geometry, n_events = "ds3", N_EVENTS_DS3
+
+
+def _experiment_config(tmp: Path, model, transforms, training, model_type, train_val_frac,
+                       geometry="ds2"):
+    """The composed calochallenge_ds2(_energy) config (or ds3's, with its
+    model and transforms) with the run dir under ``tmp`` and the binning XML
+    in ``tmp/data``."""
+    ds = geometry[-1]
     return Config({
         "exp_name": f"smoke_{model_type}", "exp_type": "calochallenge", "run_name": "run",
         "base_dir": str(tmp), "data_dir": str(tmp / "data"), "seed": SEED, "debug": False,
@@ -1290,9 +1541,9 @@ def _experiment_config(tmp: Path, model, transforms, training, model_type, train
         "ema": False, "train": True, "evaluate": False, "plot": False,
         "plotting": {"loss": False}, "dtype": "float32", "model_type": model_type,
         "model": model, "training": training,
-        "data": {"training_file": "${data_dir}/dataset_2_1.hdf5",
-                 "test_file": "${data_dir}/dataset_2_2.hdf5", "particle_type": "electron",
-                 "xml_filename": "${data_dir}/binning_dataset_2.xml",
+        "data": {"training_file": f"${{data_dir}}/dataset_{ds}_1.hdf5",
+                 "test_file": f"${{data_dir}}/dataset_{ds}_2.hdf5", "particle_type": "electron",
+                 "xml_filename": f"${{data_dir}}/binning_dataset_{ds}.xml",
                  "train_val_frac": train_val_frac, "transforms": transforms},
     })
 
@@ -1464,6 +1715,73 @@ def fused_train_phase(tmp: Path, card, composed):
     return {k: v for k, v in launches.items() if v}, exp
 
 
+# the composed ds3 paths through the block's opt-in kernels: (path stem,
+# label, the setting of composed_launches, the net.param overrides)
+DS3_SETTINGS = [
+    ("ds3", "attn_impl: auto (K1)", "auto", {}),
+    ("ds3_vmem", "attn_impl: vmem (K8)", "vmem", {"attn_impl": "vmem"}),
+    ("ds3_flash", "attn_impl: flash (K6)", "flash", {"attn_impl": "flash"}),
+    ("ds3_mlp", "fused_mlp: true (K9; attn_impl: auto, K1)", "fused_mlp", {"fused_mlp": True}),
+]
+
+
+def ds3_train_phase(tmp: Path, card, path, label, setting, param):
+    """The ds3 shape model (cfm_ds3_electrons at full width, composed:
+    ``fused_block: false``, with ``param``) trained TRAIN_STEPS steps at
+    batch 64 through the experiment on synthetic ds3 showers, every launch
+    counted exactly (``composed_launches``). Returns (launches, (steps/s
+    over the whole train() loop, steady step interior))."""
+    training = dict(DS2_SHAPE_TRAINING, iterations=TRAIN_STEPS,
+                    validate_every_n_steps=VALIDATE_EVERY)
+    cfg = _experiment_config(tmp, _with_net_param(DS3_SHAPE_MODEL, fused_block=False, **param),
+                             DS3_SHAPE_TRANSFORMS, training, "shape", [0.99, 0.01], "ds3")
+    cfg.exp_name = f"smoke_{path}"
+    exp = SyntheticCaloChallengeDS3(cfg, device="cuda")
+    for c in COMPOSED.values():
+        c.reset()
+    exp()
+    launches = {k: c.launches for k, c in COMPOSED.items()}
+    _check_training(exp, path)
+    steps = len(exp.train_loss)
+    val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
+    want = composed_launches(setting, steps, val_batches)
+    if steps != TRAIN_STEPS or launches != want:
+        raise PhaseError(f"{path}: {steps} steps, launches {launches}, expected {want}")
+    steady = exp.step_times[2:]
+    rate = (steps / exp.train_seconds, len(steady) / sum(steady))
+    launches = {k: v for k, v in launches.items() if v}
+    print(f"  {steps} steps, {len(exp.val_loss)} validations ({val_batches} batches): loss "
+          f"{exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}, val {exp.val_loss}", flush=True)
+    print(f"  launches on the main path: {launches}", flush=True)
+    print(f"{path}: {label}: {rate[0]:.3f} steps/s over the whole train() loop, {rate[1]:.3f} "
+          f"steady step interior (steps 3-{steps}); batch {int(cfg.training.batchsize)}; on "
+          f"{card}", flush=True)
+    print(f"{path} profile: one train step", flush=True)
+    train_profile_phase(exp, card, groups=DS3_TRAIN_GROUPS)
+    return launches, rate
+
+
+# the opt-in kernels' parity paths against attn_impl xla, fused_mlp false at
+# ds3, batch 64: (path, label, net.param overrides, setting)
+DS3_PARITY = [
+    ("ds3_vmem_parity", "ds3, attn_impl: vmem", {"attn_impl": "vmem"}, "vmem"),
+    ("ds3_flash_parity", "ds3, attn_impl: flash", {"attn_impl": "flash"}, "flash"),
+    ("ds3_mlp_parity", "ds3, fused_mlp: true", {"fused_mlp": True}, "fused_mlp"),
+    ("ds3_vmem_causal_parity", "ds3, attn_impl: vmem, causal_attn: true",
+     {"attn_impl": "vmem", "causal_attn": True}, "vmem"),
+]
+# the composed ds3 serving paths (fused_block: false): (path, label, net.param
+# overrides, launches per net eval)
+DS3_SERVING = [
+    ("ds3_vmem_cfm", "attn_impl: vmem (K8)", {"attn_impl": "vmem"},
+     {"energy_decoder": 1, "vmem_attn_fwd": 6}),
+    ("ds3_flash_cfm", "attn_impl: flash (K6)", {"attn_impl": "flash"},
+     {"energy_decoder": 1, "flash_qkv_fwd": 6}),
+    ("ds3_mlp_cfm", "fused_mlp: true (K9; K1 attention)", {"fused_mlp": True},
+     {"energy_decoder": 1, "qkv_attn_fwd": 6, "mlp_modln": 6, "mlp_gemm": 12}),
+]
+
+
 # the fused-vs-composed parity paths: (path, label, model config, batch,
 # the launch variant of fused_launches)
 FUSED_PARITY = [
@@ -1482,15 +1800,23 @@ FUSED_PARITY = [
 
 def fused_parity_phase(label, cfg, batch, variant):
     """The fused net against the composed one (``fused_block: false``, K1's
-    attention) from one state: per parameter tensor the relative L2 of the
-    gradients of one batch, then TRAIN_PARITY_STEPS train steps of each on
-    the same random batches and draws (x ~ N(0, 1), c ~ U(0, 1)). The
-    fused steps' launches are counted exactly. Returns (worst errors,
-    launches)."""
+    attention) from one state (``parity_phase``), every launch of the fused
+    steps counted (``fused_launches``)."""
+    return parity_phase(label, cfg, _with_net_param(cfg, fused_block=False), batch,
+                        FUSED_TRAINING, fused_launches(variant, TRAIN_PARITY_STEPS, 0))
+
+
+def parity_phase(label, cfg, ref_cfg, batch, counters, want):
+    """The net of ``cfg`` against the one of ``ref_cfg`` from one state: per
+    parameter tensor the relative L2 of the gradients of one batch, then
+    TRAIN_PARITY_STEPS train steps of each on the same random batches and
+    draws (x ~ N(0, 1), c ~ U(0, 1)), held to FUSED_TRAIN_TOL. The first
+    net's steps must launch ``want`` of each of ``counters``. Returns (worst
+    errors, launches)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     fused = instantiate(cfg).cuda()
     _randomize(fused, gen)
-    composed = instantiate(_with_net_param(cfg, fused_block=False)).cuda()
+    composed = instantiate(ref_cfg).cuda()
     composed.load_state_dict(fused.state_dict())
     init = {k: v.clone() for k, v in fused.state_dict().items()}
     shape = (batch, cfg["in_channels"], *cfg["shape"])
@@ -1514,19 +1840,18 @@ def fused_parity_phase(label, cfg, batch, variant):
     steps = {k: ts.make_train_step(lambda *d, m=m: loss(m, d),
                                    clip_grad_norm=DS2_SHAPE_TRAINING["clip_grad_norm"])
              for k, m in (("fused", fused), ("composed", composed))}
-    counts = dict.fromkeys(FUSED_TRAINING, 0)
+    counts = dict.fromkeys(counters, 0)
     for d in draws:
-        before = {k: c.launches for k, c in FUSED_TRAINING.items()}
+        before = {k: c.launches for k, c in counters.items()}
         mf = steps["fused"](states["fused"], d)
-        counts = {k: counts[k] + c.launches - before[k] for k, c in FUSED_TRAINING.items()}
+        counts = {k: counts[k] + c.launches - before[k] for k, c in counters.items()}
         mc = steps["composed"](states["composed"], d)
         for key in ("loss", "grad_norm"):
             worst[key] = max(worst[key], abs(float(mf[key]) - float(mc[key])) / abs(float(mc[key])))
         if mf["skipped"] or mc["skipped"]:
-            raise PhaseError(f"fused parity ({label}): a step was skipped")
-    want = fused_launches(variant, TRAIN_PARITY_STEPS, 0)
+            raise PhaseError(f"parity ({label}): a step was skipped")
     if counts != want:
-        raise PhaseError(f"fused parity ({label}): launches {counts}, expected {want}")
+        raise PhaseError(f"parity ({label}): launches {counts}, expected {want}")
     pf, pc = (dict(m.named_parameters()) for m in (fused, composed))
     du = torch.cat([(pf[n] - init[n]).flatten() for n in pc])
     dc = torch.cat([(pc[n] - init[n]).flatten() for n in pc])
@@ -1539,7 +1864,7 @@ def fused_parity_phase(label, cfg, batch, variant):
           f"{FUSED_TRAIN_TOL}) {'ok' if ok else 'FAILED'}", flush=True)
     print(f"  launches: { {k: v for k, v in counts.items() if v} }", flush=True)
     if not ok:
-        raise PhaseError(f"fused parity ({label}): fused training disagrees with the composed path")
+        raise PhaseError(f"parity ({label}): training disagrees with the reference path")
     return worst, {k: v for k, v in counts.items() if v}
 
 
@@ -1553,6 +1878,20 @@ FUSED_TRAIN_GROUPS = [
     ("modln", lambda k: "modln_kernel" in k),
     ("K1 forward", lambda k: "::fwd_kernel<" in k),
     ("K1 backward", lambda k: "::bwd_d" in k),
+    ("cuBLAS products", _is_gemm),
+]
+
+
+# device-time groups of a composed ds3 train step (the shared backward
+# kernels of K6 and K8 live in namespace amma; K1's in an anonymous one)
+DS3_TRAIN_GROUPS = [
+    ("K8 forward", lambda k: "vmem_fwd_kernel" in k),
+    ("K6 forward", lambda k: "flash_fwd_kernel" in k),
+    ("K6/K8 backward", lambda k: "amma::bwd_d" in k),
+    ("K1 forward", lambda k: "::fwd_kernel<" in k),
+    ("K1 backward", lambda k: "::bwd_d" in k),
+    ("K9 gemm_kernel", lambda k: "gemm_kernel<" in k),
+    ("K9 modln_kernel", lambda k: "modln_kernel" in k),
     ("cuBLAS products", _is_gemm),
 ]
 
@@ -1658,6 +1997,20 @@ def main() -> int:
     k5_kernel_phase(groups["causal_noa1"], 64, 135, mask=mask, primitives=False, save_a1=False,
                     composites=False)
     del mask
+    mask3 = _causal_mask((15, 5, 6))
+    for group, b, m, label in (("main", 64, None, "ds3 training shape"),
+                               ("ds3_serve", BATCH, None, "ds3 serving shape"),
+                               ("ds3_causal", 64, mask3, "ds3 training shape, layer-causal"),
+                               ("ds3_serve_causal", BATCH, mask3,
+                                "ds3 serving shape, layer-causal")):
+        print(f"K6 (flash_qkv_attention) and K8 (vmem_attention) vs plain, {label}: qkv ({b}, "
+              f"450, 1440) f32, 6 heads x 80", flush=True)
+        k1_ms[f"K6/K8, {label}"] = k68_kernel_phase(groups[group], b, 450, mask=m)
+        torch.cuda.empty_cache()
+    for group, b in (("main", 64), ("ds3_serve", BATCH)):
+        print(f"K9 (fused_mlp_half) vs plain: x ({b}, 450, 480), F 1920", flush=True)
+        k9_kernel_phase(groups[group], b, 450)
+    del mask3
     failed = [f"{k} ({g})" for g, r in groups.items() for k, v in r.items() if not v["ok"]]
     if failed:
         raise PhaseError(f"kernels disagree with their plain versions: {failed}")
@@ -1669,9 +2022,14 @@ def main() -> int:
             print(f"  {k} [{SHAPE_GROUPS[g]}]: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
                   f"{lib}{bound} ({card})", flush=True)
     for label, ms in k1_ms.items():
-        print(f"  K1 forward + backward through autograd, {label}: K1 {ms['K1']:.4f} ms, plain "
-              f"{ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms; SDPA backward alone "
-              f"{ms['sdpa_bwd']:.4f} ms ({card})", flush=True)
+        if "K1" in ms:
+            print(f"  K1 forward + backward through autograd, {label}: K1 {ms['K1']:.4f} ms, "
+                  f"plain {ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms; SDPA backward alone "
+                  f"{ms['sdpa_bwd']:.4f} ms ({card})", flush=True)
+        else:
+            print(f"  forward + backward through autograd, {label}: K6 {ms['K6']:.4f} ms, K8 "
+                  f"{ms['K8']:.4f} ms, plain f32 {ms['plain']:.4f} ms, SDPA bf16 "
+                  f"{ms['sdpa']:.4f} ms ({card})", flush=True)
 
     # each path runs with the counters set to 0 just before and read just
     # after; launches[path] = {kernel: launches}
@@ -1701,6 +2059,20 @@ def main() -> int:
             profile_phase(generator, card, groups=prof_groups)
             del generator
             torch.cuda.empty_cache()
+    for path, label, param, per_eval in DS3_SERVING:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(f"{path}: ds3 CFM two-stage generator at full width, fused_block: false, "
+                  f"{label}", flush=True)
+            launches[path], times, generator = cfm_phase(
+                Path(tmp), "ds3", _with_net_param(DS3_SHAPE_MODEL, fused_block=False, **param),
+                DS3_ENERGY_MODEL, DS3_SHAPE_TRANSFORMS, DS3_ENERGY_TRANSFORMS, DS3_REQUESTS,
+                COMPOSED, per_eval)
+            print(f"{path}: {BATCH * len(times) / sum(times):.2f} showers/s over all "
+                  f"{len(times)} requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady "
+                  f"(first request excluded); batch {BATCH}, requests "
+                  f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
+            del generator
+            torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
@@ -1725,6 +2097,26 @@ def main() -> int:
         print("fused train profile: one ds2 fused train step", flush=True)
         train_profile_phase(fexp, card, groups=FUSED_TRAIN_GROUPS)
         del exp, fexp
+        _binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
+        rates = {}
+        for stem, label, setting, param in DS3_SETTINGS:
+            path = f"{stem}_train"
+            print(f"{path}: ds3 shape model at full width, composed, {label}, through the "
+                  "CaloChallenge experiment", flush=True)
+            launches[path], rates[path] = ds3_train_phase(Path(tmp), card, path, label, setting,
+                                                          param)
+            torch.cuda.empty_cache()
+        print("ds3 training, steps/s over the whole train() loop / steady step interior: "
+              + ", ".join(f"{p} {a:.3f} / {b:.3f}" for p, (a, b) in rates.items())
+              + f"; on {card}", flush=True)
+        print("ds3 train parity: the opt-in kernels against attn_impl xla, fused_mlp false",
+              flush=True)
+        for path, label, param, setting in DS3_PARITY:
+            cfg = _with_net_param(DS3_SHAPE_MODEL, fused_block=False, **param)
+            ref = _with_net_param(cfg, attn_impl="xla", fused_mlp=False)
+            _, launches[path] = parity_phase(label, cfg, ref, 64, COMPOSED,
+                                             composed_launches(setting, TRAIN_PARITY_STEPS, 0))
+            torch.cuda.empty_cache()
         print("energy: ds2 energy model at full width", flush=True)
         energy_phase(Path(tmp))
 

@@ -164,16 +164,28 @@ def test_dispatch_routes_auto_by_length(monkeypatch):
 
 
 def test_unported_kernels_raise_on_the_card_and_run_plain_on_cpu():
-    """flash / vmem (K6-K8) are not ported: a tensor off the CPU (here the
-    meta device) raises, a CPU tensor runs the plain version. A masked K1
-    call off the CPU goes to the kernel wrapper, never to the plain
-    version: on the meta device the wrapper refuses it."""
+    """K7 (the separated-layout flash kernel) is not ported:
+    ``dot_product_attention(impl="flash")``, its ``auto`` above 1024 tokens
+    and ``qkv_attention``'s ``flash`` past ``flash_qkv_fits`` (10,752 tokens
+    at hidden 480, 6 heads) raise for a tensor off the CPU (here the meta
+    device) and run the plain version on a CPU tensor. The ported kernels'
+    wrappers (K6 ``flash``, K8 ``vmem``, masked K1) take a tensor off the
+    CPU to their kernel, never to a plain version: on the meta device they
+    refuse it."""
+    sep = torch.zeros(1, 2, 300, 8, device="meta")
+    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):
+        tattn.dot_product_attention(sep, sep, sep, impl="flash")
+    long = torch.zeros(1, 2, 1100, 8, device="meta")
+    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):  # auto: flash above 1024
+        tattn.dot_product_attention(long, long, long)
+    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):
+        tattn.qkv_attention(torch.zeros(1, 10753, 3 * 480, device="meta"), 6, impl="flash")
     meta = torch.zeros(1, 300, 3 * 2 * 8, device="meta")
     for impl in ("flash", "vmem"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
             tattn.qkv_attention(meta, 2, impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # auto picks vmem at 300
-        tattn.dot_product_attention(*(torch.zeros(1, 2, 300, 8, device="meta"),) * 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # auto picks vmem (K8) at 300
+        tattn.dot_product_attention(sep, sep, sep)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tfqa.fused_qkv_attention(meta, 2, torch.ones(300, 300, dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -182,6 +194,9 @@ def test_unported_kernels_raise_on_the_card_and_run_plain_on_cpu():
     ref = tattn.qkv_attention(qkv, 2, impl="xla")
     for impl in ("flash", "vmem"):
         torch.testing.assert_close(tattn.qkv_attention(qkv, 2, impl=impl), ref)
+    q, k, v = qkv.reshape(1, 300, 3, 2, 8).permute(2, 0, 3, 1, 4).unbind(0)
+    torch.testing.assert_close(tattn.dot_product_attention(q, k, v, impl="flash"),
+                               tattn.xla_attention(q, k, v))
 
 
 @pytest.mark.parametrize("impl", ["xla", "fused", "flash", "vmem"])

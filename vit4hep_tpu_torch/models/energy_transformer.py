@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vit4hep_tpu_torch.ops.attention import dot_product_attention, qkv_attention
+from vit4hep_tpu_torch.ops.attention import dot_product_attention
 from vit4hep_tpu_torch.ops.fused_energy_decoder import fused_energy_decoder
 from vit4hep_tpu_torch.ops.pos_embed import gaussian_fourier_projection
 
@@ -109,7 +109,11 @@ class GaussianFourierProjection(nn.Module):
 
 class MultiheadAttention(nn.Module):
     """q/k/v projections packed as ``in_proj_weight`` rows [q; k; v] plus
-    ``out_proj`` (torch's layout), over the port's plain attention."""
+    ``out_proj`` (torch's layout). Self- and cross-attention both split the
+    projections into (B, H, N, D) q, k, v for ``dot_product_attention``, as
+    JAX's ``_MHA`` does for every attention of this net: ``attn_impl``
+    routes alike in both packages (``fused``, the qkv-panel kernel, raises
+    ``ValueError`` there too)."""
 
     def __init__(self, d_model: int, nhead: int, attn_impl: str = "xla"):
         super().__init__()
@@ -120,23 +124,17 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q_in, kv_in, self_attention: bool):
-        dm = q_in.shape[-1]
-        if self_attention:
-            qkv = F.linear(q_in, self.in_proj_weight, self.in_proj_bias)
-            out = qkv_attention(qkv, self.nhead, impl=self.attn_impl)
-        else:
-            b, nq, _ = q_in.shape
-            nk = kv_in.shape[1]
-            hd = dm // self.nhead
-            q = F.linear(q_in, self.in_proj_weight[:dm], self.in_proj_bias[:dm])
-            k, v = F.linear(kv_in, self.in_proj_weight[dm:], self.in_proj_bias[dm:]).chunk(2, -1)
-            q = q.reshape(b, nq, self.nhead, hd).transpose(1, 2)
-            k = k.reshape(b, nk, self.nhead, hd).transpose(1, 2)
-            v = v.reshape(b, nk, self.nhead, hd).transpose(1, 2)
-            out = dot_product_attention(q, k, v, impl=self.attn_impl)
-            out = out.transpose(1, 2).reshape(b, nq, dm)
-        return self.out_proj(out)
+    def forward(self, q_in, kv_in):
+        b, nq, dm = q_in.shape
+        nk = kv_in.shape[1]
+        hd = dm // self.nhead
+        q = F.linear(q_in, self.in_proj_weight[:dm], self.in_proj_bias[:dm])
+        k, v = F.linear(kv_in, self.in_proj_weight[dm:], self.in_proj_bias[dm:]).chunk(2, -1)
+        q = q.reshape(b, nq, self.nhead, hd).transpose(1, 2)
+        k = k.reshape(b, nk, self.nhead, hd).transpose(1, 2)
+        v = v.reshape(b, nk, self.nhead, hd).transpose(1, 2)
+        out = dot_product_attention(q, k, v, impl=self.attn_impl)
+        return self.out_proj(out.transpose(1, 2).reshape(b, nq, dm))
 
 
 class EncoderLayer(nn.Module):
@@ -152,7 +150,7 @@ class EncoderLayer(nn.Module):
         self.act = _activation(activation)
 
     def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x, True))
+        x = self.norm1(x + self.self_attn(x, x))
         return self.norm2(x + self.linear2(self.act(self.linear1(x))))
 
 
@@ -171,8 +169,8 @@ class DecoderLayer(nn.Module):
         self.act = _activation(activation)
 
     def forward(self, x, memory):
-        x = self.norm1(x + self.self_attn(x, x, True))
-        x = self.norm2(x + self.multihead_attn(x, memory, False))
+        x = self.norm1(x + self.self_attn(x, x))
+        x = self.norm2(x + self.multihead_attn(x, memory))
         return self.norm3(x + self.linear2(self.act(self.linear1(x))))
 
 

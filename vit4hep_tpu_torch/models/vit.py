@@ -33,12 +33,20 @@ kernels on every path. The (T, T) mask is built once, as a non-persistent
 buffer that follows the net to its device (the state dict does not
 change), not on every forward.
 
+The composed path takes the ViT's own knobs as JAX does: ``attn_impl``
+(``auto``: K1 from 128 tokens; ``vmem``: K8, ``ops/vmem_attention``;
+``flash``: K6, ``ops/flash_qkv_attention``; ``xla``: plain) and
+``fused_mlp: true`` (each block's MLP half through K9,
+``ops/fused_mlp.fused_mlp_half``, whose backward is the plain VJP). The
+fused tier ignores both, as in JAX: ``fused_block: sample`` serves through
+K2v whatever they say.
+
 ``ViT1D`` is the cINN coupling subnet: no time input, a 1-D learnable
 positional embedding over ``prod_num_patches`` tokens, and ``x_out``
 outputs per patch value. It runs the composed path, whose attention reaches
 K1 from 128 tokens as in JAX; its ``fused_block`` twin (K2v over a ViT1D)
 is not ported yet and raises. Not ported yet either: the fine-tuning
-mappers, the fixed sin-cos positional embeddings and ``fused_mlp``.
+mappers and the fixed sin-cos positional embeddings.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from torch import nn
 from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import pos_embed as pe_ops
 from vit4hep_tpu_torch.ops.attention import qkv_attention
+from vit4hep_tpu_torch.ops.fused_mlp import fused_mlp_half
 
 _LN_EPS = 1e-6
 
@@ -176,10 +185,14 @@ class Attention(nn.Module):
 
 
 class DiTBlock(nn.Module):
-    """adaLN-Zero transformer block."""
+    """adaLN-Zero transformer block. With ``fused_mlp`` its MLP half runs
+    through ``ops/fused_mlp.fused_mlp_half`` (kernel K9) on the same
+    ``mlp.fc1``/``mlp.fc2`` parameters, as JAX's ``FusedMlpHalf`` keeps
+    ``MlpBlock``'s param tree."""
 
-    def __init__(self, hidden, num_heads, mlp_ratio=4.0, attn_impl="auto"):
+    def __init__(self, hidden, num_heads, mlp_ratio=4.0, attn_impl="auto", fused_mlp=False):
         super().__init__()
+        self.fused_mlp = fused_mlp
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), _xavier_linear(hidden, 6 * hidden, zero=True))
         self.attn = Attention(hidden, num_heads, attn_impl)
         self.mlp = MlpBlock(hidden, int(hidden * mlp_ratio))
@@ -188,6 +201,10 @@ class DiTBlock(nn.Module):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             self.adaLN_modulation(c).chunk(6, dim=-1)
         x = x + gate_msa[:, None, :] * self.attn(modulate(_ln(x), shift_msa, scale_msa), mask)
+        if self.fused_mlp:
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+            return fused_mlp_half(x, shift_mlp, scale_mlp, gate_mlp, fc1.weight.t(), fc1.bias,
+                                  fc2.weight.t(), fc2.bias)
         return x + gate_mlp[:, None, :] * self.mlp(modulate(_ln(x), shift_mlp, scale_mlp))
 
 
@@ -231,8 +248,6 @@ def _check_ported(p: ViTParams):
         raise NotImplementedError("fine-tuning mappers are not ported yet (ROADMAP.md)")
     if not p.learn_pos_embed:
         raise NotImplementedError("fixed sin-cos positional embeddings are not ported yet")
-    if p.fused_mlp:
-        raise NotImplementedError("fused_mlp (kernel K9) is not ported yet (ROADMAP.md)")
     if p.compute_dtype not in ("float32", "fp32"):
         raise NotImplementedError("the port's ViT runs in float32")
 
@@ -302,7 +317,8 @@ class ViTNet(nn.Module):
         self.c_embedder = ConditionEmbedder(p.condition_dim, h)
         self.pos_embed_freqs = nn.Parameter(torch.randn(h // 6))
         self.blocks = nn.ModuleList(
-            DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl) for _ in range(p.depth))
+            DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl, p.fused_mlp)
+            for _ in range(p.depth))
         self.final_layer = FinalLayer(h, p.out_channels * p.patch_dim)
         self._grid = [torch.from_numpy(g) for g in pe_ops.create_meshgrid(p.num_patches)]
         self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
@@ -432,7 +448,8 @@ class ViT1DNet(nn.Module):
         self.c_embedder = ConditionEmbedder(p.condition_dim, h)
         self.pos_embed_freqs = nn.Parameter(torch.randn(h // 2))
         self.blocks = nn.ModuleList(
-            DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl) for _ in range(p.depth))
+            DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl, p.fused_mlp)
+            for _ in range(p.depth))
         self.final_layer = FinalLayer(h, p.out_channels * (p.x_out or 1) * p.patch_dim)
         # arange(T) / T in float32, as JAX computes it
         self.register_buffer("_grid", torch.from_numpy(

@@ -6,41 +6,41 @@ the hand-written kernels (the energy transformer's default).
 
 :func:`qkv_attention` keeps the JAX dispatch on the native (B, N, 3*H*D)
 layout: ``auto`` picks ``fused`` (``ops/fused_qkv_attention``, kernel K1,
-forward and backward, on the card) from 128 tokens while the TPU kernel's
-working-set bound ``fused_fits`` holds, and the plain version below 128;
-an explicit ``fused`` beyond the bound raises ``ValueError`` as in JAX. A
-shared 2-D (N, N) mask keeps ``auto`` on ``fused`` (``vit4hep_tpu/ops/
-attention.py:140-150``), and K1 runs it on the card: the layer-causal ViT
-trains through the masked kernels; a batched mask goes to the plain
-version.
-``flash`` and ``vmem``, and ``auto`` past the bound, name kernels K6/K7/K8
-that are not ported yet (ROADMAP.md queue 2): on CUDA tensors they raise
-``NotImplementedError``, on CPU tensors they run the plain version.
-:func:`dot_product_attention` does the same for (B, H, N, D) inputs, whose
-``auto`` picks ``vmem`` at 288-1024 tokens and ``flash`` above.
+forward and backward) from 128 tokens while the TPU kernel's working-set
+bound ``fused_fits`` holds, ``flash`` past it, and the plain version below
+128; an explicit ``fused`` beyond the bound raises ``ValueError`` as in
+JAX. A shared 2-D (N, N) mask keeps ``auto`` on the kernels
+(``vit4hep_tpu/ops/attention.py:140-150``); a batched mask goes to the plain
+version. ``flash`` runs ``ops/flash_qkv_attention`` (kernel K6) on the panel
+while ``flash_qkv_fits`` holds; ``vmem``, ``xla``, and ``flash`` past that
+bound split the panel into (B, H, N, D) views for
+:func:`dot_product_attention`, whose ``auto`` picks ``vmem`` at 288-1024
+tokens and ``flash`` above. There ``vmem`` runs
+``ops/vmem_attention`` (kernel K8) within the TPU kernel's bound (an explicit
+``vmem`` beyond it raises ``ValueError``, as in JAX), and ``flash`` names the
+separated-layout kernel K7, not ported yet (ROADMAP.md queue 2): on a CUDA
+tensor it raises ``NotImplementedError``, on a CPU tensor it runs the plain
+version. Both kernels attend a sequence to itself: q and k of different
+lengths (cross-attention) raise ``ValueError`` for ``flash`` and ``vmem``,
+where JAX's reshape fails. Every kernel wrapper runs its plain version on a
+CPU tensor and its kernel, or raises, on any other.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vit4hep_tpu_torch.ops.flash_qkv_attention import flash_qkv_attention, flash_qkv_fits
 from vit4hep_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+from vit4hep_tpu_torch.ops.vmem_attention import check_shapes, vmem_attention
 
 _NEG_INF = -1e30
 _IMPLS = ("auto", "xla", "fused", "flash", "vmem")
-_KERNELS = {"flash": "K6 flash_qkv_attention / K7 flash_attention", "vmem": "K8 vmem_attention"}
 
 
 def _check_impl(impl):
     if impl not in _IMPLS:
         raise ValueError(f"Unknown attention impl '{impl}'")
-
-
-def _unported(impl, t):
-    """Raise for a kernel impl that is not ported when the tensor is on the card."""
-    if t.device.type != "cpu":
-        raise NotImplementedError(f"attn_impl '{impl}' needs kernel {_KERNELS[impl]}, not "
-                                  "ported yet (ROADMAP.md queue 2)")
 
 
 def xla_attention(q, k, v, mask=None, scale=None):
@@ -67,14 +67,20 @@ def dot_product_attention(q, k, v, mask=None, impl="auto", scale=None):
             impl = "flash"
         else:
             impl = "xla"
-    if impl == "vmem" and (n > 1024 or 16 * n * d + 20 * n * n > 120 * 1024 * 1024):
-        raise ValueError(f"attn_impl 'vmem': N={n} x D={d} exceeds the one-shot kernel's "
-                         "VMEM working set; use attn_impl 'flash' (or 'auto')")
+    if impl == "xla":
+        return xla_attention(q, k, v, mask, scale=scale)
     if impl == "fused":  # the native-layout kernel only; JAX raises here too
         raise ValueError("Unknown attention impl 'fused' for separated q, k, v")
-    if impl in ("flash", "vmem"):
-        _unported(impl, q)
-    return xla_attention(q, k, v, mask, scale=scale)
+    check_shapes(f"attn_impl '{impl}'", q, k, v)
+    if impl == "flash":  # K7 flash_attention
+        if q.device.type != "cpu":
+            raise NotImplementedError("attn_impl 'flash' on separated q, k, v needs kernel K7 "
+                                      "flash_attention, not ported yet (ROADMAP.md queue 2)")
+        return xla_attention(q, k, v, mask, scale=scale)
+    if n > 1024 or 16 * n * d + 20 * n * n > 120 * 1024 * 1024:
+        raise ValueError(f"attn_impl 'vmem': N={n} x D={d} exceeds the one-shot kernel's "
+                         "VMEM working set; use attn_impl 'flash' (or 'auto')")
+    return vmem_attention(q, k, v, mask, scale)
 
 
 def fused_fits(n, hd, num_heads) -> bool:
@@ -109,6 +115,9 @@ def qkv_attention(qkv, num_heads, mask=None, impl="auto", scale=None):
                              f"{three_hd // 3 // num_heads} exceeds the fused-layout kernel's "
                              "working-set bound; use attn_impl 'flash' (or 'auto')")
         return fused_qkv_attention(qkv, num_heads, mask, scale)
+    if impl == "flash" and (mask is None or mask.ndim == 2) \
+            and flash_qkv_fits(n, three_hd // 3, num_heads=num_heads):
+        return flash_qkv_attention(qkv, num_heads, mask, scale)
     d = three_hd // 3 // num_heads
     q, k, v = qkv.reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4).unbind(0)
     out = dot_product_attention(q, k, v, mask, impl=impl, scale=scale)

@@ -521,9 +521,7 @@ def train_linear(a, w, bias, epilogue, out=None, pos=None, gate=None, n_tok=1, r
                  n_tok)
 
 
-def modln(x, shift, scale, n_tok):
-    """bf16 ``LN(x) * (1 + scale[r // n_tok]) + shift[r // n_tok]``; x (M, H)
-    f32, shift/scale (M // n_tok, H) views (rows may be strided, equally)."""
+def _modln(counter, x, shift, scale, n_tok):
     m, hdim = x.shape
     _cuda.require_cuda("modln", x)
     if m % n_tok:
@@ -535,8 +533,14 @@ def modln(x, shift, scale, n_tok):
     code = _lib().vit_modln(x.data_ptr(), shift.data_ptr(), scale.data_ptr(), stride,
                             out.data_ptr(), m, hdim, n_tok, _LN_EPS, _cuda.stream())
     _cuda.check(code, "vit_modln")
-    MODLN.add()
+    counter.add()
     return out
+
+
+def modln(x, shift, scale, n_tok):
+    """bf16 ``LN(x) * (1 + scale[r // n_tok]) + shift[r // n_tok]``; x (M, H)
+    f32, shift/scale (M // n_tok, H) views (rows may be strided, equally)."""
+    return _modln(MODLN, x, shift, scale, n_tok)
 
 
 def attention(qkv, num_heads, scale, mask=None):
