@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 and ds3 two-stage
 shower generators (CFM and cINN shape models), the layer-causal ViT, the ds2
-training slice and its megakernel training tier, and ds3 CFM training and
-serving through the composed block's opt-in kernels, at full width, through
-the hand-written CUDA kernels.
+training slice and its megakernel training tier, ds3 CFM training and
+serving through the composed block's opt-in kernels, and the 13,500-token
+ds3 ViT (ds3_long) through the streaming flash attention K7, at full width,
+through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -42,7 +43,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    library call, and forward + backward through autograd; K9
    (``fused_mlp_half``: its modulated LayerNorm, its two products and the
    whole chain) at x (64 / 256, 450, 480), ``torch.matmul`` on bf16 as the
-   products' library call;
+   products' library call; K7 (``flash_attention``: forward, dK/dV and dQ
+   passes, f32) on strided q/k/v views at ds3_long's serving shape (2, 6,
+   13500, 80) and training shape (8, 6, 13500, 80) (the plain versions one
+   element at a time), at the ds3 training shape (64, 6, 450, 80) unmasked
+   and layer-causal, and at (8, 6, 300, 80) with a tail tile and one wholly
+   masked row, SDPA on the same f32 tensors as the library call (its
+   backward alone for the backward passes); the block stack
+   (``fused_dit_stack``): K2s without gradients (ungrouped and
+   layer-causal, exactly 6 x (4 GEMM + 2 modln + 1 attention) launches;
+   group 8 bit for bit the ungrouped output) against the chained f32
+   blocks, K5a-stack against the chained plain
+   blocks on bf16 multiplicands, at x (256, 135, 480) and (64, 450, 480),
+   and its gradients against the composed f32 path with its residuals,
+   with the residual tier forced off and with ``bwd="xla"``; then K10
+   (``tools/megakernel_residue``): the DiT block body timed by kernel at
+   ds2 and ds3, each against its bound;
 4. serving paths, each at full width with random weights from a seed
    (non-zero adaLN and final-layer weights) behind the energy model
    (cfm_ds2_energy = cfm_ds3_energy), answering REQUESTS requests of BATCH
@@ -77,6 +93,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      forward 6, K9's modulated LayerNorm 6 and products 12), K3 1 each;
      DS3_REQUESTS requests, no profile; the plain generator has no opt-in
      kernel;
+   - ds3_long_cfm: ds3_long (cfm_ds3_electrons with (3, 1, 1) patches:
+     13,500 tokens x 3, composed, attn_impl auto) at batch
+     DS3_LONG_SERVE_BATCH, DS3_REQUESTS requests: K7's forward 6 per net
+     eval, 480 a request; the reference at batch 1 and 2 RK4 steps;
 5. ds2_train: the ds2 shape model at full width (hidden 480, depth 6, 6
    heads x 80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
    clip_grad_norm 1000) through the port's ``CaloChallenge`` experiment and
@@ -122,7 +142,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    exactly (``composed_launches``); then each of ``vmem``, ``flash``,
    ``fused_mlp`` and ``vmem`` with ``causal_attn: true`` against ``attn_impl:
    xla``, ``fused_mlp: false`` from one state (``parity_phase``,
-   FUSED_TRAIN_TOL: bf16 products against f32);
+   FUSED_TRAIN_TOL: bf16 products against f32); ds3_long_train: ds3_long
+   at batch DS3_LONG_TRAIN_BATCH, DS3_LONG_STEPS steps and one validation
+   batch through the experiment (K7: 6 forwards per step and per
+   validation batch, 6 dK/dV and 6 dQ passes per step), a profiled step,
+   and its parity against ``attn_impl: xla`` (``checkpoint_grads: true``)
+   at batch 1 (K7_TRAIN_TOL: f32 both);
 11. energy: a few steps of the ds2 energy experiment at full width (batch
    256; no kernel on its path), which fits ``means_u.npy``/``stds_u.npy``.
 
@@ -138,7 +163,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
@@ -153,6 +177,7 @@ from vit4hep_tpu_torch.experiments import train_state as ts
 from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
 from vit4hep_tpu_torch.ops import _cuda
 from vit4hep_tpu_torch.ops import attention as attn
+from vit4hep_tpu_torch.ops import flash_attention as fla
 from vit4hep_tpu_torch.ops import flash_qkv_attention as ffa
 from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import fused_energy_decoder as fed
@@ -161,6 +186,8 @@ from vit4hep_tpu_torch.ops import fused_qkv_attention as fqa
 from vit4hep_tpu_torch.ops import fused_spline as fsp
 from vit4hep_tpu_torch.ops import vmem_attention as fva
 from vit4hep_tpu_torch.ops.pos_embed import layer_causal_mask
+from vit4hep_tpu_torch.tools import megakernel_residue
+from vit4hep_tpu_torch.tools.timing import BF16_FLOPS, F32_FLOPS, card_name, time_ms, work_bound
 from vit4hep_tpu_torch.utils.config import Config, instantiate
 from vit4hep_tpu_torch.utils.serving import Generator
 
@@ -176,6 +203,16 @@ ENERGY_STEPS = 10
 N_EVENTS = 2560  # synthetic showers: 39 training batches of 64, 25 validation events
 N_EVENTS_DS3 = 1280  # ds3 (40500 voxels): 19 training batches of 64 (cycled), 13 validation
 DS3_REQUESTS = 2  # requests of the composed ds3 serving paths (fused_block: false)
+# ds3_long, the 13,500-token ViT: its cuts of batch (for the card's memory and
+# the smoke's time; nothing else of the config is cut), its steps, and the
+# parity batch (the xla reference holds (B, 6, N, N) f32 scores: 4.4 GB a
+# tensor per batch element, recomputed block by block with checkpoint_grads)
+# shape.yaml's 64 would need ~8x the 25.9 GiB peak of batch 8 (an estimate)
+DS3_LONG_TRAIN_BATCH = 8
+DS3_LONG_SERVE_BATCH = 2  # batchsize_sample 256: 80 evals x 6 K7 forwards a request
+DS3_LONG_STEPS = 3  # and one validation batch (13 validation events, batch 8)
+DS3_LONG_PARITY_BATCH = 1
+DS3_LONG_REFERENCE_STEP = 0.5  # the reference generators: 2 RK4 steps, not 20
 
 # configs/model/cfm/cfm_ds2_electrons.yaml
 DS2_SHAPE_MODEL = {
@@ -282,6 +319,15 @@ DS2_ENERGY_TRANSFORMS = {
 DS3_SHAPE_MODEL = dict(DS2_SHAPE_MODEL, shape=[45, 50, 18], patch_shape=[3, 10, 3], net=dict(
     DS2_SHAPE_MODEL["net"], param=dict(DS2_SHAPE_MODEL["net"]["param"], num_patches=[[15, 5, 6]],
                                        patch_dim=90)))
+
+# ds3_long: configs/model/cfm/cfm_ds3_electrons.yaml with patches of (3, 1, 1):
+# 15 x 50 x 18 = 13,500 tokens of 3 values (the 15 layer groups of the shipped
+# (15, 5, 6) grid), composed (fused_block false), attn_impl auto: past
+# flash_qkv_fits (10,752 tokens at hidden 480) every block's attention is K7
+DS3_LONG_MODEL = dict(DS3_SHAPE_MODEL, patch_shape=[3, 1, 1], net=dict(
+    DS3_SHAPE_MODEL["net"], param=dict(DS3_SHAPE_MODEL["net"]["param"],
+                                       num_patches=[[15, 50, 18]], patch_dim=3,
+                                       fused_block=False, attn_impl="auto")))
 
 # configs/model/cfm/cfm_ds3_energy.yaml (byte-identical to cfm_ds2_energy.yaml)
 DS3_ENERGY_MODEL = DS2_ENERGY_MODEL
@@ -414,6 +460,23 @@ TOL.update({"vmem_attn_fwd": 2e-3, "vmem_attn_bwd_dq": 4e-3, "vmem_attn_bwd_dkv"
 # (bf16 MLP products) against attn_impl xla, fused_mlp false (f32) from one
 # state: fewer products are bf16 than in the megakernel tier, so its bounds
 # (FUSED_TRAIN_TOL) hold with more margin
+# K7 (flash_attention, the separated-layout streaming kernel) computes in f32
+# like its plain version, as K1: summation order only (its online softmax
+# rescales partial sums), 1e-4 of the scale, at 13,500 keys too (a row's
+# weights sum 13,500 f32 terms, each error ~1e-7 relative). The block stack
+# (K2s, K5a-stack) chains K2b's / K5a's block kernels through 6 blocks: 2e-2,
+# the bound of K2v's and K5a's whole forwards (K2s against the f32 blocks,
+# K5a-stack against the plain blocks on bf16 multiplicands).
+TOL.update({"flash_attn_fwd": 1e-4, "flash_attn_bwd_dkv": 1e-4, "flash_attn_bwd_dq": 1e-4,
+            "fused_dit_stack": 2e-2, "stack_fwd_train": 2e-2})
+# ds3_long training with K7 against attn_impl xla from one state: f32 on both
+# sides (the rest of the composed net is the same code), so K1's train
+# parity bounds hold (TRAIN_TOL's reasoning): loss and grad norm 1e-4
+# relative; per-tensor gradient relative L2 1e-3 (summation order over
+# 13,500 keys, ~1e-6, with margin); the update vector after 3 Adam steps 1e-2
+# relative (Adam divides each entry by its own RMS, so entries whose gradient
+# is rounding noise -- the key biases -- move by a fraction of lr)
+K7_TRAIN_TOL = {"loss": 1e-4, "grad_rel_l2": 1e-3, "grad_norm": 1e-4, "update_rel": 1e-2}
 K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
 K2V = "vit4hep_tpu_torch/csrc/vit_forward.cu"
 K5 = "vit4hep_tpu_torch/csrc/vit_backward.cu"
@@ -426,6 +489,11 @@ K6 = "vit4hep_tpu_torch/csrc/flash_qkv_attention.cu"
 K9 = ("vit4hep_tpu_torch/csrc/vit_forward.cu (modln_kernel, gemm_kernel; chained in "
       "vit4hep_tpu_torch/ops/fused_mlp.py)")
 K9_BODY = "vit4hep_tpu/ops/fused_mlp.py:51 (_kernel, call :114)"
+K7 = "vit4hep_tpu_torch/csrc/flash_attention.cu (tiles of attention_fwd.cuh, attention_bwd.cuh)"
+# the block stack's bodies: K2s's (ungrouped, masked, grouped) and K5a-stack's
+K2S_BODY = ("vit4hep_tpu/ops/fused_dit_block.py:257, :236 and :265 (fused_dit_stack, calls "
+            ":446, :408)")
+K5A_STACK_BODY = "vit4hep_tpu/ops/fused_dit_block.py:976 (_stack_fwd_train, call :1021)"
 # the TPU bodies each kernel covers: K2v's unmasked, masked and grouped
 # whole-ViT kernels; K1's per-head and head-packed forwards, each unmasked
 # and masked, and its unmasked and masked backward
@@ -434,10 +502,11 @@ K1_BWD_BODIES = "vit4hep_tpu/ops/fused_qkv_attention.py:252 and :260"
 REPLACES = {
     "energy_decoder": ("vit4hep_tpu_torch/csrc/energy_decoder.cu",
                        "vit4hep_tpu/ops/fused_energy_decoder.py:124"),
-    "vit_gemm": (K2V, f"{K2V_BODIES}; {K2B_BODY}"),
-    "vit_modln": (K2V, f"{K2V_BODIES}; {K2B_BODY}"),
+    "vit_gemm": (K2V, f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
+    "vit_modln": (K2V, f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
     "vit_attention": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
-                      "vit4hep_tpu_torch/csrc/vit_forward.cu)", f"{K2V_BODIES}; {K2B_BODY}"),
+                      "vit4hep_tpu_torch/csrc/vit_forward.cu)",
+                      f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
     "qkv_attn_fwd": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
                      "vit4hep_tpu_torch/csrc/qkv_attention.cu)",
                      "vit4hep_tpu/ops/fused_qkv_attention.py:58, :65, :94 and :156"),
@@ -448,7 +517,8 @@ REPLACES = {
                            "vit4hep_tpu/ops/fused_spline.py:55"),
     # the megakernel tier's training kernels (K5a also runs modln and K1's
     # forward; K5b K1's backward; K5c K5a's block kernels, then K5b's)
-    "vit_train_gemm": (K2V, f"{K5A_BODY}; the products of {K5B_BODY} and {K5C_BODY}"),
+    "vit_train_gemm": (K2V, f"{K5A_BODY}; {K5A_STACK_BODY}; the products of {K5B_BODY} and "
+                       f"{K5C_BODY}"),
     "vit_gemm_nt": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
     "vit_gemm_tn": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
     "vit_wgrad_reduce": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
@@ -468,6 +538,12 @@ REPLACES = {
                           "call :389)"),
     "mlp_modln": (K9, K9_BODY),
     "mlp_gemm": (K9, K9_BODY),
+    # the separated-layout streaming flash attention (its delta is plain)
+    "flash_attn_fwd": (K7, "vit4hep_tpu/ops/flash_attention.py:39 (_fwd_kernel, call :219)"),
+    "flash_attn_bwd_dkv": (K7, "vit4hep_tpu/ops/flash_attention.py:84 (_bwd_dkv_kernel, "
+                               "call :278)"),
+    "flash_attn_bwd_dq": (K7, "vit4hep_tpu/ops/flash_attention.py:128 (_bwd_dq_kernel, "
+                              "call :309)"),
 }
 # the tier's functions (fused_dit_block, vit_fwd_train, fused_dit_block_bwd_res,
 # fused_dit_block_bwd) are chains of the kernels above: the kernel phase holds
@@ -481,7 +557,8 @@ TRAINING = {"qkv_attn_fwd": fqa.FWD, "qkv_attn_bwd_delta": fqa.BWD_DELTA,
 OPT_IN = {"vmem_attn_fwd": fva.FWD, "vmem_attn_bwd_dq": fva.BWD_DQ,
           "vmem_attn_bwd_dkv": fva.BWD_DKV, "flash_qkv_fwd": ffa.FWD,
           "flash_qkv_bwd_dq": ffa.BWD_DQ, "flash_qkv_bwd_dkv": ffa.BWD_DKV,
-          "mlp_modln": fmlp.MODLN, "mlp_gemm": fmlp.GEMM}
+          "mlp_modln": fmlp.MODLN, "mlp_gemm": fmlp.GEMM, "flash_attn_fwd": fla.FWD,
+          "flash_attn_bwd_dkv": fla.BWD_DKV, "flash_attn_bwd_dq": fla.BWD_DQ}
 # every counter a composed ds3 train step, validation or serving request can move
 COMPOSED = {**TRAINING, **SERVING, **OPT_IN}
 # every counter a fused train step or its validation can move
@@ -491,15 +568,19 @@ FUSED_TRAINING = {**TRAINING, **SERVING, "vit_train_gemm": fdb.TRAIN_GEMM,
                   "vit_dmod_reduce": fdb.DMOD_REDUCE}
 
 
+# the launches of K5b's kernels for one block's gradient (K1's backward included)
+K5B_PER_BLOCK = {"vit_bwd_rows": 3, "vit_gemm_nt": 4, "vit_gemm_tn": 4, "vit_wgrad_reduce": 4,
+                 "vit_dmod_reduce": 1, "qkv_attn_bwd_delta": 1, "qkv_attn_bwd_dkv": 1,
+                 "qkv_attn_bwd_dq": 1}
+
+
 def fused_launches(variant, steps, val_batches, depth=6):
     """The launches of each kernel on a fused training path (steps train
     steps, val_batches validation batches under no_grad): "true" (K5a, K5b
     per block, a1 saved), "noa1" (the same, a1 recomputed: ds3), "hybrid"
     (K5a, the plain residual backward), "nostack" (K2b per block, K5c)."""
     n = dict.fromkeys(FUSED_TRAINING, 0)
-    per_block_bwd = {"vit_bwd_rows": 3, "vit_gemm_nt": 4, "vit_gemm_tn": 4,
-                     "vit_wgrad_reduce": 4, "vit_dmod_reduce": 1, "qkv_attn_bwd_delta": 1,
-                     "qkv_attn_bwd_dkv": 1, "qkv_attn_bwd_dq": 1}
+    per_block_bwd = K5B_PER_BLOCK
     if variant == "nostack":  # K2b forward and validation, K5c's recompute + K5b
         k2b = {"vit_gemm": 4, "vit_modln": 2, "vit_attention": 1}
         for k, v in k2b.items():
@@ -518,16 +599,42 @@ def fused_launches(variant, steps, val_batches, depth=6):
                      **per_block_bwd}.items():
             n[k] += v * depth * steps
     return n
+
+
+def stack_launches(variant, depth=6):
+    """The launches of each kernel for one forward and backward of
+    ``fused_dit_stack`` over ``depth`` blocks: "res" (K5a-stack, K5b per
+    block; a1 saved), "xla" (K5a-stack, the plain hybrid arm), "recompute"
+    (no residual tier: K2s, then K2b on the first depth - 1 blocks and K5c
+    per block)."""
+    n = dict.fromkeys(FUSED_TRAINING, 0)
+    if variant == "recompute":
+        for k, v in {"vit_gemm": 4, "vit_modln": 2, "vit_attention": 1}.items():
+            n[k] += v * (2 * depth - 1)
+        for k, v in {"vit_train_gemm": 5, "vit_modln": 2, "qkv_attn_fwd": 1,
+                     **K5B_PER_BLOCK}.items():
+            n[k] += v * depth
+        return n
+    for k, v in {"vit_train_gemm": 4, "vit_modln": 2, "qkv_attn_fwd": 1}.items():
+        n[k] += v * depth
+    if variant == "res":
+        for k, v in {"vit_train_gemm": 1, **K5B_PER_BLOCK}.items():
+            n[k] += v * depth
+    return n
+
+
 def composed_launches(setting, steps, val_batches, depth=6):
     """The launches of each kernel on a composed ds3 path (steps train
     steps, val_batches forwards without gradients: validation batches, or
     net evals of a request): "auto" (K1 per block), "vmem" (K8), "flash"
     (K6, with K1's delta in its backward), "fused_mlp" (K1, and K9's chain
-    per block, whose backward is the plain VJP)."""
+    per block, whose backward is the plain VJP), "k7" (K7: ds3_long, past the
+    panel kernel's bound)."""
     n = dict.fromkeys(COMPOSED, 0)
     fwd, bwd = {"vmem": ("vmem_attn_fwd", ("vmem_attn_bwd_dq", "vmem_attn_bwd_dkv")),
                 "flash": ("flash_qkv_fwd", ("qkv_attn_bwd_delta", "flash_qkv_bwd_dq",
-                                            "flash_qkv_bwd_dkv"))}.get(
+                                            "flash_qkv_bwd_dkv")),
+                "k7": ("flash_attn_fwd", ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"))}.get(
         setting, ("qkv_attn_fwd", ("qkv_attn_bwd_delta", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")))
     n[fwd] += depth * (steps + val_batches)
     for k in bwd:
@@ -550,19 +657,12 @@ CINN = {"binned_rqs_inverse": fsp.INVERSE, "qkv_attn_fwd": fqa.FWD,
 CINN_PER_REQUEST = {"ds2": {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120, "energy_decoder": 80},
                     "ds3": {"binned_rqs_inverse": 20, "qkv_attn_fwd": 60, "energy_decoder": 80}}
 
-# NVIDIA H100 SXM peaks (data sheet, dense, at 700 W): HBM bytes/s, f32 on
-# the CUDA cores, bf16 on the tensor cores. The attention products (K1, K2v)
-# are bounded at the bf16 rate: the TPU kernels they replace take bf16
-# multiplicands with f32 accumulation, whatever arithmetic a port uses
-HBM_BYTES_S, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
-SPIN_HZ = 1.98e9  # the SM's boost clock: torch.cuda._sleep counts its cycles
-
-
 # the kernel phase's shape groups: each kernel's main-path shape (ds2
 # sampling; K1 at the ds2 training shape), then the others it is held at
 SHAPE_GROUPS = {
     "main": "main-path shape: ds2 sampling (K3, K2v, K4), the ds2 training shape (K1, the "
-            "tier), the ds3 training shape (K6, K8, K9)",
+            "tier), the ds3 training shape (K6, K8, K9), the ds3_long serving shape (K7: q/k/v "
+            "(2, 6, 13500, 80))",
     "n450": "K1 at qkv (16, 450, 1440); K5b without a1 at x (16, 450, 480)",
     "noa1": "ds2 training shape, K5b without a1 (recomputed): x (64, 135, 480)",
     "causal_noa1": "ds2 training shape with the layer-causal mask, K5b without a1",
@@ -573,9 +673,19 @@ SHAPE_GROUPS = {
               "K5b, K2b, K5c and K5a at x (64, 135, 480)",
     "ds3_serve": "K6, K8 and K9 at the ds3 serving shape: qkv (256, 450, 1440), q/k/v (256, 6, "
                  "450, 80), x (256, 450, 480)",
-    "ds3_causal": "K6 and K8 at the ds3 training shape with the layer-causal mask of (15, 5, 6)",
+    "ds3_causal": "K6, K8 and K7 at the ds3 training shape with the layer-causal mask of "
+                  "(15, 5, 6)",
     "ds3_serve_causal": "K6 and K8 at the ds3 serving shape with the layer-causal mask of "
                         "(15, 5, 6)",
+    "ds3_train": "K7 at the ds3 training shape, q/k/v (64, 6, 450, 80), unmasked",
+    "ds3_long_train": "K7 at the ds3_long training shape, q/k/v (8, 6, 13500, 80), the plain "
+                      "versions one batch element at a time",
+    "k7_tail": "K7 at q/k/v (8, 6, 300, 80): a tail tile of 44 rows, a causal mask with one "
+               "wholly masked row",
+    "stack": "the block stack (K2s, K5a-stack), depth 6, at x (256, 135, 480)",
+    "stack_causal": "the block stack at x (256, 135, 480) with the layer-causal mask of "
+                    "(15, 1, 9)",
+    "stack_ds3": "the block stack at x (64, 450, 480)",
 }
 
 
@@ -583,42 +693,10 @@ class PhaseError(RuntimeError):
     pass
 
 
-def _time_ms(fn, reps=10, warmup=2):
-    """Median device time of one call, from CUDA events around it. A spin
-    kernel queued just before the start event holds the card until the host
-    has queued the whole call, so that a kernel shorter than the host's work
-    to launch it is timed on the device, not at the host's pace."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spin_cycles = int(min(max(2 * host_s, 1e-3), 0.2) * SPIN_HZ)
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin_cycles)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def _rel_err(out, ref):
     """(max abs error, the bound's scale max(1, max |ref|))."""
     err = (out.float() - ref.float()).abs().max().item()
     return err, max(1.0, ref.float().abs().max().item())
-
-
-def _bound(nbytes, flops, rate):
-    """(least ms for the work, what bounds it): the larger of the bytes over
-    the HBM rate and the operations over the peak rate of their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None):
@@ -637,12 +715,12 @@ def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None)
                               "library_ms": 0.0 if library_fn else None})
     b_ms, _ = bound
     res = {"max_abs_err": max(prev["max_abs_err"], err),
-           "ms": prev["ms"] + _time_ms(kernel_fn),
-           "plain_ms": prev["plain_ms"] + _time_ms(plain_fn),
+           "ms": prev["ms"] + time_ms(kernel_fn),
+           "plain_ms": prev["plain_ms"] + time_ms(plain_fn),
            "ok": prev["ok"] and ok, "bound_ms": prev["bound_ms"] + b_ms,
            "bytes_ms": prev["bytes_ms"] + (b_ms if bound[1] == "bytes" else 0.0),
            "ops_ms": prev["ops_ms"] + (b_ms if bound[1] == "operations" else 0.0),
-           "library_ms": None if library_fn is None else prev["library_ms"] + _time_ms(library_fn)}
+           "library_ms": None if library_fn is None else prev["library_ms"] + time_ms(library_fn)}
     res["bound_by"] = "bytes" if res["bytes_ms"] >= res["ops_ms"] else "operations"
     results[name] = res
     print(f"  {name}: max_abs_err {err:.3e} (bound {TOL[name]:g} x {scale:.3g}) "
@@ -674,7 +752,7 @@ def k3_kernel_phase(results):
                              + 4 * n * dm * fdim) + 2 * n * (te + dm) * hn + 2 * n * hn)
     k3_bytes = 4 * (sum(a.numel() for a in ea) + b * n)
     _check("energy_decoder", k3(), k3_plain(), results, k3, k3_plain,
-           _bound(k3_bytes, k3_flops, F32_FLOPS))
+           work_bound(k3_bytes, k3_flops, F32_FLOPS))
 
 
 def _causal_mask(grid):
@@ -684,7 +762,9 @@ def _causal_mask(grid):
 
 def _attn_flops(b, heads, n, d, mask):
     """Operations of softmax(q k^T) v: 4 b h n^2 d, over the (query, key)
-    pairs the mask keeps (the work this run's data needs)."""
+    pairs the mask keeps (the work this run's data needs). K1's and K2v's
+    are bounded at the bf16 rate: the TPU kernels they replace take bf16
+    multiplicands with f32 accumulation, whatever arithmetic a port uses."""
     pairs = n * n if mask is None else int(mask.sum().item())
     return 4 * b * heads * pairs * d
 
@@ -734,7 +814,7 @@ def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
             g_bytes = (a.numel() * a.element_size() + wk.numel() * 2 + nn_ * 4
                        + m * nn_ * out_bytes + (pos.numel() * 4 if epi == fdb.EPI_BIAS_POS else 0)
                        + (b * nn_ * 4 if resid else 0))
-            bound = _bound(g_bytes, 2 * m * nn_ * kk, BF16_FLOPS)
+            bound = work_bound(g_bytes, 2 * m * nn_ * kk, BF16_FLOPS)
             if resid:  # in place: compare one update of the same starting residual
                 x.copy_(xs)
                 out = ker().clone()
@@ -748,7 +828,7 @@ def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
         ker = lambda: fdb.modln(x, shift, scl, n)  # noqa: E731
         pla = lambda: fdb.modln_plain(x, shift, scl, n)  # noqa: E731
         _check("vit_modln", ker(), pla(), results, ker, pla,
-               _bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
+               work_bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
         del x, xs
 
     qkv = _rand(gen, b, n, 3 * h)
@@ -758,7 +838,7 @@ def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
     lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
     a_bytes = qkv.numel() * 4 + b * n * h * 2 + (0 if mask is None else mask.numel())
     _check("vit_attention", ker(), pla(), results, ker, pla,
-           _bound(a_bytes, _attn_flops(b, heads, n, 80, mask), BF16_FLOPS), lib)
+           work_bound(a_bytes, _attn_flops(b, heads, n, 80, mask), BF16_FLOPS), lib)
     del qkv, q, k, v
 
     wl = lambda s: _rand(gen, depth, *s, std=0.05)  # noqa: E731
@@ -785,7 +865,7 @@ def k1_fwd_phase(results, b, n, heads, d, mask=None):
            torch.cat([out_p.flatten(), lse_p.flatten()]), results,
            lambda: fqa.attention_fwd_kernel(qkv, heads, scale, mask),
            lambda: fqa.attention_fwd_plain(qkv, heads, scale, mask),
-           _bound(4 * (qkv.numel() + out.numel() + lse.numel()) + mask_bytes,
+           work_bound(4 * (qkv.numel() + out.numel() + lse.numel()) + mask_bytes,
                   _attn_flops(b, heads, n, d, mask), BF16_FLOPS),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
     return gen, qkv, out, lse, (q, k, v)
@@ -806,7 +886,7 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
     _check("qkv_attn_bwd_delta", delta, fqa.delta_plain(g, out, heads), results,
            lambda: fqa.attention_bwd_delta_kernel(g, out, heads),
            lambda: fqa.delta_plain(g, out, heads),
-           _bound(4 * (2 * g.numel() + delta.numel()), 2 * g.numel(), F32_FLOPS))
+           work_bound(4 * (2 * g.numel() + delta.numel()), 2 * g.numel(), F32_FLOPS))
     want = fqa.attention_bwd_plain(qkv, g, lse, heads, scale, mask)
     dqkv = torch.zeros_like(qkv)
     fqa.attention_bwd_dkv_kernel(qkv, g, lse, delta, heads, scale, dqkv, mask)
@@ -821,7 +901,7 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
         _check(name, dqkv[..., cols], want[..., cols], results,
                lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv, mask),
                lambda: fqa.attention_bwd_plain(qkv, g, lse, heads, scale, mask),
-               _bound(small + 4 * writes, flops, BF16_FLOPS))
+               work_bound(small + 4 * writes, flops, BF16_FLOPS))
     # the products' own ceiling in this kernel's f32 CUDA-core arithmetic
     # (every (query, key) pair, masked or not, is computed)
     full = b * heads * n * n * d
@@ -851,8 +931,8 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
     # the graph the backward reuses
     sdpa_out = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, g_heads, retain_graph=True)  # noqa: E731
-    return {"K1": _time_ms(k1_run), "plain": _time_ms(plain_run), "sdpa": _time_ms(sdpa_run),
-            "sdpa_bwd": _time_ms(sdpa_bwd)}
+    return {"K1": time_ms(k1_run), "plain": time_ms(plain_run), "sdpa": time_ms(sdpa_run),
+            "sdpa_bwd": time_ms(sdpa_bwd)}
 
 
 def _block_weights(gen, h=480, fdim=1920, std=0.05):
@@ -914,7 +994,7 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
                       + m * nout * (2 + (4 if resid else 2))
                       + (m * nout * 4 + b * nout * 4 if resid else 0))
             _check("vit_train_gemm", (out, saves[0]), (ref, saves[1]), results, ker, pla,
-                   _bound(nbytes, 2 * m * a.shape[1] * nout, BF16_FLOPS),
+                   work_bound(nbytes, 2 * m * a.shape[1] * nout, BF16_FLOPS),
                    lambda a=a, wk=wk: torch.matmul(a, wk))
         a1 = hid
         dy, da1, dattn, dqkv = (_rand(gen, m, k) for k in (h, fdim, h, 3 * h))
@@ -926,7 +1006,7 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
             nbytes = (a.numel() * 4 + wk.numel() * 2 + m * nn_ * 4
                       + (0 if aux is None else m * nn_ * 2))
             _check("vit_gemm_nt", ker(), pla(), results, ker, pla,
-                   _bound(nbytes, 2 * m * nn_ * kk, BF16_FLOPS),
+                   work_bound(nbytes, 2 * m * nn_ * kk, BF16_FLOPS),
                    lambda a=a, wk=wk: torch.matmul(a.to(bf), wk.t()))
         for a, bb, gelu in ((a1, dy, True), (hb, da1, False), (x.reshape(m, h), dattn, False),
                             (hb, dqkv, False)):
@@ -938,13 +1018,13 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
             nbytes = (a.numel() * a.element_size() + bb.numel() * 4
                       + (ws_k.numel() + cs_k.numel()) * 4)
             _check("vit_gemm_tn", (ws_k, cs_k), pla(), results, ker, pla,
-                   _bound(nbytes, 2 * m * kk * nn_, BF16_FLOPS),
+                   work_bound(nbytes, 2 * m * kk * nn_, BF16_FLOPS),
                    lambda a=a, bb=bb: torch.matmul(a.to(bf).t(), bb.to(bf)))
             _check("vit_wgrad_reduce", fdb.wgrad_reduce(ws_k, cs_k),
                    fdb.wgrad_reduce_plain(ws_k, cs_k), results,
                    lambda ws_k=ws_k, cs_k=cs_k: fdb.wgrad_reduce(ws_k, cs_k),
                    lambda ws_k=ws_k, cs_k=cs_k: fdb.wgrad_reduce_plain(ws_k, cs_k),
-                   _bound(4 * (ws_k.numel() + cs_k.numel() + kk * nn_ + nn_), ws_k.numel(),
+                   work_bound(4 * (ws_k.numel() + cs_k.numel() + kk * nn_ + nn_), ws_k.numel(),
                           F32_FLOPS),
                    lambda ws_k=ws_k, cs_k=cs_k: (ws_k.sum(0), cs_k.sum(0)))
         del hid, dy, da1, dattn, dqkv
@@ -964,12 +1044,12 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
             sl = slots[mode]
             got_sums = part.sum(1)[:, sl]
             _check("vit_bwd_rows", (*outs, got_sums), (*want, sums[:, sl]), results, ker, pla,
-                   _bound(m * h * nio + part[:, :, sl].numel() * 4, 20 * m * h, F32_FLOPS))
+                   work_bound(m * h * nio + part[:, :, sl].numel() * 4, 20 * m * h, F32_FLOPS))
             if mode == 2:
                 dx1 = outs[0]
         _check("vit_dmod_reduce", fdb.dmod_reduce(part), fdb.dmod_reduce_plain(part), results,
                lambda: fdb.dmod_reduce(part), lambda: fdb.dmod_reduce_plain(part),
-               _bound(4 * (part.numel() + b * 6 * h), part.numel(), F32_FLOPS),
+               work_bound(4 * (part.numel() + b * 6 * h), part.numel(), F32_FLOPS),
                lambda: part.sum(1))
         del attn, dz, yb, part, hb
 
@@ -986,7 +1066,7 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
               + wbytes + 4 * lse.numel() + mask_bytes + 4 * (m * h + b * 6 * h)
               + 2 * wbytes)  # in; dx, dmod; f32 weight and bias grads
     _check("fused_dit_block_bwd_res", ker(), pla(), results, ker, pla,
-           _bound(nbytes, _bwd_flops(m, h, fdim, pairs, d, save_a1), BF16_FLOPS))
+           work_bound(nbytes, _bwd_flops(m, h, fdim, pairs, d, save_a1), BF16_FLOPS))
     del qkv, ctx, a1, y, lse
     if not composites:
         return
@@ -994,13 +1074,13 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
         ker = lambda: fdb.fused_dit_block(x, mod6, *ws, mask, heads, None)  # noqa: E731
         pla = lambda: fdb.block_fwd_res_plain(x, mod6, *ws, mask, heads, scale, bf)[0]  # noqa: E731
         _check("fused_dit_block", ker(), pla(), results, ker, pla,
-               _bound(4 * (2 * m * h + b * 6 * h) + wbytes + mask_bytes,
+               work_bound(4 * (2 * m * h + b * 6 * h) + wbytes + mask_bytes,
                       _block_flops(m, h, fdim) + 4 * pairs * d, BF16_FLOPS))
     ker = lambda: fdb.fused_dit_block_bwd(x, mod6, *ws, g, mask, heads, None)  # noqa: E731
     pla = lambda: fdb.block_bwd_plain(x, mod6, *ws, g, mask, heads, scale, bf,  # noqa: E731
                                       torch.float32)
     _check("fused_dit_block_bwd", ker(), pla(), results, ker, pla,
-           _bound(4 * (3 * m * h + 2 * b * 6 * h) + 3 * wbytes + mask_bytes,
+           work_bound(4 * (3 * m * h + 2 * b * 6 * h) + 3 * wbytes + mask_bytes,
                   _block_flops(m, h, fdim) + 4 * pairs * d + _bwd_flops(m, h, fdim, pairs, d),
                   BF16_FLOPS))
     pdim = 48
@@ -1016,7 +1096,7 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
     res_bytes = 4 * m * ((depth + 1) * h + depth * 4 * h) + 2 * m * depth * (fdim + h) + \
         4 * lses.numel()
     _check("vit_fwd_train", (out, *res, lses), (pout, *pres, plses), results, ker, pla,
-           _bound(4 * (m * pdim + n * h + b * (6 * depth + 2) * h + m * pdim) + depth * wbytes
+           work_bound(4 * (m * pdim + n * h + b * (6 * depth + 2) * h + m * pdim) + depth * wbytes
                   + 2 * 2 * pdim * h + mask_bytes + res_bytes,
                   2 * m * pdim * h * 2 + depth * (_block_flops(m, h, fdim) + 4 * pairs * d),
                   BF16_FLOPS))
@@ -1050,7 +1130,7 @@ def k68_kernel_phase(results, b, n, heads=6, d=80, mask=None):
     fwd_p = lambda: ffa.flash_fwd_plain(qkv, heads, scale, mask, bf)  # noqa: E731
     out, lse = fwd()
     _check("flash_qkv_fwd", (out, lse), fwd_p(), results, fwd, fwd_p,
-           _bound(_f32_bytes(qkv, out, lse) + mb, 4 * pair, BF16_FLOPS), sdpa)
+           work_bound(_f32_bytes(qkv, out, lse) + mb, 4 * pair, BF16_FLOPS), sdpa)
     delta = fqa.attention_bwd_delta_kernel(g, out, heads)
     bwd_p = lambda: ffa.flash_bwd_plain(qkv, g, out, lse, heads, scale, mask, bf)  # noqa: E731
     want = bwd_p()
@@ -1064,24 +1144,24 @@ def k68_kernel_phase(results, b, n, heads=6, d=80, mask=None):
              2 * b * n * hd)):
         _check(name, dqkv[..., cols], want[..., cols], results,
                lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv, mask), bwd_p,
-               _bound(reads + 4 * writes, flops, BF16_FLOPS))
+               work_bound(reads + 4 * writes, flops, BF16_FLOPS))
     del want, dqkv, delta
 
     fwd = lambda: fva.vmem_fwd_kernel(q, k, v, scale, mask)  # noqa: E731
     fwd_p = lambda: fva.vmem_fwd_plain(q, k, v, scale, mask, bf)  # noqa: E731
     out8, lse8 = fwd()
     _check("vmem_attn_fwd", (out8, lse8), fwd_p(), results, fwd, fwd_p,
-           _bound(_f32_bytes(q, k, v, out8, lse8) + mb, 4 * pair, BF16_FLOPS), sdpa)
+           work_bound(_f32_bytes(q, k, v, out8, lse8) + mb, 4 * pair, BF16_FLOPS), sdpa)
     bwd_p = lambda: fva.vmem_bwd_plain(q, k, v, gh, lse8, scale, mask, bf)  # noqa: E731
     want = bwd_p()
     dq_k = lambda: fva.vmem_bwd_dq_kernel(q, k, v, gh, lse8, scale, mask)  # noqa: E731
     dq, rowterm = dq_k()
     _check("vmem_attn_bwd_dq", dq, want[0], results, dq_k, bwd_p,
-           _bound(_f32_bytes(q, k, v, gh, lse8, dq, rowterm) + mb, 6 * pair, BF16_FLOPS))
+           work_bound(_f32_bytes(q, k, v, gh, lse8, dq, rowterm) + mb, 6 * pair, BF16_FLOPS))
     dkv_k = lambda: fva.vmem_bwd_dkv_kernel(q, k, v, gh, lse8, rowterm, scale, mask)  # noqa: E731
     dk, dv = dkv_k()
     _check("vmem_attn_bwd_dkv", (dk, dv), want[1:], results, dkv_k, bwd_p,
-           _bound(_f32_bytes(q, k, v, gh, lse8, rowterm, dk, dv) + mb, 8 * pair, BF16_FLOPS))
+           work_bound(_f32_bytes(q, k, v, gh, lse8, rowterm, dk, dv) + mb, 8 * pair, BF16_FLOPS))
     del want, dq, rowterm, dk, dv, out8, lse8
 
     # forward + backward of the same upstream gradient through autograd
@@ -1098,8 +1178,8 @@ def k68_kernel_phase(results, b, n, heads=6, d=80, mask=None):
             t.grad = None
         F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale).backward(g_bf)
 
-    return {"K6": _time_ms(lambda: run("flash")), "K8": _time_ms(lambda: run("vmem")),
-            "plain": _time_ms(lambda: run("xla")), "sdpa": _time_ms(sdpa_run)}
+    return {"K6": time_ms(lambda: run("flash")), "K8": time_ms(lambda: run("vmem")),
+            "plain": time_ms(lambda: run("xla")), "sdpa": time_ms(sdpa_run)}
 
 
 def k9_kernel_phase(results, b, n, h=480, fdim=1920):
@@ -1118,7 +1198,7 @@ def k9_kernel_phase(results, b, n, h=480, fdim=1920):
     ker = lambda: fmlp.modln(xr, shift, scl, n)  # noqa: E731
     pla = lambda: fdb.modln_plain(xr, shift, scl, n)  # noqa: E731
     _check("mlp_modln", ker(), pla(), results, ker, pla,
-           _bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
+           work_bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
     hb = pla()
     w1b, w2b = w1.to(bf), w2.to(bf)
     hid = fdb.linear_plain(hb, w1b, b1, fdb.EPI_BIAS_GELU)
@@ -1134,15 +1214,220 @@ def k9_kernel_phase(results, b, n, h=480, fdim=1920):
         nbytes = (a.numel() * 2 + wk.numel() * 2 + nout * 4 + m * nout * (4 if resid else 2)
                   + (m * nout * 4 + b * nout * 4 if resid else 0))
         _check("mlp_gemm", ker(), pla(), results, ker, pla,
-               _bound(nbytes, 2 * m * a.shape[1] * nout, BF16_FLOPS),
+               work_bound(nbytes, 2 * m * a.shape[1] * nout, BF16_FLOPS),
                lambda a=a, wk=wk: torch.matmul(a, wk))
     args = (x, shift, scl, gate, w1, b1, w2, b2)
     ker = lambda: fmlp.mlp_half_kernel(*args)  # noqa: E731
     pla = lambda: fmlp.mlp_half_plain(*args, mm_dtype=bf)  # noqa: E731
     _check("fused_mlp_half", ker(), pla(), results, ker, pla,
-           _bound(4 * (2 * m * h + 3 * b * h + 2 * h * fdim + fdim + h), 4 * m * h * fdim,
+           work_bound(4 * (2 * m * h + 3 * b * h + 2 * h * fdim + fdim + h), 4 * m * h * fdim,
                   BF16_FLOPS),
            lambda: (torch.matmul(hb, w1b), torch.matmul(hid, w2b)))
+
+
+def _batched(fn, chunk, *tensors):
+    """``fn`` on ``chunk`` batch elements of every tensor at a time, its
+    outputs joined along the batch: the plain versions' (chunk, 6, N, N) f32
+    scores are 4.4 GB an element at N = 13,500."""
+    parts = [fn(*(t[i:i + chunk] for t in tensors)) for i in range(0, tensors[0].shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def k7_kernel_phase(results, b, n, mask=None, chunk=None):
+    """K7's forward, dK/dV and dQ passes against their plain versions (f32
+    both) at q, k, v (b, 6, n, 80): strided views of a random qkv panel,
+    as the ViT hands them over, with the shared ``mask`` when given. The
+    kernels run on the whole batch, the plain versions on ``chunk`` batch
+    elements at a time (all at once by default). SDPA on the same f32
+    tensors (with the boolean mask) is the library call: its forward for
+    the forward's row, its backward alone (through autograd, all three
+    gradients) for the backward rows. Returns the forward + backward times:
+    K7 through autograd, the plain forward and backward, SDPA through
+    autograd."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70 + n + b)
+    heads, d = 6, 80
+    scale = d ** -0.5
+    qkv = _rand(gen, b, n, 3 * heads * d)
+    q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    g = _rand(gen, b, n, heads * d).reshape(b, n, heads, d).permute(0, 2, 1, 3)
+    qc, kc, vc, gc = (t.contiguous() for t in (q, k, v, g))
+    pair = _attn_flops(b, heads, n, d, mask) // 4  # b h pairs d
+    mb = 0 if mask is None else mask.numel()
+    xs = tuple(t.clone().requires_grad_() for t in (qc, kc, vc))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qc, kc, vc, attn_mask=mask, scale=scale)
+
+    fwd = lambda: fla.flash_fwd_kernel(q, k, v, scale, mask)  # noqa: E731
+    chunk = chunk or b
+    fwd_p = lambda: _batched(lambda *t: fla.flash_fwd_plain(*t, scale, mask),  # noqa: E731
+                             chunk, q, k, v)
+    out, lse = fwd()
+    _check("flash_attn_fwd", (out, lse), fwd_p(), results, fwd, fwd_p,
+           work_bound(_f32_bytes(q, k, v, out, lse) + mb, 4 * pair, F32_FLOPS), sdpa)
+    delta = fla.delta_plain(g, out)
+    bwd_p = lambda: _batched(lambda *t: fla.flash_bwd_plain(*t, scale, mask),  # noqa: E731
+                             chunk, q, k, v, g, out, lse)
+    want = bwd_p()
+    sdpa_out = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, gc, retain_graph=True)  # noqa: E731
+    reads = _f32_bytes(q, k, v, g, lse, delta) + mb
+    dkv = lambda: fla.flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask)  # noqa: E731
+    _check("flash_attn_bwd_dkv", dkv(), want[1:], results, dkv, bwd_p,
+           work_bound(reads + 2 * _f32_bytes(q), 8 * pair, F32_FLOPS), sdpa_bwd)
+    dq = lambda: fla.flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask)  # noqa: E731
+    dq_k = dq()
+    _check("flash_attn_bwd_dq", dq_k, want[0], results, dq, bwd_p,
+           work_bound(reads + _f32_bytes(q), 6 * pair, F32_FLOPS), sdpa_bwd)
+    dead = [] if mask is None else (~mask).all(1).nonzero().flatten().tolist()
+    for row in dead:  # a wholly masked row: the mean of V, and its dQ is 0 (JAX's)
+        if not (torch.allclose(out[:, :, row], v.mean(2), atol=1e-5)
+                and torch.equal(dq_k[:, :, row], torch.zeros_like(dq_k[:, :, row]))):
+            raise PhaseError(f"K7: the wholly masked row {row} is not JAX's")
+    if dead:
+        print(f"  wholly masked rows {dead}: the mean of V, dQ 0 (as JAX)", flush=True)
+    del want, sdpa_out, dq_k
+
+    def k7_run():
+        for t in xs:
+            t.grad = None
+        fla.flash_attention(*xs, mask).backward(g)
+
+    def plain_run():
+        def one(*t):
+            o, lse_run = fla.flash_fwd_plain(*t[:3], scale, mask)
+            return fla.flash_bwd_plain(*t, o, lse_run, scale, mask)
+        _batched(one, chunk, q, k, v, g)
+
+    def sdpa_run():
+        for t in xs:
+            t.grad = None
+        F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale).backward(gc)
+
+    return {"K7": time_ms(k7_run), "plain": time_ms(plain_run), "sdpa": time_ms(sdpa_run)}
+
+
+def _stack_weights(gen, depth, h=480, fdim=1920, std=0.05):
+    """The 8 block weights stacked (depth, ...), drawn per block."""
+    return [_rand(gen, depth, *shape, std=std) for shape in
+            ((h, 3 * h), (3 * h,), (h, h), (h,), (h, fdim), (fdim,), (fdim, h), (h,))]
+
+
+def stack_kernel_phase(results, b, n, mask=None, group=None):
+    """The block stack against its plain versions at x (b, n, 480), 6
+    blocks of 6 heads x 80, F 1920, with the shared ``mask`` when given:
+    K2s (``fused_dit_stack`` without gradients) against the chained f32
+    blocks, with exactly 6 x (4 GEMM + 2 modln + 1 attention) launches;
+    with ``group``, K2s grouped must give the ungrouped output bit for bit
+    with the same launches (the group changes only the TPU's batch
+    padding); K5a-stack (``stack_fwd_train``) on its residual tier against
+    the chained ``block_fwd_res_plain`` on bf16 multiplicands: output,
+    residuals, lse."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90 + n + b)
+    h, heads, d, fdim, depth, bf = 480, 6, 80, 1920, 6, torch.bfloat16
+    m, scale = b * n, d ** -0.5
+    x, mods = _rand(gen, b, n, h), _rand(gen, b, depth, 6, h, std=0.3)
+    ws = _stack_weights(gen, depth)
+    pairs = _attn_flops(b, heads, n, d, mask) // (4 * d)
+    mb = 0 if mask is None else mask.numel()
+    wbytes = depth * (2 * (4 * h * h + 2 * h * fdim) + 4 * (5 * h + fdim))
+    flops = depth * (_block_flops(m, h, fdim) + 4 * pairs * d)
+    io = 4 * (2 * m * h + b * depth * 6 * h) + wbytes + mb
+    counters = {"vit_gemm": fdb.GEMM, "vit_modln": fdb.MODLN, "vit_attention": fdb.ATTENTION}
+    want = {"vit_gemm": 4 * depth, "vit_modln": 2 * depth, "vit_attention": depth}
+
+    def counted(g):
+        for c in counters.values():
+            c.reset()
+        out = fdb.fused_dit_stack(x, mods, *ws, mask, heads, None, g)
+        launches = {k: c.launches for k, c in counters.items()}
+        if launches != want:
+            raise PhaseError(f"K2s (group {g}): launches {launches}, expected {want}")
+        return out
+
+    with torch.no_grad():
+        pla = lambda: fdb.stack_reference(x, mods, *ws, mask, heads, scale)  # noqa: E731
+        ker = lambda: fdb.fused_dit_stack(x, mods, *ws, mask, heads, None)  # noqa: E731
+        out = counted(1)
+        print(f"  K2s: launches {want}", flush=True)
+        if group is not None:
+            if not torch.equal(counted(group), out):
+                raise PhaseError(f"K2s: group {group} differs from the ungrouped stack")
+            print(f"  K2s group {group}: the ungrouped output bit for bit, the same launches",
+                  flush=True)
+        _check("fused_dit_stack", out, pla(), results, ker, pla, work_bound(io, flops, BF16_FLOPS))
+        del out
+    save_a1, rbytes = fdb.stack_residual_tier(n, h, fdim, depth, heads, bf)
+    if rbytes is None:
+        raise PhaseError(f"K5a-stack: no residual tier at N = {n}")
+    ker = lambda: fdb.stack_fwd_train(x, mods, *ws, mask, heads, None, save_a1)  # noqa: E731
+    pla = lambda: fdb.stack_fwd_train_plain(x, mods, *ws, mask, heads, scale,  # noqa: E731
+                                            save_a1, bf)
+    out, res, lses = ker()
+    pout, pres, plses = pla()
+    pres = tuple(None if r is None else (r.to(bf) if i >= 3 else r) for i, r in enumerate(pres))
+    keep = [i for i, r in enumerate(res) if r is not None]
+    res_bytes = 4 * m * ((depth + 1) * h + depth * 4 * h) + \
+        2 * m * depth * ((fdim if save_a1 else 0) + h) + 4 * lses.numel()
+    _check("stack_fwd_train", (out, *(res[i] for i in keep), lses),
+           (pout, *(pres[i] for i in keep), plses), results, ker, pla,
+           work_bound(io + res_bytes, flops, BF16_FLOPS))
+    print(f"  K5a-stack: residual tier save_a1={save_a1} ({rbytes} bytes per element)",
+          flush=True)
+
+
+def stack_grad_phase():
+    """The stack's gradients (x, mods and every weight) against the
+    composed f32 path (autograd through the chained plain blocks) at x (64,
+    135, 480), depth 6, under FUSED_TRAIN_TOL's gradient bound: with its
+    residuals (K5a-stack + K5b), with the residual tier forced off (K2s,
+    then K2b + K5c), and with bwd="xla" (K5a-stack + the plain hybrid arm);
+    every launch counted (``stack_launches``)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 95)
+    b, n, h, heads, depth = 64, 135, 480, 6, 6
+    ins = [_rand(gen, b, n, h), _rand(gen, b, depth, 6, h, std=0.3), *_stack_weights(gen, depth)]
+    ins = [t.requires_grad_() for t in ins]
+    g = _rand(gen, b, n, h)
+    ref = torch.autograd.grad(fdb.stack_reference(*ins, None, heads, 80 ** -0.5), ins, g)
+    names = ["x", "mods", "wqkv", "bqkv", "wout", "bout", "w1", "b1", "w2", "b2"]
+    real_bytes = fdb.train_residual_bytes
+    for label, variant, bwd in (("residuals (K5a-stack, K5b)", "res", "pallas"),
+                                ("residual tier off (K2s; K2b + K5c)", "recompute", "pallas"),
+                                ('bwd="xla" (K5a-stack, plain hybrid arm)', "xla", "xla")):
+        for c in FUSED_TRAINING.values():
+            c.reset()
+        if variant == "recompute":  # price every residual tier out, as JAX's tests do
+            fdb.train_residual_bytes = lambda *a, **kw: 1 << 40
+        try:
+            grads = torch.autograd.grad(fdb.fused_dit_stack(*ins, None, heads, None, 1, bwd),
+                                        ins, g)
+        finally:
+            fdb.train_residual_bytes = real_bytes
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in FUSED_TRAINING.items()}
+        rel = {nm: ((a - r).norm() / r.norm()).item() for nm, a, r in zip(names, grads, ref)}
+        worst = max(rel, key=rel.get)
+        ok = rel[worst] <= FUSED_TRAIN_TOL["grad_rel_l2"]
+        print(f"  stack gradients, {label}, x ({b}, {n}, {h}): relative L2 worst {rel[worst]:.3e} "
+              f"({worst}), median {float(np.median(list(rel.values()))):.3e} (bound "
+              f"{FUSED_TRAIN_TOL['grad_rel_l2']}) {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise PhaseError(f"fused_dit_stack gradients ({label}) disagree with the composed path")
+        if launches != stack_launches(variant, depth):
+            raise PhaseError(f"fused_dit_stack ({label}): launches {launches}, expected "
+                             f"{stack_launches(variant, depth)}")
+        print(f"  launches: { {k: v for k, v in launches.items() if v} }", flush=True)
+
+
+def residue_phase(card):
+    """K10: the block body itemized by kernel at ds2 (135 tokens, batch 256)
+    and ds3 (450 tokens, batch 64) (``tools/megakernel_residue``)."""
+    for tag, (n, batch) in megakernel_residue.SHAPES.items():
+        rows = megakernel_residue.itemize(megakernel_residue.make_inputs(n, batch))
+        if not all(math.isfinite(r[2]) and 0 < r[3] < r[2] for r in rows):
+            raise PhaseError(f"megakernel_residue {tag}: a row below its bound or not timed")
+        print(megakernel_residue.table(f"{tag}: {n} tokens, batch {batch}, hidden 480, 6 heads, "
+                                       f"MLP 1920, R {megakernel_residue.R}", rows, card),
+              flush=True)
 
 
 def _k4_ops(bins):
@@ -1177,7 +1462,7 @@ def k4_kernel_phase(results, d, other_branch=True):
     out, ref = ker(), pla()
     nbytes = 4 * (y.numel() + theta.numel() + out[0].numel() + out[1].numel())
     _check("binned_rqs_inverse", out, ref, results, ker, pla,
-           _bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS))
+           work_bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS))
     again = ker()
     torch.cuda.synchronize()
     if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
@@ -1255,41 +1540,41 @@ def _run_dirs(tmp: Path, geometry: str, shape_cfg: dict, energy_cfg: dict):
             _transforms(energy_cfg, data_dir, energy_dir))
 
 
-def _serve(generator, counters, voxels, requests=REQUESTS):
-    """``requests`` requests of BATCH showers through ``sample_showers``,
-    each checked (shape (BATCH, voxels), finite, non-negative); the counters
+def _serve(generator, counters, voxels, requests=REQUESTS, batch=BATCH):
+    """``requests`` requests of ``batch`` showers through ``sample_showers``,
+    each checked (shape (batch, voxels), finite, non-negative); the counters
     are set to 0 just before and read just after. Returns (launches,
     seconds per request)."""
     for c in counters.values():
         c.reset()
     times, showers = [], None
     for i in range(requests):
-        e_inc = 10 ** np.random.default_rng(SEED + 1 + i).uniform(3, 6, BATCH)
+        e_inc = 10 ** np.random.default_rng(SEED + 1 + i).uniform(3, 6, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         showers = generator.sample_showers(e_inc, seed=SEED + i)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         bad = []
-        if showers.shape != (BATCH, voxels):
-            bad.append(f"shape {showers.shape}, expected {(BATCH, voxels)}")
+        if showers.shape != (batch, voxels):
+            bad.append(f"shape {showers.shape}, expected {(batch, voxels)}")
         if not np.isfinite(showers).all():
             bad.append("non-finite values")
         if (showers < 0).any():
             bad.append(f"negative values (min {showers.min()})")
         if bad:
             raise PhaseError(f"request {i}: " + ", ".join(bad))
-        print(f"  request {i}: {BATCH} showers in {times[-1]:.3f} s, total energy "
+        print(f"  request {i}: {batch} showers in {times[-1]:.3f} s, total energy "
               f"{showers.sum(1).mean():.1f} MeV mean", flush=True)
     return {k: c.launches for k, c in counters.items()}, times
 
 
-def _compare_generators(kern, plain, noise, counters):
-    """The kernel generator against the plain one on the same noise at
-    REFERENCE_BATCH: u 1e-3 absolute, the shower in the training basis 5e-2
+def _compare_generators(kern, plain, noise, counters, shower_tol=5e-2):
+    """The kernel generator against the plain one on the same noise (its
+    batch): u 1e-3 absolute, the shower in the training basis ``shower_tol``
     of its scale, layer energies in MeV 1e-3 relative. The plain generator
     must launch none of the ``counters``' kernels."""
-    nb = REFERENCE_BATCH
+    nb = noise[0].shape[0]
     e_inc = 10 ** np.random.default_rng(SEED).uniform(3, 6, nb)
     cond = kern.condition(e_inc)
     basis_k, full_k = kern.generate(cond, noise=noise)
@@ -1304,9 +1589,9 @@ def _compare_generators(kern, plain, noise, counters):
     layer_k, layer_p = (m.reshape(nb, 45, -1).sum(-1) for m in (mev_k, mev_p))
     layer_rel = float(np.abs(layer_k - layer_p).max() / max(1e-30, np.abs(layer_p).max()))
     print(f"  reference (batch {nb}, composed plain nets, same noise): u max_abs_err "
-          f"{u_err:.3e}, shower max_abs_err {s_err:.3e} (scale {s_scale:.3g}), layer-energy "
-          f"max rel err {layer_rel:.3e}", flush=True)
-    if not (u_err <= 1e-3 and s_err <= 5e-2 * s_scale and layer_rel <= 1e-3):
+          f"{u_err:.3e}, shower max_abs_err {s_err:.3e} (bound {shower_tol:g} x scale "
+          f"{s_scale:.3g}), layer-energy max rel err {layer_rel:.3e}", flush=True)
+    if not (u_err <= 1e-3 and s_err <= shower_tol * s_scale and layer_rel <= 1e-3):
         raise PhaseError("kernel generator disagrees with the composed plain generator")
 
 
@@ -1322,14 +1607,17 @@ def _models(shape_cfg, energy_cfg, seed):
 
 
 def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg,
-              requests=REQUESTS, counters=SERVING, per_eval=CFM_PER_EVAL):
+              requests=REQUESTS, counters=SERVING, per_eval=CFM_PER_EVAL, batch=BATCH,
+              reference=(REFERENCE_BATCH, None, 5e-2)):
     """A CFM shape model (ds2, ds3, or ds2 with ``causal_attn``; or ds3
-    composed with an opt-in kernel) behind its energy model at full width:
-    ``requests`` requests with every kernel of ``counters`` counted on every
-    net eval (``per_eval`` launches each, 0 where absent), then the
-    composed plain generator (plain attention, masked where the model is:
-    ``auto`` would launch K1 from 128 tokens; no fused MLP) on the same
-    noise. Energy stage: f32 kernel vs f32 composed -> u and layer energies
+    composed with an opt-in kernel; or ds3_long) behind its energy model at
+    full width: ``requests`` requests of ``batch`` with every kernel of
+    ``counters`` counted on every net eval (``per_eval`` launches each, 0
+    where absent), then the composed plain generator (plain attention,
+    masked where the model is: ``auto`` would launch K1 from 128 tokens; no
+    fused MLP) on the same noise. ``reference`` = (its batch, an RK4 step
+    size for both shape models there or None for the model's, the shower
+    bound). Energy stage: f32 kernel vs f32 composed -> u and layer energies
     agree to ~1e-4; shape stage: bf16 multiplicands over 80 evals -> 5e-2 of
     scale."""
     shape_tf, energy_tf = _run_dirs(tmp, geometry, shape_tf_cfg, energy_tf_cfg)
@@ -1339,8 +1627,8 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
           f"tokens x patch, causal_attn {shape_model.net.cfg.causal_attn}), energy model "
           f"{energy_model.param_count()} params, {evals} net evals per model per request",
           flush=True)
-    generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
-    launches, times = _serve(generator, counters, _voxels(geometry), requests)
+    generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=batch)
+    launches, times = _serve(generator, counters, _voxels(geometry), requests, batch)
     for k in counters:
         per = per_eval.get(k, 0)
         want = requests * evals * per
@@ -1350,17 +1638,22 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
     launches = {k: v for k, v in launches.items() if v}
     print(f"  launches on the main path: {launches}", flush=True)
 
-    plain_shape = instantiate(_with_net_param(shape_cfg, fused_block=False, attn_impl="xla",
+    nb, step, shower_tol = reference
+    ref_cfg, kern_shape = shape_cfg, shape_model
+    if step is not None:
+        ref_cfg = dict(shape_cfg, odeint_kwargs={"method": "rk4", "options": {"step_size": step}})
+        kern_shape = instantiate(ref_cfg).cuda().eval()
+        kern_shape.load_state_dict(shape_model.state_dict())
+    plain_shape = instantiate(_with_net_param(ref_cfg, fused_block=False, attn_impl="xla",
                                               fused_mlp=False)).cuda().eval()
     plain_energy = instantiate(_with_net_param(energy_cfg, fused_block=False)).cuda().eval()
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
-    nb = REFERENCE_BATCH
     noise = (torch.randn(nb, 45, generator=gen, device="cuda"),
              torch.randn(shape_model.token_shape(nb), generator=gen, device="cuda"))
-    _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
+    _compare_generators(Generator(kern_shape, energy_model, energy_tf, shape_tf, batch=nb),
                         Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
-                        noise, COMPOSED)
+                        noise, COMPOSED, shower_tol)
     return launches, times, generator
 
 
@@ -1725,15 +2018,18 @@ DS3_SETTINGS = [
 ]
 
 
-def ds3_train_phase(tmp: Path, card, path, label, setting, param):
+def ds3_train_phase(tmp: Path, card, path, label, setting, param, model=DS3_SHAPE_MODEL,
+                    steps=TRAIN_STEPS, validate_every=VALIDATE_EVERY, batch=64):
     """The ds3 shape model (cfm_ds3_electrons at full width, composed:
-    ``fused_block: false``, with ``param``) trained TRAIN_STEPS steps at
-    batch 64 through the experiment on synthetic ds3 showers, every launch
-    counted exactly (``composed_launches``). Returns (launches, (steps/s
-    over the whole train() loop, steady step interior))."""
-    training = dict(DS2_SHAPE_TRAINING, iterations=TRAIN_STEPS,
-                    validate_every_n_steps=VALIDATE_EVERY)
-    cfg = _experiment_config(tmp, _with_net_param(DS3_SHAPE_MODEL, fused_block=False, **param),
+    ``fused_block: false``, with ``param``; or ``model``, ds3_long) trained
+    ``steps`` steps at ``batch``, validating every ``validate_every``,
+    through the experiment on synthetic ds3 showers, every launch counted
+    exactly (``composed_launches``), then one step profiled. Returns
+    (launches, (steps/s over the whole train() loop, steady step
+    interior))."""
+    training = dict(DS2_SHAPE_TRAINING, iterations=steps, batchsize=batch,
+                    validate_every_n_steps=validate_every)
+    cfg = _experiment_config(tmp, _with_net_param(model, fused_block=False, **param),
                              DS3_SHAPE_TRANSFORMS, training, "shape", [0.99, 0.01], "ds3")
     cfg.exp_name = f"smoke_{path}"
     exp = SyntheticCaloChallengeDS3(cfg, device="cuda")
@@ -1742,18 +2038,18 @@ def ds3_train_phase(tmp: Path, card, path, label, setting, param):
     exp()
     launches = {k: c.launches for k, c in COMPOSED.items()}
     _check_training(exp, path)
-    steps = len(exp.train_loss)
+    done = len(exp.train_loss)
     val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
-    want = composed_launches(setting, steps, val_batches)
-    if steps != TRAIN_STEPS or launches != want:
-        raise PhaseError(f"{path}: {steps} steps, launches {launches}, expected {want}")
+    want = composed_launches(setting, done, val_batches)
+    if done != steps or launches != want:
+        raise PhaseError(f"{path}: {done} steps, launches {launches}, expected {want}")
     steady = exp.step_times[2:]
     rate = (steps / exp.train_seconds, len(steady) / sum(steady))
     launches = {k: v for k, v in launches.items() if v}
     print(f"  {steps} steps, {len(exp.val_loss)} validations ({val_batches} batches): loss "
           f"{exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}, val {exp.val_loss}", flush=True)
     print(f"  launches on the main path: {launches}", flush=True)
-    print(f"{path}: {label}: {rate[0]:.3f} steps/s over the whole train() loop, {rate[1]:.3f} "
+    print(f"{path}: {label}: {rate[0]:.4f} steps/s over the whole train() loop, {rate[1]:.4f} "
           f"steady step interior (steps 3-{steps}); batch {int(cfg.training.batchsize)}; on "
           f"{card}", flush=True)
     print(f"{path} profile: one train step", flush=True)
@@ -1806,13 +2102,13 @@ def fused_parity_phase(label, cfg, batch, variant):
                         FUSED_TRAINING, fused_launches(variant, TRAIN_PARITY_STEPS, 0))
 
 
-def parity_phase(label, cfg, ref_cfg, batch, counters, want):
+def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL):
     """The net of ``cfg`` against the one of ``ref_cfg`` from one state: per
     parameter tensor the relative L2 of the gradients of one batch, then
     TRAIN_PARITY_STEPS train steps of each on the same random batches and
-    draws (x ~ N(0, 1), c ~ U(0, 1)), held to FUSED_TRAIN_TOL. The first
-    net's steps must launch ``want`` of each of ``counters``. Returns (worst
-    errors, launches)."""
+    draws (x ~ N(0, 1), c ~ U(0, 1)), held to ``tol``. The first net's steps
+    must launch ``want`` of each of ``counters``. Returns (worst errors,
+    launches)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     fused = instantiate(cfg).cuda()
     _randomize(fused, gen)
@@ -1856,12 +2152,12 @@ def parity_phase(label, cfg, ref_cfg, batch, counters, want):
     du = torch.cat([(pf[n] - init[n]).flatten() for n in pc])
     dc = torch.cat([(pc[n] - init[n]).flatten() for n in pc])
     worst["update_rel"] = ((du - dc).norm() / dc.norm()).item()
-    ok = all(worst[k] <= FUSED_TRAIN_TOL[k] for k in FUSED_TRAIN_TOL)
+    ok = all(worst[k] <= tol[k] for k in tol)
     print(f"  {label}, batch {batch}: gradient rel L2 worst {worst['grad_rel_l2']:.3e} "
           f"({worst_name}), median {float(np.median(list(rel.values()))):.3e}; "
           f"{TRAIN_PARITY_STEPS} steps: loss rel {worst['loss']:.3e}, grad_norm rel "
           f"{worst['grad_norm']:.3e}, update rel {worst['update_rel']:.3e} (bounds "
-          f"{FUSED_TRAIN_TOL}) {'ok' if ok else 'FAILED'}", flush=True)
+          f"{tol}) {'ok' if ok else 'FAILED'}", flush=True)
     print(f"  launches: { {k: v for k, v in counts.items() if v} }", flush=True)
     if not ok:
         raise PhaseError(f"parity ({label}): training disagrees with the reference path")
@@ -1885,6 +2181,8 @@ FUSED_TRAIN_GROUPS = [
 # device-time groups of a composed ds3 train step (the shared backward
 # kernels of K6 and K8 live in namespace amma; K1's in an anonymous one)
 DS3_TRAIN_GROUPS = [
+    ("K7 forward", lambda k: "k7_fwd_kernel" in k),
+    ("K7 backward", lambda k: "k7_bwd_d" in k),
     ("K8 forward", lambda k: "vmem_fwd_kernel" in k),
     ("K6 forward", lambda k: "flash_fwd_kernel" in k),
     ("K6/K8 backward", lambda k: "amma::bwd_d" in k),
@@ -1943,9 +2241,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
 
@@ -2010,7 +2306,36 @@ def main() -> int:
     for group, b in (("main", 64), ("ds3_serve", BATCH)):
         print(f"K9 (fused_mlp_half) vs plain: x ({b}, 450, 480), F 1920", flush=True)
         k9_kernel_phase(groups[group], b, 450)
-    del mask3
+    print(f"K7 (flash_attention) vs plain, ds3_long serving shape: q/k/v "
+          f"({DS3_LONG_SERVE_BATCH}, 6, 13500, 80) f32, strided views of the qkv panel",
+          flush=True)
+    k1_ms["K7, ds3_long serving shape"] = k7_kernel_phase(groups["main"], DS3_LONG_SERVE_BATCH,
+                                                          13500)
+    torch.cuda.empty_cache()
+    print(f"K7 vs plain, ds3_long training shape: q/k/v ({DS3_LONG_TRAIN_BATCH}, 6, 13500, 80) "
+          "f32, the plain versions one batch element at a time", flush=True)
+    k1_ms["K7, ds3_long training shape"] = k7_kernel_phase(
+        groups["ds3_long_train"], DS3_LONG_TRAIN_BATCH, 13500, chunk=1)
+    torch.cuda.empty_cache()
+    tail = torch.tril(torch.ones(300, 300, dtype=torch.bool, device="cuda"))
+    tail[7] = False
+    for group, b, n, m, label in (("ds3_train", 64, 450, None, "ds3 training shape"),
+                                  ("ds3_causal", 64, 450, mask3,
+                                   "ds3 training shape, layer-causal"),
+                                  ("k7_tail", 8, 300, tail,
+                                   "N = 300 (a tail tile), causal with row 7 wholly masked")):
+        print(f"K7 vs plain, {label}: q/k/v ({b}, 6, {n}, 80)", flush=True)
+        k1_ms[f"K7, {label}"] = k7_kernel_phase(groups[group], b, n, mask=m)
+    del mask3, tail
+    print("K2s and K5a-stack (fused_dit_stack) vs plain: x (256, 135, 480), depth 6, ungrouped "
+          "and group 8; with the layer-causal mask of (15, 1, 9); x (64, 450, 480)", flush=True)
+    stack_kernel_phase(groups["stack"], BATCH, 135, group=8)
+    stack_kernel_phase(groups["stack_causal"], BATCH, 135, mask=_causal_mask((15, 1, 9)))
+    stack_kernel_phase(groups["stack_ds3"], 64, 450)
+    torch.cuda.empty_cache()
+    print("fused_dit_stack gradients vs the composed f32 path", flush=True)
+    stack_grad_phase()
+    torch.cuda.empty_cache()
     failed = [f"{k} ({g})" for g, r in groups.items() for k, v in r.items() if not v["ok"]]
     if failed:
         raise PhaseError(f"kernels disagree with their plain versions: {failed}")
@@ -2026,10 +2351,17 @@ def main() -> int:
             print(f"  K1 forward + backward through autograd, {label}: K1 {ms['K1']:.4f} ms, "
                   f"plain {ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms; SDPA backward alone "
                   f"{ms['sdpa_bwd']:.4f} ms ({card})", flush=True)
+        elif "K7" in ms:
+            print(f"  forward + backward, {label}: K7 (autograd) {ms['K7']:.4f} ms, plain f32 "
+                  f"{ms['plain']:.4f} ms, SDPA f32 (autograd) {ms['sdpa']:.4f} ms ({card})",
+                  flush=True)
         else:
             print(f"  forward + backward through autograd, {label}: K6 {ms['K6']:.4f} ms, K8 "
                   f"{ms['K8']:.4f} ms, plain f32 {ms['plain']:.4f} ms, SDPA bf16 "
                   f"{ms['sdpa']:.4f} ms ({card})", flush=True)
+
+    print("megakernel_residue (K10): the DiT block body by kernel", flush=True)
+    residue_phase(card)
 
     # each path runs with the counters set to 0 just before and read just
     # after; launches[path] = {kernel: launches}
@@ -2073,6 +2405,24 @@ def main() -> int:
                   f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
             del generator
             torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"ds3_long_cfm: ds3_long (13,500 tokens of (3, 1, 1) patches, fused_block: false, "
+              f"attn_impl auto: K7) two-stage generator, batch {DS3_LONG_SERVE_BATCH}", flush=True)
+        # the reference: batch 1, 2 RK4 steps; f32 attention on both sides (K7
+        # and the plain one), the rest the same composed code: the showers
+        # differ by summation order only, 1e-3 of scale with margin
+        launches["ds3_long_cfm"], times, generator = cfm_phase(
+            Path(tmp), "ds3", DS3_LONG_MODEL, DS3_ENERGY_MODEL, DS3_SHAPE_TRANSFORMS,
+            DS3_ENERGY_TRANSFORMS, DS3_REQUESTS, COMPOSED,
+            {"energy_decoder": 1, "flash_attn_fwd": 6}, DS3_LONG_SERVE_BATCH,
+            (1, DS3_LONG_REFERENCE_STEP, 1e-3))
+        print(f"ds3_long_cfm: {DS3_LONG_SERVE_BATCH * len(times) / sum(times):.4f} showers/s "
+              f"over all {len(times)} requests, "
+              f"{DS3_LONG_SERVE_BATCH * (len(times) - 1) / sum(times[1:]):.4f} steady (first "
+              f"request excluded); batch {DS3_LONG_SERVE_BATCH}, requests "
+              f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
+        del generator
+        torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
@@ -2106,6 +2456,13 @@ def main() -> int:
             launches[path], rates[path] = ds3_train_phase(Path(tmp), card, path, label, setting,
                                                           param)
             torch.cuda.empty_cache()
+        print(f"ds3_long_train: ds3_long at full width (13,500 tokens, K7), batch "
+              f"{DS3_LONG_TRAIN_BATCH}, {DS3_LONG_STEPS} steps and one validation batch, through "
+              "the CaloChallenge experiment", flush=True)
+        launches["ds3_long_train"], rates["ds3_long_train"] = ds3_train_phase(
+            Path(tmp), card, "ds3_long_train", "13,500 tokens, attn_impl auto (K7)", "k7", {},
+            DS3_LONG_MODEL, DS3_LONG_STEPS, DS3_LONG_STEPS, DS3_LONG_TRAIN_BATCH)
+        torch.cuda.empty_cache()
         print("ds3 training, steps/s over the whole train() loop / steady step interior: "
               + ", ".join(f"{p} {a:.3f} / {b:.3f}" for p, (a, b) in rates.items())
               + f"; on {card}", flush=True)
@@ -2117,6 +2474,14 @@ def main() -> int:
             _, launches[path] = parity_phase(label, cfg, ref, 64, COMPOSED,
                                              composed_launches(setting, TRAIN_PARITY_STEPS, 0))
             torch.cuda.empty_cache()
+        print("ds3_long train parity: K7 against attn_impl xla (checkpoint_grads: true, so that "
+              "its (N, N) scores are held one block at a time)", flush=True)
+        _, launches["ds3_long_parity"] = parity_phase(
+            "ds3_long, attn_impl auto (K7)", DS3_LONG_MODEL,
+            _with_net_param(DS3_LONG_MODEL, attn_impl="xla", checkpoint_grads=True),
+            DS3_LONG_PARITY_BATCH, COMPOSED, composed_launches("k7", TRAIN_PARITY_STEPS, 0),
+            K7_TRAIN_TOL)
+        torch.cuda.empty_cache()
         print("energy: ds2 energy model at full width", flush=True)
         energy_phase(Path(tmp))
 

@@ -164,21 +164,20 @@ def test_dispatch_routes_auto_by_length(monkeypatch):
 
 
 def test_unported_kernels_raise_on_the_card_and_run_plain_on_cpu():
-    """K7 (the separated-layout flash kernel) is not ported:
-    ``dot_product_attention(impl="flash")``, its ``auto`` above 1024 tokens
-    and ``qkv_attention``'s ``flash`` past ``flash_qkv_fits`` (10,752 tokens
-    at hidden 480, 6 heads) raise for a tensor off the CPU (here the meta
-    device) and run the plain version on a CPU tensor. The ported kernels'
-    wrappers (K6 ``flash``, K8 ``vmem``, masked K1) take a tensor off the
-    CPU to their kernel, never to a plain version: on the meta device they
-    refuse it."""
+    """Every attention kernel's wrapper takes a tensor off the CPU to its
+    kernel, never to a plain version: K7 (the separated-layout flash kernel,
+    ported since) for ``dot_product_attention(impl="flash")``, its ``auto``
+    above 1024 tokens and ``qkv_attention``'s ``flash`` past
+    ``flash_qkv_fits`` (10,752 tokens at hidden 480, 6 heads), and K6
+    ``flash``, K8 ``vmem`` and masked K1: on the meta device each refuses
+    the tensor. On a CPU tensor each runs its plain version."""
     sep = torch.zeros(1, 2, 300, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         tattn.dot_product_attention(sep, sep, sep, impl="flash")
     long = torch.zeros(1, 2, 1100, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):  # auto: flash above 1024
+    with pytest.raises(ValueError, match="CUDA tensor"):  # auto: flash (K7) above 1024
         tattn.dot_product_attention(long, long, long)
-    with pytest.raises(NotImplementedError, match="K7.*ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         tattn.qkv_attention(torch.zeros(1, 10753, 3 * 480, device="meta"), 6, impl="flash")
     meta = torch.zeros(1, 300, 3 * 2 * 8, device="meta")
     for impl in ("flash", "vmem"):

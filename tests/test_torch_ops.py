@@ -139,8 +139,12 @@ def test_kernel_library_digest_follows_included_headers(tmp_path, monkeypatch):
     library, so a stale one is never loaded."""
     from vit4hep_tpu_torch.ops import _cuda
 
-    for name in ("vit_forward", "qkv_attention"):  # K2v and K1 share the forward header
-        assert [p.name for p in _cuda.sources_of(name)] == [f"{name}.cu", "attention_fwd.cuh"]
+    # K2v, K1 and K7 share the forward header; K1 and K7 reach it through the
+    # backward tiles' header
+    for name, headers in (("vit_forward", ["attention_fwd.cuh"]),
+                          ("qkv_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
+                          ("flash_attention", ["attention_bwd.cuh", "attention_fwd.cuh"])):
+        assert [p.name for p in _cuda.sources_of(name)] == [f"{name}.cu", *headers]
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("int b = 1;\n")

@@ -1,6 +1,7 @@
-// Streaming attention forward on the qkv projection's native layout, shared
-// by K1 (qkv_attention.cu: f32 context + log-sum-exp) and K2v
-// (vit_forward.cu: bf16 merged context, no log-sum-exp).
+// Streaming attention forward, shared by K1 (qkv_attention.cu: the qkv
+// projection's native layout, f32 context + log-sum-exp), K2v
+// (vit_forward.cu: bf16 merged context, no log-sum-exp) and K7
+// (flash_attention.cu: separated (B, H, N, D) tensors, f32 + log-sum-exp).
 //
 // One CTA per (64-query tile, head, batch element). K and V stream through
 // shared memory in 64-row tiles with an online softmax, so there is no limit
@@ -121,15 +122,17 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// the scaled score of (query, key), or MASKED where the mask forbids it;
-// -inf for a key past n. A query past n (a zero-filled tile row) reads no
-// mask byte. HAS_MASK is a template parameter so that the unmasked kernels
-// carry no mask logic (and no registers for it).
-template <bool HAS_MASK>
+// the scaled score of (query, key), or MASKED where the mask forbids it
+// (-inf with ZERO_MASKED: K7's backward, where a masked key weighs 0); -inf
+// for a key past n. A query past n (a zero-filled tile row) reads no mask
+// byte. HAS_MASK is a template parameter so that the unmasked kernels carry
+// no mask logic (and no registers for it).
+template <bool HAS_MASK, bool ZERO_MASKED = false>
 __device__ __forceinline__ float score(float s, float scale, int query, int key, int n,
                                        const unsigned char* __restrict__ mask) {
   if (key >= n) return -INFINITY;
-  if (HAS_MASK && query < n && !mask[(size_t)query * n + key]) return MASKED;
+  if (HAS_MASK && query < n && !mask[(size_t)query * n + key])
+    return ZERO_MASKED ? -INFINITY : MASKED;
   return s * scale;
 }
 
@@ -139,23 +142,28 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 template <int DP>
 constexpr size_t fwd_smem() { return (size_t)(3 * TILE * (DP + 4) + TILE * LDT) * sizeof(float); }
 
-// out (B, N, H*D) merged context in OutT; lse (B, H, N) f32, or nullptr
+// one 64-query tile of one (batch, head): q, k and v are that cell's row-0
+// pointers into panels of row stride ld (unit column stride), o its output
+// row 0 with row stride ldo, lse its log-sum-exp row (or nullptr); the
+// query tile starts at q0. Shared by K1/K2v (qkv panel) and K7 (separated
+// (B, H, N, D) tensors): the pad and mask semantics above are both's.
 template <int DP, typename OutT, bool HAS_MASK>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const float* __restrict__ qkv, const unsigned char* __restrict__ mask,
-           OutT* __restrict__ out, float* __restrict__ lse, int n, int H, int d, float scale) {
+__device__ __forceinline__ void fwd_tile(const float* __restrict__ qg,
+                                         const float* __restrict__ kg,
+                                         const float* __restrict__ vg, size_t ld,
+                                         const unsigned char* __restrict__ mask,
+                                         OutT* __restrict__ og, size_t ldo,
+                                         float* __restrict__ lse_bh, int q0, int n, int d,
+                                         float scale) {
   extern __shared__ float4 smem4[];
   constexpr int LD = DP + 4, CPT = DP / 16;
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + TILE * LD;
   float* Vs = Ks + TILE * LD;
   float* Ps = Vs + TILE * LD;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
-  const size_t ld = (size_t)3 * H * d;
-  const float* base = qkv + (size_t)b * n * ld;
 
-  load_tile<DP>(Qs, base + (size_t)h * d, q0, n, ld, d);
+  load_tile<DP>(Qs, qg, q0, n, ld, d);
   float o[4][CPT], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -167,8 +175,8 @@ fwd_kernel(const float* __restrict__ qkv, const unsigned char* __restrict__ mask
 
   for (int k0 = 0; k0 < n; k0 += TILE) {
     __syncthreads();  // the previous tile's K/V/P reads are done
-    load_tile<DP>(Ks, base + (size_t)(H + h) * d, k0, n, ld, d);
-    load_tile<DP>(Vs, base + (size_t)(2 * H + h) * d, k0, n, ld, d);
+    load_tile<DP>(Ks, kg, k0, n, ld, d);
+    load_tile<DP>(Vs, vg, k0, n, ld, d);
     __syncthreads();
     float s[4][4];
 #pragma unroll
@@ -205,20 +213,34 @@ fwd_kernel(const float* __restrict__ qkv, const unsigned char* __restrict__ mask
     tile_pv<DP>(o, Ps, Vs, r, c);
   }
 
-  const size_t hd = (size_t)H * d;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + r * 4 + i;
     if (row >= n) continue;
     const float inv = 1.f / l[i];
-    OutT* orow = out + ((size_t)b * n + row) * hd + (size_t)h * d;
+    OutT* orow = og + (size_t)row * ldo;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int col = c + 16 * j;
       if (col < d) store(orow + col, o[i][j] * inv);
     }
-    if (lse != nullptr && c == 0) lse[((size_t)b * H + h) * n + row] = m[i] + logf(l[i]);
+    if (lse_bh != nullptr && c == 0) lse_bh[row] = m[i] + logf(l[i]);
   }
+}
+
+// out (B, N, H*D) merged context in OutT; lse (B, H, N) f32, or nullptr
+template <int DP, typename OutT, bool HAS_MASK>
+__global__ void __launch_bounds__(THREADS)
+fwd_kernel(const float* __restrict__ qkv, const unsigned char* __restrict__ mask,
+           OutT* __restrict__ out, float* __restrict__ lse, int n, int H, int d, float scale) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t ld = (size_t)3 * H * d, hd = (size_t)H * d;
+  const float* base = qkv + (size_t)b * n * ld;
+  fwd_tile<DP, OutT, HAS_MASK>(base + (size_t)h * d, base + (size_t)(H + h) * d,
+                               base + (size_t)(2 * H + h) * d, ld, mask,
+                               out + (size_t)b * n * hd + (size_t)h * d, hd,
+                               lse == nullptr ? nullptr : lse + ((size_t)b * H + h) * n,
+                               blockIdx.x * TILE, n, d, scale);
 }
 
 inline bool bad_dims(int B, int n, int H, int d) {

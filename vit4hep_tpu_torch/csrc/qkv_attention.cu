@@ -27,6 +27,8 @@
 //    dS^T = P^T (V dO^T - delta) * s, dK += dS^T Q.
 //  - bwd_dq_kernel<DP, HAS_MASK>: one CTA per (query tile, head, batch), looping over
 //    key tiles: dQ += dS K.
+//  The two backward kernels run the tiles of attention_bwd.cuh (shared with
+//  K7) on the panel's q, k, v column blocks.
 // dK/dV and dQ are written straight into the (B, N, 3*H*D) dqkv panel at the
 // q/k/v column offsets of `_fused_kernel_masked` (:70-73); every element is
 // written once, so there are no atomics and the result is deterministic.
@@ -52,23 +54,12 @@
 // mma/wgmma) products and cp.async/TMA pipelining are the levers for a
 // later change.
 
-#include "attention_fwd.cuh"
+#include "attention_bwd.cuh"
 
-using attn::LDT;
-using attn::MASKED;
 using attn::THREADS;
 using attn::TILE;
 
 namespace {
-
-template <int DP>
-constexpr size_t dkv_smem() {
-  return (size_t)(4 * TILE * (DP + 4) + 2 * TILE * LDT + 2 * TILE) * sizeof(float);
-}
-template <int DP>
-constexpr size_t dq_smem() {
-  return (size_t)(4 * TILE * (DP + 4) + TILE * LDT + 2 * TILE) * sizeof(float);
-}
 
 __global__ void bwd_delta_kernel(const float* __restrict__ g, const float* __restrict__ o,
                                  float* __restrict__ delta, int B, int n, int H, int d) {
@@ -88,96 +79,24 @@ __global__ void bwd_delta_kernel(const float* __restrict__ g, const float* __res
   }
 }
 
-// lse and delta of query tile [q0, q0 + TILE) of one (batch, head) into
-// shared memory: 0 past n; a wholly masked row's delta times n (see above)
-template <bool HAS_MASK>
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* del_s, const float* lse_bh,
-                                               const float* del_bh, int q0, int n) {
-  if (threadIdx.x < TILE) {
-    const int q = q0 + threadIdx.x;
-    const float ls = q < n ? lse_bh[q] : 0.f;
-    const float dl = q < n ? del_bh[q] : 0.f;
-    lse_s[threadIdx.x] = ls;
-    del_s[threadIdx.x] = (HAS_MASK && ls == MASKED) ? dl * (float)n : dl;
-  }
-}
-
+// the (batch, head) cell's q, k, v and dO panels and its lse/delta rows;
+// dK/dV and dQ go to the k, v and q columns of the (B, N, 3*H*D) dqkv
+// panel, at the offsets of `_fused_kernel_masked` (:70-73)
 template <int DP, bool HAS_MASK>
 __global__ void __launch_bounds__(THREADS)
 bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const unsigned char* __restrict__ mask, float* __restrict__ dqkv, int n, int H,
                int d, float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int LD = DP + 4, CPT = DP / 16;
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + TILE * LD;
-  float* Qs = Vs + TILE * LD;
-  float* Gs = Qs + TILE * LD;
-  float* Ps = Gs + TILE * LD;
-  float* Ds = Ps + TILE * LDT;
-  float* lse_s = Ds + TILE * LDT;
-  float* del_s = lse_s + TILE;
-  const int k0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
-  const size_t ld = (size_t)3 * H * d, hd = (size_t)H * d;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t ld = (size_t)3 * H * d, hd = (size_t)H * d, bh = ((size_t)b * H + h) * n;
   const float* base = qkv + (size_t)b * n * ld;
-  const float* gbase = g + (size_t)b * n * hd;
-  const float* lse_bh = lse + ((size_t)b * H + h) * n;
-  const float* del_bh = delta + ((size_t)b * H + h) * n;
-
-  attn::load_tile<DP>(Ks, base + (size_t)(H + h) * d, k0, n, ld, d);
-  attn::load_tile<DP>(Vs, base + (size_t)(2 * H + h) * d, k0, n, ld, d);
-  float dk[4][CPT], dv[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < n; q0 += TILE) {
-    __syncthreads();  // the previous tile's Q/dO/P/dS reads are done
-    attn::load_tile<DP>(Qs, base + (size_t)h * d, q0, n, ld, d);
-    attn::load_tile<DP>(Gs, gbase + (size_t)h * d, q0, n, hd, d);
-    load_row_stats<HAS_MASK>(lse_s, del_s, lse_bh, del_bh, q0, n);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    attn::tile_abt<DP>(s, Ks, Qs, r, c);   // s[key][query]
-    attn::tile_abt<DP>(dp, Vs, Gs, r, c);  // dp[key][query]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + r * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qi = c + 16 * j, query = q0 + qi;
-        const float sv = attn::score<HAS_MASK>(s[i][j], scale, query, key, n, mask);
-        const float p = query < n ? expf(sv - lse_s[qi]) : 0.f;  // 0 for a key past n
-        Ps[(r * 4 + i) * LDT + qi] = p;
-        Ds[(r * 4 + i) * LDT + qi] = p * (dp[i][j] - del_s[qi]) * scale;
-      }
-    }
-    __syncthreads();
-    attn::tile_pv<DP>(dv, Ps, Gs, r, c);
-    attn::tile_pv<DP>(dk, Ds, Qs, r, c);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + r * 4 + i;
-    if (row >= n) continue;
-    float* drow = dqkv + ((size_t)b * n + row) * ld;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = c + 16 * j;
-      if (col < d) {
-        drow[(size_t)(H + h) * d + col] = dk[i][j];
-        drow[(size_t)(2 * H + h) * d + col] = dv[i][j];
-      }
-    }
-  }
+  float* dbase = dqkv + (size_t)b * n * ld;
+  attn::bwd_dkv_tile<DP, HAS_MASK, false>(
+      base + (size_t)h * d, base + (size_t)(H + h) * d, base + (size_t)(2 * H + h) * d, ld,
+      g + (size_t)b * n * hd + (size_t)h * d, hd, lse + bh, delta + bh, mask,
+      dbase + (size_t)(H + h) * d, dbase + (size_t)(2 * H + h) * d, ld, blockIdx.x * TILE, n, d,
+      scale);
 }
 
 template <int DP, bool HAS_MASK>
@@ -186,68 +105,13 @@ bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const unsigned char* __restrict__ mask, float* __restrict__ dqkv, int n, int H,
               int d, float scale) {
-  extern __shared__ float4 smem4[];
-  constexpr int LD = DP + 4, CPT = DP / 16;
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Gs = Qs + TILE * LD;
-  float* Ks = Gs + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* Ds = Vs + TILE * LD;
-  float* lse_s = Ds + TILE * LDT;
-  float* del_s = lse_s + TILE;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
-  const size_t ld = (size_t)3 * H * d, hd = (size_t)H * d;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t ld = (size_t)3 * H * d, hd = (size_t)H * d, bh = ((size_t)b * H + h) * n;
   const float* base = qkv + (size_t)b * n * ld;
-  const size_t bh = ((size_t)b * H + h) * n;
-
-  attn::load_tile<DP>(Qs, base + (size_t)h * d, q0, n, ld, d);
-  attn::load_tile<DP>(Gs, g + (size_t)b * n * hd + (size_t)h * d, q0, n, hd, d);
-  load_row_stats<HAS_MASK>(lse_s, del_s, lse + bh, delta + bh, q0, n);
-  float dq[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) dq[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += TILE) {
-    __syncthreads();  // the previous tile's K/dS reads are done
-    attn::load_tile<DP>(Ks, base + (size_t)(H + h) * d, k0, n, ld, d);
-    attn::load_tile<DP>(Vs, base + (size_t)(2 * H + h) * d, k0, n, ld, d);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    attn::tile_abt<DP>(s, Qs, Ks, r, c);   // s[query][key]
-    attn::tile_abt<DP>(dp, Gs, Vs, r, c);  // dp[query][key]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = r * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = c + 16 * j;
-        const float sv = attn::score<HAS_MASK>(s[i][j], scale, q0 + qi, k0 + kj, n, mask);
-        const float p = expf(sv - lse_s[qi]);  // 0 for a key past n (sv = -inf)
-        Ds[qi * LDT + kj] = p * (dp[i][j] - del_s[qi]) * scale;
-      }
-    }
-    __syncthreads();
-    attn::tile_pv<DP>(dq, Ds, Ks, r, c);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r * 4 + i;
-    if (row >= n) continue;
-    float* drow = dqkv + ((size_t)b * n + row) * ld + (size_t)h * d;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = c + 16 * j;
-      if (col < d) drow[col] = dq[i][j];
-    }
-  }
+  attn::bwd_dq_tile<DP, HAS_MASK, false>(
+      base + (size_t)h * d, base + (size_t)(H + h) * d, base + (size_t)(2 * H + h) * d, ld,
+      g + (size_t)b * n * hd + (size_t)h * d, hd, lse + bh, delta + bh, mask,
+      dqkv + (size_t)b * n * ld + (size_t)h * d, ld, blockIdx.x * TILE, n, d, scale);
 }
 
 // one backward kernel (dK/dV or dQ): launch_dkv / launch_dq pick its masked
@@ -268,7 +132,7 @@ cudaError_t launch_dkv(const float* qkv, const float* g, const float* lse, const
                        const unsigned char* mask, float* dqkv, int B, int n, int H, int d,
                        float scale, cudaStream_t st) {
   return launch_bwd(mask != nullptr ? bwd_dkv_kernel<DP, true> : bwd_dkv_kernel<DP, false>,
-                    dkv_smem<DP>(), qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale, st);
+                    attn::dkv_smem<DP>(), qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale, st);
 }
 
 template <int DP>
@@ -276,7 +140,7 @@ cudaError_t launch_dq(const float* qkv, const float* g, const float* lse, const 
                       const unsigned char* mask, float* dqkv, int B, int n, int H, int d,
                       float scale, cudaStream_t st) {
   return launch_bwd(mask != nullptr ? bwd_dq_kernel<DP, true> : bwd_dq_kernel<DP, false>,
-                    dq_smem<DP>(), qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale, st);
+                    attn::dq_smem<DP>(), qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale, st);
 }
 
 }  // namespace

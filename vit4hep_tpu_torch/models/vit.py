@@ -35,7 +35,9 @@ change), not on every forward.
 
 The composed path takes the ViT's own knobs as JAX does: ``attn_impl``
 (``auto``: K1 from 128 tokens; ``vmem``: K8, ``ops/vmem_attention``;
-``flash``: K6, ``ops/flash_qkv_attention``; ``xla``: plain) and
+``flash``: K6, ``ops/flash_qkv_attention``; ``xla``: plain; ``auto`` and
+``flash`` past K6's bound, 10,752 tokens at hidden 480: K7,
+``ops/flash_attention``) and
 ``fused_mlp: true`` (each block's MLP half through K9,
 ``ops/fused_mlp.fused_mlp_half``, whose backward is the plain VJP). The
 fused tier ignores both, as in JAX: ``fused_block: sample`` serves through

@@ -17,19 +17,19 @@ bound split the panel into (B, H, N, D) views for
 :func:`dot_product_attention`, whose ``auto`` picks ``vmem`` at 288-1024
 tokens and ``flash`` above. There ``vmem`` runs
 ``ops/vmem_attention`` (kernel K8) within the TPU kernel's bound (an explicit
-``vmem`` beyond it raises ``ValueError``, as in JAX), and ``flash`` names the
-separated-layout kernel K7, not ported yet (ROADMAP.md queue 2): on a CUDA
-tensor it raises ``NotImplementedError``, on a CPU tensor it runs the plain
-version. Both kernels attend a sequence to itself: q and k of different
-lengths (cross-attention) raise ``ValueError`` for ``flash`` and ``vmem``,
-where JAX's reshape fails. Every kernel wrapper runs its plain version on a
-CPU tensor and its kernel, or raises, on any other.
+``vmem`` beyond it raises ``ValueError``, as in JAX), and ``flash`` runs
+``ops/flash_attention`` (kernel K7, the streaming separated-layout kernel,
+forward and backward, at any N). Both kernels attend a sequence to itself:
+q and k of different lengths (cross-attention) raise ``ValueError`` for
+``flash`` and ``vmem``, where JAX's reshape fails. Every kernel wrapper runs
+its plain version on a CPU tensor and its kernel, or raises, on any other.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vit4hep_tpu_torch.ops.flash_attention import flash_attention
 from vit4hep_tpu_torch.ops.flash_qkv_attention import flash_qkv_attention, flash_qkv_fits
 from vit4hep_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
 from vit4hep_tpu_torch.ops.vmem_attention import check_shapes, vmem_attention
@@ -72,11 +72,8 @@ def dot_product_attention(q, k, v, mask=None, impl="auto", scale=None):
     if impl == "fused":  # the native-layout kernel only; JAX raises here too
         raise ValueError("Unknown attention impl 'fused' for separated q, k, v")
     check_shapes(f"attn_impl '{impl}'", q, k, v)
-    if impl == "flash":  # K7 flash_attention
-        if q.device.type != "cpu":
-            raise NotImplementedError("attn_impl 'flash' on separated q, k, v needs kernel K7 "
-                                      "flash_attention, not ported yet (ROADMAP.md queue 2)")
-        return xla_attention(q, k, v, mask, scale=scale)
+    if impl == "flash":
+        return flash_attention(q, k, v, mask, 256, 256, scale)
     if n > 1024 or 16 * n * d + 20 * n * n > 120 * 1024 * 1024:
         raise ValueError(f"attn_impl 'vmem': N={n} x D={d} exceeds the one-shot kernel's "
                          "VMEM working set; use attn_impl 'flash' (or 'auto')")

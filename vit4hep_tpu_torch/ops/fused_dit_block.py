@@ -48,8 +48,14 @@ Products take bf16 multiplicands and accumulate in f32, as the TPU kernels
 do. The attention of the training kernels is K1's f32 forward and backward:
 the forward keeps the per-head log-sum-exp ``lse`` (B, heads, N), a
 residual the port adds to JAX's set, so that K5b rebuilds the softmax from
-it. The block-stack kernels ``fused_dit_stack`` and ``_stack_fwd_train``
-are still to be ported (ROADMAP.md, queue 2): no model reaches them.
+it.
+
+The block stack, :func:`fused_dit_stack` (K2s, ``_stack_fwd``), is the L
+blocks without the embedder and FinalLayer: K2b's block body L times. With
+gradients its forward is :func:`stack_fwd_train` (K5a-stack,
+``_stack_fwd_train``: K5a's block kernels) and its backward ``_stack_bwd``
+(K5b per block, the plain hybrid arm, or K2b + K5c when no residual tier
+fits). No model reaches it, in JAX as here: JAX's tests call it directly.
 """
 
 from __future__ import annotations
@@ -219,16 +225,21 @@ def dit_block_reference(x, mod6, wqkv, bqkv, wout, bout, w1, b1, w2, b2,
     return x1 + mod[:, 5:6] * y
 
 
+def stack_reference(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale):
+    """The L blocks in order (``fused_dit_stack``), plain f32; mods (B, L,
+    6, H), weights stacked (L, ...)."""
+    for li in range(wqkv.shape[0]):
+        x = dit_block_reference(x, mods[:, li], wqkv[li], bqkv[li], wout[li], bout[li], w1[li],
+                                b1[li], w2[li], b2[li], mask, num_heads, scale)
+    return x
+
+
 def vit_forward_reference(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv,
                           wout, bout, w1, b1, w2, b2, wfin, bfin, mask,
                           num_heads, scale):
     """The whole-ViT forward, plain f32."""
-    x = tokens.float() @ wemb + bemb + pos
-    for li in range(wqkv.shape[0]):
-        x = dit_block_reference(
-            x, mods[:, li], wqkv[li], bqkv[li], wout[li], bout[li],
-            w1[li], b1[li], w2[li], b2[li], mask, num_heads, scale,
-        )
+    x = stack_reference(tokens.float() @ wemb + bemb + pos, mods, wqkv, bqkv, wout, bout, w1, b1,
+                        w2, b2, mask, num_heads, scale)
     fm = fmod.float()
     u = _ln(x) * (1.0 + fm[:, 1:2]) + fm[:, 0:1]
     return u @ wfin + bfin
@@ -253,14 +264,13 @@ def block_fwd_res_plain(x, mod6, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask,
     return res + (lse,) if want_lse else res
 
 
-def vit_fwd_train_plain(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w1, b1,
-                        w2, b2, wfin, bfin, mask, num_heads, scale, save_a1=True,
-                        mm_dtype=torch.float32):
-    """``_vit_fwd_train``'s train kernel, plain: (out, (xs, qkvs, ctxs,
+def stack_fwd_train_plain(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads,
+                          scale, save_a1=True, mm_dtype=torch.float32):
+    """``_stack_fwd_train``'s train kernel, plain: (out, (xs, qkvs, ctxs,
     a1s | None, ys), lses) with xs (B, L+1, N, H) f32 (the block inputs and
     the last block's output), qkvs (B, L, N, 3H), ctxs and ys (B, L, N, H),
     a1s (B, L, N, F), all f32, and lses (B, L, heads, N)."""
-    x = _mm(tokens.float(), wemb, mm_dtype) + bemb + pos
+    x = x.float()
     xs, res = [x], []
     for li in range(wqkv.shape[0]):
         x, *r = block_fwd_res_plain(x, mods[:, li], wqkv[li], bqkv[li], wout[li], bout[li],
@@ -268,10 +278,22 @@ def vit_fwd_train_plain(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, b
                                     mm_dtype, want_lse=True)
         xs.append(x)
         res.append(r)
+    qkvs, ctxs, a1s, ys, lses = (torch.stack(t, 1) for t in zip(*res))
+    return x, (torch.stack(xs, 1), qkvs, ctxs, a1s if save_a1 else None, ys), lses
+
+
+def vit_fwd_train_plain(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w1, b1,
+                        w2, b2, wfin, bfin, mask, num_heads, scale, save_a1=True,
+                        mm_dtype=torch.float32):
+    """``_vit_fwd_train``'s train kernel, plain: the embedder, then
+    :func:`stack_fwd_train_plain`'s blocks and residual set, then the
+    FinalLayer: (out, (xs, qkvs, ctxs, a1s | None, ys), lses)."""
+    x = _mm(tokens.float(), wemb, mm_dtype) + bemb + pos
+    x, saved, lses = stack_fwd_train_plain(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2,
+                                           mask, num_heads, scale, save_a1, mm_dtype)
     fm = fmod.float()
     out = _mm(_ln(x) * (1.0 + fm[:, 1:2]) + fm[:, 0:1], wfin, mm_dtype) + bfin
-    qkvs, ctxs, a1s, ys, lses = (torch.stack(t, 1) for t in zip(*res))
-    return out, (torch.stack(xs, 1), qkvs, ctxs, a1s if save_a1 else None, ys), lses
+    return out, saved, lses
 
 
 def block_bwd_res_plain(xin, qkv, ctx, a1, y, mod6, wqkv, wout, bout, w1, b1, w2, g, mask,
@@ -890,6 +912,30 @@ def fused_dit_block(x, mod6, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_h
     return _dit_block(*args, mask, num_heads, scale)
 
 
+def _blocks_res_into(xs, qkvs, ctxs, lses, a1s, ys, mods, wqkv, bqkv, wout, bout, w1, b1, w2,
+                     b2, mask, num_heads, scale):
+    """K5a's block loop: block li reads xs[li] and writes xs[li + 1] and its
+    residuals into the (L, ...) buffers of :func:`_block_res_buffers`;
+    weights already cast (bf16 matrices, f32 biases)."""
+    for li in range(wqkv.shape[0]):
+        _block_fwd_res_into(xs[li], mods[:, li], wqkv[li], bqkv[li], wout[li], bout[li], w1[li],
+                            b1[li], w2[li], b2[li], mask, num_heads, scale, xs[li + 1],
+                            qkvs[li], ctxs[li], lses[li], None if a1s is None else a1s[li],
+                            ys[li])
+
+
+def _batch_major(xs, qkvs, ctxs, lses, a1s, ys):
+    """The residual set as JAX orders it, (B, L, ...) views of the (L, B,
+    ...) buffers: ((xs, qkvs, ctxs, a1s | None, ys), lses)."""
+    t = lambda r: None if r is None else r.transpose(0, 1)  # noqa: E731
+    return (t(xs), t(qkvs), t(ctxs), t(a1s), t(ys)), t(lses)
+
+
+def _cast_weights(wqkv, bqkv, wout, bout, w1, b1, w2, b2):
+    """The block weights as the kernels take them: bf16 matrices, f32 biases."""
+    return (_bf(wqkv), _f32(bqkv), _bf(wout), _f32(bout), _bf(w1), _f32(b1), _bf(w2), _f32(b2))
+
+
 def vit_fwd_train(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w1, b1, w2, b2,
                   wfin, bfin, mask, num_heads, scale, save_a1=True):
     """K5a: the whole-ViT forward that also writes the residual set: (out,
@@ -908,21 +954,30 @@ def vit_fwd_train(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w
     m = b * n
     tokens, pos, mods, fmod = (_f32(t) for t in (tokens, pos, mods, fmod))
     _cuda.require_cuda("vit_fwd_train", tokens, pos, mods, fmod)
-    wqkv, wout, w1, w2 = _bf(wqkv), _bf(wout), _bf(w1), _bf(w2)
-    bqkv, bout, b1, b2 = _f32(bqkv), _f32(bout), _f32(b1), _f32(b2)
-    xs, qkvs, ctxs, lses, a1s, ys = _block_res_buffers(b, n, hdim, fdim, num_heads,
-                                                       tokens.device, depth, save_a1)
+    bufs = _block_res_buffers(b, n, hdim, fdim, num_heads, tokens.device, depth, save_a1)
+    xs = bufs[0]
     train_linear(tokens.view(m, pdim), _bf(wemb), _f32(bemb), EPI_BIAS_POS,
                  out=xs[0].view(m, hdim), pos=pos, n_tok=n)
-    for li in range(depth):
-        _block_fwd_res_into(xs[li], mods[:, li], wqkv[li], bqkv[li], wout[li], bout[li], w1[li],
-                            b1[li], w2[li], b2[li], mask, num_heads, scale, xs[li + 1],
-                            qkvs[li], ctxs[li], lses[li], None if a1s is None else a1s[li],
-                            ys[li])
+    _blocks_res_into(*bufs, mods, *_cast_weights(wqkv, bqkv, wout, bout, w1, b1, w2, b2), mask,
+                     num_heads, scale)
     h = modln(xs[depth].view(m, hdim), fmod[:, 0], fmod[:, 1], n)
     out = train_linear(h, _bf(wfin), _f32(bfin), EPI_BIAS, n_tok=n).view(b, n, -1)
-    t = lambda r: None if r is None else r.transpose(0, 1)  # noqa: E731
-    return out, (t(xs), t(qkvs), t(ctxs), t(a1s), t(ys)), t(lses)
+    return (out, *_batch_major(*bufs))
+
+
+def _stack_forward(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale):
+    """K2s: the L blocks in order, no residuals: the plain f32 blocks on the
+    CPU, K2b's block body (``vit_gemm``, ``vit_modln``, ``vit_attention``)
+    per block on the card."""
+    if x.device.type == "cpu":
+        return stack_reference(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads,
+                               scale)
+    x, mods = _f32(x), _f32(mods)
+    _cuda.require_cuda("fused_dit_stack", x, mods)
+    ws = _cast_weights(wqkv, bqkv, wout, bout, w1, b1, w2, b2)
+    for li in range(wqkv.shape[0]):
+        x = _block_fwd_kernel(x, mods[:, li], *(w[li] for w in ws), mask, num_heads, scale)
+    return x
 
 
 def _vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w1, b1, w2, b2,
@@ -936,11 +991,7 @@ def _vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w1
     _cuda.require_cuda("fused_vit_forward", tokens, pos, mods, fmod)
     x = linear(tokens.reshape(b * n, pdim), _bf(wemb), bemb.contiguous(), EPI_BIAS_POS,
                pos=pos, n_tok=n).view(b, n, -1)
-    wqkv, wout, w1, w2 = _bf(wqkv), _bf(wout), _bf(w1), _bf(w2)
-    bqkv, bout, b1, b2 = _f32(bqkv), _f32(bout), _f32(b1), _f32(b2)
-    for li in range(wqkv.shape[0]):
-        x = _block_fwd_kernel(x, mods[:, li], wqkv[li], bqkv[li], wout[li], bout[li], w1[li],
-                              b1[li], w2[li], b2[li], mask, num_heads, scale)
+    x = _stack_forward(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale)
     h = modln(x.view(b * n, -1), fmod[:, 0], fmod[:, 1], n)
     out = linear(h, _bf(wfin), bfin.contiguous(), EPI_BIAS, n_tok=n)
     return out.reshape(b, n, -1)
@@ -949,6 +1000,43 @@ def _vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w1
 def _final(x, fmod, wfin, bfin):
     fm = fmod.float()
     return (_ln(x) * (1.0 + fm[:, 1:2]) + fm[:, 0:1]) @ wfin + bfin
+
+
+def _blocks_bwd(dx, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale, bwd,
+                inputs=None, res=None):
+    """``_blocks_bwd``: the blocks' gradients in reverse from dx, the
+    gradient of the last block's output. From the saved residual set
+    ``res`` ((xs, qkvs, ctxs, a1s | None, ys), lses): K5b per block, or with
+    ``bwd="xla"`` the plain residual backward on the products' multiplicand
+    type (the hybrid arm); else from the block inputs ``inputs`` (a list,
+    recomputed by the caller): K5c per block. Returns (dx, dmods (B, L, 6,
+    H), the 8 weight and bias gradients stacked (L, ...))."""
+    depth = wqkv.shape[0]
+    if dx.is_cuda:  # one cast of the weights for every block's kernels
+        wqkv_m, wout_m, w1_m, w2_m = _bf(wqkv), _bf(wout), _bf(w1), _bf(w2)
+    else:
+        wqkv_m, wout_m, w1_m, w2_m = wqkv, wout, w1, w2
+    dmods, dws = [None] * depth, [[None] * depth for _ in range(8)]
+    for li in reversed(range(depth)):
+        if res is None:
+            grads = fused_dit_block_bwd(inputs[li], mods[:, li], wqkv[li], bqkv[li], wout[li],
+                                        bout[li], w1[li], b1[li], w2[li], b2[li], dx, mask,
+                                        num_heads, scale)
+        else:
+            (xs, qkvs, ctxs, a1s, ys), lses = res
+            args = (xs[:, li], qkvs[:, li], ctxs[:, li], None if a1s is None else a1s[:, li],
+                    ys[:, li], mods[:, li])
+            if bwd == "xla":
+                grads = block_bwd_res_plain(*args, wqkv[li], wout[li], bout[li], w1[li], b1[li],
+                                            w2[li], dx, mask, num_heads, scale, _mm_dtype(dx))
+            else:
+                grads = fused_dit_block_bwd_res(*args, wqkv_m[li], wout_m[li], bout[li],
+                                                w1_m[li], b1[li], w2_m[li], dx, mask, num_heads,
+                                                scale, lse=lses[:, li])
+        dx, dmods[li] = grads[0], grads[1]
+        for wi in range(8):
+            dws[wi][li] = grads[2 + wi]
+    return dx, torch.stack(dmods, 1), [torch.stack(d) for d in dws]
 
 
 class _FusedViT(torch.autograd.Function):
@@ -984,6 +1072,7 @@ class _FusedViT(torch.autograd.Function):
         mask, heads, scale = ctx.mask, ctx.num_heads, ctx.scale
         depth = wqkv.shape[0]
         g = g.contiguous()
+        xs = None
         if res is None:
             xs = [tokens.float() @ wemb + bemb + pos]
             for li in range(depth):
@@ -992,40 +1081,17 @@ class _FusedViT(torch.autograd.Function):
                                      scale))
             x_last = xs[depth]
         else:
-            (xs, qkvs, ctxs, a1s, ys), lses = res
-            x_last = xs[:, depth]
+            x_last = res[0][0][:, depth]
         with torch.enable_grad():
             fin = [t.detach().requires_grad_() for t in (x_last, fmod, wfin, bfin)]
             dx, dfmod, dwfin, dbfin = torch.autograd.grad(_final(*fin), fin, g)
-        if tokens.is_cuda:  # one cast of the weights for every block's kernels
-            wqkv_m, wout_m, w1_m, w2_m = _bf(wqkv), _bf(wout), _bf(w1), _bf(w2)
-        else:
-            wqkv_m, wout_m, w1_m, w2_m = wqkv, wout, w1, w2
-        dmods, dws = [None] * depth, [[None] * depth for _ in range(8)]
-        for li in reversed(range(depth)):
-            if res is None:
-                grads = fused_dit_block_bwd(xs[li], mods[:, li], wqkv[li], bqkv[li], wout[li],
-                                            bout[li], w1[li], b1[li], w2[li], b2[li], dx, mask,
-                                            heads, scale)
-            else:
-                args = (xs[:, li], qkvs[:, li], ctxs[:, li], None if a1s is None else a1s[:, li],
-                        ys[:, li], mods[:, li])
-                if ctx.bwd == "xla":
-                    grads = block_bwd_res_plain(*args, wqkv[li], wout[li], bout[li], w1[li],
-                                                b1[li], w2[li], dx, mask, heads, scale,
-                                                _mm_dtype(tokens))
-                else:
-                    grads = fused_dit_block_bwd_res(*args, wqkv_m[li], wout_m[li], bout[li],
-                                                    w1_m[li], b1[li], w2_m[li], dx, mask, heads,
-                                                    scale, lse=lses[:, li])
-            dx, dmods[li] = grads[0], grads[1]
-            for wi in range(8):
-                dws[wi][li] = grads[2 + wi]
+        dx, dmods, dws = _blocks_bwd(dx, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask,
+                                     heads, scale, ctx.bwd, xs, res)
         rows = dx.reshape(-1, dx.shape[-1])
         dtokens = dx @ wemb.t()
         dwemb = tokens.reshape(-1, tokens.shape[-1]).float().t() @ rows
-        return (dtokens, dx.sum(0), torch.stack(dmods, 1), dfmod, dwemb, rows.sum(0),
-                *(torch.stack(d) for d in dws), dwfin, dbfin, None, None, None, None)
+        return (dtokens, dx.sum(0), dmods, dfmod, dwemb, rows.sum(0), *dws, dwfin, dbfin, None,
+                None, None, None)
 
 
 def fused_vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout,
@@ -1054,3 +1120,96 @@ def fused_vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout,
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _FusedViT.apply(*args, mask, num_heads, scale, bwd)
     return _vit_forward(*args, mask, num_heads, scale)
+
+
+# ---------------------------------------------------------------------------
+# the block stack (K2s, K5a-stack); ViTNet takes fused_vit_forward first, under
+# the same conditions, in both packages
+# ---------------------------------------------------------------------------
+def stack_residual_tier(n, hdim, fdim, depth, num_heads, mm_dtype):
+    """The tier ``_stack_fwd_train`` takes for the block stack: (save_a1,
+    rbytes), rbytes None when no residual set fits."""
+    return _fit_residuals(stack_vmem_estimate(n, hdim, fdim, depth, num_heads, 1), n, hdim,
+                          fdim, depth, mm_dtype)
+
+
+def stack_fwd_train(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale,
+                    save_a1=True):
+    """K5a-stack (``_stack_fwd_train``'s train kernel): the L blocks, writing
+    the residual set: (out, (xs, qkvs, ctxs, a1s | None, ys), lses), shaped
+    as in :func:`stack_fwd_train_plain` and typed as in :func:`vit_fwd_train`,
+    whose block kernels it runs without the embedder and FinalLayer."""
+    _check_mask("fused_dit_stack", mask)
+    scale = _scale(x.shape[-1], num_heads, scale)
+    if x.device.type == "cpu":
+        return stack_fwd_train_plain(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask,
+                                     num_heads, scale, save_a1)
+    b, n, hdim = x.shape
+    x, mods = _f32(x), _f32(mods)
+    _cuda.require_cuda("fused_dit_stack", x, mods)
+    bufs = _block_res_buffers(b, n, hdim, w1.shape[-1], num_heads, x.device, wqkv.shape[0],
+                              save_a1)
+    bufs[0][0].copy_(x)
+    _blocks_res_into(*bufs, mods, *_cast_weights(wqkv, bqkv, wout, bout, w1, b1, w2, b2), mask,
+                     num_heads, scale)
+    return (bufs[0][-1].clone(), *_batch_major(*bufs))
+
+
+class _FusedDiTStack(torch.autograd.Function):
+    """``fused_dit_stack``'s custom VJP: ``_stack_fwd_train`` / ``_stack_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale,
+                bwd):
+        ins = (x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2)
+        save_a1, rbytes = stack_residual_tier(x.shape[1], x.shape[2], w1.shape[-1],
+                                              wqkv.shape[0], num_heads, _mm_dtype(x))
+        if rbytes is None:  # no tier fits: K2s, and the backward recomputes (K2b + K5c)
+            out, ctx.res = _stack_forward(*ins, mask, num_heads, scale), None
+        else:
+            out, saved, lses = stack_fwd_train(*ins, mask, num_heads, scale, save_a1)
+            ctx.res = (saved, lses)
+        ctx.save_for_backward(*ins)
+        ctx.mask, ctx.num_heads, ctx.scale, ctx.bwd = mask, num_heads, scale, bwd
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mods, *ws = ctx.saved_tensors
+        res, ctx.res = ctx.res, None  # the residuals go with this backward
+        inputs = None
+        if res is None:  # the block inputs again, with K2b (L - 1 forwards)
+            inputs = [x.float()]
+            for li in range(ws[0].shape[0] - 1):
+                inputs.append(_dit_block(inputs[-1], mods[:, li], *(w[li] for w in ws),
+                                         ctx.mask, ctx.num_heads, ctx.scale))
+        dx, dmods, dws = _blocks_bwd(g.contiguous(), mods, *ws, ctx.mask, ctx.num_heads,
+                                     ctx.scale, ctx.bwd, inputs, res)
+        return (dx, dmods, *dws, None, None, None, None)
+
+
+def fused_dit_stack(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale,
+                    group=1, bwd="pallas"):
+    """The L DiT blocks, no embedder and no FinalLayer. x (B, N, H); mods
+    (B, L, 6, H); weights stacked (L, ...); ``mask`` an optional shared (N,
+    N) bool, True = attend. Returns (B, N, H) f32.
+
+    Without gradients it is K2s (``_stack_fwd``): K2b's block body L times.
+    ``group`` is the TPU's batch elements per grid cell (``_stack_kernel_g``,
+    whose zero-padded batch is sliced back): accepted and ignored, since
+    every kernel here spans all B*N rows and attends within each element,
+    the grouped kernel's function for any G. With gradients enabled and an
+    input requiring them, the forward is K5a-stack when a residual tier
+    fits (:func:`stack_residual_tier`), and the backward runs per block in
+    reverse K5b (``bwd="pallas"``) or the plain hybrid arm (``bwd="xla"``);
+    when none fits, the forward is K2s and the backward recomputes the
+    block inputs with K2b and runs K5c."""
+    del group
+    _check_mask("fused_dit_stack", mask)
+    if bwd not in ("pallas", "xla"):
+        raise ValueError(f"fused_dit_stack: bwd must be 'pallas' or 'xla', got {bwd!r}")
+    scale = _scale(x.shape[-1], num_heads, scale)
+    args = (x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedDiTStack.apply(*args, mask, num_heads, scale, bwd)
+    return _stack_forward(*args, mask, num_heads, scale)

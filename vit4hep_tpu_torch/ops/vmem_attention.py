@@ -89,7 +89,7 @@ def vmem_bwd_plain(q, k, v, g, lse, scale, mask=None, mm_dtype=torch.float32):
 # ---------------------------------------------------------------------------
 # kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
-def _strides(name, t):
+def kernel_strides(name, t):
     """(sb, sh, sn) of a (B, H, N, D) f32 CUDA tensor with a unit column stride."""
     if t.device.type != "cuda" or t.dtype != torch.float32:
         raise ValueError(f"{name}: expected a float32 CUDA tensor, got {t.dtype} on {t.device}")
@@ -98,15 +98,15 @@ def _strides(name, t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _qkv_args(name, q, k, v, mask):
+def kernel_qkv_args(name, q, k, v, mask):
     """(B, H, N, D, the shared strides of q, k, v, the mask's uint8 view
     and pointer) for a launch; raises on what the kernels do not take."""
     b, h, n, d = check_shapes(name, q, k, v, mask)
     if d > MAX_HEAD_DIM or b > 65535 or h > 65535:
         raise ValueError(f"{name}: head_dim {d} (max {MAX_HEAD_DIM}), batch {b} or {h} heads "
                          "(max 65535) out of the kernels' range")
-    strides = _strides(name, q)
-    if _strides(name, k) != strides or _strides(name, v) != strides or \
+    strides = kernel_strides(name, q)
+    if kernel_strides(name, k) != strides or kernel_strides(name, v) != strides or \
             not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k and v need one device and one stride set")
     mask, mask_ptr = mask_arg(name, mask, n, q.device)
@@ -115,7 +115,7 @@ def _qkv_args(name, q, k, v, mask):
 
 def vmem_fwd_kernel(q, k, v, scale, mask=None):
     """Launch the forward kernel: (out (B, H, N, D) f32, lse (B, H, N) f32)."""
-    b, h, n, d, strides, mask, mask_ptr = _qkv_args("vmem_attention_fwd", q, k, v, mask)
+    b, h, n, d, strides, mask, mask_ptr = kernel_qkv_args("vmem_attention_fwd", q, k, v, mask)
     out = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     code = _lib().vmem_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, mask_ptr,
@@ -127,12 +127,12 @@ def vmem_fwd_kernel(q, k, v, scale, mask=None):
 
 
 def _bwd_args(name, q, k, v, g, lse, mask):
-    b, h, n, d, strides, mask, mask_ptr = _qkv_args(name, q, k, v, mask)
+    b, h, n, d, strides, mask, mask_ptr = kernel_qkv_args(name, q, k, v, mask)
     if tuple(g.shape) != (b, h, n, d) or tuple(lse.shape) != (b, h, n):
         raise ValueError(f"{name}: g {tuple(g.shape)} / lse {tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
     _cuda.require_cuda(name, lse)
-    return b, h, n, d, strides, _strides(name, g), mask, mask_ptr
+    return b, h, n, d, strides, kernel_strides(name, g), mask, mask_ptr
 
 
 def vmem_bwd_dq_kernel(q, k, v, g, lse, scale, mask=None):
