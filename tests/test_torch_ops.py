@@ -140,10 +140,13 @@ def test_kernel_library_digest_follows_included_headers(tmp_path, monkeypatch):
     from vit4hep_tpu_torch.ops import _cuda
 
     # K2v, K1 and K7 share the forward header; K1 and K7 reach it through the
-    # backward tiles' header
-    for name, headers in (("vit_forward", ["attention_fwd.cuh"]),
+    # backward tiles' header; the ViT GEMM and K6's forward share the Hopper
+    # primitives, K6 reaching them through its wgmma tiles' header
+    for name, headers in (("vit_forward", ["attention_fwd.cuh", "hopper.cuh"]),
                           ("qkv_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
-                          ("flash_attention", ["attention_bwd.cuh", "attention_fwd.cuh"])):
+                          ("flash_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
+                          ("flash_qkv_attention", ["attention_mma.cuh", "attention_wgmma.cuh",
+                                                   "hopper.cuh"])):
         assert [p.name for p in _cuda.sources_of(name)] == [f"{name}.cu", *headers]
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')

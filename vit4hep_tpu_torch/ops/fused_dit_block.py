@@ -455,65 +455,117 @@ def dmod_reduce_plain(part):
 # ---------------------------------------------------------------------------
 # kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
-def _rows_view(name, t, rows, width):
-    """Check a (rows, width) view whose rows may be strided (a slice of the
-    adaLN panel) but whose columns are contiguous; returns its row stride."""
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected a float32 CUDA tensor, got {t.dtype} on {t.device}")
+def _rows_view(name, t, rows, width, device=None):
+    """Check a (rows, width) float32 view whose rows may be strided (a slice
+    of the adaLN panel) but whose columns are contiguous, on ``device`` (by
+    default any CUDA device); returns its row stride."""
+    on = t.device == device if device is not None else t.device.type == "cuda"
+    if not on or t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected a float32 tensor on {device or 'a CUDA device'}, "
+                         f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != (rows, width) or t.stride(1) != 1:
         raise ValueError(f"{name}: expected a ({rows}, {width}) view with unit column stride, "
                          f"got shape {tuple(t.shape)} strides {t.stride()}")
     return t.stride(0)
 
 
-def _check_out(name, t, shape, dtype):
-    _cuda.require_cuda(name, t, dtype=dtype)
+def _check_out(name, t, shape, dtype, device=None):
+    """Check a contiguous ``dtype`` buffer of ``shape`` on ``device`` (by
+    default any CUDA device)."""
+    if device is None:
+        _cuda.require_cuda(name, t, dtype=dtype)
+    elif t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dtype} on {device}, got {t.dtype} on "
+                         f"{t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: output has shape {tuple(t.shape)}, expected {tuple(shape)}")
     return t
 
 
-def _gemm(counter, name, a, w, bias, epilogue, out, pos, gate, resid, save, n_tok):
+def _aligned(name, what, t, nbytes):
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: {what} is not {nbytes}-byte aligned (TMA needs it)")
+
+
+def tma_operands(a, w):
+    """The GEMM kernel's operands: A in bf16 (an f32 A cast once, rounding to
+    nearest even as the plain version's ``.to(torch.bfloat16)`` does) and
+    both zero-padded so that every row is a multiple of 16 bytes, as TMA
+    needs: A (M, K) and W (K, N) to K8 = K rounded up to 8 (W gains zero
+    rows), W to N8 = N rounded up to 8 columns. The product's first N
+    columns are unchanged (ds3's 90-wide patches and final layer are the
+    shipped operands padded); the kernel stores only those. Returns
+    contiguous (a, w); an operand that needs no change is returned as it is."""
+    k, n = w.shape
+    k8, n8 = _cdiv(k, 8) * 8, _cdiv(n, 8) * 8
+    a = a.to(torch.bfloat16)
+    if k8 != k:
+        a = F.pad(a, (0, k8 - k))
+    if (k8, n8) != (k, n):
+        w = F.pad(w, (0, n8 - n, 0, k8 - k))
+    return a.contiguous(), w.contiguous()
+
+
+def gemm_plan(name, a, w, bias, epilogue, out, pos, gate, resid, save, n_tok):
+    """Check the GEMM's arguments on any device and prepare them: returns
+    (a, w) from :func:`tma_operands`, the output, (aux, aux_stride) of the
+    epilogue and the residual. Raises ValueError on what the kernel does not
+    take: dtypes, shapes that do not chain, rows that are not a multiple of
+    n_tok, an epilogue that does not save given ``save``, A or W not 16-byte
+    aligned. The kernel itself stores column pairs as vectors where N and
+    every epilogue buffer allow it, and one column at a time where not."""
     m, k = a.shape
     n = w.shape[1]
+    dev = a.device
     if a.dtype not in (torch.float32, torch.bfloat16) or not a.is_contiguous():
         raise ValueError(f"{name}: A must be contiguous float32 or bfloat16, got {a.dtype}")
-    _cuda.require_cuda(name, a, dtype=a.dtype)
-    _cuda.require_cuda(name, w, dtype=torch.bfloat16)
-    _cuda.require_cuda(name, bias)
-    if tuple(w.shape) != (k, n) or tuple(bias.shape) != (n,):
+    if w.dtype != torch.bfloat16 or bias.dtype != torch.float32 or not w.is_contiguous() \
+            or not bias.is_contiguous() or w.device != dev or bias.device != dev:
+        raise ValueError(f"{name}: W must be contiguous bfloat16 and the bias float32 on A's "
+                         f"device, got {w.dtype} on {w.device} and {bias.dtype} on {bias.device}")
+    if tuple(w.shape) != (k, n) or tuple(bias.shape) != (n,) or m < 1:
         raise ValueError(f"{name}: shapes a {tuple(a.shape)}, w {tuple(w.shape)}, "
                          f"bias {tuple(bias.shape)} do not chain")
     if m % n_tok:
         raise ValueError(f"{name}: {m} rows are not a multiple of n_tok {n_tok}")
+    new = lambda dt: torch.empty((m, n), dtype=dt, device=dev)  # noqa: E731
     aux, aux_stride = None, 0
     if epilogue == EPI_BIAS_POS:
-        _cuda.require_cuda(name, pos)
-        if tuple(pos.shape) != (n_tok, n):
-            raise ValueError(f"{name}: pos has shape {tuple(pos.shape)}, expected {(n_tok, n)}")
+        if pos is None or pos.dtype != torch.float32 or tuple(pos.shape) != (n_tok, n) \
+                or not pos.is_contiguous() or pos.device != dev:
+            raise ValueError(f"{name}: pos must be a contiguous float32 {(n_tok, n)}")
         aux = pos
     if epilogue == EPI_GATED_RESID:
-        if out is None:
-            raise ValueError(f"{name}: the gated residual needs its output buffer")
-        _check_out(name, out, (m, n), torch.float32)
-        resid = out if resid is None else _check_out(name, resid, (m, n), torch.float32)
-        aux, aux_stride = gate, _rows_view(f"{name} gate", gate, m // n_tok, n)
-    elif epilogue == EPI_BIAS_GELU:
-        out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device) if out is None \
-            else _check_out(name, out, (m, n), torch.bfloat16)
-    elif epilogue in (EPI_BIAS, EPI_BIAS_POS):
-        out = torch.empty((m, n), dtype=torch.float32, device=a.device) if out is None \
-            else _check_out(name, out, (m, n), torch.float32)
+        if out is None or gate is None:
+            raise ValueError(f"{name}: the gated residual needs its output buffer and gate")
+        _check_out(name, out, (m, n), torch.float32, dev)
+        resid = out if resid is None else _check_out(name, resid, (m, n), torch.float32, dev)
+        aux, aux_stride = gate, _rows_view(f"{name} gate", gate, m // n_tok, n, dev)
+    elif epilogue in (EPI_BIAS, EPI_BIAS_POS, EPI_BIAS_GELU):
+        dt = torch.bfloat16 if epilogue == EPI_BIAS_GELU else torch.float32
+        out = new(dt) if out is None else _check_out(name, out, (m, n), dt, dev)
     else:
         raise ValueError(f"{name}: unknown epilogue {epilogue}")
     if save is not None:
         if epilogue not in (EPI_BIAS_GELU, EPI_GATED_RESID):
             raise ValueError(f"{name}: only the GELU and gated-residual epilogues save")
-        _check_out(name, save, (m, n), torch.bfloat16)
+        _check_out(name, save, (m, n), torch.bfloat16, dev)
+    a, w = tma_operands(a, w)
+    _aligned(name, "A", a, 16)
+    _aligned(name, "W", w, 16)
+    return a, w, out, aux, aux_stride, resid
+
+
+def _gemm(counter, name, a, w, bias, epilogue, out, pos, gate, resid, save, n_tok):
+    _cuda.require_cuda(name, a, dtype=a.dtype)
+    _cuda.require_cuda(name, w, dtype=w.dtype)
+    _cuda.require_cuda(name, bias, dtype=bias.dtype)
+    a, w, out, aux, aux_stride, resid = gemm_plan(name, a, w, bias, epilogue, out, pos, gate,
+                                                  resid, save, n_tok)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     code = _lib().vit_gemm(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), w.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), ptr(aux), aux_stride, ptr(resid), ptr(save), m, n, k, n_tok, epilogue,
+        a.data_ptr(), 1, w.data_ptr(), bias.data_ptr(), out.data_ptr(), ptr(aux), aux_stride,
+        ptr(resid), ptr(save), a.shape[0], bias.shape[0], a.shape[1], n_tok, epilogue,
         _cuda.stream())
     _cuda.check(code, "vit_gemm")
     counter.add()
@@ -529,7 +581,11 @@ def linear(a, w, bias, epilogue, out=None, pos=None, gate=None, n_tok=1, resid=N
     (n_tok, N) on row r % n_tok; EPI_BIAS_GELU -> new (M, N) bf16;
     EPI_GATED_RESID -> ``out`` (M, N) f32 = ``resid`` + gate[r // n_tok] *
     (.), with ``gate`` a (M // n_tok, N) view and ``resid`` ``out`` itself
-    (in place) unless given."""
+    (in place) unless given. The kernel (``vit_gemm``) reads its operands
+    with TMA: an f32 A is cast to bf16 once, and A and W are zero-padded to
+    8-column multiples where they are not (ds3's 90-wide patches and final
+    layer; :func:`tma_operands`), which leaves the product unchanged. A
+    shape or buffer it cannot take raises ValueError (:func:`gemm_plan`)."""
     return _gemm(GEMM, "linear", a, w, bias, epilogue, out, pos, gate, resid, None, n_tok)
 
 
