@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time one tree's ViT GEMM and K6 forward, or rerun its untouched
-end-to-end paths, with this checkout's ``chip_smoke.py``, so that two trees
-can be compared on one card.
+"""Time one tree's ViT GEMM and its K6 and K8 attention kernels, or rerun
+its untouched end-to-end paths, with this checkout's ``chip_smoke.py``, so
+that two trees can be compared on one card.
 
     python3 tree_compare.py kernels [--tree DIR] [--label NAME]
     python3 tree_compare.py paths [--tree DIR] [--label NAME]
@@ -11,9 +11,11 @@ DIR (default: this checkout) goes first on the import path, so the
 shapes and the phases are those of this checkout's smoke. ``kernels``: the
 six products of a ds2 and of a ds3 sampling forward at batch 256
 (``VIT_TOKENS``, ``vit_products``: the embedding's positional epilogue on
-the f32 patches, the gated residuals in place) and K6's forward at its ds3
-shapes (``K68_SHAPES``), each the median device time of
-``tools.timing.time_ms`` on inputs made from seed 0. ``paths``: the smoke's
+the f32 patches, the gated residuals in place) and, at the ds3 shapes of K6 and K8
+(``K68_SHAPES``), K6's forward, dQ and dK/dV passes on the qkv panel and
+K8's on its contiguous q, k, v (as the smoke's kernel phase holds them),
+each the median device time of ``tools.timing.time_ms`` on inputs made
+from seed 0. ``paths``: the smoke's
 ``train_phase`` (ds2 composed, 30 steps through the experiment) and
 ``cinn_phase`` at ds2 and ds3 (3 requests of 256 showers). Either prints
 one JSON line: the card's name and power limit, then the times in ms or
@@ -70,14 +72,32 @@ def kernels(cs, torch) -> dict:
         times["sum"] = sum(times.values())
         res[f"gemm_{geometry}"] = times
         del x, a_of, h_bf
-    mask = cs._causal_mask((15, 5, 6))
-    k6 = {}
+    mask, heads, d, scale = cs._causal_mask((15, 5, 6)), 6, 80, 80 ** -0.5
+    attn = {}
     for _, b, causal, label in cs.K68_SHAPES:
-        qkv = rand(b, 450, 1440)
-        k6[f"({b}, 450, 1440) {label}"] = cs.time_ms(
-            lambda: cs.ffa.flash_fwd_kernel(qkv, 6, 80 ** -0.5, mask if causal else None))
-        del qkv
-    res["k6_fwd"] = k6
+        m = mask if causal else None
+        qkv, g = rand(b, 450, 3 * heads * d), rand(b, 450, heads * d)
+        q, k, v = (t.contiguous()
+                   for t in qkv.reshape(b, 450, 3, heads, d).permute(2, 0, 3, 1, 4))
+        gh = g.reshape(b, 450, heads, d).permute(0, 2, 1, 3).contiguous()
+        out, lse = cs.ffa.flash_fwd_kernel(qkv, heads, scale, m)
+        delta = cs.fqa.attention_bwd_delta_kernel(g, out, heads)
+        dqkv = torch.zeros_like(qkv)
+        lse8 = cs.fva.vmem_fwd_kernel(q, k, v, scale, m)[1]
+        rt = cs.fva.vmem_bwd_dq_kernel(q, k, v, gh, lse8, scale, m)[1]
+        runs = {
+            "k6_fwd": lambda: cs.ffa.flash_fwd_kernel(qkv, heads, scale, m),
+            "k6_dq": lambda: cs.ffa.flash_bwd_dq_kernel(qkv, g, lse, delta, heads, scale, dqkv,
+                                                        m),
+            "k6_dkv": lambda: cs.ffa.flash_bwd_dkv_kernel(qkv, g, lse, delta, heads, scale,
+                                                          dqkv, m),
+            "k8_fwd": lambda: cs.fva.vmem_fwd_kernel(q, k, v, scale, m),
+            "k8_dq": lambda: cs.fva.vmem_bwd_dq_kernel(q, k, v, gh, lse8, scale, m),
+            "k8_dkv": lambda: cs.fva.vmem_bwd_dkv_kernel(q, k, v, gh, lse8, rt, scale, m)}
+        attn[f"({b}, 450, 1440) {label}"] = {name: cs.time_ms(fn) for name, fn in runs.items()}
+        del qkv, g, q, k, v, gh, out, lse, delta, dqkv, lse8, rt, runs
+        torch.cuda.empty_cache()
+    res["k6_k8"] = attn
     return res
 
 

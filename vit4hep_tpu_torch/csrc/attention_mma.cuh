@@ -1,12 +1,11 @@
-// Tensor-core building blocks of the one-shot attention (K8,
-// vmem_attention.cu) and of the panel-native flash attention (K6,
-// flash_qkv_attention.cu), and the backward kernels the two share.
+// The slab descriptors and kernel arguments of the port's bf16 attention
+// kernels (K6, flash_qkv_attention.cu; K8, vmem_attention.cu), and K6's
+// backward kernels.
 //
-// Both TPU kernels take bf16 multiplicands with f32 accumulation
-// (vit4hep_tpu/ops/vmem_attention.py:109 and :191,
-// vit4hep_tpu/ops/flash_qkv_attention.py:225). Here every product runs on the
-// bf16 tensor cores through WMMA 16x16x16 fragments with f32 accumulators;
-// the softmax statistics, the probabilities before they enter a product and
+// The TPU kernel takes bf16 multiplicands with f32 accumulation
+// (vit4hep_tpu/ops/flash_qkv_attention.py:225). Here every product of the
+// backward runs on the bf16 tensor cores through WMMA 16x16x16 fragments
+// with f32 accumulators; the probabilities before they enter a product and
 // every row term stay in f32.
 //
 // Work split: a CTA is 4 warps; each warp owns 16 rows (queries, or keys in
@@ -60,7 +59,7 @@ struct Args {
   OutSlab o, dq, dk, dv;  // outputs
   Slab lse;              // the forward's log-sum-exp (column 0 of each row)
   OutSlab lse_out;
-  Slab rt;               // the backward's row term (K6: delta; K8: from the dQ pass)
+  Slab rt;               // the backward's row term (K6: delta; K8: from its dQ pass)
   OutSlab rt_out;
   const unsigned char* mask;  // shared (n, n) uint8, row-major, 1 = attend; or nullptr
   int n, d;
@@ -75,18 +74,6 @@ __device__ __forceinline__ float* base(const OutSlab& s, int b, int h) {
 }
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // may (query, key) attend: always without a mask; a query past n reads no byte
 template <bool HAS_MASK>
@@ -186,14 +173,11 @@ constexpr size_t bwd_smem() {
          (size_t)2 * ROWS * LDP * 2 + (size_t)2 * KT * 4;
 }
 
-// dQ over key tiles for 16 query rows per warp: p (K8: exp(where(mask, s,
-// -1e30) - lse); K6: 0 off the mask, exp(s - lse) on it), dp = dO . V^T,
-// ds = p (dp - rt) * scale, dQ = ds . K on bf16 ds. K8 (OWN_RT) first sums
-// its own row term rt = rowsum(dp * p) over every key, as
-// `_bwd_kernel` (vit4hep_tpu/ops/vmem_attention.py:164) does, and writes it
-// for the dK/dV pass; K6 reads delta = rowsum(dO * O) (`_bwd_dq_kernel`,
-// vit4hep_tpu/ops/flash_qkv_attention.py:150).
-template <int DP, bool HAS_MASK, bool OWN_RT>
+// dQ over key tiles for 16 query rows per warp (`_bwd_dq_kernel`,
+// vit4hep_tpu/ops/flash_qkv_attention.py:119): p = exp(s - lse) on the mask
+// and 0 off it, dp = dO . V^T, ds = p (dp - delta) * scale with delta =
+// rowsum(dO * O) (:150), dQ = ds . K on bf16 ds.
+template <int DP, bool HAS_MASK>
 __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LD = DP + 8;
@@ -219,37 +203,11 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
   load_rows<DP>(Gs, base(a.g, b, h), a.g.sn, q0, ROWS, n, d);
   float lse[WR], rt[WR];
   const float* lb = base(a.lse, b, h);
-  const float* rb = OWN_RT ? nullptr : base(a.rt, b, h);
+  const float* rb = base(a.rt, b, h);
 #pragma unroll
   for (int r = 0; r < WR; ++r) {
     lse[r] = r0 + r < n ? lb[(long long)(r0 + r) * a.lse.sn] : 0.f;
-    rt[r] = (!OWN_RT && r0 + r < n) ? rb[(long long)(r0 + r) * a.rt.sn] : 0.f;
-  }
-
-  if (OWN_RT) {
-    for (int k0 = 0; k0 < n; k0 += KT) {
-      __syncthreads();
-      load_rows<DP>(Ks, kb, a.k.sn, k0, KT, n, d);
-      load_rows<DP>(Vs, vb, a.v.sn, k0, KT, n, d);
-      __syncthreads();
-      warp_abt<DP>(Sw, Qw, Ks);
-      warp_abt<DP>(Dw, Gw, Vs);
-      __syncwarp();
-#pragma unroll
-      for (int r = 0; r < WR; ++r) {
-        float acc = 0.f;
-#pragma unroll
-        for (int c = lane; c < KT; c += 32) {
-          const int key = k0 + c, query = r0 + r;
-          if (key < n && query < n) {
-            const float s = attends<HAS_MASK>(query, key, n, a.mask) ? Sw[r * LDS + c] * a.scale
-                                                                      : MASKED;
-            acc += expf(s - lse[r]) * Dw[r * LDS + c];
-          }
-        }
-        rt[r] += warp_sum(acc);
-      }
-    }
+    rt[r] = r0 + r < n ? rb[(long long)(r0 + r) * a.rt.sn] : 0.f;
   }
 
   Acc dq[DP / 16];
@@ -271,7 +229,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
         if (key < n && query < n) {
           const bool on = attends<HAS_MASK>(query, key, n, a.mask);
           const float s = Sw[r * LDS + c] * a.scale;
-          const float p = OWN_RT ? expf((on ? s : MASKED) - lse[r]) : (on ? expf(s - lse[r]) : 0.f);
+          const float p = on ? expf(s - lse[r]) : 0.f;
           ds = p * (Dw[r * LDS + c] - rt[r]) * a.scale;
         }
         Pw[r * LDP + c] = __float2bfloat16(ds);
@@ -287,21 +245,14 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < WR; ++r) one[r] = 1.f;
   warp_write<DP>(Ow, dq, base(a.dq, b, h), a.dq.sn, r0, n, d, one);
-  if (OWN_RT && lane == 0) {
-    float* ro = base(a.rt_out, b, h);
-#pragma unroll
-    for (int r = 0; r < WR; ++r)
-      if (r0 + r < n) ro[(long long)(r0 + r) * a.rt_out.sn] = rt[r];
-  }
 }
 
-// dK and dV over query tiles for 16 key rows per warp (`_bwd_kernel` of
-// vmem_attention.py:140 without a resident (N, N) block; K6's
-// `_bwd_dkv_kernel`, flash_qkv_attention.py:164): the transposed scores
-// s^T = K . Q^T and dp^T = V . dO^T, p and ds as in bwd_dq_kernel from the
-// query tile's lse and row term, dV += p^T . dO and dK += ds^T . Q on bf16
-// p and ds. Every key row is written once: no atomics.
-template <int DP, bool HAS_MASK, bool K8>
+// dK and dV over query tiles for 16 key rows per warp (`_bwd_dkv_kernel`,
+// vit4hep_tpu/ops/flash_qkv_attention.py:164): the transposed scores s^T =
+// K . Q^T and dp^T = V . dO^T, p and ds as in bwd_dq_kernel from the query
+// tile's lse and delta, dV += p^T . dO and dK += ds^T . Q on bf16 p and ds.
+// Every key row is written once: no atomics.
+template <int DP, bool HAS_MASK>
 __global__ void __launch_bounds__(THREADS) bwd_dkv_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int LD = DP + 8;
@@ -356,7 +307,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dkv_kernel(Args a) {
         if (key < n && query < n) {
           const bool on = attends<HAS_MASK>(query, key, n, a.mask);
           const float s = Sw[r * LDS + c] * a.scale;
-          p = K8 ? expf((on ? s : MASKED) - lse_t[c]) : (on ? expf(s - lse_t[c]) : 0.f);
+          p = on ? expf(s - lse_t[c]) : 0.f;
           ds = p * (Dw[r * LDS + c] - rt_t[c]) * a.scale;
         }
         Pw[r * LDP + c] = __float2bfloat16(p);
@@ -392,16 +343,16 @@ cudaError_t launch(Kernel kernel, size_t smem, const Args& a, int B, int H, cuda
   return cudaGetLastError();
 }
 
-template <int DP, bool OWN_RT>
+template <int DP>
 cudaError_t launch_dq(const Args& a, int B, int H, cudaStream_t st) {
-  return a.mask != nullptr ? launch(bwd_dq_kernel<DP, true, OWN_RT>, bwd_smem<DP>(), a, B, H, st)
-                           : launch(bwd_dq_kernel<DP, false, OWN_RT>, bwd_smem<DP>(), a, B, H, st);
+  return a.mask != nullptr ? launch(bwd_dq_kernel<DP, true>, bwd_smem<DP>(), a, B, H, st)
+                           : launch(bwd_dq_kernel<DP, false>, bwd_smem<DP>(), a, B, H, st);
 }
 
-template <int DP, bool K8>
+template <int DP>
 cudaError_t launch_dkv(const Args& a, int B, int H, cudaStream_t st) {
-  return a.mask != nullptr ? launch(bwd_dkv_kernel<DP, true, K8>, bwd_smem<DP>(), a, B, H, st)
-                           : launch(bwd_dkv_kernel<DP, false, K8>, bwd_smem<DP>(), a, B, H, st);
+  return a.mask != nullptr ? launch(bwd_dkv_kernel<DP, true>, bwd_smem<DP>(), a, B, H, st)
+                           : launch(bwd_dkv_kernel<DP, false>, bwd_smem<DP>(), a, B, H, st);
 }
 
 }  // namespace amma

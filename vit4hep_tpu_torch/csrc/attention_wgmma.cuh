@@ -36,6 +36,9 @@
 // bf16 for P V after the sum l took it in f32; a
 // masked score is -1e30; a key past N counts -1e30 in the max and exactly 0
 // in l and O, so a fully masked row gets the mean of V over the N real keys.
+//
+// Its loader (load_tile, K only or K and V) and operand conversions
+// (convert_rows, convert_cols) serve K8's wgmma kernels too (vmem_wgmma.cuh).
 
 #pragma once
 
@@ -81,8 +84,9 @@ __device__ __forceinline__ bool attends(int row, int key, int n, const unsigned 
   return !HAS_MASK || row >= n || mask[(size_t)row * n + key] != 0;
 }
 
-// tile [k0, k0 + 64) of K and V into an f32 stage, zero past n and past d
-template <int DP>
+// tile [k0, k0 + 64) of K (and, for PARTS = 2, of V) into an f32 stage, zero
+// past n and past d
+template <int DP, int PARTS = 2>
 __device__ __forceinline__ void load_tile(float* st, const float* kb, const float* vb,
                                           long long ldk, long long ldv, int k0, int n, int d,
                                           bool vec) {
@@ -93,14 +97,14 @@ __device__ __forceinline__ void load_tile(float* st, const float* kb, const floa
     const int lane = threadIdx.x % 32, c = 4 * lane;
     if (lane >= C) return;
 #pragma unroll 4
-    for (int rr = threadIdx.x / 32; rr < 2 * KT; rr += WARPS) {
+    for (int rr = threadIdx.x / 32; rr < PARTS * KT; rr += WARPS) {
       const int which = rr / KT, r = rr % KT, key = k0 + r;
       const bool in = key < n && c < d;
       const float* src = (which ? vb : kb) + (in ? (long long)key * (which ? ldv : ldk) + c : 0);
       hop::cp_async16(st + rr * LDF + c, src, in ? 16 : 0);
     }
   } else {
-    for (int u = threadIdx.x; u < 2 * KT * DP; u += THREADS) {
+    for (int u = threadIdx.x; u < PARTS * KT * DP; u += THREADS) {
       const int which = u / (KT * DP), r = u / DP % KT, c = u % DP, key = k0 + r;
       const bool in = key < n && c < d;
       const float* src = (which ? vb : kb) + (in ? (long long)key * (which ? ldv : ldk) + c : 0);
@@ -109,33 +113,47 @@ __device__ __forceinline__ void load_tile(float* st, const float* kb, const floa
   }
 }
 
-// an f32 stage into the bf16 operands: K (key r, columns 8c .. 8c+7) to chunk
-// c / 2, row r, 16-byte half (c % 2) ^ ((r / 4) % 2); V (keys 8j .. 8j+7,
-// column e) to V^T row e, 16-byte chunk j ^ (e % 8)
+// 64 f32 rows of a stage (row stride ld_f32) into the K-major B (or A)
+// operand of a product over DP: row r, columns 8c .. 8c+7 to 16-column chunk
+// c / 2 (64 rows x 32 B), row r, 16-byte half (c % 2) ^ ((r / 4) % 2) (the
+// 32-byte swizzle)
 template <int DP>
-__device__ __forceinline__ void convert_tile(unsigned char* kb16, unsigned char* vt16,
-                                             const float* st) {
+__device__ __forceinline__ void convert_rows(unsigned char* dst, const float* rows) {
   constexpr int LDF = ld_f32<DP>();
-  const float* ks = st;
-  const float* vs = st + KT * LDF;
   for (int u = threadIdx.x; u < KT * DP / 8; u += THREADS) {
     const int r = u % KT, c = u / KT;
-    const float4 a = *reinterpret_cast<const float4*>(ks + r * LDF + 8 * c);
-    const float4 b = *reinterpret_cast<const float4*>(ks + r * LDF + 8 * c + 4);
+    const float4 a = *reinterpret_cast<const float4*>(rows + r * LDF + 8 * c);
+    const float4 b = *reinterpret_cast<const float4*>(rows + r * LDF + 8 * c + 4);
     const uint4 v = make_uint4(hop::pack_bf16(a.x, a.y), hop::pack_bf16(a.z, a.w),
                                hop::pack_bf16(b.x, b.y), hop::pack_bf16(b.z, b.w));
-    *reinterpret_cast<uint4*>(kb16 + (c / 2) * KT * 32 + r * 32 +
+    *reinterpret_cast<uint4*>(dst + (c / 2) * KT * 32 + r * 32 +
                               (((c & 1) ^ ((r >> 2) & 1)) << 4)) = v;
   }
+}
+
+// 64 f32 rows of a stage transposed into the K-major B operand of a product
+// over the 64 rows: rows 8j .. 8j+7, column e to row e (128 B), 16-byte chunk
+// j ^ (e % 8) (the 128-byte swizzle)
+template <int DP>
+__device__ __forceinline__ void convert_cols(unsigned char* dst, const float* rows) {
+  constexpr int LDF = ld_f32<DP>();
   for (int u = threadIdx.x; u < KT * DP / 8; u += THREADS) {
     const int e = u % DP, j = u / DP;
-    const float* col = vs + 8 * j * LDF + e;
+    const float* col = rows + 8 * j * LDF + e;
     const uint4 v = make_uint4(hop::pack_bf16(col[0], col[LDF]),
                                hop::pack_bf16(col[2 * LDF], col[3 * LDF]),
                                hop::pack_bf16(col[4 * LDF], col[5 * LDF]),
                                hop::pack_bf16(col[6 * LDF], col[7 * LDF]));
-    *reinterpret_cast<uint4*>(vt16 + e * 128 + ((j ^ (e & 7)) << 4)) = v;
+    *reinterpret_cast<uint4*>(dst + e * 128 + ((j ^ (e & 7)) << 4)) = v;
   }
+}
+
+// an f32 stage into the bf16 operands: K as 16-column chunks, V as V^T
+template <int DP>
+__device__ __forceinline__ void convert_tile(unsigned char* kb16, unsigned char* vt16,
+                                             const float* st) {
+  convert_rows<DP>(kb16, st);
+  convert_cols<DP>(vt16, st + KT * ld_f32<DP>());
 }
 
 __device__ __forceinline__ float quad_max(float v) {

@@ -25,8 +25,8 @@
 //    this kernel to a multiple of 64).
 //  - backward (attention_mma.cuh): delta = rowsum(dO * O) per head comes
 //    from K1's delta kernel (qkv_attention.cu, `qkv_attention_bwd_delta`),
-//    then bwd_dq_kernel<DP, HAS_MASK, false> writes the q columns of dqkv and
-//    bwd_dkv_kernel<DP, HAS_MASK, false> the k and v columns, each element
+//    then bwd_dq_kernel<DP, HAS_MASK> writes the q columns of dqkv and
+//    bwd_dkv_kernel<DP, HAS_MASK> the k and v columns, each element
 //    once. p = exp(s - lse) on the mask and 0 off it (also on a fully masked
 //    row, as JAX's `where(valid, ...)`, :148 and :195).
 //
@@ -34,7 +34,7 @@
 // 1440) f32) the forward reads 166 MB and writes 56 MB (0.066 ms at 3.35
 // TB/s) against 24.9 GFLOP on the bf16 tensor cores (0.025 ms): it is bound
 // by bytes (attention_wgmma.cuh says how its design meets that). The
-// backward kernels are attention_mma.cuh's WMMA tiles, shared with K8.
+// backward kernels are attention_mma.cuh's WMMA tiles.
 
 #include "attention_mma.cuh"
 #include "attention_wgmma.cuh"
@@ -92,7 +92,7 @@ extern "C" int flash_qkv_bwd_dq(const float* qkv, const float* g, const float* l
                                 int H, int n, int d, float scale, void* stream) {
   if (bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
   const Args a = bwd_args(qkv, g, lse, delta, mask, dqkv, H, n, d, scale);
-  AMMA_DISPATCH(d, (launch_dq<DP, false>(a, B, H, static_cast<cudaStream_t>(stream))))
+  AMMA_DISPATCH(d, launch_dq<DP>(a, B, H, static_cast<cudaStream_t>(stream)))
 }
 
 // dK and dV: the k and v columns of dqkv
@@ -101,5 +101,5 @@ extern "C" int flash_qkv_bwd_dkv(const float* qkv, const float* g, const float* 
                                  int H, int n, int d, float scale, void* stream) {
   if (bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
   const Args a = bwd_args(qkv, g, lse, delta, mask, dqkv, H, n, d, scale);
-  AMMA_DISPATCH(d, (launch_dkv<DP, false>(a, B, H, static_cast<cudaStream_t>(stream))))
+  AMMA_DISPATCH(d, launch_dkv<DP>(a, B, H, static_cast<cudaStream_t>(stream)))
 }

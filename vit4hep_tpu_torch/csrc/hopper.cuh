@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels: the
-// ViT GEMM (vit_forward.cu) and K6's forward (attention_wgmma.cuh).
+// ViT GEMM (vit_forward.cu), K6's forward (attention_wgmma.cuh) and K8's
+// forward and backward (vmem_wgmma.cuh).
 //
 //  - mbarrier: init, arrive, arrive with an expected transaction count, and a
 //    parity wait (the wait passes once the phase of that parity completed:
