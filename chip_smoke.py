@@ -489,6 +489,7 @@ K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
 K2V = "vit4hep_tpu_torch/csrc/vit_forward.cu"
 K2V_GEMM = "vit4hep_tpu_torch/csrc/vit_forward.cu (gemm_wgmma_kernel; hopper.cuh)"
 K5 = "vit4hep_tpu_torch/csrc/vit_backward.cu"
+K5B_PRODUCTS = "vit4hep_tpu_torch/csrc/bwd_wgmma.cuh"
 K5A_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1491 (_vit_fwd_train, call :1549)"
 K5B_BODY = "vit4hep_tpu/ops/fused_dit_block.py:745 (fused_dit_block_bwd_res, call :808)"
 K5C_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1204 (fused_dit_block_bwd, call :1261)"
@@ -513,8 +514,8 @@ REPLACES = {
                        "vit4hep_tpu/ops/fused_energy_decoder.py:124"),
     "vit_gemm": (K2V_GEMM, f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
     "vit_modln": (K2V, f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
-    "vit_attention": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
-                      "vit4hep_tpu_torch/csrc/vit_forward.cu)",
+    "vit_attention": ("vit4hep_tpu_torch/csrc/vit_attention_wgmma.cuh: vit_attn_wgmma_kernel "
+                      "(bound in vit4hep_tpu_torch/csrc/vit_forward.cu)",
                       f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
     "qkv_attn_fwd": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
                      "vit4hep_tpu_torch/csrc/qkv_attention.cu)",
@@ -528,8 +529,10 @@ REPLACES = {
     # forward; K5b K1's backward; K5c K5a's block kernels, then K5b's)
     "vit_train_gemm": (K2V_GEMM, f"{K5A_BODY}; {K5A_STACK_BODY}; the products of {K5B_BODY} and "
                        f"{K5C_BODY}"),
-    "vit_gemm_nt": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
-    "vit_gemm_tn": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
+    "vit_gemm_nt": (f"{K5B_PRODUCTS}: nt_wgmma_kernel (bound in {K5})",
+                    f"{K5B_BODY}, through it {K5C_BODY}"),
+    "vit_gemm_tn": (f"{K5B_PRODUCTS}: tn_wgmma_kernel (bound in {K5})",
+                    f"{K5B_BODY}, through it {K5C_BODY}"),
     "vit_wgrad_reduce": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
     "vit_bwd_rows": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
     "vit_dmod_reduce": (K5, f"{K5B_BODY}, through it {K5C_BODY}"),
@@ -775,6 +778,30 @@ def _hold(name, what, out, ref):
         raise PhaseError(f"{name} disagrees with its plain version: {what}")
 
 
+# gelu(a1) in f32 on the card against torch's: its tanh form cancels in the
+# far negative tail (1 + tanh -> 0), where the two differ by ~1e-7 absolute
+GELU_ATOL = 1e-6
+
+
+def _hold_rounded(name, what, got, ref, atols):
+    """Hold bf16 outputs that are f32 values rounded once (a product's side
+    outputs) against f32 values: each element within one bf16 ulp (rounding
+    to nearest moves it half an ulp) past its ``atols`` entry (how far the
+    f32 values themselves may differ), printed untimed; a disagreement
+    fails the phase at once."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for o, r, atol in zip(got, ref, atols):
+        r = r.float()
+        ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+        worst = max(worst, (((o.float() - r).abs() - atol).clamp(min=0) / ulp).max().item())
+    ok = math.isfinite(worst) and worst <= 1.0
+    print(f"  {name}, {what}: at most {worst:.3f} bf16 ulp from the f32 values "
+          f"{'ok' if ok else 'FAILED'}, untimed", flush=True)
+    if not ok:
+        raise PhaseError(f"{name}: {what} are not the plain values rounded to bf16")
+
+
 def _rand(gen, *shape, std=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * std
 
@@ -887,15 +914,29 @@ def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
                work_bound(m * h * 4 + 2 * b * h * 4 + m * h * 2, 8 * m * h, F32_FLOPS))
         del x, xs
 
+    # the attention against its plain version on the kernel's bf16
+    # multiplicands; its library call is SDPA on bf16 q, k, v (the TPU
+    # kernel's precision), and SDPA on f32 q, k, v is timed beside it
     qkv = _rand(gen, b, n, 3 * h)
     q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, 80).permute(2, 0, 3, 1, 4))
-    ker = lambda: fdb.attention(qkv, heads, 80 ** -0.5, mask)  # noqa: E731
-    pla = lambda: fdb.attention_plain(qkv, heads, 80 ** -0.5, mask)  # noqa: E731
-    lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
+    q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
+    ker = lambda m=mask: fdb.attention(qkv, heads, 80 ** -0.5, m)  # noqa: E731
+    pla = lambda m=mask: fdb.attention_plain(  # noqa: E731
+        qkv, heads, 80 ** -0.5, m, torch.bfloat16)
+    lib = lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=mask)  # noqa: E731
     a_bytes = qkv.numel() * 4 + b * n * h * 2 + (0 if mask is None else mask.numel())
     _check("vit_attention", ker(), pla(), results, ker, pla,
            work_bound(a_bytes, _attn_flops(b, heads, n, 80, mask), BF16_FLOPS), lib)
-    del qkv, q, k, v
+    f32_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    results["vit_attention"]["library_f32_ms"] = f32_ms
+    print(f"  vit_attention library calls: SDPA bf16 {time_ms(lib):.4f} ms, SDPA f32 "
+          f"{f32_ms:.4f} ms", flush=True)
+    if mask is not None:  # a row whose every key is masked gets the mean of V
+        dead = mask.clone()
+        dead[7] = False
+        _hold("vit_attention", f"({b}, {n}) with row 7 wholly masked", ker(dead), pla(dead))
+        del dead
+    del qkv, q, k, v, q16, k16, v16
 
     wl = lambda s: _rand(gen, depth, *s, std=0.05)  # noqa: E731
     va = [tokens, pos, mods, fmod, w["embed"], bias["embed"],
@@ -1054,28 +1095,50 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
                    lambda a=a, wk=wk: torch.matmul(a, wk))
         a1 = hid
         dy, da1, dattn, dqkv = (_rand(gen, m, k) for k in (h, fdim, h, 3 * h))
+        # the products read bf16 operands, as the main path gives them: the
+        # copies the row passes and the GELU-derivative product write beside
+        # their f32 outputs (K1's dqkv cast once)
+        sixteen = {id(t): t.to(bf) for t in (dy, da1, dattn, dqkv)}
+        nt_saves = [torch.empty(m, fdim, dtype=bf, device="cuda") for _ in range(4)]
         for a, w, aux in ((dy, w2, a1), (da1, w1, None), (dattn, wout, None), (dqkv, wqkv, None)):
-            wk = w.to(bf)
-            ker = lambda a=a, wk=wk, aux=aux: fdb.gemm_nt(a, wk, aux)  # noqa: E731
-            pla = lambda a=a, wk=wk, aux=aux: fdb.gemm_nt_plain(a, wk, aux)  # noqa: E731
+            wk, a16 = w.to(bf), sixteen[id(a)]
+            # the GELU-derivative product also writes bf16 da1 and gelu(a1)
+            kw_k, kw_p = ({}, {}) if aux is None else (
+                dict(save=nt_saves[0], gelu_save=nt_saves[1]),
+                dict(save=nt_saves[2], gelu_save=nt_saves[3]))
+            ker = lambda a16=a16, wk=wk, aux=aux, kw=kw_k: fdb.gemm_nt(  # noqa: E731
+                a16, wk, aux, **kw)
+            pla = lambda a16=a16, wk=wk, aux=aux, kw=kw_p: fdb.gemm_nt_plain(  # noqa: E731
+                a16, wk, aux, **kw)
+            out, ref = ker(), pla()
             nn_, kk = wk.shape
-            nbytes = (a.numel() * 4 + wk.numel() * 2 + m * nn_ * 4
-                      + (0 if aux is None else m * nn_ * 2))
-            _check("vit_gemm_nt", ker(), pla(), results, ker, pla,
+            if aux is not None:  # the saves: the f32 values rounded once
+                _hold_rounded("vit_gemm_nt", f"bf16 da1 and gelu(a1) of ({m}, {kk}) x ({kk}, "
+                              f"{nn_})", nt_saves[:2], (out, fdb._gelu(aux.float())),
+                              (0.0, GELU_ATOL))
+            nbytes = (a16.numel() * 2 + wk.numel() * 2 + m * nn_ * 4
+                      + (0 if aux is None else 3 * m * nn_ * 2))
+            _check("vit_gemm_nt", out, ref, results, ker, pla,
                    work_bound(nbytes, 2 * m * nn_ * kk, BF16_FLOPS),
-                   lambda a=a, wk=wk: torch.matmul(a.to(bf), wk.t()))
-        for a, bb, gelu in ((a1, dy, True), (hb, da1, False), (x.reshape(m, h), dattn, False),
-                            (hb, dqkv, False)):
-            ker = lambda a=a, bb=bb, gelu=gelu: fdb.weight_grad_partial(a, bb, gelu)  # noqa: E731
-            pla = lambda a=a, bb=bb, gelu=gelu: fdb.weight_grad_partial_plain(  # noqa: E731
-                a, bb, gelu)
+                   lambda a16=a16, wk=wk: torch.matmul(a16, wk.t()))
+        # dW2's A is gelu(a1) as the GELU-derivative product wrote it; the
+        # plain version forms it from a1
+        x16 = x.reshape(m, h).to(bf)
+        for ak, ap, bb, gelu in ((nt_saves[1], a1, dy, True), (hb, hb, da1, False),
+                                 (x16, x16, dattn, False), (hb, hb, dqkv, False)):
+            b16 = sixteen[id(bb)]
+            ker = lambda ak=ak, bb=bb, b16=b16: fdb.weight_grad_partial(  # noqa: E731
+                ak, bb, b16=b16)
+            pla = lambda ap=ap, bb=bb, gelu=gelu: fdb.weight_grad_partial_plain(  # noqa: E731
+                ap, bb, gelu)
             ws_k, cs_k = ker()
-            kk, nn_ = a.shape[1], bb.shape[1]
-            nbytes = (a.numel() * a.element_size() + bb.numel() * 4
-                      + (ws_k.numel() + cs_k.numel()) * 4)
+            kk, nn_ = ak.shape[1], bb.shape[1]
+            # dY once, in f32 (the bias sums need it): its bf16 copy is the
+            # port's design, not part of the function
+            nbytes = ak.numel() * 2 + bb.numel() * 4 + (ws_k.numel() + cs_k.numel()) * 4
             _check("vit_gemm_tn", (ws_k, cs_k), pla(), results, ker, pla,
                    work_bound(nbytes, 2 * m * kk * nn_, BF16_FLOPS),
-                   lambda a=a, bb=bb: torch.matmul(a.to(bf).t(), bb.to(bf)))
+                   lambda ak=ak, b16=b16: torch.matmul(ak.t(), b16))
             _check("vit_wgrad_reduce", fdb.wgrad_reduce(ws_k, cs_k),
                    fdb.wgrad_reduce_plain(ws_k, cs_k), results,
                    lambda ws_k=ws_k, cs_k=cs_k: fdb.wgrad_reduce(ws_k, cs_k),
@@ -1083,23 +1146,40 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
                    work_bound(4 * (ws_k.numel() + cs_k.numel() + kk * nn_ + nn_), ws_k.numel(),
                           F32_FLOPS),
                    lambda ws_k=ws_k, cs_k=cs_k: (ws_k.sum(0), cs_k.sum(0)))
-        del hid, dy, da1, dattn, dqkv
+            # split-K without atomics: two runs give the same dW and db bit for bit
+            runs = [fdb.wgrad_reduce(*ker()) for _ in range(2)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, v) for u, v in zip(*runs))
+            print(f"  vit_gemm_tn + vit_wgrad_reduce ({kk}, {nn_}): dW and db of two runs "
+                  f"{'equal bit for bit' if same else 'DIFFER'}", flush=True)
+            if not same:
+                raise PhaseError(f"weight_grad ({kk}, {nn_}) is not deterministic")
+            del ws_k, cs_k, runs
+        del hid, dy, da1, dattn, dqkv, sixteen, nt_saves, x16
         attn, dz = _rand(gen, b, n, h), _rand(gen, b, n, h)
         yb = _rand(gen, b, n, h).to(bf)
         part = torch.zeros(b, fdb.row_chunks(n)[0], 6, h, device="cuda")
         slots = {1: [5], 2: [2, 3, 4], 3: [0, 1]}
         dx1 = None
-        for mode, kw, nio in ((1, dict(attn=attn, g=g, y=yb), 3 * 4 + 2 + 2 * 2 + 4),
-                              (2, dict(attn=attn, g=g, dgrad=dz), 4 * 4 + 2 * 4),
+        for mode, kw, nio in ((1, dict(attn=attn, g=g, y=yb), 3 * 4 + 2 + 2 * 2 + 4 + 2),
+                              (2, dict(attn=attn, g=g, dgrad=dz), 4 * 4 + 2 * 4 + 2),
                               (3, None, 3 * 4 + 4)):
             kw = kw or dict(dgrad=dz, dx1=dx1)
-            ker = lambda mode=mode, kw=kw: fdb.bwd_rows(mode, x, mod6, part, **kw)  # noqa: E731
-            pla = lambda mode=mode, kw=kw: fdb.bwd_rows_plain(mode, x, mod6, **kw)  # noqa: E731
+            # modes 1 and 2 also write the bf16 copy of dy / dattn
+            c16 = [torch.empty(b, n, h, dtype=bf, device="cuda") for _ in range(2)] \
+                if mode < 3 else [None, None]
+            ker = lambda mode=mode, kw=kw, c=c16[0]: fdb.bwd_rows(  # noqa: E731
+                mode, x, mod6, part, copy16=c, **kw)
+            pla = lambda mode=mode, kw=kw, c=c16[1]: fdb.bwd_rows_plain(  # noqa: E731
+                mode, x, mod6, copy16=c, **kw)
             outs = ker()
             want, sums = pla()
             sl = slots[mode]
             got_sums = part.sum(1)[:, sl]
-            _check("vit_bwd_rows", (*outs, got_sums), (*want, sums[:, sl]), results, ker, pla,
+            copies = (c16[0],) if mode < 3 else ()
+            want_copies = (c16[1],) if mode < 3 else ()
+            _check("vit_bwd_rows", (*outs, *copies, got_sums),
+                   (*want, *want_copies, sums[:, sl]), results, ker, pla,
                    work_bound(m * h * nio + part[:, :, sl].numel() * 4, 20 * m * h, F32_FLOPS))
             if mode == 2:
                 dx1 = outs[0]
@@ -1773,10 +1853,10 @@ def _is_gemm(key):
 
 
 # device-time groups of a CFM and of a cINN request: (label, does a kernel
-# name belong); K2v's attention is the shared forward writing bf16
+# name belong)
 CFM_GROUPS = [
     ("K2v gemm_wgmma_kernel", lambda k: "gemm_wgmma_kernel<" in k),
-    ("K2v attention", lambda k: "fwd_kernel<" in k and "bfloat16" in k),
+    ("K2v attention", lambda k: "vit_attn_wgmma_kernel<" in k),
     ("K2v modln_kernel", lambda k: "modln_kernel" in k),
     ("K3 energy_decoder", lambda k: "energy_decoder_kernel" in k),
     ("cuBLAS products", _is_gemm),
@@ -2222,8 +2302,8 @@ def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL
 # device-time groups of a fused train step
 FUSED_TRAIN_GROUPS = [
     ("K5a gemm_wgmma_kernel", lambda k: "gemm_wgmma_kernel<" in k),
-    ("K5b gemm_nt", lambda k: "gemm_nt_kernel" in k),
-    ("K5b gemm_tn", lambda k: "gemm_tn_kernel" in k),
+    ("K5b gemm_nt", lambda k: "nt_wgmma_kernel<" in k),
+    ("K5b gemm_tn", lambda k: "tn_wgmma_kernel" in k),
     ("K5b reductions", lambda k: "wgrad_reduce_kernel" in k or "dmod_reduce_kernel" in k),
     ("K5b bwd_rows", lambda k: "bwd_rows_kernel" in k),
     ("modln", lambda k: "modln_kernel" in k),
@@ -2397,6 +2477,8 @@ def main() -> int:
     for g, res in groups.items():
         for k, r in res.items():
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+            if "library_f32_ms" in r:
+                lib += f" (SDPA f32 {r['library_f32_ms']:.4f} ms)"
             bound = "" if r["bound_ms"] == 0 else \
                 f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
             print(f"  {k} [{SHAPE_GROUPS[g]}]: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms"
@@ -2548,8 +2630,10 @@ def main() -> int:
         summary.append({
             "name": k, "route": "cuda", "source": REPLACES[k][0], "replaces": REPLACES[k][1],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "tolerance": TOL[k], "ok": main_r["ok"], **{key: main_r[key] for key in keys},
-            "shapes": {SHAPE_GROUPS[g]: {key: r[k][key] for key in keys}
+            "tolerance": TOL[k], "ok": main_r["ok"],
+            **{key: main_r[key] for key in keys + ("library_f32_ms",) if key in main_r},
+            "shapes": {SHAPE_GROUPS[g]: {key: r[k][key] for key in keys + ("library_f32_ms",)
+                                         if key in r[k]}
                        for g, r in groups.items() if g != "main" and k in r}})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

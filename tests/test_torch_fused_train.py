@@ -294,8 +294,8 @@ def test_split_and_row_chunks_cover_every_row():
     for m in (1, 31, 32, 80, 8640, 7200):
         for k, n in ((480, 480), (480, 1920), (16, 48)):
             s, chunk = tfdb._split(m, k, n)
-            assert chunk % 32 == 0 and s * chunk >= m > (s - 1) * chunk
-    assert tfdb._split(8640, 480, 480) == (9, 960)
+            assert chunk % 64 == 0 and s * chunk >= m > (s - 1) * chunk
+    assert tfdb._split(8640, 480, 480) == (11, 832)
     for n in (1, 40, 135, 450):
         s, rows = tfdb.row_chunks(n)
         assert s * rows >= n > (s - 1) * rows
@@ -343,10 +343,13 @@ def test_train_kernels_match_plain_on_cuda(cuda_device):
     dy = torch.randn(m, h, device=cuda_device)
     a1 = save_k
     w2 = ws[6].to(torch.bfloat16)
-    _scaled_close(tfdb.gemm_nt(dy, w2, aux=a1), tfdb.gemm_nt_plain(dy, w2, aux=a1), 1e-3)
+    gelu_a1 = torch.empty(m, 1920, dtype=torch.bfloat16, device=cuda_device)
+    _scaled_close(tfdb.gemm_nt(dy, w2, aux=a1, gelu_save=gelu_a1),
+                  tfdb.gemm_nt_plain(dy, w2, aux=a1), 1e-3)
     _scaled_close(tfdb.gemm_nt(dy, w2), tfdb.gemm_nt_plain(dy, w2), 1e-3)
-    for a, gelu in ((a1, True), (hb, False), (dy, False)):
-        for got, want in zip(tfdb.weight_grad(a, dy, gelu), tfdb.weight_grad_plain(a, dy, gelu)):
+    # dW2's A on the card is gelu(a1) as the GELU-derivative product wrote it
+    for a, ap, gelu in ((gelu_a1, a1, True), (hb, hb, False), (dy, dy, False)):
+        for got, want in zip(tfdb.weight_grad(a, dy), tfdb.weight_grad_plain(ap, dy, gelu)):
             _scaled_close(got, want, 1e-3)
     attn = torch.randn(b, n, h, device=cuda_device)
     y = torch.randn(b, n, h, device=cuda_device).to(torch.bfloat16)

@@ -139,10 +139,12 @@ def test_kernel_library_digest_follows_included_headers(tmp_path, monkeypatch):
     library, so a stale one is never loaded."""
     from vit4hep_tpu_torch.ops import _cuda
 
-    # K2v, K1 and K7 share the forward header; K1 and K7 reach it through the
-    # backward tiles' header; the ViT GEMM and K6's forward share the Hopper
-    # primitives, K6 reaching them through its wgmma tiles' header
-    for name, headers in (("vit_forward", ["attention_fwd.cuh", "hopper.cuh"]),
+    # K1 and K7 share the forward header, reaching it through the backward
+    # tiles' header; the ViT GEMM, K2v's attention, K5b's products and K6's
+    # forward share the Hopper primitives, K2v's attention, K5b and K6
+    # reaching them through their wgmma headers too
+    for name, headers in (("vit_forward", ["hopper.cuh", "vit_attention_wgmma.cuh"]),
+                          ("vit_backward", ["bwd_wgmma.cuh", "hopper.cuh"]),
                           ("qkv_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
                           ("flash_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
                           ("flash_qkv_attention", ["attention_mma.cuh", "attention_wgmma.cuh",

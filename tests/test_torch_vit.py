@@ -192,7 +192,8 @@ def test_vit_kernels_match_plain_on_cuda(cuda_device):
     torch.testing.assert_close(qkv, tfdb.linear_plain(h, w, bqkv[0], tfdb.EPI_BIAS),
                                atol=1e-3, rtol=1e-3)
     ctx = tfdb.attention(qkv.reshape(DS2["b"], DS2["n"], -1), 6, 80 ** -0.5)
-    _bf16_close(ctx, tfdb.attention_plain(qkv.reshape(DS2["b"], DS2["n"], -1), 6, 80 ** -0.5))
+    _bf16_close(ctx, tfdb.attention_plain(qkv.reshape(DS2["b"], DS2["n"], -1), 6, 80 ** -0.5,
+                                          mm_dtype=torch.bfloat16))
     out = tfdb.fused_vit_forward(*args, None, 6, None)
     torch.cuda.synchronize()
     ref = tfdb.vit_forward_reference(*args, None, 6, 80 ** -0.5)
@@ -224,7 +225,8 @@ def test_fused_vit_forward_edge_shapes_on_cuda(cuda_device, shape, heads):
                          ids=["ds3", "ds2-causal", "ds3-causal"])
 def test_attention_kernel_matches_plain_on_cuda(cuda_device, b, n, mask_grid):
     """K2v's streaming attention at ds3's 450 tokens (above what a resident
-    K/V fits) and with the layer-causal mask; each launch counted."""
+    K/V fits) and with the layer-causal mask, against its plain version on
+    the kernel's bf16 multiplicands; each launch counted."""
     qkv = torch.from_numpy(
         np.random.default_rng(9).normal(size=(b, n, 1440)).astype(np.float32)).to(cuda_device)
     mask = None if mask_grid is None else \
@@ -233,7 +235,7 @@ def test_attention_kernel_matches_plain_on_cuda(cuda_device, b, n, mask_grid):
     ctx = tfdb.attention(qkv, 6, 80 ** -0.5, mask)
     torch.cuda.synchronize()
     assert tfdb.ATTENTION.launches - count == 1
-    _bf16_close(ctx, tfdb.attention_plain(qkv, 6, 80 ** -0.5, mask), rel=8e-3)
+    _bf16_close(ctx, tfdb.attention_plain(qkv, 6, 80 ** -0.5, mask, torch.bfloat16), rel=8e-3)
 
 
 @pytest.mark.cuda

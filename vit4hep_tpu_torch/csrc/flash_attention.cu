@@ -68,9 +68,9 @@ k7_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const unsigned char* __restrict__ mask, float* __restrict__ out,
               float* __restrict__ lse, int H, int n, int d, float scale) {
   const size_t off = cell(sb, sh);
-  attn::fwd_tile<DP, float, HAS_MASK>(q + off, k + off, v + off, (size_t)sn, mask,
-                                      out + out_cell(H, n, d), (size_t)d,
-                                      lse + out_cell(H, n, 1), blockIdx.x * TILE, n, d, scale);
+  attn::fwd_tile<DP, HAS_MASK>(q + off, k + off, v + off, (size_t)sn, mask,
+                               out + out_cell(H, n, d), (size_t)d, lse + out_cell(H, n, 1),
+                               blockIdx.x * TILE, n, d, scale);
 }
 
 template <int DP, bool HAS_MASK>

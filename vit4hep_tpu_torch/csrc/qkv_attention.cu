@@ -16,7 +16,7 @@
 // (16..128 in steps of 16) serves every head dim up to MAX_HEAD_DIM = 128.
 //
 // Kernels (each launched by its own wrapper in ops/fused_qkv_attention.py):
-//  - attn::fwd_kernel<DP, float, HAS_MASK> (attention_fwd.cuh, shared with K2v): one
+//  - attn::fwd_kernel<DP, HAS_MASK> (attention_fwd.cuh, whose tile K7 shares): one
 //    CTA per (query tile, head, batch). Writes the merged (B, N, H*D)
 //    context and the f32 log-sum-exp (B, H, N).
 //  - bwd_delta_kernel: delta = rowsum(dO * O) per (batch, head, query), one
@@ -149,8 +149,8 @@ extern "C" int qkv_attention_fwd(const float* qkv, const unsigned char* mask, fl
                                  float* lse, int B, int n, int H, int d, float scale,
                                  void* stream) {
   if (attn::bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
-  ATTN_DISPATCH(d, attn::launch_fwd<DP, float>(qkv, mask, out, lse, B, n, H, d, scale,
-                                                static_cast<cudaStream_t>(stream)))
+  ATTN_DISPATCH(d, attn::launch_fwd<DP>(qkv, mask, out, lse, B, n, H, d, scale,
+                                         static_cast<cudaStream_t>(stream)))
 }
 
 extern "C" int qkv_attention_bwd_delta(const float* g, const float* o, float* delta, int B, int n,

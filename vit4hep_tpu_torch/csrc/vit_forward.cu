@@ -64,18 +64,19 @@
 //    products of a forward sit near the balance of bytes and operations.
 //  - modln_kernel: LayerNorm (no affine, eps 1e-6) + adaLN modulate
 //    (1 + scale) * . + shift, one warp per row, written as bf16.
-//  - attention: attn::fwd_kernel<DP, bf16> of attention_fwd.cuh, the same
-//    streaming kernel as K1's forward (64-row K/V tiles, online softmax,
-//    f32, optional shared (N, N) mask), writing the merged (B, N, H*D)
-//    context as bf16 and no log-sum-exp. Its shared memory is fixed (81,920 B
-//    at d = 80) whatever N: ds3's 450 tokens run as ds2's 135 do.
+//  - attention: vattn::vit_attn_wgmma_kernel of vit_attention_wgmma.cuh,
+//    the online-softmax attention on wgmma straight off the qkv panel (64-key
+//    K/V tiles through a cp.async ring, converted once to bf16; S and O in
+//    registers; optional shared (N, N) mask), writing the merged (B, N, H*D)
+//    context as bf16 and no log-sum-exp. Its shared memory is fixed (107,520
+//    B at d = 80) whatever N: ds3's 450 tokens run as ds2's 135 do.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
-#include "attention_fwd.cuh"
 #include "hopper.cuh"
+#include "vit_attention_wgmma.cuh"
 
 namespace {
 
@@ -402,11 +403,39 @@ extern "C" int vit_modln(const float* x, const float* shift, const float* scale,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// The attention's CTA: three warpgroups (192 query rows) up to head dim 96,
+// two (128 rows) above, where three would spill (each at its register cap
+// of 168; two take 213-223 registers at d = 112-128). On the H100 three
+// warpgroups read fastest at every serving shape measured, ds3's 450 tokens
+// (three CTAs of 192 rows a head) included: every CTA of an (element, head)
+// reads and converts that head's whole K and V, and taller CTAs do that
+// fewer times.
+template <int DP>
+cudaError_t launch_attention(const float* qkv, const unsigned char* mask, __nv_bfloat16* ctx,
+                             int B, int n, int H, int d, float scale, cudaStream_t st) {
+  return vattn::launch_as<DP, (DP <= 96 ? 3 : 2)>(qkv, mask, ctx, B, n, H, d, scale, st);
+}
+
+}  // namespace
+
 extern "C" int vit_attention(const float* qkv, const unsigned char* mask, void* ctx, int B,
                              int n_tok, int num_heads, int head_dim, float scale, void* stream) {
-  if (attn::bad_dims(B, n_tok, num_heads, head_dim)) return (int)cudaErrorInvalidValue;
-  ATTN_DISPATCH(head_dim,
-                attn::launch_fwd<DP, __nv_bfloat16>(qkv, mask, static_cast<__nv_bfloat16*>(ctx),
-                                                    nullptr, B, n_tok, num_heads, head_dim, scale,
-                                                    static_cast<cudaStream_t>(stream)))
+  if (B < 1 || n_tok < 1 || num_heads < 1 || head_dim < 1 || head_dim > 128 || B > 65535 ||
+      num_heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(ctx);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((head_dim + 15) / 16) {
+#define VIT_ATTN_CASE(k)                                                                    \
+  case k:                                                                                   \
+    return (int)launch_attention<16 * k>(qkv, mask, out, B, n_tok, num_heads, head_dim,     \
+                                         scale, st);
+    VIT_ATTN_CASE(1) VIT_ATTN_CASE(2) VIT_ATTN_CASE(3) VIT_ATTN_CASE(4)
+    VIT_ATTN_CASE(5) VIT_ATTN_CASE(6) VIT_ATTN_CASE(7) VIT_ATTN_CASE(8)
+#undef VIT_ATTN_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

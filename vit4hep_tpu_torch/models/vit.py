@@ -25,9 +25,9 @@ K2b (``fused_dit_block``), whose backward is K5c. When training, the
 kernels take the f32 weights (``lin.weight.t()``), so that gradients reach
 the parameters; they cast to bf16 inside. The per-block adaLN products
 stay plain PyTorch, as they sit outside the Pallas kernels in JAX. On the
-card this tier trains slower than the composed path for now (about 20%
-fewer steps per second at ds2, PERF.md §5): where speed matters, train
-with ``fused_block: false`` or ``"sample"``.
+card this tier now trains faster than the composed path at ds2: 37.8-44.6
+against 25.9-26.2 steps per second (step interior, batch 64; PERF.md §5),
+its step then held by the host (about half of it idle on the card).
 ``causal_attn: true`` (the reference's layer-causal ViT) reaches the masked
 kernels on every path. The (T, T) mask is built once, as a non-persistent
 buffer that follows the net to its device (the state dict does not

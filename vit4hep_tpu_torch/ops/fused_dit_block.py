@@ -18,14 +18,18 @@ its own wrapper, launch counter and plain version:
   training forward's and backward's (K5a-c);
 - :func:`modln`: LayerNorm (no affine, eps 1e-6) + adaLN modulation to bf16;
 - :func:`attention`: softmax(q k^T * scale) v per (batch, head) from the
-  native (B, N, 3*H*D) qkv panel, bf16 context; K1's forward kernel
-  (``csrc/attention_fwd.cuh``) counted under its own :data:`ATTENTION`;
+  native (B, N, 3*H*D) qkv panel, bf16 context, on wgmma
+  (``csrc/vit_attention_wgmma.cuh``), counted under :data:`ATTENTION`;
 - :func:`gemm_nt`: activation gradients ``dY @ W^T`` (optionally times
-  ``gelu'(a1)``); :func:`weight_grad`: ``A^T @ dY`` over all rows, split
-  over the rows with a deterministic second pass, with the bias gradient
-  as column sums; :func:`bwd_rows`: the LayerNorm/adaLN forward and
-  backward rows of the block gradient with their per-element reductions;
-  :func:`dmod_reduce`: the adaLN gradients ``(B, 6, H)`` from those.
+  ``gelu'(a1)``, writing bf16 da1 and gelu(a1) beside it);
+  :func:`weight_grad`: ``A^T @ dY`` over all rows, split over the rows
+  with a deterministic second pass, with the bias gradient as the column
+  sums of the f32 dY; both on wgmma with TMA (``csrc/bwd_wgmma.cuh``), on
+  bf16 operands that :func:`nt_plan` / :func:`tn_plan` prepare;
+  :func:`bwd_rows`: the LayerNorm/adaLN forward and backward rows of the
+  block gradient with their per-element reductions (and bf16 copies of dy
+  and dattn for the products); :func:`dmod_reduce`: the adaLN gradients
+  ``(B, 6, H)`` from those.
 
 The functions of the tier, in JAX's names:
 
@@ -67,6 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from vit4hep_tpu_torch.ops import _cuda
+from vit4hep_tpu_torch.ops import flash_qkv_attention as ffa
 from vit4hep_tpu_torch.ops import fused_qkv_attention as fqa
 from vit4hep_tpu_torch.ops.attention import qkv_attention
 from vit4hep_tpu_torch.ops.fused_qkv_attention import check_kernel_args, mask_arg
@@ -80,10 +85,10 @@ _SIGNATURES = {
     "vit_attention": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 _BWD_SIGNATURES = {
-    "vit_gemm_nt": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "vit_gemm_tn": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vit_wgrad_reduce": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "vit_bwd_rows": [_I] + [_P] * 13 + [_I] * 5 + [_F, _P],
+    "vit_gemm_nt": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "vit_gemm_tn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vit_wgrad_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vit_bwd_rows": [_I] + [_P] * 14 + [_I] * 5 + [_F, _P],
     "vit_dmod_reduce": [_P, _P, _I, _I, _I, _P],
 }
 
@@ -97,9 +102,10 @@ WGRAD_REDUCE = _cuda.LaunchCounter("vit_wgrad_reduce")
 BWD_ROWS = _cuda.LaunchCounter("vit_bwd_rows")
 DMOD_REDUCE = _cuda.LaunchCounter("vit_dmod_reduce")
 
-# weight_grad's split over rows: enough CTAs for 4 per SM of an H100 (132 SMs)
-_SPLIT_CTAS = 4 * 132
-_TILE, _TILE_K = 64, 32
+# weight_grad's tiles (csrc/bwd_wgmma.cuh): 128 x 160 over chunks of whole
+# 64-row steps; one persistent CTA on each of an H100's 132 SMs
+_TN_ROWS, _TN_COLS, _STEP = 128, 160, 64
+_SMS = 132
 
 
 def _lib():
@@ -395,15 +401,29 @@ def modln_plain(x, shift, scale, n_tok):
     return (_ln(x) * (1.0 + rows(scale)) + rows(shift)).to(torch.bfloat16)
 
 
-def attention_plain(qkv, num_heads, scale, mask=None):
-    """Plain version of :func:`attention`."""
-    return qkv_attention(qkv, num_heads, mask, impl="xla", scale=scale).to(torch.bfloat16)
+def attention_plain(qkv, num_heads, scale, mask=None, mm_dtype=torch.float32):
+    """Plain version of :func:`attention`: in f32 (against JAX on the CPU),
+    or with ``mm_dtype`` bfloat16 the kernel's own arithmetic (bf16 q, k, v
+    and p over 64-key tiles with an online softmax, f32 statistics: K6's
+    plain forward, :func:`flash_qkv_attention.flash_fwd_plain`)."""
+    if mm_dtype == torch.float32:
+        out = qkv_attention(qkv, num_heads, mask, impl="xla", scale=scale)
+    else:
+        out = ffa.flash_fwd_plain(qkv.float(), num_heads, scale, mask, mm_dtype)[0]
+    return out.to(torch.bfloat16)
 
 
-def gemm_nt_plain(a, w, aux=None):
-    """Plain version of :func:`gemm_nt`."""
+def gemm_nt_plain(a, w, aux=None, save=None, gelu_save=None):
+    """Plain version of :func:`gemm_nt` (``save`` and ``gelu_save``, when
+    given, receive bf16(out) and bf16(gelu(aux)))."""
     y = a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().t()
-    return y if aux is None else y * _gelu_grad(aux.float())
+    if aux is not None:
+        y = y * _gelu_grad(aux.float())
+        if gelu_save is not None:
+            gelu_save.copy_(_gelu(aux.float()))
+    if save is not None:
+        save.copy_(y)
+    return y
 
 
 def weight_grad_plain(a, b, gelu=False):
@@ -412,12 +432,27 @@ def weight_grad_plain(a, b, gelu=False):
     return _mm(a.t(), b, torch.bfloat16), b.float().sum(0)
 
 
-def weight_grad_partial_plain(a, b, gelu=False):
-    """Plain version of :func:`weight_grad_partial`."""
-    s, chunk = _split(a.shape[0], a.shape[1], b.shape[1])
-    parts = [weight_grad_plain(a[i * chunk:(i + 1) * chunk], b[i * chunk:(i + 1) * chunk], gelu)
-             for i in range(s)]
-    return torch.stack([w for w, _ in parts]), torch.stack([c for _, c in parts])
+def column_parts(rows, k):
+    """The row ranges of one chunk's ``rows`` (a range) whose column sums
+    :func:`weight_grad_partial` keeps apart: R = ceil(k / 128) parts (one per
+    row tile of its (k, n) output), of ceil(len / R) rows each, the last ones
+    short or empty."""
+    r = _cdiv(k, _TN_ROWS)
+    sub = _cdiv(len(rows), r)
+    return [rows[min(i * sub, len(rows)):(i + 1) * sub] for i in range(r)]
+
+
+def weight_grad_partial_plain(a, b, gelu=False, b16=None):
+    """Plain version of :func:`weight_grad_partial` (``b16``, bf16(b), is
+    what the products round b to either way)."""
+    m, k = a.shape
+    s, chunk = _split(m, k, b.shape[1])
+    ws, cs = [], []
+    for i in range(s):
+        rows = range(i * chunk, min(m, (i + 1) * chunk))
+        ws.append(weight_grad_plain(a[rows.start:rows.stop], b[rows.start:rows.stop], gelu)[0])
+        cs += [b[part.start:part.stop].float().sum(0) for part in column_parts(rows, k)]
+    return torch.stack(ws), torch.stack(cs)
 
 
 def wgrad_reduce_plain(ws, cs):
@@ -425,9 +460,10 @@ def wgrad_reduce_plain(ws, cs):
     return ws.sum(0), cs.sum(0)
 
 
-def bwd_rows_plain(mode, x, mod6, attn=None, g=None, y=None, dgrad=None, dx1=None):
+def bwd_rows_plain(mode, x, mod6, attn=None, g=None, y=None, dgrad=None, dx1=None, copy16=None):
     """Plain version of :func:`bwd_rows`: (its outputs, the (B, 6, H) sums
-    over each element's rows in the mode's dmod slots, 0 elsewhere)."""
+    over each element's rows in the mode's dmod slots, 0 elsewhere);
+    ``copy16``, when given, receives bf16 of mode 1's dy or mode 2's dattn."""
     m = lambda k: mod6[:, k:k + 1]  # noqa: E731
     sums = torch.zeros_like(mod6)
     if mode == 1:
@@ -435,6 +471,8 @@ def bwd_rows_plain(mode, x, mod6, attn=None, g=None, y=None, dgrad=None, dx1=Non
         outs = ((_ln(x) * (1.0 + m(1)) + m(0)).to(torch.bfloat16),
                 (_ln(x1) * (1.0 + m(4)) + m(3)).to(torch.bfloat16), g * m(5))
         sums[:, 5] = (g * y.float()).sum(1)
+        if copy16 is not None:
+            copy16.copy_(outs[2])
         return outs, sums
     z, ks, up = (x + m(2) * attn, 4, g) if mode == 2 else (x, 1, dx1)
     u, inv = _ln_stats(z)
@@ -444,6 +482,8 @@ def bwd_rows_plain(mode, x, mod6, attn=None, g=None, y=None, dgrad=None, dx1=Non
     if mode == 3:
         return (d,), sums
     sums[:, 2] = (d * attn).sum(1)
+    if copy16 is not None:
+        copy16.copy_(d * m(2))
     return (d, d * m(2)), sums
 
 
@@ -623,7 +663,11 @@ def modln(x, shift, scale, n_tok):
 
 def attention(qkv, num_heads, scale, mask=None):
     """Merged (B, N, H*D) bf16 context from the (B, N, 3*H*D) f32 qkv panel;
-    ``mask`` an optional shared (N, N) bool on qkv's device, True = attend."""
+    ``mask`` an optional shared (N, N) bool on qkv's device, True = attend.
+    The kernel (``vit_attn_wgmma_kernel``, csrc/vit_attention_wgmma.cuh)
+    takes bf16 multiplicands with f32 statistics and accumulation, as the
+    TPU kernel; its plain version is :func:`attention_plain` with
+    ``mm_dtype`` bfloat16."""
     _cuda.require_cuda("attention", qkv)
     b, n, d = check_kernel_args("attention", qkv, num_heads)
     mask, mask_ptr = mask_arg("attention", mask, n, qkv.device)
@@ -635,88 +679,155 @@ def attention(qkv, num_heads, scale, mask=None):
     return out
 
 
-def gemm_nt(a, w, aux=None):
-    """``a @ w^T`` over all rows: a (M, K) f32, w (N, K) bf16 (a Dense
-    weight (in = N, out = K)); (M, N) f32, times ``gelu'(aux)`` when ``aux``
-    (the pre-GELU a1 (M, N), bf16 or f32) is given."""
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _pad_cols(t, width):
+    return t if t.shape[1] == width else F.pad(t, (0, width - t.shape[1]))
+
+
+def nt_plan(name, a, w, aux=None, save=None, gelu_save=None):
+    """Check gemm_nt's arguments on any device and prepare its TMA operands:
+    returns (a, w, aux kind) with A (M, K) in bf16 (an f32 A cast once,
+    rounding to nearest even as :func:`gemm_nt_plain` does) and W (N, K)
+    bf16, both zero-padded to K8 = K rounded up to 8 columns so that every
+    row is a multiple of 16 bytes (the product is unchanged), contiguous;
+    the aux kind 0 (none), 1 (bf16 a1) or 2 (f32 a1). Raises ValueError on dtypes, shapes that do not chain,
+    side outputs that are not (M, N) bf16 (``gelu_save`` needs ``aux``), or
+    operands that are not 16-byte aligned."""
+    if a.ndim != 2 or a.dtype not in (torch.float32, torch.bfloat16) or not a.is_contiguous():
+        raise ValueError(f"{name}: A must be a contiguous float32 or bfloat16 matrix, got "
+                         f"{a.dtype} {tuple(a.shape)}")
     m, k = a.shape
+    if w.dtype != torch.bfloat16 or w.ndim != 2 or w.shape[1] != k or w.device != a.device:
+        raise ValueError(f"{name}: a {tuple(a.shape)} and w {w.dtype} {tuple(w.shape)} on "
+                         f"{w.device} do not chain (w must be bfloat16 (N, K) on A's device)")
     n = w.shape[0]
-    _cuda.require_cuda("gemm_nt", a)
-    _cuda.require_cuda("gemm_nt", w, dtype=torch.bfloat16)
-    if w.shape[1] != k:
-        raise ValueError(f"gemm_nt: a {tuple(a.shape)} and w {tuple(w.shape)} do not chain")
     kind = 0
     if aux is not None:
         if aux.dtype not in (torch.bfloat16, torch.float32):
-            raise ValueError(f"gemm_nt: aux must be bfloat16 or float32, got {aux.dtype}")
-        _check_out("gemm_nt aux", aux, (m, n), aux.dtype)
+            raise ValueError(f"{name}: aux must be bfloat16 or float32, got {aux.dtype}")
+        _check_out(f"{name} aux", aux, (m, n), aux.dtype, a.device)
         kind = 1 if aux.dtype == torch.bfloat16 else 2
+    elif gelu_save is not None:
+        raise ValueError(f"{name}: gelu_save needs aux (the pre-GELU a1)")
+    for what, t in (("save", save), ("gelu_save", gelu_save)):
+        if t is not None:
+            _check_out(f"{name} {what}", t, (m, n), torch.bfloat16, a.device)
+    k8 = _cdiv(k, 8) * 8
+    a, w = (_pad_cols(t.to(torch.bfloat16), k8).contiguous() for t in (a, w))
+    _aligned(name, "A", a, 16)
+    _aligned(name, "W", w, 16)
+    return a, w, kind
+
+
+def gemm_nt(a, w, aux=None, save=None, gelu_save=None):
+    """``a @ w^T`` over all rows: a (M, K) f32 or bf16, w (N, K) bf16 (a
+    Dense weight (in = N, out = K)); (M, N) f32, times ``gelu'(aux)`` when
+    ``aux`` (the pre-GELU a1 (M, N), bf16 or f32) is given. ``save`` (M, N)
+    bf16 receives bf16 of the output and ``gelu_save`` (M, N) bf16
+    bf16(gelu(aux)), from the kernel's registers. The kernel reads its
+    operands by TMA (:func:`nt_plan`)."""
+    _cuda.require_cuda("gemm_nt", a, dtype=a.dtype)
+    a16, w16, kind = nt_plan("gemm_nt", a, w, aux, save, gelu_save)
+    m, k = a.shape
+    n = w.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    code = _bwd_lib().vit_gemm_nt(a.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  None if aux is None else aux.data_ptr(), kind, m, n, k,
-                                  _cuda.stream())
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    code = _bwd_lib().vit_gemm_nt(a16.data_ptr(), w16.data_ptr(), out.data_ptr(), ptr(aux), kind,
+                                  ptr(save), ptr(gelu_save), m, n, k, _cuda.stream())
     _cuda.check(code, "vit_gemm_nt")
     GEMM_NT.add()
     return out
 
 
-def _cdiv(a, b):
-    return -(-a // b)
-
-
 def _split(m, k, n):
-    """(S, rows per chunk) of weight_grad's split over m rows: enough CTAs
-    to fill the card at a (k, n) output, chunks a multiple of 32 rows."""
-    s = max(1, min(_cdiv(m, _TILE_K), _cdiv(_SPLIT_CTAS, _cdiv(k, _TILE) * _cdiv(n, _TILE))))
-    chunk = _cdiv(_cdiv(m, s), _TILE_K) * _TILE_K
+    """(S, rows per chunk) of weight_grad's split of the m rows: chunks of
+    whole 64-row steps, S the number of times the 128 x 160 output tiles of
+    (k, n) fit on the 132 SMs (1 to 16)."""
+    s = max(1, min(16, _SMS // (_cdiv(k, _TN_ROWS) * _cdiv(n, _TN_COLS))))
+    chunk = _cdiv(_cdiv(m, s), _STEP) * _STEP
     return _cdiv(m, chunk), chunk
 
 
-def weight_grad_partial(a, b, gelu=False):
-    """The partial products of :func:`weight_grad`: (ws (S, K, N), cs (S,
-    N)), chunk s holding a^T @ b and the column sums of b over rows
-    [s * chunk, (s + 1) * chunk) (S and chunk from :func:`_split`)."""
+def tn_plan(name, a, b, b16=None, gelu=False):
+    """Check weight_grad's arguments on any device and prepare its TMA
+    operands: returns (a, b16, S, chunk) with A (M, K) in bf16 (an f32 A
+    cast once) zero-padded to K8 columns and the bf16 copy of b (M, N) (cast
+    once unless ``b16`` gives it) zero-padded to N8, both contiguous; S and
+    chunk from :func:`_split`. b itself stays f32: its column sums are the
+    bias gradient. Raises ValueError on dtypes and shapes, and on ``gelu``:
+    the product reads gelu(a1) as the bf16 operand that gemm_nt's
+    ``gelu_save`` writes."""
+    if gelu:
+        raise ValueError(f"{name}: the card's product takes gelu(a1) formed once, as "
+                         "gemm_nt's gelu_save writes it: pass that with gelu=False")
+    if a.ndim != 2 or a.dtype not in (torch.float32, torch.bfloat16) or not a.is_contiguous():
+        raise ValueError(f"{name}: a must be a contiguous float32 or bfloat16 matrix, got "
+                         f"{a.dtype} {tuple(a.shape)}")
     m, k = a.shape
+    if b.ndim != 2 or b.dtype != torch.float32 or not b.is_contiguous() or b.shape[0] != m \
+            or b.device != a.device:
+        raise ValueError(f"{name}: b must be a contiguous float32 ({m}, N) on a's device, got "
+                         f"{b.dtype} {tuple(b.shape)} on {b.device}")
     n = b.shape[1]
-    if a.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"weight_grad: a must be float32 or bfloat16, got {a.dtype}")
+    if b16 is None:
+        b16 = b.to(torch.bfloat16)
+    elif b16.dtype != torch.bfloat16 or tuple(b16.shape) != (m, n) or b16.device != a.device:
+        raise ValueError(f"{name}: b16 must be the bfloat16 ({m}, {n}) copy of b, got "
+                         f"{b16.dtype} {tuple(b16.shape)}")
+    a = _pad_cols(a.to(torch.bfloat16), _cdiv(k, 8) * 8).contiguous()
+    b16 = _pad_cols(b16, _cdiv(n, 8) * 8).contiguous()
+    _aligned(name, "A", a, 16)
+    _aligned(name, "b16", b16, 16)
+    return (a, b16, *_split(m, k, n))
+
+
+def weight_grad_partial(a, b, gelu=False, b16=None):
+    """The partial products of :func:`weight_grad`: (ws (S, K, N), cs (S *
+    R, N)), ws[s] holding a^T @ b over rows [s * chunk, (s + 1) * chunk)
+    (S and chunk from :func:`_split`) and cs the column sums of the f32 b
+    over each chunk's R = ceil(K / 128) parts (:func:`column_parts`).
+    ``b16`` may give bf16(b), which the product reads (:func:`tn_plan`)."""
     _cuda.require_cuda("weight_grad", a, dtype=a.dtype)
     _cuda.require_cuda("weight_grad", b)
-    if b.shape[0] != m:
-        raise ValueError(f"weight_grad: a {tuple(a.shape)} and b {tuple(b.shape)} differ in rows")
-    s, chunk = _split(m, k, n)
+    a16, b16, s, chunk = tn_plan("weight_grad", a, b, b16, gelu)
+    m, k = a.shape
+    n = b.shape[1]
     ws = torch.empty((s, k, n), dtype=torch.float32, device=a.device)
-    cs = torch.empty((s, n), dtype=torch.float32, device=a.device)
-    kind = int(a.dtype == torch.bfloat16) + 2 * int(gelu)
-    code = _bwd_lib().vit_gemm_tn(a.data_ptr(), kind, b.data_ptr(), ws.data_ptr(), cs.data_ptr(),
-                                  m, k, n, s, chunk, _cuda.stream())
+    cs = torch.empty((s * _cdiv(k, _TN_ROWS), n), dtype=torch.float32, device=a.device)
+    code = _bwd_lib().vit_gemm_tn(a16.data_ptr(), b16.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                                  cs.data_ptr(), m, k, n, s, chunk, _cuda.stream())
     _cuda.check(code, "vit_gemm_tn")
     GEMM_TN.add()
     return ws, cs
 
 
 def wgrad_reduce(ws, cs):
-    """(ws.sum(0) (K, N), cs.sum(0) (N,)), summed over the S chunks in
+    """(ws.sum(0) (K, N), cs.sum(0) (N,)), each summed over its partials in
     order: deterministic, no atomics."""
     _cuda.require_cuda("wgrad_reduce", ws, cs)
     s, k, n = ws.shape
-    if tuple(cs.shape) != (s, n):
+    if cs.ndim != 2 or cs.shape[1] != n:
         raise ValueError(f"wgrad_reduce: ws {tuple(ws.shape)} and cs {tuple(cs.shape)}")
     dw = torch.empty((k, n), dtype=torch.float32, device=ws.device)
     db = torch.empty((n,), dtype=torch.float32, device=ws.device)
     code = _bwd_lib().vit_wgrad_reduce(ws.data_ptr(), cs.data_ptr(), dw.data_ptr(),
-                                       db.data_ptr(), s, k, n, _cuda.stream())
+                                       db.data_ptr(), s, cs.shape[0], k, n, _cuda.stream())
     _cuda.check(code, "vit_wgrad_reduce")
     WGRAD_REDUCE.add()
     return dw, db
 
 
-def weight_grad(a, b, gelu=False):
+def weight_grad(a, b, gelu=False, b16=None):
     """(a^T @ b (K, N) f32, the column sums of b (N,) f32) over the M rows
-    of a (M, K) (f32 or bf16; gelu(a) with ``gelu``) and b (M, N) f32: the
-    weight and bias gradients of a Dense layer, as :func:`weight_grad_partial`
-    over row chunks and :func:`wgrad_reduce` of the chunks."""
-    return wgrad_reduce(*weight_grad_partial(a, b, gelu))
+    of a (M, K) (f32 or bf16; ``gelu`` raises: dW2 takes gelu(a1) as
+    gemm_nt's ``gelu_save`` writes it) and b (M, N) f32: the weight and
+    bias gradients of a Dense layer, as
+    :func:`weight_grad_partial` over row chunks and :func:`wgrad_reduce` of
+    the chunks."""
+    return wgrad_reduce(*weight_grad_partial(a, b, gelu, b16))
 
 
 def row_chunks(n):
@@ -725,13 +836,16 @@ def row_chunks(n):
     return s, _cdiv(n, s)
 
 
-def bwd_rows(mode, x, mod6, part, attn=None, g=None, y=None, dgrad=None, dx1=None):
+def bwd_rows(mode, x, mod6, part, attn=None, g=None, y=None, dgrad=None, dx1=None,
+             copy16=None):
     """One pass of the block gradient's rows; x and every (B, N, H) input
     f32 contiguous (y bf16), mod6 (B, 6, H) f32 contiguous, ``part`` (B, S,
     6, H) f32 (S from :func:`row_chunks`) receiving the per-chunk sums of
     the mode's adaLN gradients. Mode 1 (attn, g, y): (h, h2) bf16 and dy =
     g * gate_mlp, sums dmod5. Mode 2 (attn, g, dgrad = dh2): dx1, dattn,
-    sums dmod2-4. Mode 3 (dgrad = dh, dx1): (dx,), sums dmod0-1."""
+    sums dmod2-4. Mode 3 (dgrad = dh, dx1): (dx,), sums dmod0-1. ``copy16``,
+    a contiguous (B, N, H) bf16 buffer, receives bf16 of mode 1's dy or
+    mode 2's dattn (the copy the products read by TMA)."""
     b, n, hdim = x.shape
     s, rows = row_chunks(n)
     ins = {1: (attn, g, y), 2: (attn, g, dgrad), 3: (dgrad, dx1)}[mode]
@@ -745,6 +859,10 @@ def bwd_rows(mode, x, mod6, part, attn=None, g=None, y=None, dgrad=None, dx1=Non
                          f"x {tuple(x.shape)}")
     if mode == 1 and y.dtype != torch.bfloat16:
         raise ValueError("bwd_rows: y must be bfloat16")
+    if copy16 is not None:
+        if mode == 3:
+            raise ValueError("bwd_rows: mode 3 writes no bf16 copy")
+        _check_out("bwd_rows copy16", copy16, (b, n, hdim), torch.bfloat16, x.device)
     new = lambda dt: torch.empty((b, n, hdim), dtype=dt, device=x.device)  # noqa: E731
     outs = {1: (new(torch.bfloat16), new(torch.bfloat16), new(torch.float32)),
             2: (new(torch.float32), new(torch.float32)), 3: (new(torch.float32),)}[mode]
@@ -753,7 +871,7 @@ def bwd_rows(mode, x, mod6, part, attn=None, g=None, y=None, dgrad=None, dx1=Non
     out0 = None if mode == 1 else outs[0]
     code = _bwd_lib().vit_bwd_rows(
         mode, x.data_ptr(), ptr(attn), ptr(g), ptr(y), ptr(dgrad), ptr(dx1), mod6.data_ptr(),
-        ptr(h), ptr(h2), ptr(dy), ptr(out0), ptr(outs[1]) if mode == 2 else None,
+        ptr(h), ptr(h2), ptr(dy), ptr(out0), ptr(outs[1]) if mode == 2 else None, ptr(copy16),
         part.data_ptr(), b, n, hdim, s, rows, _LN_EPS, _cuda.stream())
     _cuda.check(code, "vit_bwd_rows")
     BWD_ROWS.add()
@@ -840,30 +958,43 @@ def _block_res_buffers(b, n, hdim, fdim, num_heads, device, depth=None, save_a1=
 def _block_bwd_res_kernel(xin, qkv, ctx, a1, y, mod6, wqkv, wout, bout, w1, b1, w2, g, mask,
                           num_heads, scale, lse):
     """K5b on the card: xin, qkv, ctx, g f32 and mod6 f32 contiguous; a1
-    bf16/f32 or None; y bf16; weights bf16; lse (B, heads, N) or None."""
+    bf16/f32 or None; y bf16; weights bf16; lse (B, heads, N) or None. The
+    products read bf16 operands by TMA: the row passes write bf16 copies of
+    dy and dattn beside them, the GELU-derivative product bf16 da1 and
+    gelu(a1), and ctx and K1's dqkv are cast once."""
     b, n, hdim = xin.shape
     m = b * n
+    bf = torch.bfloat16
     rows = lambda t: t.reshape(m, -1)  # noqa: E731
-    attn = train_linear(rows(ctx), wout, bout, EPI_BIAS, n_tok=n)
+    new16 = lambda width: torch.empty((m, width), dtype=bf, device=xin.device)  # noqa: E731
+    ctx16 = rows(ctx).to(bf)  # the out-projection's A, then dWout's
+    attn = train_linear(ctx16, wout, bout, EPI_BIAS, n_tok=n)
     part = torch.empty((b, row_chunks(n)[0], 6, hdim), dtype=torch.float32, device=xin.device)
-    h, h2, dy = bwd_rows(1, xin, mod6, part, attn=attn.view(b, n, hdim), g=g, y=y)
+    dy16 = new16(hdim)
+    h, h2, dy = bwd_rows(1, xin, mod6, part, attn=attn.view(b, n, hdim), g=g, y=y,
+                         copy16=dy16.view(b, n, hdim))
     if a1 is None:  # the no-a1 tier: one h2 @ w1 product, f32 as JAX recomputes it
         a1 = train_linear(rows(h2), w1, b1, EPI_BIAS, n_tok=n)
     a1 = rows(a1)
-    da1 = gemm_nt(rows(dy), w2, aux=a1)
-    dw2, db2 = weight_grad(a1, rows(dy), gelu=True)
-    dh2 = gemm_nt(da1, w1)
-    dw1, db1 = weight_grad(rows(h2), da1)
-    del da1
+    da1_16, gelu16 = new16(a1.shape[1]), new16(a1.shape[1])
+    da1 = gemm_nt(dy16, w2, aux=a1, save=da1_16, gelu_save=gelu16)
+    dw2, db2 = weight_grad(gelu16, rows(dy), b16=dy16)
+    del gelu16, dy16
+    dh2 = gemm_nt(da1_16, w1)
+    dw1, db1 = weight_grad(rows(h2), da1, b16=da1_16)
+    del da1, da1_16
+    dattn16 = new16(hdim)
     dx1, dattn = bwd_rows(2, xin, mod6, part, attn=attn.view(b, n, hdim), g=g,
-                          dgrad=dh2.view(b, n, hdim))
-    dctx = gemm_nt(rows(dattn), wout)
-    dwout, dbout = weight_grad(rows(ctx), rows(dattn))
+                          dgrad=dh2.view(b, n, hdim), copy16=dattn16.view(b, n, hdim))
+    dctx = gemm_nt(dattn16, wout)
+    dwout, dbout = weight_grad(ctx16, rows(dattn), b16=dattn16)
+    del dattn16, ctx16
     if lse is None:
         _, lse = fqa.attention_fwd_kernel(qkv, num_heads, scale, mask)
     dqkv = fqa.attention_bwd_kernel(qkv, dctx.view(b, n, hdim), ctx, lse, num_heads, scale, mask)
-    dh = gemm_nt(rows(dqkv), wqkv)
-    dwqkv, dbqkv = weight_grad(rows(h), rows(dqkv))
+    dqkv16 = rows(dqkv).to(bf)  # K1's backward writes dqkv in f32, in two passes
+    dh = gemm_nt(dqkv16, wqkv)
+    dwqkv, dbqkv = weight_grad(rows(h), rows(dqkv), b16=dqkv16)
     (dx,) = bwd_rows(3, xin, mod6, part, dgrad=dh.view(b, n, hdim), dx1=dx1)
     return (dx, dmod_reduce(part), dwqkv, dbqkv, dwout, dbout, dw1, db1, dw2, db2)
 

@@ -122,14 +122,24 @@ def delta_plain(g, out, num_heads):
 # ---------------------------------------------------------------------------
 def check_kernel_args(name, qkv, num_heads):
     """(B, N, head_dim) of a (B, N, 3*H*D) qkv panel the kernels take;
-    raises on a width that is not 3 * H * D, a head dim above
-    MAX_HEAD_DIM, or a batch or head count above the grid's 65535."""
+    raises ValueError on a width that is not 3 * H * D or a batch or head
+    count above the grid's 65535, and NotImplementedError on a head dim
+    above MAX_HEAD_DIM (not ported yet: :func:`head_dim_not_ported`)."""
     b, n, d = _dims(qkv, num_heads)
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {d} above the kernel's maximum {MAX_HEAD_DIM}")
+    head_dim_not_ported(name, d)
     if b > 65535 or num_heads > 65535:
         raise ValueError(f"{name}: batch {b} or {num_heads} heads above the grid's 65535")
     return b, n, d
+
+
+def head_dim_not_ported(name, d):
+    """Raise NotImplementedError for a head dim the kernels do not take yet:
+    they are instantiated up to MAX_HEAD_DIM (128), while JAX's kernels take
+    any head dim (ROADMAP.md, queue 2: head dims 129-256)."""
+    if d > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: head_dim {d} above {MAX_HEAD_DIM} is not ported to the card's kernels yet "
+            "(ROADMAP.md, queue 2: head dims 129-256)")
 
 
 def mask_arg(name, mask, n, device):

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from vit4hep_tpu_torch.ops import _cuda
-from vit4hep_tpu_torch.ops.fused_qkv_attention import MAX_HEAD_DIM, mask_arg
+from vit4hep_tpu_torch.ops.fused_qkv_attention import head_dim_not_ported, mask_arg
 
 _NEG_INF = -1e30
 _P, _I, _LL, _F = _cuda.P, _cuda.I, _cuda.LL, _cuda.F
@@ -102,9 +102,9 @@ def kernel_qkv_args(name, q, k, v, mask):
     """(B, H, N, D, the shared strides of q, k, v, the mask's uint8 view
     and pointer) for a launch; raises on what the kernels do not take."""
     b, h, n, d = check_shapes(name, q, k, v, mask)
-    if d > MAX_HEAD_DIM or b > 65535 or h > 65535:
-        raise ValueError(f"{name}: head_dim {d} (max {MAX_HEAD_DIM}), batch {b} or {h} heads "
-                         "(max 65535) out of the kernels' range")
+    head_dim_not_ported(name, d)
+    if b > 65535 or h > 65535:
+        raise ValueError(f"{name}: batch {b} or {h} heads (max 65535) out of the kernels' range")
     strides = kernel_strides(name, q)
     if kernel_strides(name, k) != strides or kernel_strides(name, v) != strides or \
             not (q.device == k.device == v.device):
