@@ -496,6 +496,7 @@ K5C_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1204 (fused_dit_block_bwd, call :
 K2B_BODY = "vit4hep_tpu/ops/fused_dit_block.py:1636 (fused_dit_block, call :1686)"
 K8 = "vit4hep_tpu_torch/csrc/vmem_wgmma.cuh (bound in vit4hep_tpu_torch/csrc/vmem_attention.cu)"
 K6 = "vit4hep_tpu_torch/csrc/flash_qkv_attention.cu"
+K6_BWD = "vit4hep_tpu_torch/csrc/flash_bwd_wgmma.cuh"
 K9 = ("vit4hep_tpu_torch/csrc/vit_forward.cu (modln_kernel, gemm_wgmma_kernel; chained in "
       "vit4hep_tpu_torch/ops/fused_mlp.py)")
 K9_BODY = "vit4hep_tpu/ops/fused_mlp.py:51 (_kernel, call :114)"
@@ -517,7 +518,7 @@ REPLACES = {
     "vit_attention": ("vit4hep_tpu_torch/csrc/vit_attention_wgmma.cuh: vit_attn_wgmma_kernel "
                       "(bound in vit4hep_tpu_torch/csrc/vit_forward.cu)",
                       f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
-    "qkv_attn_fwd": ("vit4hep_tpu_torch/csrc/attention_fwd.cuh (bound in "
+    "qkv_attn_fwd": ("vit4hep_tpu_torch/csrc/qkv_fwd_tf32.cuh: qkv_fwd_tf32_kernel (bound in "
                      "vit4hep_tpu_torch/csrc/qkv_attention.cu)",
                      "vit4hep_tpu/ops/fused_qkv_attention.py:58, :65, :94 and :156"),
     "qkv_attn_bwd_delta": (K1, K1_BWD_BODIES),
@@ -546,9 +547,9 @@ REPLACES = {
     "flash_qkv_fwd": ("vit4hep_tpu_torch/csrc/attention_wgmma.cuh (bound in "
                       "vit4hep_tpu_torch/csrc/flash_qkv_attention.cu)",
                       "vit4hep_tpu/ops/flash_qkv_attention.py:62 (_fwd_kernel, call :305)"),
-    "flash_qkv_bwd_dq": (f"{K6} (bwd_dq_kernel of attention_mma.cuh)",
+    "flash_qkv_bwd_dq": (f"{K6_BWD}: flash_bwd_dq_wgmma_kernel (bound in {K6})",
                          "vit4hep_tpu/ops/flash_qkv_attention.py:119 (_bwd_dq_kernel, call :360)"),
-    "flash_qkv_bwd_dkv": (f"{K6} (bwd_dkv_kernel of attention_mma.cuh)",
+    "flash_qkv_bwd_dkv": (f"{K6_BWD}: flash_bwd_dkv_wgmma_kernel (bound in {K6})",
                           "vit4hep_tpu/ops/flash_qkv_attention.py:164 (_bwd_dkv_kernel, "
                           "call :389)"),
     "mlp_modln": (K9, K9_BODY),
@@ -965,6 +966,21 @@ def k1_fwd_phase(results, b, n, heads, d, mask=None):
            work_bound(4 * (qkv.numel() + out.numel() + lse.numel()) + mask_bytes,
                   _attn_flops(b, heads, n, d, mask), BF16_FLOPS),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
+    if mask is not None:  # a row whose every key is masked: the mean of V, lse -1e30
+        dead = mask.clone()
+        dead[7] = False
+        out_d, lse_d = fqa.attention_fwd_kernel(qkv, heads, scale, dead)
+        out_p, lse_p = fqa.attention_fwd_plain(qkv, heads, scale, dead)
+        live = torch.arange(n, device="cuda") != 7
+        _hold("qkv_attn_fwd", f"({b}, {n}) with row 7 wholly masked", (out_d, lse_d[..., live]),
+              (out_p, lse_p[..., live]))
+        if not (lse_d[..., 7] == -1e30).all():
+            raise PhaseError("qkv_attn_fwd: the wholly masked row's lse is not -1e30")
+        del dead, out_d, lse_d, out_p, lse_p
+    r = results["qkv_attn_fwd"]
+    print(f"  qkv_attn_fwd at qkv ({b}, {n}, {3 * heads * d}): {r['ms']:.4f} ms, f32 SDPA "
+          f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), bound {r['bound_ms']:.4f} "
+          "ms", flush=True)
     return gen, qkv, out, lse, (q, k, v)
 
 
@@ -1288,6 +1304,21 @@ def k68_kernel_phase(results, b, n, heads=6, d=80, mask=None):
                lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv, mask), bwd_p,
                work_bound(reads + 4 * writes, flops, BF16_FLOPS), sdpa_bwd)
     del want, dqkv, delta
+    if mask is not None:  # a row whose every key is masked weighs every key 0 (K6's rule)
+        dead = mask.clone()
+        dead[7] = False
+        out_d, lse_d = ffa.flash_fwd_kernel(qkv, heads, scale, dead)
+        delta = fqa.attention_bwd_delta_kernel(g, out_d, heads)
+        got = torch.empty_like(qkv)
+        ffa.flash_bwd_dq_kernel(qkv, g, lse_d, delta, heads, scale, got, dead)
+        ffa.flash_bwd_dkv_kernel(qkv, g, lse_d, delta, heads, scale, got, dead)
+        want = ffa.flash_bwd_plain(qkv, g, out_d, lse_d, heads, scale, dead, bf)
+        for name, cols in (("flash_qkv_bwd_dq", slice(0, hd)),
+                           ("flash_qkv_bwd_dkv", slice(hd, 3 * hd))):
+            _hold(name, f"({b}, {n}) with row 7 wholly masked", got[..., cols], want[..., cols])
+        if not (got[:, 7, :hd] == 0).all():
+            raise PhaseError("flash_qkv_bwd_dq: the wholly masked row's dQ is not 0")
+        del dead, out_d, lse_d, delta, got, want
 
     fwd = lambda: fva.vmem_fwd_kernel(q, k, v, scale, mask)  # noqa: E731
     fwd_p = lambda: fva.vmem_fwd_plain(q, k, v, scale, mask, bf)  # noqa: E731
@@ -1847,6 +1878,10 @@ def _clock(fn):
     return time.perf_counter() - t0
 
 
+def _is_k1_fwd(key):
+    return "qkv_fwd_tf32_kernel<" in key
+
+
 def _is_gemm(key):
     key = key.lower()
     return "gemm" in key or "cutlass" in key or "xmma" in key
@@ -1864,7 +1899,7 @@ CFM_GROUPS = [
 CINN_GROUPS = [
     ("K4 binned_rqs_inverse", lambda k: "binned_rqs_inverse_kernel" in k
      or "logdet_reduce_kernel" in k),
-    ("K1 forward", lambda k: "::fwd_kernel<" in k),
+    ("K1 forward", _is_k1_fwd),
     ("K3 energy_decoder", lambda k: "energy_decoder_kernel" in k),
     ("cuBLAS products", _is_gemm),
 ]
@@ -2307,15 +2342,15 @@ FUSED_TRAIN_GROUPS = [
     ("K5b reductions", lambda k: "wgrad_reduce_kernel" in k or "dmod_reduce_kernel" in k),
     ("K5b bwd_rows", lambda k: "bwd_rows_kernel" in k),
     ("modln", lambda k: "modln_kernel" in k),
-    ("K1 forward", lambda k: "::fwd_kernel<" in k),
+    ("K1 forward", _is_k1_fwd),
     ("K1 backward", lambda k: "::bwd_d" in k),
     ("cuBLAS products", _is_gemm),
 ]
 
 
-# device-time groups of a composed ds3 train step (K8's kernels and K6's
-# forward live in namespace aw, K6's backward in amma, K1's in an anonymous
-# one)
+# device-time groups of a composed ds3 train step (K8's and K6's kernels
+# live in namespace aw, K6's backward named flash_bwd_*; K1's forward in tf,
+# its backward in an anonymous namespace)
 DS3_TRAIN_GROUPS = [
     ("K7 forward", lambda k: "k7_fwd_kernel" in k),
     ("K7 backward", lambda k: "k7_bwd_d" in k),
@@ -2323,8 +2358,8 @@ DS3_TRAIN_GROUPS = [
     ("K8 backward", lambda k: "vmem_bwd_dq_wgmma_kernel" in k
      or "vmem_bwd_dkv_wgmma_kernel" in k),
     ("K6 forward", lambda k: "flash_fwd_wgmma_kernel" in k),
-    ("K6 backward", lambda k: "amma::bwd_d" in k),
-    ("K1 forward", lambda k: "::fwd_kernel<" in k),
+    ("K6 backward", lambda k: "flash_bwd_d" in k),
+    ("K1 forward", _is_k1_fwd),
     ("K1 backward", lambda k: "::bwd_d" in k),
     ("K9 gemm_wgmma_kernel", lambda k: "gemm_wgmma_kernel<" in k),
     ("K9 modln_kernel", lambda k: "modln_kernel" in k),
@@ -2360,7 +2395,7 @@ def train_profile_phase(exp, card, top=12, groups=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = _clock(lambda: exp._train_step(exp.state, batch))
     rows = _device_rows(prof)
-    groups = _grouped(rows, groups or [("K1 forward", lambda k: "::fwd_kernel<" in k),
+    groups = _grouped(rows, groups or [("K1 forward", _is_k1_fwd),
                                        ("K1 backward", lambda k: "::bwd_d" in k),
                                        ("cuBLAS products", _is_gemm)])
     busy_ms, wall_ms = sum(groups.values()), wall_s * 1e3

@@ -318,8 +318,8 @@ CFM_NAMES = {
     "__nv_bfloat16*, int, int, int, float)": "K2v attention",
     "void (anonymous namespace)::gemm_wgmma_kernel<160, 2>(CUtensorMap_st, CUtensorMap_st, "
     "(anonymous namespace)::GemmArgs)": "K2v gemm_wgmma_kernel",
-    "void attn::fwd_kernel<80, false>(float const*, unsigned char const*, float*, float*, int, "
-    "int, int, float)": None,
+    "void tf::qkv_fwd_tf32_kernel<80, 1, false>(float const*, unsigned char const*, float*, "
+    "float*, int, int, int, float)": None,
 }
 FUSED_NAMES = {
     "void kbw::nt_wgmma_kernel<1>(CUtensorMap_st, CUtensorMap_st, kbw::Args)": "K5b gemm_nt",

@@ -139,15 +139,17 @@ def test_kernel_library_digest_follows_included_headers(tmp_path, monkeypatch):
     library, so a stale one is never loaded."""
     from vit4hep_tpu_torch.ops import _cuda
 
-    # K1 and K7 share the forward header, reaching it through the backward
-    # tiles' header; the ViT GEMM, K2v's attention, K5b's products and K6's
-    # forward share the Hopper primitives, K2v's attention, K5b and K6
-    # reaching them through their wgmma headers too
+    # K1 and K7 share the f32 tiles, reaching the forward's header through
+    # the backward tiles' header; the ViT GEMM, K2v's attention, K5b's
+    # products, K1's TF32 forward and K6 share the Hopper primitives, K6's
+    # backward reaching them through K8's and K6's forward's wgmma headers
     for name, headers in (("vit_forward", ["hopper.cuh", "vit_attention_wgmma.cuh"]),
                           ("vit_backward", ["bwd_wgmma.cuh", "hopper.cuh"]),
-                          ("qkv_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
+                          ("qkv_attention", ["attention_bwd.cuh", "qkv_fwd_tf32.cuh",
+                                             "attention_fwd.cuh", "hopper.cuh"]),
                           ("flash_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
-                          ("flash_qkv_attention", ["attention_mma.cuh", "attention_wgmma.cuh",
+                          ("flash_qkv_attention", ["flash_bwd_wgmma.cuh", "vmem_wgmma.cuh",
+                                                   "attention_wgmma.cuh", "attention_mma.cuh",
                                                    "hopper.cuh"])):
         assert [p.name for p in _cuda.sources_of(name)] == [f"{name}.cu", *headers]
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')

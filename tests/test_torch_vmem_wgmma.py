@@ -83,9 +83,10 @@ PROFILE_NAMES = {
     "void aw::vmem_bwd_dq_wgmma_kernel<80, false>(amma::Args)": "K8 backward",
     "void aw::vmem_bwd_dkv_wgmma_kernel<80, true>(amma::Args)": "K8 backward",
     "void aw::flash_fwd_wgmma_kernel<80, false>(amma::Args)": "K6 forward",
-    "void amma::bwd_dq_kernel<80, false>(amma::Args)": "K6 backward",
-    "void amma::bwd_dkv_kernel<80, true>(amma::Args)": "K6 backward",
-    "void (anonymous namespace)::fwd_kernel<80, float>(attn::FwdArgs)": "K1 forward",
+    "void aw::flash_bwd_dq_wgmma_kernel<80, false>(amma::Args)": "K6 backward",
+    "void aw::flash_bwd_dkv_wgmma_kernel<80, true>(amma::Args)": "K6 backward",
+    "void tf::qkv_fwd_tf32_kernel<80, 1, false>(float const*, unsigned char const*, float*, "
+    "float*, int, int, int, float)": "K1 forward",
     "void (anonymous namespace)::bwd_dq_kernel<80, false>(Args)": "K1 backward",
 }
 

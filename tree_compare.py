@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time one tree's ViT GEMM, its K6, K8 and K2v attention kernels and K5b's
-products, or rerun its end-to-end paths, with this checkout's
+"""Time one tree's ViT GEMM, its K1, K6, K8 and K2v attention kernels and
+K5b's products, or rerun its end-to-end paths, with this checkout's
 ``chip_smoke.py``, so that two trees can be compared on one card.
 
     python3 tree_compare.py kernels [--tree DIR] [--label NAME]
     python3 tree_compare.py paths [--tree DIR] [--label NAME]
+    python3 tree_compare.py sass --tree DIR
 
 DIR (default: this checkout) goes first on the import path, so the
 ``vit4hep_tpu_torch`` that runs is DIR's, its kernels built there; the
@@ -12,21 +13,29 @@ shapes and the phases are those of this checkout's smoke. ``kernels``: the
 six products of a ds2 and of a ds3 sampling forward at batch 256
 (``VIT_TOKENS``, ``vit_products``: the embedding's positional epilogue on
 the f32 patches, the gated residuals in place); at the ds3 shapes of K6 and K8
-(``K68_SHAPES``), K1's f32 forward and K6's forward, dQ and dK/dV passes
+(``K68_SHAPES``), K1's forward and K6's forward, dQ and dK/dV passes
 on the qkv panel, and K7's f32 forward and K8's passes on its contiguous
 q, k, v (as the smoke's kernel phase holds them);
 K2v's attention at the ds2 and ds3 serving shapes, qkv (256, 135 or 450,
 1440); and K5b's four NT and four TN products of a ds2 block gradient
-(8,640 rows), each as the tree's block backward calls it; each the median
+(8,640 rows), each as the tree's block backward calls it; K1's forward
+at the ds2 training shape (64, 135, 1440), plain and layer-causal, and at
+the cINN subnet shapes (256, 135 or 225, 576); each the median
 device time of ``tools.timing.time_ms`` on inputs made from seed 0.
 ``paths``: the smoke's
 ``train_phase`` (ds2 composed, 30 steps through the experiment) and
-``fused_train_phase`` (the same with ``fused_block: true``), and
+``fused_train_phase`` (the same with ``fused_block: true``),
+``ds3_train_phase`` with ``attn_impl: flash`` (K6's forward and backward),
+and
 ``cinn_phase`` and ``cfm_phase`` at ds2 and ds3 (3 requests of 256
 showers). Either prints one JSON line: the card's name and power limit,
 then the times in ms or the rates (train steps/s of the whole loop and of
 the steady step interior; each generator's steady showers/s, first request
-excluded, and its request seconds).
+excluded, and its request seconds). ``sass`` builds the libraries of
+the kernels a change should leave as they were (``SASS_KERNELS``: K6's
+forward, K8's three kernels, K7's, K1's backward and delta) in DIR and in
+this checkout, and prints per kernel the SASS lines (``cuobjdump -sass``,
+addresses and encodings stripped) that differ between the two.
 
 To compare a change with its parent, unpack the parent (``git archive``)
 into a git-ignored directory and run both trees in turns in one call:
@@ -38,12 +47,16 @@ needs a CUDA card and exits 2 without one.
 from __future__ import annotations
 
 import argparse
+import difflib
 import importlib.util
 import inspect
 import json
 import os
+import re
+import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -106,6 +119,16 @@ def kernels(cs, torch) -> dict:
         del qkv, g, q, k, v, gh, out, lse, delta, dqkv, lse8, rt, runs
         torch.cuda.empty_cache()
     res["k6_k8"] = attn
+    # K1's forward at the ds2 training shape (plain and layer-causal) and at
+    # the cINN subnet shapes, as the smoke's kernel phase holds it
+    res["k1_fwd"] = {}
+    for b, n, h, dh, grid in ((64, 135, 6, 80, None), (64, 135, 6, 80, (15, 1, 9)),
+                              (cs.BATCH, 135, 4, 48, None), (cs.BATCH, 225, 4, 48, None)):
+        qkv = rand(b, n, 3 * h * dh)
+        m = None if grid is None else cs._causal_mask(grid)
+        res["k1_fwd"][f"({b}, {n}, {3 * h * dh}){' layer-causal' if grid else ''}"] = \
+            cs.time_ms(lambda: cs.fqa.attention_fwd_kernel(qkv, h, dh ** -0.5, m))
+        del qkv
     # K2v's attention at the ds2 and ds3 serving shapes, qkv (256, N, 1440)
     res["k2v_attention"] = {}
     for geometry, (n, _) in cs.VIT_TOKENS.items():
@@ -169,6 +192,13 @@ def paths(cs, torch) -> dict:
         _, fexp = cs.fused_train_phase(Path(tmp), cs.card_name(), exp)
         res["ds2_fused_train_steps_per_s"] = rate(fexp)
         del exp, fexp
+        # the ds3 composed path through K6 (attn_impl: flash), forward and backward
+        cs._binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
+        _, (loop, interior) = cs.ds3_train_phase(Path(tmp), cs.card_name(), "ds3_flash_train",
+                                                 "attn_impl: flash (K6)", "flash",
+                                                 {"attn_impl": "flash"})
+        res["ds3_flash_train_steps_per_s"] = {"loop": loop, "interior": interior}
+        torch.cuda.empty_cache()
     for geometry, phase, cfgs in (
             ("ds2", cs.cinn_phase, (cs.DS2_CINN_MODEL, cs.DS2_ENERGY_MODEL,
                                     cs.DS2_CINN_TRANSFORMS, cs.DS2_ENERGY_TRANSFORMS)),
@@ -188,9 +218,67 @@ def paths(cs, torch) -> dict:
     return res
 
 
+# the kernels that a change may leave compiled as they were: the library
+# and a substring of each kernel's mangled name
+SASS_KERNELS = {"flash_qkv_attention": ("flash_fwd_wgmma_kernel",),
+                "vmem_attention": ("vmem_fwd_wgmma_kernel", "vmem_bwd_dq_wgmma_kernel",
+                                   "vmem_bwd_dkv_wgmma_kernel"),
+                "flash_attention": ("k7_",),
+                "qkv_attention": ("bwd_delta_kernel", "bwd_dkv_kernel", "bwd_dq_kernel")}
+_SASS_NOISE = re.compile(r"/\*[0-9a-fx]+\*/|;?\s*/\* 0x[0-9a-f]+ \*/")
+# an anonymous namespace's mangled name carries a hash of the source's path
+_ANON_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+
+
+def _sass_functions(lib: Path) -> dict:
+    """{mangled name: its SASS instructions}, addresses and encodings
+    stripped, from ``cuobjdump -sass``; an anonymous namespace's path hash
+    is dropped from the name, so that two checkouts name a kernel alike."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(_ANON_HASH.sub("_GLOBAL__N__", m.group(1)), [])
+        elif cur is not None and "/*" in line:
+            ins = _SASS_NOISE.sub("", line).strip()
+            if ins:
+                cur.append(ins)
+    return funcs
+
+
+def sass(tree: Path) -> dict:
+    """Build this checkout's and DIR's kernel libraries of SASS_KERNELS and
+    count, per kernel, the SASS instruction lines that differ (0: the same
+    code)."""
+    trees = {"tree": tree, "this checkout": HERE}
+    cudas = {}
+    for label, root in trees.items():
+        spec = importlib.util.spec_from_file_location(
+            f"_cuda_{len(cudas)}", root / "vit4hep_tpu_torch" / "ops" / "_cuda.py")
+        cudas[label] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cudas[label])
+    with ThreadPoolExecutor(len(cudas)) as pool:
+        list(pool.map(lambda c: c.build(tuple(SASS_KERNELS)), cudas.values()))
+    res = {}
+    for name, patterns in SASS_KERNELS.items():
+        a, b = (_sass_functions(c._lib_path(name)) for c in cudas.values())
+        for fn in sorted(f for f in set(a) | set(b) if any(p in f for p in patterns)):
+            if fn not in a or fn not in b:
+                res[fn] = "only in " + ("this checkout" if fn in b else "the tree")
+                continue
+            ops = difflib.SequenceMatcher(None, a[fn], b[fn], autojunk=False).get_opcodes()
+            res[fn] = {"lines": len(b[fn]),
+                       "differ": sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in ops
+                                     if tag != "equal")}
+    return res
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("what", choices=("kernels", "paths"))
+    p.add_argument("what", choices=("kernels", "paths", "sass"))
     p.add_argument("--tree", default=str(HERE), help="the checkout whose package runs")
     p.add_argument("--label", default=None, help="a name for the tree in the output")
     args = p.parse_args()
@@ -200,6 +288,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tree_compare: no CUDA device", file=sys.stderr)
         return 2
+    if args.what == "sass":
+        print(json.dumps({"tree": args.label or str(tree), "sass": sass(tree)}), flush=True)
+        return 0
     os.chdir(tree)
     cs = _smoke(tree)
     torch.backends.cuda.matmul.allow_tf32 = False  # as the smoke runs

@@ -23,21 +23,22 @@
 //    exactly 0 in l and O, so a fully masked row gets the mean of V over the
 //    N real keys, whatever tile size pads N (JAX pads to n_pad = 512 at ds3,
 //    this kernel to a multiple of 64).
-//  - backward (attention_mma.cuh): delta = rowsum(dO * O) per head comes
+//  - backward (flash_bwd_wgmma.cuh): delta = rowsum(dO * O) per head comes
 //    from K1's delta kernel (qkv_attention.cu, `qkv_attention_bwd_delta`),
-//    then bwd_dq_kernel<DP, HAS_MASK> writes the q columns of dqkv and
-//    bwd_dkv_kernel<DP, HAS_MASK> the k and v columns, each element
-//    once. p = exp(s - lse) on the mask and 0 off it (also on a fully masked
-//    row, as JAX's `where(valid, ...)`, :148 and :195).
+//    then aw::flash_bwd_dq_wgmma_kernel<DP, HAS_MASK> writes the q columns
+//    of dqkv in one sweep over the keys and
+//    aw::flash_bwd_dkv_wgmma_kernel<DP, HAS_MASK> the k and v columns, each
+//    element once, on K8's wgmma pieces (vmem_wgmma.cuh). p = exp(s - lse)
+//    on the mask and 0 off it (also on a fully masked row, as JAX's
+//    `where(valid, ...)`, :148 and :195).
 //
 // What bounds it on this card: at the ds3 training shape (qkv (64, 450,
 // 1440) f32) the forward reads 166 MB and writes 56 MB (0.066 ms at 3.35
-// TB/s) against 24.9 GFLOP on the bf16 tensor cores (0.025 ms): it is bound
-// by bytes (attention_wgmma.cuh says how its design meets that). The
-// backward kernels are attention_mma.cuh's WMMA tiles.
+// TB/s) against 24.9 GFLOP on the bf16 tensor cores (0.025 ms), and the
+// backward passes likewise: bytes (attention_wgmma.cuh and
+// flash_bwd_wgmma.cuh say how their designs meet that).
 
-#include "attention_mma.cuh"
-#include "attention_wgmma.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 using namespace amma;
 
@@ -92,7 +93,7 @@ extern "C" int flash_qkv_bwd_dq(const float* qkv, const float* g, const float* l
                                 int H, int n, int d, float scale, void* stream) {
   if (bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
   const Args a = bwd_args(qkv, g, lse, delta, mask, dqkv, H, n, d, scale);
-  AMMA_DISPATCH(d, launch_dq<DP>(a, B, H, static_cast<cudaStream_t>(stream)))
+  AMMA_DISPATCH(d, aw::launch_flash_dq<DP>(a, B, H, static_cast<cudaStream_t>(stream)))
 }
 
 // dK and dV: the k and v columns of dqkv
@@ -101,5 +102,5 @@ extern "C" int flash_qkv_bwd_dkv(const float* qkv, const float* g, const float* 
                                  int H, int n, int d, float scale, void* stream) {
   if (bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
   const Args a = bwd_args(qkv, g, lse, delta, mask, dqkv, H, n, d, scale);
-  AMMA_DISPATCH(d, launch_dkv<DP>(a, B, H, static_cast<cudaStream_t>(stream)))
+  AMMA_DISPATCH(d, aw::launch_flash_dkv<DP>(a, B, H, static_cast<cudaStream_t>(stream)))
 }

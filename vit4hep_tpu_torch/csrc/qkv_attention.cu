@@ -9,15 +9,17 @@
 // and `_bwd_kernel_masked` :260, pallas_call :328). The TPU kernels hold one
 // batch element's whole (N, 3*H*D) panel and each head's (N, N) scores in
 // VMEM. A CTA here has at most 227 KB of shared memory, so K/V (forward, dQ)
-// and Q/dO (dK/dV) are streamed through shared memory in 64-row tiles with
-// an online softmax: there is no limit on N, and the (N, N) scores never
-// reach device memory. The head-packed TPU body only existed to feed a
-// 128-lane matrix unit at head_dim <= 64; one template per padded head dim
-// (16..128 in steps of 16) serves every head dim up to MAX_HEAD_DIM = 128.
+// and Q/dO (dK/dV) are streamed through shared memory in tiles of 32
+// (forward) or 64 rows with an online softmax: there is no limit on N, and
+// the (N, N) scores never reach device memory. The head-packed TPU body only
+// existed to feed a 128-lane matrix unit at head_dim <= 64; one template per
+// padded head dim (16..128 in steps of 16) serves every head dim up to
+// MAX_HEAD_DIM = 128.
 //
 // Kernels (each launched by its own wrapper in ops/fused_qkv_attention.py):
-//  - attn::fwd_kernel<DP, HAS_MASK> (attention_fwd.cuh, whose tile K7 shares): one
-//    CTA per (query tile, head, batch). Writes the merged (B, N, H*D)
+//  - tf::qkv_fwd_tf32_kernel<DP, WG, HAS_MASK> (qkv_fwd_tf32.cuh): one CTA
+//    per (64-query tile, head, batch), the products on the tensor cores in
+//    split TF32 (3xTF32, the f32 contract). Writes the merged (B, N, H*D)
 //    context and the f32 log-sum-exp (B, H, N).
 //  - bwd_delta_kernel: delta = rowsum(dO * O) per (batch, head, query), one
 //    warp per row. (rowsum(dP * P) of the TPU kernel equals rowsum(dO * O);
@@ -47,14 +49,14 @@
 //
 // What bounds it at the ds2 training shape (B = 64, N = 135, H = 6, d = 80):
 // the forward does 4*B*H*N^2*d = 2.24 GFLOP on ~67 MB, the backward ~5.6
-// GFLOP on ~120 MB. This first version computes in f32 on the CUDA cores
-// (the TPU kernels' interpret-mode precision), so it is bound by the f32
-// FMA rate (67 TFLOP/s): ~33 us forward, ~84 us backward at best. The
-// products are register-tiled as in attention_fwd.cuh. Tensor-core (bf16
-// mma/wgmma) products and cp.async/TMA pipelining are the levers for a
-// later change.
+// GFLOP on ~120 MB. The forward runs its products as three TF32 tensor-core
+// products each (qkv_fwd_tf32.cuh says how and why). The backward computes
+// in f32 on the CUDA cores (the TPU kernels' interpret-mode precision), so
+// it is bound by the f32 FMA rate (67 TFLOP/s): ~84 us at best; its products
+// are register-tiled as in attention_bwd.cuh.
 
 #include "attention_bwd.cuh"
+#include "qkv_fwd_tf32.cuh"
 
 using attn::THREADS;
 using attn::TILE;
@@ -149,8 +151,8 @@ extern "C" int qkv_attention_fwd(const float* qkv, const unsigned char* mask, fl
                                  float* lse, int B, int n, int H, int d, float scale,
                                  void* stream) {
   if (attn::bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
-  ATTN_DISPATCH(d, attn::launch_fwd<DP>(qkv, mask, out, lse, B, n, H, d, scale,
-                                         static_cast<cudaStream_t>(stream)))
+  ATTN_DISPATCH(d, tf::launch_fwd<DP>(qkv, mask, out, lse, B, n, H, d, scale,
+                                       static_cast<cudaStream_t>(stream)))
 }
 
 extern "C" int qkv_attention_bwd_delta(const float* g, const float* o, float* delta, int B, int n,

@@ -15,9 +15,11 @@ On CPU tensors it runs the plain versions :func:`attention_fwd_plain` and
 hand-written kernels of ``csrc/qkv_attention.cu`` or raises: the forward
 kernel, then for the gradient a delta pre-pass (rowsum(dO * O)) and the
 dK/dV and dQ kernels. Each kernel has its own wrapper and launch counter,
-which counts masked and unmasked launches alike. The kernels compute in f32
-for head dims up to :data:`MAX_HEAD_DIM`, at any N, with or without the
-mask: it goes to them as a contiguous ``uint8`` view on qkv's device and
+which counts masked and unmasked launches alike. The kernels keep the f32
+contract for head dims up to :data:`MAX_HEAD_DIM`, at any N, with or
+without the mask (the forward runs each product as three TF32 tensor-core
+products, ``csrc/qkv_fwd_tf32.cuh``; the backward computes in f32). The
+mask goes to them as a contiguous ``uint8`` view on qkv's device and
 enters each score as ``where(mask, s * scale, -1e30)``, the TPU bodies'
 ``_fused_kernel_masked``, ``_packed_kernel_masked`` and
 ``_bwd_kernel_masked``. A row whose every key is masked gets the mean of V
