@@ -387,10 +387,25 @@ DS2_TRAINING = {
 DS2_SHAPE_TRAINING = dict(DS2_TRAINING, iterations=800000, batchsize=64)
 DS2_ENERGY_TRAINING = dict(DS2_TRAINING, iterations=250000, batchsize=256)
 
+# the TF32 tensor-core peak (NVIDIA H100 SXM data sheet, dense, at 700 W)
+TF32_FLOPS = 494.7e12
+
+
+def split_tf32_bound(nbytes, flops):
+    """work_bound of products held to f32 on the tensor cores in split TF32:
+    each product runs as three TF32 products (hi hi + hi lo + lo hi), so the
+    least time is the larger of the bytes over the HBM rate and 3 x the
+    products' operations over the TF32 peak."""
+    return work_bound(nbytes, 3 * flops, TF32_FLOPS)
+
+
 # tolerances of the kernel phases, relative to max(1, max |plain|):
-# energy_decoder and K1 compute in f32 like their plain versions (summation
-# order only; K1's online softmax rescales partial sums); the ViT kernels
-# round their outputs (modln, GELU hidden, attention context) to bf16, whose
+# energy_decoder and K1 hold their plain versions' f32 function: every
+# product runs as three TF32 tensor-core products (hi hi + hi lo + lo hi),
+# which leaves ~2^-21 of each product term (NVIDIA H100 80GB HBM3, 700 W:
+# 3e-6 to 7e-6 of the scale for K1's passes and K3), the rest is summation
+# order (K1's online softmax rescales partial sums; energy_decoder at other
+# widths keeps the f32 CUDA-core kernel); the ViT kernels round their outputs (modln, GELU hidden, attention context) to bf16, whose
 # ulp is 2^-8 = 3.9e-3 relative, so one rounding flip is within 8e-3; the
 # whole forward takes bf16 multiplicands through 6 blocks against an f32
 # plain version (the TPU kernel's precision contract).
@@ -486,6 +501,8 @@ TOL.update({"flash_attn_fwd": 1e-4, "flash_attn_bwd_dkv": 1e-4, "flash_attn_bwd_
 # is rounding noise -- the key biases -- move by a fraction of lr)
 K7_TRAIN_TOL = {"loss": 1e-4, "grad_rel_l2": 1e-3, "grad_norm": 1e-4, "update_rel": 1e-2}
 K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
+K1_BWD = "vit4hep_tpu_torch/csrc/qkv_bwd_tf32.cuh"
+K1_BWD_LIB = "vit4hep_tpu_torch/csrc/qkv_attention_bwd.cu"
 K2V = "vit4hep_tpu_torch/csrc/vit_forward.cu"
 K2V_GEMM = "vit4hep_tpu_torch/csrc/vit_forward.cu (gemm_wgmma_kernel; hopper.cuh)"
 K5 = "vit4hep_tpu_torch/csrc/vit_backward.cu"
@@ -511,7 +528,8 @@ K5A_STACK_BODY = "vit4hep_tpu/ops/fused_dit_block.py:976 (_stack_fwd_train, call
 K2V_BODIES = "vit4hep_tpu/ops/fused_dit_block.py:1315, :1281 and :1325"
 K1_BWD_BODIES = "vit4hep_tpu/ops/fused_qkv_attention.py:252 and :260"
 REPLACES = {
-    "energy_decoder": ("vit4hep_tpu_torch/csrc/energy_decoder.cu",
+    "energy_decoder": ("vit4hep_tpu_torch/csrc/energy_decoder.cu: energy_decoder_tf32_kernel "
+                       "(split TF32 wgmma; energy_decoder_kernel at other widths)",
                        "vit4hep_tpu/ops/fused_energy_decoder.py:124"),
     "vit_gemm": (K2V_GEMM, f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
     "vit_modln": (K2V, f"{K2V_BODIES}; {K2B_BODY}; {K2S_BODY}"),
@@ -522,8 +540,10 @@ REPLACES = {
                      "vit4hep_tpu_torch/csrc/qkv_attention.cu)",
                      "vit4hep_tpu/ops/fused_qkv_attention.py:58, :65, :94 and :156"),
     "qkv_attn_bwd_delta": (K1, K1_BWD_BODIES),
-    "qkv_attn_bwd_dkv": (K1, K1_BWD_BODIES),
-    "qkv_attn_bwd_dq": (K1, K1_BWD_BODIES),
+    "qkv_attn_bwd_dkv": (f"{K1_BWD}: qkv_bwd_dkv_tf32_kernel (bound in {K1_BWD_LIB})",
+                         K1_BWD_BODIES),
+    "qkv_attn_bwd_dq": (f"{K1_BWD}: qkv_bwd_dq_tf32_kernel (bound in {K1_BWD_LIB})",
+                        K1_BWD_BODIES),
     "binned_rqs_inverse": ("vit4hep_tpu_torch/csrc/binned_rqs.cu",
                            "vit4hep_tpu/ops/fused_spline.py:55"),
     # the megakernel tier's training kernels (K5a also runs modln and K1's
@@ -807,12 +827,12 @@ def _rand(gen, *shape, std=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * std
 
 
-def k3_kernel_phase(results):
-    """K3 against its plain version at the energy net's sampling shape,
-    batch BATCH (the same for ds2 and ds3)."""
+def k3_inputs(b=BATCH):
+    """(K3's call, its plain version, the bytes it must move, its products'
+    operations) at the energy net's sampling shape: tgt (b, 45, 128), 4
+    layers, 4 heads, F 512, TE 64, head 512, inputs made from SEED."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # K3: tgt (B, 45, 128), 4 layers, 4 heads, F 512, TE 64, head 512
-    b, n, dm, te, fdim, hn, depth = BATCH, 45, 128, 64, 512, 512, 4
+    n, dm, te, fdim, hn, depth = 45, 128, 64, 512, 512, 4
     ea = [_rand(gen, b, n, dm), _rand(gen, b, te), _rand(gen, b, depth, dm, std=0.1),
           1 + _rand(gen, depth, 3, dm, std=0.05), _rand(gen, depth, 3, dm, std=0.05),
           _rand(gen, depth, dm, 3 * dm, std=0.05), _rand(gen, depth, 3 * dm, std=0.05),
@@ -827,8 +847,16 @@ def k3_kernel_phase(results):
     k3_flops = b * (depth * (2 * n * dm * 3 * dm + 4 * n * n * dm + 2 * n * dm * dm
                              + 4 * n * dm * fdim) + 2 * n * (te + dm) * hn + 2 * n * hn)
     k3_bytes = 4 * (sum(a.numel() for a in ea) + b * n)
+    return k3, k3_plain, k3_bytes, k3_flops
+
+
+def k3_kernel_phase(results):
+    """K3 against its plain version at the energy net's sampling shape,
+    batch BATCH (the same for ds2 and ds3). Its products hold the f32
+    function in split TF32, so its bound is split_tf32_bound's."""
+    k3, k3_plain, k3_bytes, k3_flops = k3_inputs()
     _check("energy_decoder", k3(), k3_plain(), results, k3, k3_plain,
-           work_bound(k3_bytes, k3_flops, F32_FLOPS))
+           split_tf32_bound(k3_bytes, k3_flops))
 
 
 def _causal_mask(grid):
@@ -838,9 +866,10 @@ def _causal_mask(grid):
 
 def _attn_flops(b, heads, n, d, mask):
     """Operations of softmax(q k^T) v: 4 b h n^2 d, over the (query, key)
-    pairs the mask keeps (the work this run's data needs). K1's and K2v's
-    are bounded at the bf16 rate: the TPU kernels they replace take bf16
-    multiplicands with f32 accumulation, whatever arithmetic a port uses."""
+    pairs the mask keeps (the work this run's data needs). K2v's is bounded
+    at the bf16 rate (the TPU kernel takes bf16 multiplicands with f32
+    accumulation); K1's, held to the f32 function in split TF32, by
+    split_tf32_bound (three TF32 products for each)."""
     pairs = n * n if mask is None else int(mask.sum().item())
     return 4 * b * heads * pairs * d
 
@@ -963,8 +992,8 @@ def k1_fwd_phase(results, b, n, heads, d, mask=None):
            torch.cat([out_p.flatten(), lse_p.flatten()]), results,
            lambda: fqa.attention_fwd_kernel(qkv, heads, scale, mask),
            lambda: fqa.attention_fwd_plain(qkv, heads, scale, mask),
-           work_bound(4 * (qkv.numel() + out.numel() + lse.numel()) + mask_bytes,
-                  _attn_flops(b, heads, n, d, mask), BF16_FLOPS),
+           split_tf32_bound(4 * (qkv.numel() + out.numel() + lse.numel()) + mask_bytes,
+                            _attn_flops(b, heads, n, d, mask)),
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
     if mask is not None:  # a row whose every key is masked: the mean of V, lse -1e30
         dead = mask.clone()
@@ -1014,13 +1043,7 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
         _check(name, dqkv[..., cols], want[..., cols], results,
                lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv, mask),
                lambda: fqa.attention_bwd_plain(qkv, g, lse, heads, scale, mask),
-               work_bound(small + 4 * writes, flops, BF16_FLOPS))
-    # the products' own ceiling in this kernel's f32 CUDA-core arithmetic
-    # (every (query, key) pair, masked or not, is computed)
-    full = b * heads * n * n * d
-    simt = {"fwd": 4 * full, "dkv": 8 * full, "dq": 6 * full}
-    print("  f32 CUDA-core ceiling of K1's products: " + ", ".join(
-        f"{k} {f / F32_FLOPS * 1e3:.4f} ms" for k, f in simt.items()), flush=True)
+               split_tf32_bound(small + 4 * writes, flops))
 
     # forward + backward of the same upstream gradient g: K1 through its
     # autograd.Function, the plain forward + plain backward, SDPA through autograd
@@ -1045,7 +1068,9 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
     sdpa_out = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, g_heads, retain_graph=True)  # noqa: E731
     return {"K1": time_ms(k1_run), "plain": time_ms(plain_run), "sdpa": time_ms(sdpa_run),
-            "sdpa_bwd": time_ms(sdpa_bwd)}
+            "sdpa_bwd": time_ms(sdpa_bwd),
+            "bwd": sum(results[k]["ms"] for k in ("qkv_attn_bwd_delta", "qkv_attn_bwd_dkv",
+                                                  "qkv_attn_bwd_dq"))}
 
 
 def _block_weights(gen, h=480, fdim=1920, std=0.05):
@@ -1882,6 +1907,16 @@ def _is_k1_fwd(key):
     return "qkv_fwd_tf32_kernel<" in key
 
 
+def _is_k1_bwd(key):
+    """K1's backward: its delta kernel and its two TF32 passes."""
+    return "::bwd_d" in key or "qkv_bwd_d" in key
+
+
+def _is_k3(key):
+    """K3: its tensor-core kernel and its f32 one (other widths)."""
+    return "energy_decoder_tf32_kernel" in key or "energy_decoder_kernel" in key
+
+
 def _is_gemm(key):
     key = key.lower()
     return "gemm" in key or "cutlass" in key or "xmma" in key
@@ -1893,14 +1928,14 @@ CFM_GROUPS = [
     ("K2v gemm_wgmma_kernel", lambda k: "gemm_wgmma_kernel<" in k),
     ("K2v attention", lambda k: "vit_attn_wgmma_kernel<" in k),
     ("K2v modln_kernel", lambda k: "modln_kernel" in k),
-    ("K3 energy_decoder", lambda k: "energy_decoder_kernel" in k),
+    ("K3 energy_decoder", _is_k3),
     ("cuBLAS products", _is_gemm),
 ]
 CINN_GROUPS = [
     ("K4 binned_rqs_inverse", lambda k: "binned_rqs_inverse_kernel" in k
      or "logdet_reduce_kernel" in k),
     ("K1 forward", _is_k1_fwd),
-    ("K3 energy_decoder", lambda k: "energy_decoder_kernel" in k),
+    ("K3 energy_decoder", _is_k3),
     ("cuBLAS products", _is_gemm),
 ]
 
@@ -2343,7 +2378,7 @@ FUSED_TRAIN_GROUPS = [
     ("K5b bwd_rows", lambda k: "bwd_rows_kernel" in k),
     ("modln", lambda k: "modln_kernel" in k),
     ("K1 forward", _is_k1_fwd),
-    ("K1 backward", lambda k: "::bwd_d" in k),
+    ("K1 backward", _is_k1_bwd),
     ("cuBLAS products", _is_gemm),
 ]
 
@@ -2360,7 +2395,7 @@ DS3_TRAIN_GROUPS = [
     ("K6 forward", lambda k: "flash_fwd_wgmma_kernel" in k),
     ("K6 backward", lambda k: "flash_bwd_d" in k),
     ("K1 forward", _is_k1_fwd),
-    ("K1 backward", lambda k: "::bwd_d" in k),
+    ("K1 backward", _is_k1_bwd),
     ("K9 gemm_wgmma_kernel", lambda k: "gemm_wgmma_kernel<" in k),
     ("K9 modln_kernel", lambda k: "modln_kernel" in k),
     ("cuBLAS products", _is_gemm),
@@ -2396,7 +2431,7 @@ def train_profile_phase(exp, card, top=12, groups=None):
         wall_s = _clock(lambda: exp._train_step(exp.state, batch))
     rows = _device_rows(prof)
     groups = _grouped(rows, groups or [("K1 forward", _is_k1_fwd),
-                                       ("K1 backward", lambda k: "::bwd_d" in k),
+                                       ("K1 backward", _is_k1_bwd),
                                        ("cuBLAS products", _is_gemm)])
     busy_ms, wall_ms = sum(groups.values()), wall_s * 1e3
     print(f"  host clock ({card}): one step {step_s * 1e3:.2f} ms; under torch.profiler: wall "
@@ -2521,8 +2556,10 @@ def main() -> int:
     for label, ms in k1_ms.items():
         if "K1" in ms:
             print(f"  K1 forward + backward through autograd, {label}: K1 {ms['K1']:.4f} ms, "
-                  f"plain {ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms; SDPA backward alone "
-                  f"{ms['sdpa_bwd']:.4f} ms ({card})", flush=True)
+                  f"plain {ms['plain']:.4f} ms, SDPA {ms['sdpa']:.4f} ms; K1's backward "
+                  f"(delta + dK/dV + dQ) {ms['bwd']:.4f} ms against SDPA's backward alone "
+                  f"{ms['sdpa_bwd']:.4f} ms ({ms['bwd'] / ms['sdpa_bwd']:.2f}x) ({card})",
+                  flush=True)
         elif "K7" in ms:
             print(f"  forward + backward, {label}: K7 (autograd) {ms['K7']:.4f} ms, plain f32 "
                   f"{ms['plain']:.4f} ms, SDPA f32 (autograd) {ms['sdpa']:.4f} ms ({card})",

@@ -20,8 +20,11 @@ K2v's attention at the ds2 and ds3 serving shapes, qkv (256, 135 or 450,
 1440); and K5b's four NT and four TN products of a ds2 block gradient
 (8,640 rows), each as the tree's block backward calls it; K1's forward
 at the ds2 training shape (64, 135, 1440), plain and layer-causal, and at
-the cINN subnet shapes (256, 135 or 225, 576); each the median
-device time of ``tools.timing.time_ms`` on inputs made from seed 0.
+the cINN subnet shapes (256, 135 or 225, 576); K1's backward passes (delta,
+dK/dV, dQ) at (64, 135, 1440), plain and layer-causal, and (16, 450, 1440),
+with SDPA's f32 backward beside them; K3 at the energy net's sampling shape
+(batch 256); each the median device time of ``tools.timing.time_ms`` on
+inputs made from seed 0.
 ``paths``: the smoke's
 ``train_phase`` (ds2 composed, 30 steps through the experiment) and
 ``fused_train_phase`` (the same with ``fused_block: true``),
@@ -33,7 +36,8 @@ then the times in ms or the rates (train steps/s of the whole loop and of
 the steady step interior; each generator's steady showers/s, first request
 excluded, and its request seconds). ``sass`` builds the libraries of
 the kernels a change should leave as they were (``SASS_KERNELS``: K6's
-forward, K8's three kernels, K7's, K1's backward and delta) in DIR and in
+three kernels, K8's three, K7's, K1's TF32 forward and its delta kernel)
+in DIR and in
 this checkout, and prints per kernel the SASS lines (``cuobjdump -sass``,
 addresses and encodings stripped) that differ between the two.
 
@@ -129,6 +133,30 @@ def kernels(cs, torch) -> dict:
         res["k1_fwd"][f"({b}, {n}, {3 * h * dh}){' layer-causal' if grid else ''}"] = \
             cs.time_ms(lambda: cs.fqa.attention_fwd_kernel(qkv, h, dh ** -0.5, m))
         del qkv
+    # K1's backward passes at the smoke's shapes: the ds2 training shape,
+    # plain and layer-causal, and 450 tokens; SDPA's f32 backward beside them
+    res["k1_bwd"] = {}
+    for b, n, grid in ((64, 135, None), (64, 135, (15, 1, 9)), (16, 450, None)):
+        qkv, g = rand(b, n, 3 * heads * d), rand(b, n, heads * d)
+        m = None if grid is None else cs._causal_mask(grid)
+        out, lse = cs.fqa.attention_fwd_kernel(qkv, heads, scale, m)
+        delta = cs.fqa.attention_bwd_delta_kernel(g, out, heads)
+        dqkv = torch.empty_like(qkv)
+        xs = tuple(t.contiguous().requires_grad_()
+                   for t in qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+        o = cs.F.scaled_dot_product_attention(*xs, attn_mask=m, scale=scale)
+        gh = g.reshape(b, n, heads, d).permute(0, 2, 1, 3).contiguous()
+        res["k1_bwd"][f"({b}, {n}, 1440){' layer-causal' if grid else ''}"] = {
+            "delta": cs.time_ms(lambda: cs.fqa.attention_bwd_delta_kernel(g, out, heads)),
+            "dkv": cs.time_ms(lambda: cs.fqa.attention_bwd_dkv_kernel(
+                qkv, g, lse, delta, heads, scale, dqkv, m)),
+            "dq": cs.time_ms(lambda: cs.fqa.attention_bwd_dq_kernel(
+                qkv, g, lse, delta, heads, scale, dqkv, m)),
+            "sdpa_f32_bwd": cs.time_ms(lambda: torch.autograd.grad(o, xs, gh,
+                                                                   retain_graph=True))}
+        del qkv, g, out, lse, delta, dqkv, xs, o, gh
+    # K3 at the energy net's sampling shape, batch 256 (the smoke's inputs)
+    res["k3"] = cs.time_ms(cs.k3_inputs()[0])
     # K2v's attention at the ds2 and ds3 serving shapes, qkv (256, N, 1440)
     res["k2v_attention"] = {}
     for geometry, (n, _) in cs.VIT_TOKENS.items():
@@ -220,11 +248,12 @@ def paths(cs, torch) -> dict:
 
 # the kernels that a change may leave compiled as they were: the library
 # and a substring of each kernel's mangled name
-SASS_KERNELS = {"flash_qkv_attention": ("flash_fwd_wgmma_kernel",),
+SASS_KERNELS = {"flash_qkv_attention": ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                                        "flash_bwd_dkv_wgmma_kernel"),
                 "vmem_attention": ("vmem_fwd_wgmma_kernel", "vmem_bwd_dq_wgmma_kernel",
                                    "vmem_bwd_dkv_wgmma_kernel"),
                 "flash_attention": ("k7_",),
-                "qkv_attention": ("bwd_delta_kernel", "bwd_dkv_kernel", "bwd_dq_kernel")}
+                "qkv_attention": ("bwd_delta_kernel", "qkv_fwd_tf32_kernel")}
 _SASS_NOISE = re.compile(r"/\*[0-9a-fx]+\*/|;?\s*/\* 0x[0-9a-f]+ \*/")
 # an anonymous namespace's mangled name carries a hash of the source's path
 _ANON_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_")

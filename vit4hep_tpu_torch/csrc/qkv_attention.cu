@@ -9,12 +9,11 @@
 // and `_bwd_kernel_masked` :260, pallas_call :328). The TPU kernels hold one
 // batch element's whole (N, 3*H*D) panel and each head's (N, N) scores in
 // VMEM. A CTA here has at most 227 KB of shared memory, so K/V (forward, dQ)
-// and Q/dO (dK/dV) are streamed through shared memory in tiles of 32
-// (forward) or 64 rows with an online softmax: there is no limit on N, and
-// the (N, N) scores never reach device memory. The head-packed TPU body only
-// existed to feed a 128-lane matrix unit at head_dim <= 64; one template per
-// padded head dim (16..128 in steps of 16) serves every head dim up to
-// MAX_HEAD_DIM = 128.
+// and Q/dO (dK/dV) are streamed through shared memory in tiles of 16 or 32
+// rows: there is no limit on N, and the (N, N) scores never reach device
+// memory. The head-packed TPU body only existed to feed a 128-lane matrix
+// unit at head_dim <= 64; one template per padded head dim (16..128 in steps
+// of 16) serves every head dim up to MAX_HEAD_DIM = 128.
 //
 // Kernels (each launched by its own wrapper in ops/fused_qkv_attention.py):
 //  - tf::qkv_fwd_tf32_kernel<DP, WG, HAS_MASK> (qkv_fwd_tf32.cuh): one CTA
@@ -24,13 +23,16 @@
 //  - bwd_delta_kernel: delta = rowsum(dO * O) per (batch, head, query), one
 //    warp per row. (rowsum(dP * P) of the TPU kernel equals rowsum(dO * O);
 //    this kernel uses the latter, so dK/dV need no second pass over keys.)
-//  - bwd_dkv_kernel<DP, HAS_MASK>: one CTA per (key tile, head, batch), looping over
-//    query tiles: P^T = exp(K Q^T * s - lse), dV += P^T dO,
-//    dS^T = P^T (V dO^T - delta) * s, dK += dS^T Q.
-//  - bwd_dq_kernel<DP, HAS_MASK>: one CTA per (query tile, head, batch), looping over
-//    key tiles: dQ += dS K.
-//  The two backward kernels run the tiles of attention_bwd.cuh (shared with
-//  K7) on the panel's q, k, v column blocks.
+//  - tb::qkv_bwd_dkv_tf32_kernel<DP, HAS_MASK> (qkv_bwd_tf32.cuh): one CTA
+//    per (64-key tile, head, batch), looping over query tiles: P^T =
+//    exp(K Q^T * s - lse), dV += P^T dO, dS^T = P^T (V dO^T - delta) * s,
+//    dK += dS^T Q.
+//  - tb::qkv_bwd_dq_tf32_kernel<DP, HAS_MASK> (qkv_bwd_tf32.cuh): one CTA
+//    per (64-query tile, head, batch), looping over key tiles: dQ += dS K.
+//  Both backward kernels run every product as three TF32 tensor-core
+//  products, as the forward does. They are bound in qkv_attention_bwd.cu,
+//  a library of their own: in this translation unit nvcc compiled the
+//  forward kernels to other code than alone (PERF.md section 6).
 // dK/dV and dQ are written straight into the (B, N, 3*H*D) dqkv panel at the
 // q/k/v column offsets of `_fused_kernel_masked` (:70-73); every element is
 // written once, so there are no atomics and the result is deterministic.
@@ -49,17 +51,11 @@
 //
 // What bounds it at the ds2 training shape (B = 64, N = 135, H = 6, d = 80):
 // the forward does 4*B*H*N^2*d = 2.24 GFLOP on ~67 MB, the backward ~5.6
-// GFLOP on ~120 MB. The forward runs its products as three TF32 tensor-core
-// products each (qkv_fwd_tf32.cuh says how and why). The backward computes
-// in f32 on the CUDA cores (the TPU kernels' interpret-mode precision), so
-// it is bound by the f32 FMA rate (67 TFLOP/s): ~84 us at best; its products
-// are register-tiled as in attention_bwd.cuh.
+// GFLOP on ~120 MB. As three TF32 products each they are 6.7 and 16.8 GFLOP
+// (0.014 and 0.034 ms at 494.7 TFLOP/s) against 0.020 and 0.065 ms of bytes
+// at 3.35 TB/s: bytes (qkv_fwd_tf32.cuh and qkv_bwd_tf32.cuh say how).
 
-#include "attention_bwd.cuh"
 #include "qkv_fwd_tf32.cuh"
-
-using attn::THREADS;
-using attn::TILE;
 
 namespace {
 
@@ -79,70 +75,6 @@ __global__ void bwd_delta_kernel(const float* __restrict__ g, const float* __res
     const long long b = bn / n, row = bn % n;
     delta[((size_t)b * H + h) * n + row] = acc;
   }
-}
-
-// the (batch, head) cell's q, k, v and dO panels and its lse/delta rows;
-// dK/dV and dQ go to the k, v and q columns of the (B, N, 3*H*D) dqkv
-// panel, at the offsets of `_fused_kernel_masked` (:70-73)
-template <int DP, bool HAS_MASK>
-__global__ void __launch_bounds__(THREADS)
-bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               const unsigned char* __restrict__ mask, float* __restrict__ dqkv, int n, int H,
-               int d, float scale) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t ld = (size_t)3 * H * d, hd = (size_t)H * d, bh = ((size_t)b * H + h) * n;
-  const float* base = qkv + (size_t)b * n * ld;
-  float* dbase = dqkv + (size_t)b * n * ld;
-  attn::bwd_dkv_tile<DP, HAS_MASK, false>(
-      base + (size_t)h * d, base + (size_t)(H + h) * d, base + (size_t)(2 * H + h) * d, ld,
-      g + (size_t)b * n * hd + (size_t)h * d, hd, lse + bh, delta + bh, mask,
-      dbase + (size_t)(H + h) * d, dbase + (size_t)(2 * H + h) * d, ld, blockIdx.x * TILE, n, d,
-      scale);
-}
-
-template <int DP, bool HAS_MASK>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const unsigned char* __restrict__ mask, float* __restrict__ dqkv, int n, int H,
-              int d, float scale) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t ld = (size_t)3 * H * d, hd = (size_t)H * d, bh = ((size_t)b * H + h) * n;
-  const float* base = qkv + (size_t)b * n * ld;
-  attn::bwd_dq_tile<DP, HAS_MASK, false>(
-      base + (size_t)h * d, base + (size_t)(H + h) * d, base + (size_t)(2 * H + h) * d, ld,
-      g + (size_t)b * n * hd + (size_t)h * d, hd, lse + bh, delta + bh, mask,
-      dqkv + (size_t)b * n * ld + (size_t)h * d, ld, blockIdx.x * TILE, n, d, scale);
-}
-
-// one backward kernel (dK/dV or dQ): launch_dkv / launch_dq pick its masked
-// instantiation for a mask and its unmasked one for nullptr
-template <typename Kernel>
-cudaError_t launch_bwd(Kernel kernel, size_t smem, const float* qkv, const float* g,
-                       const float* lse, const float* delta, const unsigned char* mask,
-                       float* dqkv, int B, int n, int H, int d, float scale, cudaStream_t st) {
-  cudaError_t e = attn::prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3((n + TILE - 1) / TILE, H, B), THREADS, smem, st>>>(qkv, g, lse, delta, mask,
-                                                                  dqkv, n, H, d, scale);
-  return cudaGetLastError();
-}
-
-template <int DP>
-cudaError_t launch_dkv(const float* qkv, const float* g, const float* lse, const float* delta,
-                       const unsigned char* mask, float* dqkv, int B, int n, int H, int d,
-                       float scale, cudaStream_t st) {
-  return launch_bwd(mask != nullptr ? bwd_dkv_kernel<DP, true> : bwd_dkv_kernel<DP, false>,
-                    attn::dkv_smem<DP>(), qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale, st);
-}
-
-template <int DP>
-cudaError_t launch_dq(const float* qkv, const float* g, const float* lse, const float* delta,
-                      const unsigned char* mask, float* dqkv, int B, int n, int H, int d,
-                      float scale, cudaStream_t st) {
-  return launch_bwd(mask != nullptr ? bwd_dq_kernel<DP, true> : bwd_dq_kernel<DP, false>,
-                    attn::dq_smem<DP>(), qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale, st);
 }
 
 }  // namespace
@@ -165,20 +97,4 @@ extern "C" int qkv_attention_bwd_delta(const float* g, const float* o, float* de
   bwd_delta_kernel<<<(unsigned)blocks, per_block * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       g, o, delta, B, n, H, d);
   return (int)cudaGetLastError();
-}
-
-extern "C" int qkv_attention_bwd_dkv(const float* qkv, const float* g, const float* lse,
-                                     const float* delta, const unsigned char* mask, float* dqkv,
-                                     int B, int n, int H, int d, float scale, void* stream) {
-  if (attn::bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
-  ATTN_DISPATCH(d, launch_dkv<DP>(qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale,
-                                  static_cast<cudaStream_t>(stream)))
-}
-
-extern "C" int qkv_attention_bwd_dq(const float* qkv, const float* g, const float* lse,
-                                    const float* delta, const unsigned char* mask, float* dqkv,
-                                    int B, int n, int H, int d, float scale, void* stream) {
-  if (attn::bad_dims(B, n, H, d)) return (int)cudaErrorInvalidValue;
-  ATTN_DISPATCH(d, launch_dq<DP>(qkv, g, lse, delta, mask, dqkv, B, n, H, d, scale,
-                                 static_cast<cudaStream_t>(stream)))
 }

@@ -259,15 +259,46 @@ __device__ __forceinline__ void split4(float a, float b, float c, float d, uint4
   split(d, hi.w, lo.w);
 }
 
+// descriptor of k8 chunk c of a K-major tf32 operand of `rows` rows (32
+// bytes a row, 32-byte swizzle)
+__device__ __forceinline__ uint64_t chunk_desc(uint32_t base, int c, int rows) {
+  return hop::desc(base + c * rows * 32, 16, 256, hop::SW32);
+}
+
+// accumulator values (N/2 of a thread: columns 2t, 2t + 1 of every 8) as
+// the hi and lo A fragments of the N/8 k8 steps over those columns, for a B
+// whose chunks hold their 8 rows in the order 0, 2, 4, 6, 1, 3, 5, 7
+template <int N>
+__device__ __forceinline__ void frags(uint32_t (&h)[N / 8][4], uint32_t (&l)[N / 8][4],
+                                      const float (&v)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    split(v[4 * j], h[j][0], l[j][0]);
+    split(v[4 * j + 2], h[j][1], l[j][1]);
+    split(v[4 * j + 1], h[j][2], l[j][2]);
+    split(v[4 * j + 3], h[j][3], l[j][3]);
+  }
+}
+
+// whether Q lives in shared memory: above DP = 96 (its fragments would not
+// fit the registers beside O), and in the masked kernel at DP = 32, where
+// ptxas took the registers of Q's fragments for scratch once a tile's
+// products had read them, so every later tile read wrong lo terms (an error
+// of ~1e-4 of the scale, seen in the SASS: PERF.md section 6)
+template <int DP, bool HAS_MASK>
+__host__ __device__ constexpr bool q_in_smem() {
+  return DP > 96 || (HAS_MASK && DP == 32);
+}
+
 // the CTA of WG warpgroups at padded head dim DP, and its shared memory: the
 // hi and lo operands of K and V^T (one tile each), of Q where it lives in
 // shared memory, then the ring's f32 stages (K's 32 rows, then V's; row
 // stride DP + 4)
-template <int DP, int WG>
+template <int DP, int WG, bool QS>
 struct Cta {
   static constexpr int THREADS = 128 * WG;
   static constexpr int ROWS = 64 * WG;
-  static constexpr bool Q_SMEM = DP > 96;
+  static constexpr bool Q_SMEM = QS;
   static constexpr int LDF = DP + 4;
   static constexpr int STAGE = 2 * KT * LDF;
   static constexpr int TILE = KT * DP * 4;
@@ -412,7 +443,7 @@ __global__ void __launch_bounds__(128 * WG)
 qkv_fwd_tf32_kernel(const float* __restrict__ qkv, const unsigned char* __restrict__ mask,
                     float* __restrict__ out, float* __restrict__ lse, int n, int H, int d,
                     float scale) {
-  using C = Cta<DP, WG>;
+  using C = Cta<DP, WG, q_in_smem<DP, HAS_MASK>()>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
   unsigned char* kh = smem;
@@ -581,7 +612,7 @@ qkv_fwd_tf32_kernel(const float* __restrict__ qkv, const unsigned char* __restri
 template <int DP, int WG, bool HAS_MASK>
 cudaError_t launch_as(const float* qkv, const unsigned char* mask, float* out, float* lse, int B,
                       int n, int H, int d, float scale, cudaStream_t st) {
-  using C = Cta<DP, WG>;
+  using C = Cta<DP, WG, q_in_smem<DP, HAS_MASK>()>;
   auto kernel = qkv_fwd_tf32_kernel<DP, WG, HAS_MASK>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)C::SMEM);
@@ -598,10 +629,11 @@ cudaError_t launch_as(const float* qkv, const unsigned char* mask, float* out, f
 template <int DP>
 cudaError_t launch_fwd(const float* qkv, const unsigned char* mask, float* out, float* lse, int B,
                        int n, int H, int d, float scale, cudaStream_t st) {
-  constexpr int WG2 = Cta<DP, 1>::Q_SMEM ? 1 : 2;
+  constexpr int WG2_MASKED = q_in_smem<DP, true>() ? 1 : 2;
+  constexpr int WG2 = q_in_smem<DP, false>() ? 1 : 2;
   if (n >= 384)
     return mask != nullptr
-               ? launch_as<DP, WG2, true>(qkv, mask, out, lse, B, n, H, d, scale, st)
+               ? launch_as<DP, WG2_MASKED, true>(qkv, mask, out, lse, B, n, H, d, scale, st)
                : launch_as<DP, WG2, false>(qkv, mask, out, lse, B, n, H, d, scale, st);
   return mask != nullptr
              ? launch_as<DP, 1, true>(qkv, mask, out, lse, B, n, H, d, scale, st)

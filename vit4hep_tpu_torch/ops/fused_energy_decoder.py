@@ -4,9 +4,14 @@
 :func:`fused_energy_decoder` takes the JAX function's arguments, with the
 weights in its Dense layout ``(in, out)``. On CPU tensors it runs
 :func:`_reference`, the plain PyTorch version. On CUDA tensors it launches
-the hand-written kernel ``csrc/energy_decoder.cu`` (one CTA per batch
-element, the activation resident in shared memory across all layers) or
-raises; there is no fallback between the two. With gradients enabled and
+a hand-written kernel of ``csrc/energy_decoder.cu`` or raises; there is no
+fallback between the two. At the widths of every shipped energy config
+(:func:`tensor_core_shape`: d_model 128 in 4 heads of 32, feed-forward and
+head widths multiples of 64, at most 64 tokens) that is
+``energy_decoder_tf32_kernel``, every product on the tensor cores in split
+TF32 (three TF32 products each, the f32 contract), two elements a CTA;
+at any other width the f32 CUDA-core ``energy_decoder_kernel``, one CTA per
+element. Both take the weights as JAX stores them. With gradients enabled and
 an input requiring them it is a ``torch.autograd.Function`` whose forward
 is that kernel and whose backward is the VJP of the plain version, as
 JAX's ``_bwd`` takes the VJP of its composed reference.
@@ -29,7 +34,8 @@ from vit4hep_tpu_torch.ops import _cuda
 _LN_EPS = 1e-5
 _ACTS = {"relu": 1, "gelu": 2, "silu": 3}
 _SIGNATURES = {
-    "energy_decoder_forward": [_cuda.P] * 20 + [_cuda.I] * 9 + [_cuda.F, _cuda.P],
+    name: [_cuda.P] * 20 + [_cuda.I] * 9 + [_cuda.F, _cuda.P]
+    for name in ("energy_decoder_forward", "energy_decoder_tf32_forward")
 }
 
 ENERGY_DECODER = _cuda.LaunchCounter("energy_decoder")
@@ -73,9 +79,33 @@ def _reference(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2,
 
 
 def smem_bytes(n, dm, fdim, hdim0, num_heads):
-    """Shared memory the CUDA kernel needs per element (energy_decoder.cu)."""
+    """Shared memory the f32 CUDA-core kernel needs per element
+    (energy_decoder.cu)."""
     buf = max(n * (3 * dm + 1), n * fdim, n * hdim0)
     return 4 * (2 * n * dm + buf + max(num_heads * n * n, hdim0) + num_heads * n)
+
+
+def tc_smem_bytes(n, hdim0, depth, fdim):
+    """Shared memory of the tensor-core kernel's CTA (energy_decoder.cu,
+    ``tc::smem_bytes``): the hi and lo B operands of two weight units (2 x
+    2 x 4096 tf32), each of its two warpgroups' k and v^T tiles (4 x 128
+    bytes a padded key), the activations (64 values x 256 threads), the
+    head's time-feature vectors, the table of weight units (16 bytes each)
+    and the alignment slack."""
+    nk = -(-n // 16) * 16
+    units = depth * (20 + fdim // 16) + hdim0 // 32
+    return (4 * 4096 * 4 + 2 * 4 * nk * 128 + 64 * 256 * 4 + 2 * hdim0 * 4 + 16 * units
+            + 1024)
+
+
+def tensor_core_shape(n, dm, num_heads, fdim, hdim0, depth):
+    """Whether the tensor-core kernel takes this shape: d_model 128 in 4
+    heads of 32, feed-forward and head widths multiples of 64, 1 to 64
+    tokens, within the card's shared memory. Every shipped energy config
+    does (45, 7, 5, 3 and 58 tokens, 4 layers)."""
+    return (dm == 128 and num_heads == 4 and 1 <= n <= 64 and fdim >= 64 and fdim % 64 == 0
+            and hdim0 >= 64 and hdim0 % 64 == 0
+            and tc_smem_bytes(n, hdim0, depth, fdim) <= _cuda.MAX_SMEM_BYTES)
 
 
 def fused_energy_decoder(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
@@ -119,7 +149,9 @@ class _FusedEnergyDecoder(torch.autograd.Function):
 def energy_decoder_kernel(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
                           w1, b1, w2, b2, fs, fb, hw0, hb0, hw1, hb1,
                           num_heads, activation):
-    """Launch ``csrc/energy_decoder.cu`` on the current stream."""
+    """Launch a kernel of ``csrc/energy_decoder.cu`` on the current stream:
+    the tensor-core kernel where :func:`tensor_core_shape` holds, else the
+    f32 CUDA-core kernel."""
     b, n, dm = tgt.shape
     depth, fdim = w1.shape[0], w1.shape[-1]
     te, hdim0 = tf.shape[1], hw0.shape[1]
@@ -138,16 +170,19 @@ def energy_decoder_kernel(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
         raise ValueError(f"fused_energy_decoder: activation '{activation}' not supported")
     if dm % num_heads:
         raise ValueError(f"fused_energy_decoder: d_model {dm} not divisible by {num_heads} heads")
+    tensor_cores = tensor_core_shape(n, dm, num_heads, fdim, hdim0, depth)
     need = smem_bytes(n, dm, fdim, hdim0, num_heads)
-    if need > _cuda.MAX_SMEM_BYTES:
+    if not tensor_cores and need > _cuda.MAX_SMEM_BYTES:
         raise ValueError(f"fused_energy_decoder: {need} bytes of shared memory needed per "
                          f"element, above the card's {_cuda.MAX_SMEM_BYTES}")
     out = torch.empty((b, n), dtype=torch.float32, device=tgt.device)
     lib = _cuda.load("energy_decoder", _SIGNATURES)
-    code = lib.energy_decoder_forward(
+    launch = lib.energy_decoder_tf32_forward if tensor_cores else lib.energy_decoder_forward
+    code = launch(
         *[a.data_ptr() for a in args], out.data_ptr(),
         b, n, dm, te, fdim, hdim0, depth, num_heads, _ACTS[activation],
         float(dm // num_heads) ** -0.5, _cuda.stream())
     _cuda.check(code, "energy_decoder")
     ENERGY_DECODER.add()
     return out
+

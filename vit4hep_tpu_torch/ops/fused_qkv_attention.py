@@ -12,13 +12,13 @@ the logit scale. It returns the merged ``(B, N, H*D)`` context and is a
 On CPU tensors it runs the plain versions :func:`attention_fwd_plain` and
 :func:`attention_bwd_plain` (f32 matmuls and softmax; the backward is the
 5-product VJP of ``_bwd_kernel_masked``). On CUDA tensors it launches the
-hand-written kernels of ``csrc/qkv_attention.cu`` or raises: the forward
-kernel, then for the gradient a delta pre-pass (rowsum(dO * O)) and the
-dK/dV and dQ kernels. Each kernel has its own wrapper and launch counter,
+hand-written kernels of ``csrc/qkv_attention.cu`` and
+``csrc/qkv_attention_bwd.cu`` or raises: the forward kernel, then for the
+gradient a delta pre-pass (rowsum(dO * O)) and the dK/dV and dQ kernels. Each kernel has its own wrapper and launch counter,
 which counts masked and unmasked launches alike. The kernels keep the f32
 contract for head dims up to :data:`MAX_HEAD_DIM`, at any N, with or
-without the mask (the forward runs each product as three TF32 tensor-core
-products, ``csrc/qkv_fwd_tf32.cuh``; the backward computes in f32). The
+without the mask (each product runs as three TF32 tensor-core products,
+``csrc/qkv_fwd_tf32.cuh`` and ``csrc/qkv_bwd_tf32.cuh``). The
 mask goes to them as a contiguous ``uint8`` view on qkv's device and
 enters each score as ``where(mask, s * scale, -1e30)``, the TPU bodies'
 ``_fused_kernel_masked``, ``_packed_kernel_masked`` and
@@ -39,6 +39,8 @@ _P, _I, _F = _cuda.P, _cuda.I, _cuda.F
 _SIGNATURES = {
     "qkv_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "qkv_attention_bwd_delta": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+_BWD_SIGNATURES = {
     "qkv_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "qkv_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
@@ -51,6 +53,12 @@ BWD_DQ = _cuda.LaunchCounter("qkv_attn_bwd_dq")
 
 def _lib():
     return _cuda.load("qkv_attention", _SIGNATURES)
+
+
+def _bwd_lib():
+    """The dK/dV and dQ passes, a library of their own
+    (``csrc/qkv_attention_bwd.cu``)."""
+    return _cuda.load("qkv_attention_bwd", _BWD_SIGNATURES)
 
 
 def _dims(qkv, num_heads):
@@ -213,7 +221,7 @@ def attention_bwd_dkv_kernel(qkv, g, lse, delta, num_heads, scale, dqkv, mask=No
     if delta.shape != lse.shape or dqkv.shape != qkv.shape:
         raise ValueError("qkv_attention_bwd_dkv: delta/dqkv shapes do not match lse/qkv")
     mask, mask_ptr = mask_arg("qkv_attention_bwd_dkv", mask, n, qkv.device)
-    code = _lib().qkv_attention_bwd_dkv(qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
+    code = _bwd_lib().qkv_attention_bwd_dkv(qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
                                         delta.data_ptr(), mask_ptr, dqkv.data_ptr(), b, n,
                                         num_heads, d, float(scale), _cuda.stream())
     _cuda.check(code, "qkv_attention_bwd_dkv")
@@ -228,7 +236,7 @@ def attention_bwd_dq_kernel(qkv, g, lse, delta, num_heads, scale, dqkv, mask=Non
     if delta.shape != lse.shape or dqkv.shape != qkv.shape:
         raise ValueError("qkv_attention_bwd_dq: delta/dqkv shapes do not match lse/qkv")
     mask, mask_ptr = mask_arg("qkv_attention_bwd_dq", mask, n, qkv.device)
-    code = _lib().qkv_attention_bwd_dq(qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
+    code = _bwd_lib().qkv_attention_bwd_dq(qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
                                        delta.data_ptr(), mask_ptr, dqkv.data_ptr(), b, n,
                                        num_heads, d, float(scale), _cuda.stream())
     _cuda.check(code, "qkv_attention_bwd_dq")
