@@ -47,13 +47,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    + backward through autograd; K9
    (``fused_mlp_half``: its modulated LayerNorm, its two products and the
    whole chain) at x (64 / 256, 450, 480), ``torch.matmul`` on bf16 as the
-   products' library call; K7 (``flash_attention``: forward, dK/dV and dQ
-   passes, f32) on strided q/k/v views at ds3_long's serving shape (2, 6,
-   13500, 80) and training shape (8, 6, 13500, 80) (the plain versions one
-   element at a time), at the ds3 training shape (64, 6, 450, 80) unmasked
-   and layer-causal, and at (8, 6, 300, 80) with a tail tile and one wholly
-   masked row, SDPA on the same f32 tensors as the library call (its
-   backward alone for the backward passes); the block stack
+   products' library call; K7 (``flash_attention``: its pre-pass, bit for
+   bit against ``split_plain``, and its forward, dK/dV and dQ passes in
+   split TF32 against the f32 plain versions) on strided q/k/v views at
+   ds3_long's serving shape (2, 6, 13500, 80) and training shape (8, 6,
+   13500, 80) (the plain versions one element at a time), at the ds3
+   training shape (64, 6, 450, 80) unmasked and layer-causal, and at (8,
+   6, 300, 80) with a tail tile and one wholly masked row, SDPA on the
+   same f32 tensors (with the mask where there is one) as the library call
+   (its backward alone for the backward passes); K7's forward against f64
+   within 2e-5 of the scale at every padded head dim, unmasked, all-True
+   and layer-causal, and each masked forward of K7, K6 and K2v with an
+   all-True mask equal to its unmasked kernel at every padded head dim
+   (``masked_forms_phase``: a register A operand lost to ptxas shows as an
+   error of the operand's own size); the block stack
    (``fused_dit_stack``): K2s without gradients (ungrouped and
    layer-causal, exactly 6 x (4 GEMM + 2 modln + 1 attention) launches;
    group 8 bit for bit the ungrouped output) against the chained f32
@@ -99,8 +106,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      kernel;
    - ds3_long_cfm: ds3_long (cfm_ds3_electrons with (3, 1, 1) patches:
      13,500 tokens x 3, composed, attn_impl auto) at batch
-     DS3_LONG_SERVE_BATCH, DS3_REQUESTS requests: K7's forward 6 per net
-     eval, 480 a request; the reference at batch 1 and 2 RK4 steps;
+     DS3_LONG_SERVE_BATCH, DS3_REQUESTS requests: K7's pre-pass and
+     forward 6 each per net eval, 480 a request; the reference at batch 1 and 2 RK4 steps;
 5. ds2_train: the ds2 shape model at full width (hidden 480, depth 6, 6
    heads x 80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
    clip_grad_norm 1000) through the port's ``CaloChallenge`` experiment and
@@ -149,7 +156,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    FUSED_TRAIN_TOL: bf16 products against f32); ds3_long_train: ds3_long
    at batch DS3_LONG_TRAIN_BATCH, DS3_LONG_STEPS steps and one validation
    batch through the experiment (K7: 6 forwards per step and per
-   validation batch, 6 dK/dV and 6 dQ passes per step), a profiled step,
+   validation batch, 6 dK/dV and 6 dQ passes per step, a pre-pass before
+   each forward and each backward), a profiled step,
    and its parity against ``attn_impl: xla`` (``checkpoint_grads: true``)
    at batch 1 (K7_TRAIN_TOL: f32 both);
 11. energy: a few steps of the ds2 energy experiment at full width (batch
@@ -490,8 +498,17 @@ TOL.update({"vmem_attn_fwd": 2e-3, "vmem_attn_bwd_dq": 4e-3, "vmem_attn_bwd_dkv"
 # (K2s, K5a-stack) chains K2b's / K5a's block kernels through 6 blocks: 2e-2,
 # the bound of K2v's and K5a's whole forwards (K2s against the f32 blocks,
 # K5a-stack against the plain blocks on bf16 multiplicands).
+# K7's products run as three TF32 products each (split TF32, as K1's), which
+# leaves ~2^-21 of each product term: the same 1e-4 (the first card run,
+# NVIDIA H100 80GB HBM3, 700 W, measured at most 7.7e-6 of the scale). Its
+# pre-pass writes tf32 roundings of the inputs, the same bits as its plain
+# version's (0: bit for bit).
 TOL.update({"flash_attn_fwd": 1e-4, "flash_attn_bwd_dkv": 1e-4, "flash_attn_bwd_dq": 1e-4,
-            "fused_dit_stack": 2e-2, "stack_fwd_train": 2e-2})
+            "flash_attn_split": 0.0, "fused_dit_stack": 2e-2, "stack_fwd_train": 2e-2})
+# K7's forward against an f64 reference at every padded head dim: split
+# TF32 keeps ~2^-21 of each product term, so 2e-5 of the scale; a lo term
+# lost (one TF32 product) misses it by ~10x
+K7_F64_TOL = 2e-5
 # ds3_long training with K7 against attn_impl xla from one state: f32 on both
 # sides (the rest of the composed net is the same code), so K1's train
 # parity bounds hold (TRAIN_TOL's reasoning): loss and grad norm 1e-4
@@ -517,7 +534,8 @@ K6_BWD = "vit4hep_tpu_torch/csrc/flash_bwd_wgmma.cuh"
 K9 = ("vit4hep_tpu_torch/csrc/vit_forward.cu (modln_kernel, gemm_wgmma_kernel; chained in "
       "vit4hep_tpu_torch/ops/fused_mlp.py)")
 K9_BODY = "vit4hep_tpu/ops/fused_mlp.py:51 (_kernel, call :114)"
-K7 = "vit4hep_tpu_torch/csrc/flash_attention.cu (tiles of attention_fwd.cuh, attention_bwd.cuh)"
+K7 = "vit4hep_tpu_torch/csrc/flash_tf32.cuh"
+K7_LIB = "vit4hep_tpu_torch/csrc/flash_attention.cu"
 # the block stack's bodies: K2s's (ungrouped, masked, grouped) and K5a-stack's
 K2S_BODY = ("vit4hep_tpu/ops/fused_dit_block.py:257, :236 and :265 (fused_dit_stack, calls "
             ":446, :408)")
@@ -574,12 +592,18 @@ REPLACES = {
                           "call :389)"),
     "mlp_modln": (K9, K9_BODY),
     "mlp_gemm": (K9, K9_BODY),
-    # the separated-layout streaming flash attention (its delta is plain)
-    "flash_attn_fwd": (K7, "vit4hep_tpu/ops/flash_attention.py:39 (_fwd_kernel, call :219)"),
-    "flash_attn_bwd_dkv": (K7, "vit4hep_tpu/ops/flash_attention.py:84 (_bwd_dkv_kernel, "
-                               "call :278)"),
-    "flash_attn_bwd_dq": (K7, "vit4hep_tpu/ops/flash_attention.py:128 (_bwd_dq_kernel, "
-                              "call :309)"),
+    # the separated-layout streaming flash attention in split TF32 (its
+    # delta is plain); the pre-pass splits the operands that the TPU kernels
+    # cast to f32
+    "flash_attn_split": (f"{K7}: k7_split_kernel (bound in {K7_LIB})",
+                         "vit4hep_tpu/ops/flash_attention.py:39, :84, :128 (the f32 operand "
+                         "casts of _fwd_kernel, _bwd_dkv_kernel, _bwd_dq_kernel)"),
+    "flash_attn_fwd": (f"{K7}: k7_fwd_kernel (bound in {K7_LIB})",
+                       "vit4hep_tpu/ops/flash_attention.py:39 (_fwd_kernel, call :219)"),
+    "flash_attn_bwd_dkv": (f"{K7}: k7_bwd_dkv_kernel (bound in {K7_LIB})",
+                           "vit4hep_tpu/ops/flash_attention.py:84 (_bwd_dkv_kernel, call :278)"),
+    "flash_attn_bwd_dq": (f"{K7}: k7_bwd_dq_kernel (bound in {K7_LIB})",
+                          "vit4hep_tpu/ops/flash_attention.py:128 (_bwd_dq_kernel, call :309)"),
 }
 # the tier's functions (fused_dit_block, vit_fwd_train, fused_dit_block_bwd_res,
 # fused_dit_block_bwd) are chains of the kernels above: the kernel phase holds
@@ -593,8 +617,9 @@ TRAINING = {"qkv_attn_fwd": fqa.FWD, "qkv_attn_bwd_delta": fqa.BWD_DELTA,
 OPT_IN = {"vmem_attn_fwd": fva.FWD, "vmem_attn_bwd_dq": fva.BWD_DQ,
           "vmem_attn_bwd_dkv": fva.BWD_DKV, "flash_qkv_fwd": ffa.FWD,
           "flash_qkv_bwd_dq": ffa.BWD_DQ, "flash_qkv_bwd_dkv": ffa.BWD_DKV,
-          "mlp_modln": fmlp.MODLN, "mlp_gemm": fmlp.GEMM, "flash_attn_fwd": fla.FWD,
-          "flash_attn_bwd_dkv": fla.BWD_DKV, "flash_attn_bwd_dq": fla.BWD_DQ}
+          "mlp_modln": fmlp.MODLN, "mlp_gemm": fmlp.GEMM, "flash_attn_split": fla.SPLIT,
+          "flash_attn_fwd": fla.FWD, "flash_attn_bwd_dkv": fla.BWD_DKV,
+          "flash_attn_bwd_dq": fla.BWD_DQ}
 # every counter a composed ds3 train step, validation or serving request can move
 COMPOSED = {**TRAINING, **SERVING, **OPT_IN}
 # every counter a fused train step or its validation can move
@@ -665,7 +690,8 @@ def composed_launches(setting, steps, val_batches, depth=6):
     net evals of a request): "auto" (K1 per block), "vmem" (K8), "flash"
     (K6, with K1's delta in its backward), "fused_mlp" (K1, and K9's chain
     per block, whose backward is the plain VJP), "k7" (K7: ds3_long, past the
-    panel kernel's bound)."""
+    panel kernel's bound; its pre-pass before each forward and each
+    backward)."""
     n = dict.fromkeys(COMPOSED, 0)
     fwd, bwd = {"vmem": ("vmem_attn_fwd", ("vmem_attn_bwd_dq", "vmem_attn_bwd_dkv")),
                 "flash": ("flash_qkv_fwd", ("qkv_attn_bwd_delta", "flash_qkv_bwd_dq",
@@ -675,12 +701,17 @@ def composed_launches(setting, steps, val_batches, depth=6):
     n[fwd] += depth * (steps + val_batches)
     for k in bwd:
         n[k] += depth * steps
+    if setting == "k7":
+        n["flash_attn_split"] += depth * (2 * steps + val_batches)
     if setting == "fused_mlp":
         n["mlp_modln"] += depth * (steps + val_batches)
         n["mlp_gemm"] += 2 * depth * (steps + val_batches)
     return n
 
 
+# ds3_long serving: launches per net eval (K7's pre-pass and forward in each
+# of 6 blocks; the energy net's decoder)
+DS3_LONG_PER_EVAL = {"energy_decoder": 1, "flash_attn_split": 6, "flash_attn_fwd": 6}
 # the CFM request: launches per net eval of each kernel on its path (embed,
 # 6 x 4 block products and the final product; 2 LayerNorms per block and the
 # final one; one attention per block; the energy net's decoder)
@@ -1432,16 +1463,19 @@ def _batched(fn, chunk, *tensors):
 
 
 def k7_kernel_phase(results, b, n, mask=None, chunk=None):
-    """K7's forward, dK/dV and dQ passes against their plain versions (f32
-    both) at q, k, v (b, 6, n, 80): strided views of a random qkv panel,
+    """K7's pre-pass, forward, dK/dV and dQ passes against their plain
+    versions at q, k, v (b, 6, n, 80): strided views of a random qkv panel,
     as the ViT hands them over, with the shared ``mask`` when given. The
-    kernels run on the whole batch, the plain versions on ``chunk`` batch
-    elements at a time (all at once by default). SDPA on the same f32
-    tensors (with the boolean mask) is the library call: its forward for
-    the forward's row, its backward alone (through autograd, all three
-    gradients) for the backward rows. Returns the forward + backward times:
-    K7 through autograd, the plain forward and backward, SDPA through
-    autograd."""
+    pre-pass bit for bit (the forward's K and V^T, the backward's seven
+    operand layouts; its time is the two's sum, one of each a training
+    step); the passes (each timed on operands split beforehand) in split
+    TF32 against the f32 plain versions. The kernels run on the whole batch,
+    the plain versions on ``chunk`` batch elements at a time (all at once by
+    default). SDPA on the same f32 tensors (with the boolean mask) is the
+    library call: its forward for the forward's row, its backward alone
+    (through autograd, all three gradients) for the backward rows. Returns
+    the forward + backward times: K7 through autograd, the plain forward and
+    backward, SDPA through autograd."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 70 + n + b)
     heads, d = 6, 80
     scale = d ** -0.5
@@ -1451,31 +1485,52 @@ def k7_kernel_phase(results, b, n, mask=None, chunk=None):
     qc, kc, vc, gc = (t.contiguous() for t in (q, k, v, g))
     pair = _attn_flops(b, heads, n, d, mask) // 4  # b h pairs d
     mb = 0 if mask is None else mask.numel()
+    buf = 4 * b * heads * fla.padded(n) * fla.padded_dim(d)  # one split buffer's bytes
     xs = tuple(t.clone().requires_grad_() for t in (qc, kc, vc))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qc, kc, vc, attn_mask=mask, scale=scale)
-
-    fwd = lambda: fla.flash_fwd_kernel(q, k, v, scale, mask)  # noqa: E731
     chunk = chunk or b
+    tensors = {"q": q, "k": k, "v": v, "g": g}
+
+    # the pre-pass: the forward's operands, then the backward's
+    fwd_ops = ((k, fla.ROWS), (v, fla.COLS))
+    split_f = lambda: fla.split_kernel(  # noqa: E731
+        "flash_attention_fwd", [(k, (fla.ROWS,)), (v, (fla.COLS,))], b, heads, n, d)
+    split_fp = lambda: tuple(t for x, lay in fwd_ops for t in fla.split_plain(x, lay))  # noqa: E731
+    kr, vt = split_f()
+    _check("flash_attn_split", (*kr[fla.ROWS], *vt[fla.COLS]), split_fp(), results, split_f,
+           split_fp, work_bound(_f32_bytes(k, v) + 4 * buf, 0, F32_FLOPS))
+    split_b = lambda: fla.split_bwd(q, k, v, g)  # noqa: E731
+    split_bp = lambda: tuple(t for nm, lay in fla.BWD_OPS  # noqa: E731
+                             for t in fla.split_plain(tensors[nm], lay))
+    ops = split_b()
+    _check("flash_attn_split", tuple(t for op in fla.BWD_OPS for t in ops[op]), split_bp(),
+           results, split_b, split_bp,
+           work_bound(_f32_bytes(q, k, v, g) + 2 * len(fla.BWD_OPS) * buf, 0, F32_FLOPS))
+
+    kv = (kr, vt)
+    fwd = lambda: fla.flash_fwd_kernel(q, k, v, scale, mask, kv)  # noqa: E731
     fwd_p = lambda: _batched(lambda *t: fla.flash_fwd_plain(*t, scale, mask),  # noqa: E731
                              chunk, q, k, v)
     out, lse = fwd()
     _check("flash_attn_fwd", (out, lse), fwd_p(), results, fwd, fwd_p,
-           work_bound(_f32_bytes(q, k, v, out, lse) + mb, 4 * pair, F32_FLOPS), sdpa)
+           split_tf32_bound(_f32_bytes(q, out, lse) + 4 * buf + mb, 4 * pair), sdpa)
+    del kv, kr, vt
     delta = fla.delta_plain(g, out)
     bwd_p = lambda: _batched(lambda *t: fla.flash_bwd_plain(*t, scale, mask),  # noqa: E731
                              chunk, q, k, v, g, out, lse)
     want = bwd_p()
     sdpa_out = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, gc, retain_graph=True)  # noqa: E731
-    reads = _f32_bytes(q, k, v, g, lse, delta) + mb
-    dkv = lambda: fla.flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask)  # noqa: E731
+    stats = _f32_bytes(lse, delta) + mb
+    dkv = lambda: fla.flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask, ops)  # noqa: E731
     _check("flash_attn_bwd_dkv", dkv(), want[1:], results, dkv, bwd_p,
-           work_bound(reads + 2 * _f32_bytes(q), 8 * pair, F32_FLOPS), sdpa_bwd)
-    dq = lambda: fla.flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask)  # noqa: E731
+           split_tf32_bound(stats + 12 * buf + 2 * _f32_bytes(q), 8 * pair), sdpa_bwd)
+    dq = lambda: fla.flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask, ops)  # noqa: E731
     dq_k = dq()
     _check("flash_attn_bwd_dq", dq_k, want[0], results, dq, bwd_p,
-           work_bound(reads + _f32_bytes(q), 6 * pair, F32_FLOPS), sdpa_bwd)
+           split_tf32_bound(stats + 10 * buf + _f32_bytes(q), 6 * pair), sdpa_bwd)
+    del ops
     dead = [] if mask is None else (~mask).all(1).nonzero().flatten().tolist()
     for row in dead:  # a wholly masked row: the mean of V, and its dQ is 0 (JAX's)
         if not (torch.allclose(out[:, :, row], v.mean(2), atol=1e-5)
@@ -1502,6 +1557,51 @@ def k7_kernel_phase(results, b, n, mask=None, chunk=None):
         F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale).backward(gc)
 
     return {"K7": time_ms(k7_run), "plain": time_ms(plain_run), "sdpa": time_ms(sdpa_run)}
+
+
+PADDED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+
+
+def masked_forms_phase(b=2, n=200, heads=2):
+    """At every padded head dim, on qkv (b, n, 3 * heads * d) with several
+    key tiles: K7's forward against an f64 reference within K7_F64_TOL of
+    the scale, unmasked, with an all-True mask and layer-causal (a lo term
+    lost misses it by ~10x); and each masked forward of K7, K6 and K2v with
+    an all-True mask against its unmasked kernel on the same inputs, within
+    1e-5 of the scale (the same instructions on the same values: bit for
+    bit is expected; a register A operand that ptxas reused for scratch
+    after a loop's first products read it gives errors of the operand's own
+    size)."""
+    ones = torch.ones(n, n, dtype=torch.bool, device="cuda")
+    causal = torch.tril(ones)
+    worst = {}
+    for d in PADDED_HEAD_DIMS:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 90 + d)
+        qkv = _rand(gen, b, n, 3 * heads * d)
+        q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+        scale = d ** -0.5
+        q64, k64, v64 = (t.double() for t in (q, k, v))
+        for kind, m in (("unmasked", None), ("all-True", ones), ("layer-causal", causal)):
+            s64 = torch.matmul(q64, k64.transpose(-1, -2)) * scale
+            if m is not None:
+                s64 = s64.masked_fill(~m, -1e30)
+            err, sc = _rel_err(fla.flash_fwd_kernel(q, k, v, scale, m)[0],
+                               torch.matmul(torch.softmax(s64, -1), v64))
+            worst[f"K7 vs f64, {kind}"] = max(worst.get(f"K7 vs f64, {kind}", 0.0), err / sc)
+            if not err <= K7_F64_TOL * sc:
+                raise PhaseError(f"K7's forward at d = {d}, {kind}: {err:.3e} from f64 (bound "
+                                 f"{K7_F64_TOL:g} x {sc:.3g})")
+        for name, run in (("K7", lambda m: fla.flash_fwd_kernel(q, k, v, scale, m)[0]),
+                          ("K6", lambda m: ffa.flash_fwd_kernel(qkv, heads, scale, m)[0]),
+                          ("K2v", lambda m: fdb.attention(qkv, heads, scale, m))):
+            err, sc = _rel_err(run(ones), run(None))
+            worst[f"{name} all-True vs unmasked"] = max(
+                worst.get(f"{name} all-True vs unmasked", 0.0), err / sc)
+            if not err <= 1e-5 * sc:
+                raise PhaseError(f"{name}'s masked forward at d = {d} with an all-True mask "
+                                 f"differs from the unmasked one by {err:.3e}")
+    print("  at d = 16-128 (relative to the scale): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " ok", flush=True)
 
 
 def _stack_weights(gen, depth, h=480, fdim=1920, std=0.05):
@@ -2385,8 +2485,9 @@ FUSED_TRAIN_GROUPS = [
 
 # device-time groups of a composed ds3 train step (K8's and K6's kernels
 # live in namespace aw, K6's backward named flash_bwd_*; K1's forward in tf,
-# its backward in an anonymous namespace)
+# its backward in an anonymous namespace; K7's in k7, named k7_*)
 DS3_TRAIN_GROUPS = [
+    ("K7 pre-pass", lambda k: "k7_split_kernel" in k),
     ("K7 forward", lambda k: "k7_fwd_kernel" in k),
     ("K7 backward", lambda k: "k7_bwd_d" in k),
     ("K8 forward", lambda k: "vmem_fwd_wgmma_kernel" in k),
@@ -2532,6 +2633,9 @@ def main() -> int:
         print(f"K7 vs plain, {label}: q/k/v ({b}, 6, {n}, 80)", flush=True)
         k1_ms[f"K7, {label}"] = k7_kernel_phase(groups[group], b, n, mask=m)
     del mask3, tail
+    print("K7 forward vs f64, and the masked forwards of K7, K6 and K2v with an all-True mask "
+          "vs their unmasked kernels, at every padded head dim 16-128", flush=True)
+    masked_forms_phase()
     print("K2s and K5a-stack (fused_dit_stack) vs plain: x (256, 135, 480), depth 6, ungrouped "
           "and group 8; with the layer-causal mask of (15, 1, 9); x (64, 450, 480)", flush=True)
     stack_kernel_phase(groups["stack"], BATCH, 135, group=8)
@@ -2622,8 +2726,8 @@ def main() -> int:
         # differ by summation order only, 1e-3 of scale with margin
         launches["ds3_long_cfm"], times, generator = cfm_phase(
             Path(tmp), "ds3", DS3_LONG_MODEL, DS3_ENERGY_MODEL, DS3_SHAPE_TRANSFORMS,
-            DS3_ENERGY_TRANSFORMS, DS3_REQUESTS, COMPOSED,
-            {"energy_decoder": 1, "flash_attn_fwd": 6}, DS3_LONG_SERVE_BATCH,
+            DS3_ENERGY_TRANSFORMS, DS3_REQUESTS, COMPOSED, DS3_LONG_PER_EVAL,
+            DS3_LONG_SERVE_BATCH,
             (1, DS3_LONG_REFERENCE_STEP, 1e-3))
         print(f"ds3_long_cfm: {DS3_LONG_SERVE_BATCH * len(times) / sum(times):.4f} showers/s "
               f"over all {len(times)} requests, "

@@ -277,17 +277,20 @@ def test_ds3_long_is_the_ds3_config_with_finer_patches():
 
 def test_chip_smoke_k7_and_stack_launch_counts():
     """The launches the smoke expects: 6 K7 forwards per train step and per
-    validation batch (or net eval), 6 of each backward pass per step; the
-    block stack's three backward arms."""
+    validation batch (or net eval), 6 of each backward pass per step, and a
+    pre-pass before each forward and each backward; the block stack's three
+    backward arms."""
     smoke = _chip_smoke()
     want = smoke.composed_launches("k7", 3, 1)
     assert {k: v for k, v in want.items() if v} == {
-        "flash_attn_fwd": 24, "flash_attn_bwd_dkv": 18, "flash_attn_bwd_dq": 18}
+        "flash_attn_split": 42, "flash_attn_fwd": 24, "flash_attn_bwd_dkv": 18,
+        "flash_attn_bwd_dq": 18}
     res, xla, rec = (smoke.stack_launches(v) for v in ("res", "xla", "recompute"))
     assert res["vit_train_gemm"] == 30 and res["qkv_attn_bwd_dq"] == 6
     assert xla["vit_train_gemm"] == 24 and xla["vit_gemm_nt"] == 0
     assert (rec["vit_gemm"], rec["vit_attention"], rec["vit_train_gemm"]) == (44, 11, 30)
-    assert set(smoke.REPLACES) >= {"flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"}
+    assert set(smoke.REPLACES) >= {"flash_attn_split", "flash_attn_fwd", "flash_attn_bwd_dkv",
+                                   "flash_attn_bwd_dq"}
     assert all(k in smoke.TOL for k in smoke.REPLACES)
 
 
@@ -331,11 +334,12 @@ def test_kernels_match_plain_on_cuda(cuda_device, b, h, n, d, dead_row):
 def test_autograd_launches_each_kernel_once_on_cuda(cuda_device):
     q, k, v, g, _ = _cuda_case(cuda_device, 1, 2, 200, 80, False)
     xs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    for c in (tfa.FWD, tfa.BWD_DKV, tfa.BWD_DQ):
+    for c in (tfa.SPLIT, tfa.FWD, tfa.BWD_DKV, tfa.BWD_DQ):
         c.reset()
     tfa.flash_attention(*xs).backward(g)
     torch.cuda.synchronize()
     assert (tfa.FWD.launches, tfa.BWD_DKV.launches, tfa.BWD_DQ.launches) == (1, 1, 1)
+    assert tfa.SPLIT.launches == 2  # one before the forward, one before the backward
     want = torch.autograd.grad(tattn.xla_attention(*xs), xs, g)
     for got, ref in zip((t.grad for t in xs), want):
         assert (got - ref).abs().max().item() <= 1e-4 * max(1.0, ref.abs().max().item())

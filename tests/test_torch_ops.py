@@ -139,9 +139,9 @@ def test_kernel_library_digest_follows_included_headers(tmp_path, monkeypatch):
     library, so a stale one is never loaded."""
     from vit4hep_tpu_torch.ops import _cuda
 
-    # K7 reaches the f32 forward's header through the backward tiles'
-    # header, K1 through its TF32 forward's (its backward passes through
-    # their own header first); the ViT GEMM, K2v's attention, K5b's
+    # K7 reaches K1's split-TF32 headers through its own, K1 through its
+    # TF32 forward's (its backward passes through their own header first);
+    # the ViT GEMM, K2v's attention, K5b's
     # products, K1 and K6 share the Hopper primitives, K6's backward
     # reaching them through K8's and K6's forward's wgmma headers
     for name, headers in (("vit_forward", ["hopper.cuh", "vit_attention_wgmma.cuh"]),
@@ -150,7 +150,9 @@ def test_kernel_library_digest_follows_included_headers(tmp_path, monkeypatch):
                                              "hopper.cuh"]),
                           ("qkv_attention_bwd", ["qkv_bwd_tf32.cuh", "qkv_fwd_tf32.cuh",
                                                  "attention_fwd.cuh", "hopper.cuh"]),
-                          ("flash_attention", ["attention_bwd.cuh", "attention_fwd.cuh"]),
+                          ("flash_attention", ["flash_tf32.cuh", "qkv_bwd_tf32.cuh",
+                                               "qkv_fwd_tf32.cuh", "attention_fwd.cuh",
+                                               "hopper.cuh"]),
                           ("flash_qkv_attention", ["flash_bwd_wgmma.cuh", "vmem_wgmma.cuh",
                                                    "attention_wgmma.cuh", "attention_mma.cuh",
                                                    "hopper.cuh"])):

@@ -4,7 +4,7 @@ K5b's products, or rerun its end-to-end paths, with this checkout's
 ``chip_smoke.py``, so that two trees can be compared on one card.
 
     python3 tree_compare.py kernels [--tree DIR] [--label NAME]
-    python3 tree_compare.py paths [--tree DIR] [--label NAME]
+    python3 tree_compare.py paths [--tree DIR] [--label NAME] [--only PATH ...]
     python3 tree_compare.py sass --tree DIR
 
 DIR (default: this checkout) goes first on the import path, so the
@@ -23,7 +23,14 @@ at the ds2 training shape (64, 135, 1440), plain and layer-causal, and at
 the cINN subnet shapes (256, 135 or 225, 576); K1's backward passes (delta,
 dK/dV, dQ) at (64, 135, 1440), plain and layer-causal, and (16, 450, 1440),
 with SDPA's f32 backward beside them; K3 at the energy net's sampling shape
-(batch 256); each the median device time of ``tools.timing.time_ms`` on
+(batch 256); K7 at the smoke's shapes (``K7_SHAPES``: q/k/v (2 and 8, 6,
+13500, 80), (64, 6, 450, 80) plain and layer-causal, (8, 6, 300, 80) with
+a tail tile and a dead row), its forward, dK/dV and dQ passes as DIR's
+wrappers launch them alone (each with its own pre-pass where DIR has one),
+its backward through autograd's path (delta, one pre-pass, both passes),
+and where DIR has the pre-pass, the pre-pass alone and the passes on
+operands split beforehand, SDPA's f32 forward and backward (with the mask)
+beside them; each the median device time of ``tools.timing.time_ms`` on
 inputs made from seed 0.
 ``paths``: the smoke's
 ``train_phase`` (ds2 composed, 30 steps through the experiment) and
@@ -31,13 +38,18 @@ inputs made from seed 0.
 ``ds3_train_phase`` with ``attn_impl: flash`` (K6's forward and backward),
 and
 ``cinn_phase`` and ``cfm_phase`` at ds2 and ds3 (3 requests of 256
-showers). Either prints one JSON line: the card's name and power limit,
+showers), and ds3_long (13,500 tokens, K7): its serving (``cfm_phase``,
+batch 2, 2 requests) and training (``ds3_train_phase``, batch 8,
+DS3_LONG_STEPS steps); ``--only`` picks some of them (``PATHS``). A tree
+from before K7's pre-pass gets a launch counter for it that no kernel
+moves, and launch expectations without it. Either prints one JSON line: the card's name and power limit,
 then the times in ms or the rates (train steps/s of the whole loop and of
 the steady step interior; each generator's steady showers/s, first request
 excluded, and its request seconds). ``sass`` builds the libraries of
 the kernels a change should leave as they were (``SASS_KERNELS``: K6's
-three kernels, K8's three, K7's, K1's TF32 forward and its delta kernel)
-in DIR and in
+three kernels, K8's three, K7's, K1's TF32 forward, delta kernel and
+backward passes, K3's, and K2v's attention with the ViT GEMM and modln
+kernels beside it) in DIR and in
 this checkout, and prints per kernel the SASS lines (``cuobjdump -sass``,
 addresses and encodings stripped) that differ between the two.
 
@@ -67,11 +79,24 @@ HERE = Path(__file__).resolve().parent
 
 
 def _smoke(tree: Path):
-    """This checkout's chip_smoke, importing DIR's vit4hep_tpu_torch."""
+    """This checkout's chip_smoke, importing DIR's vit4hep_tpu_torch (a
+    tree without K7's pre-pass: a counter for it that no kernel moves, and
+    no pre-pass launches expected)."""
     sys.path.insert(0, str(tree))
+    from vit4hep_tpu_torch.ops import _cuda
+    from vit4hep_tpu_torch.ops import flash_attention as fla
+
+    legacy = not hasattr(fla, "SPLIT")
+    if legacy:
+        fla.SPLIT = _cuda.LaunchCounter("flash_attn_split")
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    if legacy:
+        cs.DS3_LONG_PER_EVAL = {k: v for k, v in cs.DS3_LONG_PER_EVAL.items()
+                                if k != "flash_attn_split"}
+        launches = cs.composed_launches
+        cs.composed_launches = lambda *a, **kw: {**launches(*a, **kw), "flash_attn_split": 0}
     return cs
 
 
@@ -165,6 +190,63 @@ def kernels(cs, torch) -> dict:
             lambda: fdb.attention(qkv, heads, scale))
         del qkv
     res["k5b"] = k5b_products(cs, torch, rand)
+    res["k7"] = k7_passes(cs, torch, rand)
+    return res
+
+
+# K7's shapes in the smoke: (batch, tokens, mask, label)
+K7_SHAPES = ((2, 13500, None, "ds3_long serving"), (8, 13500, None, "ds3_long training"),
+             (64, 450, None, "ds3 training"), (64, 450, "layer-causal", "ds3 training"),
+             (8, 300, "tail", "tail tile and a dead row"))
+
+
+def k7_passes(cs, torch, rand) -> dict:
+    """K7's passes at K7_SHAPES, as the module docstring says."""
+    fla, F, heads, d = cs.fla, cs.F, 6, 80
+    scale, pre = d ** -0.5, hasattr(fla, "split_kernel")
+    res = {}
+    for b, n, kind, label in K7_SHAPES:
+        mask = None
+        if kind == "layer-causal":
+            mask = cs._causal_mask((15, 5, 6))
+        elif kind == "tail":
+            mask = torch.tril(torch.ones(n, n, dtype=torch.bool, device="cuda"))
+            mask[7] = False
+        qkv = rand(b, n, 3 * heads * d)
+        q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+        g = rand(b, n, heads * d).reshape(b, n, heads, d).permute(0, 2, 1, 3)
+        out, lse = fla.flash_fwd_kernel(q, k, v, scale, mask)
+        delta = fla.delta_plain(g, out)
+        runs = {"fwd": lambda: fla.flash_fwd_kernel(q, k, v, scale, mask),
+                "dkv": lambda: fla.flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask),
+                "dq": lambda: fla.flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask),
+                "bwd": lambda: fla.flash_bwd_kernel(q, k, v, g, out, lse, scale, mask)}
+        times = {name: cs.time_ms(fn) for name, fn in runs.items()}
+        if pre:
+            kv = fla.split_kernel("flash_attention_fwd", [(k, (fla.ROWS,)), (v, (fla.COLS,))],
+                                  b, heads, n, d)
+            ops = fla.split_bwd(q, k, v, g)
+            times.update({
+                "split_fwd": cs.time_ms(lambda: fla.split_kernel(
+                    "flash_attention_fwd", [(k, (fla.ROWS,)), (v, (fla.COLS,))], b, heads, n,
+                    d)),
+                "split_bwd": cs.time_ms(lambda: fla.split_bwd(q, k, v, g)),
+                "fwd_only": cs.time_ms(lambda: fla.flash_fwd_kernel(q, k, v, scale, mask, kv)),
+                "dkv_only": cs.time_ms(lambda: fla.flash_bwd_dkv_kernel(
+                    q, k, v, g, lse, delta, scale, mask, ops)),
+                "dq_only": cs.time_ms(lambda: fla.flash_bwd_dq_kernel(
+                    q, k, v, g, lse, delta, scale, mask, ops))})
+            del kv, ops
+        qc, kc, vc, gc = (t.contiguous() for t in (q, k, v, g))
+        xs = tuple(t.clone().requires_grad_() for t in (qc, kc, vc))
+        o = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
+        times["sdpa_f32_fwd"] = cs.time_ms(
+            lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask, scale=scale))
+        times["sdpa_f32_bwd"] = cs.time_ms(lambda: torch.autograd.grad(o, xs, gc,
+                                                                        retain_graph=True))
+        res[f"({b}, 6, {n}, 80) {label}{', ' + kind if kind else ''}"] = times
+        del qkv, q, k, v, g, out, lse, delta, runs, qc, kc, vc, gc, xs, o
+        torch.cuda.empty_cache()
     return res
 
 
@@ -208,25 +290,36 @@ def k5b_products(cs, torch, rand) -> dict:
     return times
 
 
-def paths(cs, torch) -> dict:
-    res = {}
+PATHS = ("ds2_train", "ds3_flash_train", "cinn", "cfm", "ds3_long")
+
+
+def paths(cs, torch, only=PATHS) -> dict:
+    res = ds3_long_paths(cs, torch) if "ds3_long" in only else {}
     rate = lambda e: {"loop": len(e.train_loss) / e.train_seconds,  # noqa: E731
                       "interior": len(e.step_times[2:]) / sum(e.step_times[2:])}
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
-        cs._binning_xml(Path(tmp) / "data" / "binning_dataset_2.xml", "ds2")
-        _, exp = cs.train_phase(Path(tmp), cs.card_name())
-        res["ds2_train_steps_per_s"] = rate(exp)
-        _, fexp = cs.fused_train_phase(Path(tmp), cs.card_name(), exp)
-        res["ds2_fused_train_steps_per_s"] = rate(fexp)
-        del exp, fexp
-        # the ds3 composed path through K6 (attn_impl: flash), forward and backward
-        cs._binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
-        _, (loop, interior) = cs.ds3_train_phase(Path(tmp), cs.card_name(), "ds3_flash_train",
-                                                 "attn_impl: flash (K6)", "flash",
-                                                 {"attn_impl": "flash"})
-        res["ds3_flash_train_steps_per_s"] = {"loop": loop, "interior": interior}
+        if "ds2_train" in only:
+            cs._binning_xml(Path(tmp) / "data" / "binning_dataset_2.xml", "ds2")
+            _, exp = cs.train_phase(Path(tmp), cs.card_name())
+            res["ds2_train_steps_per_s"] = rate(exp)
+            _, fexp = cs.fused_train_phase(Path(tmp), cs.card_name(), exp)
+            res["ds2_fused_train_steps_per_s"] = rate(fexp)
+            del exp, fexp
+        if "ds3_flash_train" in only:
+            # the ds3 composed path through K6 (attn_impl: flash), forward and backward
+            cs._binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
+            _, (loop, interior) = cs.ds3_train_phase(
+                Path(tmp), cs.card_name(), "ds3_flash_train", "attn_impl: flash (K6)", "flash",
+                {"attn_impl": "flash"})
+            res["ds3_flash_train_steps_per_s"] = {"loop": loop, "interior": interior}
         torch.cuda.empty_cache()
+    return res | serving_paths(cs, torch, only)
+
+
+def serving_paths(cs, torch, only) -> dict:
+    """The ds2 and ds3 cINN and CFM serving paths that ``only`` names."""
+    res = {}
     for geometry, phase, cfgs in (
             ("ds2", cs.cinn_phase, (cs.DS2_CINN_MODEL, cs.DS2_ENERGY_MODEL,
                                     cs.DS2_CINN_TRANSFORMS, cs.DS2_ENERGY_TRANSFORMS)),
@@ -236,6 +329,8 @@ def paths(cs, torch) -> dict:
                                    cs.DS2_SHAPE_TRANSFORMS, cs.DS2_ENERGY_TRANSFORMS)),
             ("ds3", cs.cfm_phase, (cs.DS3_SHAPE_MODEL, cs.DS3_ENERGY_MODEL,
                                    cs.DS3_SHAPE_TRANSFORMS, cs.DS3_ENERGY_TRANSFORMS))):
+        if ("cinn" if phase is cs.cinn_phase else "cfm") not in only:
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             _, times, generator = phase(Path(tmp), geometry, *cfgs)
             res[f"{geometry}_{'cinn' if phase is cs.cinn_phase else 'cfm'}"] = {
@@ -246,6 +341,37 @@ def paths(cs, torch) -> dict:
     return res
 
 
+def ds3_long_paths(cs, torch) -> dict:
+    """ds3_long (13,500 tokens, every attention K7) served at batch
+    DS3_LONG_SERVE_BATCH (DS3_REQUESTS requests; steady showers/s, the first
+    request excluded) and trained at DS3_LONG_TRAIN_BATCH for DS3_LONG_STEPS
+    steps, as the smoke's phases run them."""
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _, times, generator = cs.cfm_phase(
+            Path(tmp), "ds3", cs.DS3_LONG_MODEL, cs.DS3_ENERGY_MODEL, cs.DS3_SHAPE_TRANSFORMS,
+            cs.DS3_ENERGY_TRANSFORMS, cs.DS3_REQUESTS, cs.COMPOSED, cs.DS3_LONG_PER_EVAL,
+            cs.DS3_LONG_SERVE_BATCH, (1, cs.DS3_LONG_REFERENCE_STEP, 1e-3))
+        res["ds3_long_cfm"] = {
+            "showers_per_s": cs.DS3_LONG_SERVE_BATCH * (len(times) - 1) / sum(times[1:]),
+            "request_s": times}
+        del generator
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "data").mkdir()
+        cs._binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
+        torch.cuda.reset_peak_memory_stats()
+        _, (loop, interior) = cs.ds3_train_phase(
+            Path(tmp), cs.card_name(), "ds3_long_train", "13,500 tokens, attn_impl auto (K7)",
+            "k7", {}, cs.DS3_LONG_MODEL, cs.DS3_LONG_STEPS, cs.DS3_LONG_STEPS,
+            cs.DS3_LONG_TRAIN_BATCH)
+        res["ds3_long_train_steps_per_s"] = {
+            "loop": loop, "interior": interior,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        torch.cuda.empty_cache()
+    return res
+
+
 # the kernels that a change may leave compiled as they were: the library
 # and a substring of each kernel's mangled name
 SASS_KERNELS = {"flash_qkv_attention": ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
@@ -253,7 +379,10 @@ SASS_KERNELS = {"flash_qkv_attention": ("flash_fwd_wgmma_kernel", "flash_bwd_dq_
                 "vmem_attention": ("vmem_fwd_wgmma_kernel", "vmem_bwd_dq_wgmma_kernel",
                                    "vmem_bwd_dkv_wgmma_kernel"),
                 "flash_attention": ("k7_",),
-                "qkv_attention": ("bwd_delta_kernel", "qkv_fwd_tf32_kernel")}
+                "qkv_attention": ("bwd_delta_kernel", "qkv_fwd_tf32_kernel"),
+                "qkv_attention_bwd": ("qkv_bwd_",),
+                "energy_decoder": ("energy_decoder",),
+                "vit_forward": ("vit_attn_wgmma_kernel", "gemm_wgmma_kernel", "modln_kernel")}
 _SASS_NOISE = re.compile(r"/\*[0-9a-fx]+\*/|;?\s*/\* 0x[0-9a-f]+ \*/")
 # an anonymous namespace's mangled name carries a hash of the source's path
 _ANON_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
@@ -310,6 +439,8 @@ def main() -> int:
     p.add_argument("what", choices=("kernels", "paths", "sass"))
     p.add_argument("--tree", default=str(HERE), help="the checkout whose package runs")
     p.add_argument("--label", default=None, help="a name for the tree in the output")
+    p.add_argument("--only", nargs="+", choices=PATHS, default=PATHS,
+                   help="paths: the paths to run")
     args = p.parse_args()
     tree = Path(args.tree).resolve()
     import torch
@@ -326,7 +457,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cs._cuda.build()
     res = {"tree": args.label or str(tree), "card": cs.card_name(),
-           **(kernels if args.what == "kernels" else paths)(cs, torch)}
+           **(kernels(cs, torch) if args.what == "kernels" else paths(cs, torch, args.only))}
     print(json.dumps(res), flush=True)
     return 0
 

@@ -78,6 +78,22 @@ __host__ __device__ constexpr size_t fwd_smem() {
   return (size_t)2 * kb_bytes<DP>() + (size_t)RING * stage_floats<DP>() * 4 + 1024;
 }
 
+// whether Q lives in shared memory, read by S = Q K^T as an ss operand: in
+// the masked kernel at DP = 64, where ptxas took the registers of Q's
+// fragments for scratch once a tile's products had read them, so every later
+// tile read other values (with an all-True mask the kernel differed from the
+// unmasked one by ~0.6 of the scale: PERF.md section 6)
+template <int DP, bool HAS_MASK>
+__host__ __device__ constexpr bool q_in_smem() {
+  return HAS_MASK && DP == 64;
+}
+// fwd_smem and, where Q lives there, one bf16 Q tile (64 rows x DP) a
+// warpgroup after the ring
+template <int DP, bool HAS_MASK>
+__host__ __device__ constexpr size_t fwd_smem_q() {
+  return fwd_smem<DP>() + (q_in_smem<DP, HAS_MASK>() ? (size_t)ROWS * DP * 2 : 0);
+}
+
 // (row, key) may attend: always without a mask, and for a row past n
 template <bool HAS_MASK>
 __device__ __forceinline__ bool attends(int row, int key, int n, const unsigned char* mask) {
@@ -214,6 +230,25 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
       qf[c][3] = q_pair(qb, a.q.sn, r_hi, 16 * c + c0 + 8, n, d);
     }
   }
+  // where Q lives in shared memory: the fragments into the warpgroup's tile
+  // in K's chunk layout (16-column chunks of 64 rows x 32 B, 32-byte
+  // swizzle), made visible to the products by the loop's first fence and
+  // barrier
+  constexpr bool QS = q_in_smem<DP, HAS_MASK>();
+  unsigned char* qs = smem + 2 * kb_bytes<DP>() + (size_t)RING * stage_floats<DP>() * 4 +
+                      (size_t)wg * 64 * DP * 2;
+  if constexpr (QS) {
+#pragma unroll
+    for (int c = 0; c < DP / 16; ++c) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = warp * 16 + lane / 4 + 8 * (i & 1);
+        *reinterpret_cast<uint32_t*>(qs + c * 64 * 32 + r * 32 +
+                                     (((i >> 1) ^ ((r >> 2) & 1)) << 4) + 4 * (lane % 4)) =
+            qf[c][i];
+      }
+    }
+  }
   float o[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
@@ -235,8 +270,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
     hop::fence_regs(s);
     hop::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < DP / 16; ++c)
-      hop::Mma<KT, 0>::rs(s, qf[c], hop::desc(kb_addr + c * KT * 32, 16, 256, hop::SW32), c);
+    for (int c = 0; c < DP / 16; ++c) {
+      if constexpr (QS)
+        hop::Mma<KT, 0>::ss(s, hop::desc(hop::smem_u32(qs) + c * 64 * 32, 16, 256, hop::SW32),
+                            hop::desc(kb_addr + c * KT * 32, 16, 256, hop::SW32), c);
+      else
+        hop::Mma<KT, 0>::rs(s, qf[c], hop::desc(kb_addr + c * KT * 32, 16, 256, hop::SW32), c);
+    }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(s);
@@ -333,10 +373,11 @@ template <int DP>
 cudaError_t launch_fwd(const Args& a, int B, int H, cudaStream_t st) {
   auto kernel = a.mask != nullptr ? flash_fwd_wgmma_kernel<DP, true>
                                   : flash_fwd_wgmma_kernel<DP, false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)fwd_smem<DP>());
+  const size_t smem = a.mask != nullptr ? fwd_smem_q<DP, true>() : fwd_smem_q<DP, false>();
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((a.n + ROWS - 1) / ROWS, H, B), THREADS, fwd_smem<DP>(), st>>>(a);
+  kernel<<<dim3((a.n + ROWS - 1) / ROWS, H, B), THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 

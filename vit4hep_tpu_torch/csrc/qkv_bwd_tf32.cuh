@@ -12,11 +12,11 @@
 //   dQ = ds K, dK = ds^T Q, dV = p^T dO.
 // K1's dead-row rule, not K6's: a row whose every key is masked has lse
 // -1e30, so it rebuilds p = 1 for each of its N keys and its delta is
-// scaled by N (attention_bwd.cuh explains why). p is formed as the fast
-// exp of a selected exponent (`attn::score`: -inf past N, -1e30 masked),
-// never as a select between an exponential and 0: that form was miscompiled
-// by ptxas in K6's masked dQ pass at DP = 64 (PERF.md section 6). A query
-// row past N takes lse = +inf, so its p is exactly 0.
+// scaled by N (JAX's rowsum(dP * P) is then N rowsum(dO * O)). p is
+// formed as the fast exp of a selected exponent (`attn::score`: -inf past
+// N, -1e30 masked), never as a select between an exponential and 0: that
+// form was miscompiled by ptxas in K6's masked dQ pass at DP = 64 (PERF.md
+// section 6). A query row past N takes lse = +inf, so its p is exactly 0.
 //
 // Every product runs as three TF32 wgmma products, hi hi + hi lo + lo hi,
 // accumulated in f32 (qkv_fwd_tf32.cuh's split: x = hi + lo, both rounded

@@ -14,8 +14,8 @@
 // accumulated in f32. The dropped lo lo term and lo's own rounding leave
 // ~2^-21 of each product term, against 2^-11 for one TF32 product.
 //
-// Semantics kept from the f32 CUDA-core kernel (attention_fwd.cuh, still
-// K7's): an online softmax; a masked score is the finite -1e30 of
+// Semantics kept from the f32 CUDA-core kernel it replaced (attention_fwd.cuh
+// keeps the score rule): an online softmax; a masked score is the finite -1e30 of
 // `jnp.where(mask, s, -1e30)` (:80) and a key past N is -inf, so it weighs
 // exactly 0 and a row whose every key is masked gets the mean of V with lse
 // -1e30 + log N (which is -1e30 in f32, as K1's backward expects). The mask

@@ -80,6 +80,21 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return (size_t)2 * kb_bytes<DP>() + (size_t)RING * stage_floats<DP>() * 4 + 1024;
 }
 static_assert(smem_bytes<128>() <= 232448, "the widest head dim must fit a CTA");
+// whether Q lives in shared memory, read by S = Q K^T as an ss operand: in
+// the masked kernel at DP = 64, where ptxas took the registers of Q's
+// fragments for scratch once a tile's products had read them (with an
+// all-True mask the kernel differed from the unmasked one by ~0.6 of the
+// scale: PERF.md section 6), as in K6's forward
+template <int DP, bool HAS_MASK>
+__host__ __device__ constexpr bool q_in_smem() {
+  return HAS_MASK && DP == 64;
+}
+// smem_bytes and, where Q lives there, one bf16 Q tile (64 rows x DP) a
+// warpgroup after the ring
+template <int DP, int WG, bool HAS_MASK>
+__host__ __device__ constexpr size_t smem_bytes_q() {
+  return smem_bytes<DP>() + (q_in_smem<DP, HAS_MASK>() ? (size_t)WG * 64 * DP * 2 : 0);
+}
 static_assert(kb_bytes<16>() % 1024 == 0, "operand tiles keep the swizzle period");
 
 // tile [k0, k0 + 64) of K and of V (row stride ld) into an f32 stage, zero
@@ -211,6 +226,25 @@ __global__ void __launch_bounds__(128 * WG, 1)
       qf[c][3] = q_pair(qb, ld, r_hi, 16 * c + c0 + 8, n, d);
     }
   }
+  // where Q lives in shared memory: the fragments into the warpgroup's tile
+  // in K's chunk layout (16-column chunks of 64 rows x 32 B, 32-byte
+  // swizzle), made visible to the products by the loop's first fence and
+  // barrier
+  constexpr bool QS = q_in_smem<DP, HAS_MASK>();
+  unsigned char* qs = smem + 2 * kb_bytes<DP>() + (size_t)RING * stage_floats<DP>() * 4 +
+                      (size_t)wg * 64 * DP * 2;
+  if constexpr (QS) {
+#pragma unroll
+    for (int c = 0; c < DP / 16; ++c) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = warp * 16 + lane / 4 + 8 * (i & 1);
+        *reinterpret_cast<uint32_t*>(qs + c * 64 * 32 + r * 32 +
+                                     (((i >> 1) ^ ((r >> 2) & 1)) << 4) + 4 * (lane % 4)) =
+            qf[c][i];
+      }
+    }
+  }
   float o[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
@@ -235,8 +269,13 @@ __global__ void __launch_bounds__(128 * WG, 1)
     hop::fence_regs(s);
     hop::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < DP / 16; ++c)
-      hop::Mma<KT, 0>::rs(s, qf[c], hop::desc(kb_addr + c * KT * 32, 16, 256, hop::SW32), c);
+    for (int c = 0; c < DP / 16; ++c) {
+      if constexpr (QS)
+        hop::Mma<KT, 0>::ss(s, hop::desc(hop::smem_u32(qs) + c * 64 * 32, 16, 256, hop::SW32),
+                            hop::desc(kb_addr + c * KT * 32, 16, 256, hop::SW32), c);
+      else
+        hop::Mma<KT, 0>::rs(s, qf[c], hop::desc(kb_addr + c * KT * 32, 16, 256, hop::SW32), c);
+    }
     hop::wgmma_commit();
     hop::wgmma_wait<0>();
     hop::fence_regs(s);
@@ -334,11 +373,13 @@ cudaError_t launch_as(const float* qkv, const unsigned char* mask, __nv_bfloat16
                       int n, int H, int d, float scale, cudaStream_t st) {
   auto kernel = mask != nullptr ? vit_attn_wgmma_kernel<DP, WG, true>
                                 : vit_attn_wgmma_kernel<DP, WG, false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem_bytes<DP>());
+  const size_t smem =
+      mask != nullptr ? smem_bytes_q<DP, WG, true>() : smem_bytes_q<DP, WG, false>();
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((n + 64 * WG - 1) / (64 * WG), H, B), 128 * WG, smem_bytes<DP>(), st>>>(
-      qkv, mask, out, n, H, d, scale);
+  kernel<<<dim3((n + 64 * WG - 1) / (64 * WG), H, B), 128 * WG, smem, st>>>(qkv, mask, out, n,
+                                                                            H, d, scale);
   return cudaGetLastError();
 }
 

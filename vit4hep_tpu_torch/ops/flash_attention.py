@@ -17,35 +17,58 @@ and its dQ is 0.
 
 On CPU tensors the wrapper runs :func:`flash_fwd_plain` and
 :func:`flash_bwd_plain`; on CUDA tensors it launches the kernels of
-``csrc/flash_attention.cu`` or raises: the forward, the dK/dV pass and the
-dQ pass, each with its own launch counter. q, k and v may be strided views
-with one stride set and a unit column stride (the ViT's split of its qkv
-panel), which the kernels read in place; the upstream gradient has its own
-strides. Outputs are contiguous (B, H, N, D) f32.
+``csrc/flash_attention.cu`` or raises, each with its own launch counter:
+the pre-pass (``split_kernel``), which writes the operands' tf32 hi and lo
+parts into padded contiguous buffers in the layouts the tensor cores read
+(``split_plain`` is its plain version), then the forward, or the dK/dV
+and dQ passes, each product as three TF32 products (split TF32: the f32
+contract on the tensor cores). The forward splits K and V, the backward
+Q, dO, K and V once for both of its passes. q, k and v may be strided
+views with one stride set and a unit column stride (the ViT's split of its
+qkv panel), which the pre-pass and the forward read in place; the
+upstream gradient has its own strides. Outputs are contiguous
+(B, H, N, D) f32.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+import torch.nn.functional as F
 
 from vit4hep_tpu_torch.ops import _cuda
 from vit4hep_tpu_torch.ops.fused_qkv_attention import mask_arg
 from vit4hep_tpu_torch.ops.vmem_attention import check_shapes, kernel_qkv_args, kernel_strides
 
 _NEG_INF = -1e30
-_P, _I, _LL, _F = _cuda.P, _cuda.I, _cuda.LL, _cuda.F
-_STRIDES = [_LL, _LL, _LL]
+_P, _I, _F = _cuda.P, _cuda.I, _cuda.F
+_STRIDES = [_cuda.LL] * 3
 _DIMS = [_I, _I, _I, _I, _F, _P]  # B, H, n, d, scale, stream
 _SIGNATURES = {
-    "flash_attention_fwd": [_P, _P, _P, *_STRIDES, _P, _P, _P, *_DIMS],
-    "flash_attention_bwd_dkv": [_P, _P, _P, *_STRIDES, _P, *_STRIDES, _P, _P, _P, _P, _P,
-                                *_DIMS],
-    "flash_attention_bwd_dq": [_P, _P, _P, *_STRIDES, _P, *_STRIDES, _P, _P, _P, _P, *_DIMS],
+    "flash_attention_split": [_P, _I, _I, _I, _I, _I, _P],
+    "flash_attention_fwd": [_P, *_STRIDES, _P, _P, _P, _P, _P, _P, _P, *_DIMS],
+    "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, *_DIMS],
+    "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, *_DIMS],
 }
 
+SPLIT = _cuda.LaunchCounter("flash_attn_split")
 FWD = _cuda.LaunchCounter("flash_attn_fwd")
 BWD_DKV = _cuda.LaunchCounter("flash_attn_bwd_dkv")
 BWD_DQ = _cuda.LaunchCounter("flash_attn_bwd_dq")
+
+PAD = 64  # the split buffers' rows: N rounded up to PAD (csrc/flash_tf32.cuh)
+ROWS, COLS = "rows", "cols"  # the two layouts of a split operand
+# the cols layout holds the 8 rows of each chunk in this order
+CHUNK_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+# the backward's split operands in the kernels' order (k7::BwdOps), each hi
+# then lo; the dQ pass reads none of Q's and dO's cols, the dK/dV pass none
+# of K's
+BWD_OPS = (("q", ROWS), ("g", ROWS), ("k", ROWS), ("v", ROWS), ("q", COLS), ("g", COLS),
+           ("k", COLS))
+_NEEDS = {"dq": {("q", ROWS), ("g", ROWS), ("k", ROWS), ("v", ROWS), ("k", COLS)},
+          "dkv": {("q", ROWS), ("g", ROWS), ("k", ROWS), ("v", ROWS), ("q", COLS),
+                  ("g", COLS)}}
 
 
 def _lib():
@@ -98,67 +121,180 @@ def delta_plain(g, out):
     return (g.float() * out.float()).sum(-1)
 
 
+def padded(n):
+    """N rounded up to the split buffers' PAD rows."""
+    return -(-n // PAD) * PAD
+
+
+def padded_dim(d):
+    """The kernels' padded head dim DP = 16 ceil(d / 16)."""
+    return 16 * -(-d // 16)
+
+
+def tf32_plain(x):
+    """x rounded to the nearest tf32, ties away from zero (cvt.rna.tf32.f32):
+    the low 13 mantissa bits rounded into the rest."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _swizzle(t):
+    """The 32-byte swizzle of (..., row / 4 % 2, row % 4, half, 4) tiles:
+    the two 16-byte halves of a row swapped where row / 4 is odd."""
+    return torch.cat([t[..., :1, :, :, :], t[..., 1:, :, :, :].flip(-2)], dim=-4)
+
+
+def layout_plain(x, layout):
+    """A padded (B, H, N_pad, DP) f32 tensor in a split buffer's layout (the
+    (B, H, N_pad, DP) storage read in that order): ROWS, 8-row group g,
+    8-column chunk c, row r at float g DP 8 + c 64 + r 8; COLS, 8-row chunk
+    k, column e at float k DP 8 + e 8, its rows in CHUNK_ORDER; each row of
+    8 values with the 32-byte swizzle."""
+    b, h, n_pad, dp = x.shape
+    if layout == ROWS:  # (g, r, c, j) -> (g, c, r, j)
+        t = x.reshape(b, h, n_pad // 8, 8, dp // 8, 8).permute(0, 1, 2, 4, 3, 5)
+    else:  # (k, row, e) -> (k, e, row in CHUNK_ORDER)
+        t = x.reshape(b, h, n_pad // 8, 8, dp)[:, :, :, list(CHUNK_ORDER)].transpose(3, 4)
+        t = t.reshape(b, h, n_pad // 8, dp // 8, 8, 8)
+    t = t.reshape(*t.shape[:4], 2, 4, 2, 4)
+    return _swizzle(t).reshape(b, h, n_pad, dp)
+
+
+def split_plain(x, layout):
+    """``split_kernel``'s buffers for one operand and layout: (hi, lo) of x
+    (B, H, N, D) zero-padded to (N_pad, DP), hi = tf32(x), lo = tf32(x - hi),
+    each in ``layout_plain``'s order."""
+    b, h, n, d = x.shape
+    xp = x.new_zeros((b, h, padded(n), padded_dim(d)), dtype=torch.float32)
+    xp[..., :n, :d] = x
+    hi = tf32_plain(xp)
+    return layout_plain(hi, layout), layout_plain(tf32_plain(xp - hi), layout)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
-def flash_fwd_kernel(q, k, v, scale, mask=None):
-    """Launch the forward kernel: (out (B, H, N, D) f32, lse (B, H, N) f32)."""
+def split_kernel(name, operands, b, h, n, d):
+    """Launch the pre-pass once for up to four operands: ``operands`` a
+    list of (x, layouts), x (B, H, N, D) f32 with a unit column stride;
+    returns per operand {layout: (hi, lo)}, each buffer (B, H, N_pad, DP)
+    f32 in ``layout_plain``'s order."""
+    shape = (b, h, padded(n), padded_dim(d))
+    vals, outs = [], []
+    for x, layouts in operands:
+        strides = kernel_strides(name, x)
+        bufs = {lay: tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
+                           for _ in range(2)) for lay in layouts}
+        vals += [x.data_ptr(), *strides,
+                 *(bufs[lay][i].data_ptr() if lay in bufs else 0
+                   for lay in (ROWS, COLS) for i in range(2))]
+        outs.append(bufs)
+    jobs = (ctypes.c_longlong * len(vals))(*vals)
+    code = _lib().flash_attention_split(ctypes.addressof(jobs), len(operands), b, h, n, d,
+                                        _cuda.stream())
+    _cuda.check(code, "flash_attention_split")
+    SPLIT.add()
+    return outs
+
+
+def flash_fwd_kernel(q, k, v, scale, mask=None, kv=None):
+    """Launch the forward kernel: (out (B, H, N, D) f32, lse (B, H, N) f32);
+    ``kv`` the pre-pass's K (rows) and V (cols) buffers, split here when
+    not given."""
     b, h, n, d, strides, mask, mask_ptr = kernel_qkv_args("flash_attention_fwd", q, k, v, mask)
+    if kv is None:
+        kv = split_kernel("flash_attention_fwd", [(k, (ROWS,)), (v, (COLS,))], b, h, n, d)
+    kr, vc = kv
     out = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    code = _lib().flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides,
-                                      mask_ptr, out.data_ptr(), lse.data_ptr(), b, h, n, d,
-                                      float(scale), _cuda.stream())
+    code = _lib().flash_attention_fwd(q.data_ptr(), *strides,
+                                      *(t.data_ptr() for t in (*kr[ROWS], *vc[COLS])), mask_ptr,
+                                      out.data_ptr(), lse.data_ptr(), b, h, n, d, float(scale),
+                                      _cuda.stream())
     _cuda.check(code, "flash_attention_fwd")
     FWD.add()
     return out, lse
 
 
+def split_bwd(q, k, v, g, passes=("dq", "dkv")):
+    """The backward's split operands for ``passes``, in one pre-pass launch:
+    {(tensor name, layout): (hi, lo)}."""
+    b, h, n, d = q.shape
+    need = set().union(*(_NEEDS[p] for p in passes))
+    names = [nm for nm in ("q", "g", "k", "v") if any(op[0] == nm for op in need)]
+    tensors = {"q": q, "k": k, "v": v, "g": g}
+    outs = split_kernel("flash_attention_bwd", [
+        (tensors[nm], tuple(lay for lay in (ROWS, COLS) if (nm, lay) in need)) for nm in names],
+        b, h, n, d)
+    return {(nm, lay): bufs for nm, out in zip(names, outs) for lay, bufs in out.items()}
+
+
+def _ops_array(ops, passes):
+    """The 14 buffer pointers in k7::BwdOps's order (0 where ``passes`` do
+    not read one); raises if one they read is missing."""
+    need = set().union(*(_NEEDS[p] for p in passes))
+    if not need <= set(ops):
+        raise ValueError(f"flash_attention: split operands {sorted(need - set(ops))} missing")
+    ptrs = [t.data_ptr() if op in need else 0 for op in BWD_OPS for t in ops.get(op, (None,) * 2)]
+    return (ctypes.c_longlong * len(ptrs))(*ptrs)
+
+
 def _bwd_args(name, q, k, v, g, lse, delta, mask):
-    b, h, n, d, strides, mask, mask_ptr = kernel_qkv_args(name, q, k, v, mask)
+    b, h, n, d, _, mask, mask_ptr = kernel_qkv_args(name, q, k, v, mask)
     if tuple(g.shape) != (b, h, n, d) or tuple(lse.shape) != (b, h, n) or \
             tuple(delta.shape) != (b, h, n):
         raise ValueError(f"{name}: g {tuple(g.shape)} / lse {tuple(lse.shape)} / delta "
                          f"{tuple(delta.shape)} do not match q {tuple(q.shape)}")
     _cuda.require_cuda(name, lse, delta)
-    return b, h, n, d, strides, kernel_strides(name, g), mask, mask_ptr
+    kernel_strides(name, g)
+    return b, h, n, d, mask, mask_ptr
 
 
-def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask=None):
-    """Launch the dK/dV pass: (dk, dv) (B, H, N, D) f32."""
-    b, h, n, d, strides, gstrides, mask, mask_ptr = _bwd_args(
-        "flash_attention_bwd_dkv", q, k, v, g, lse, delta, mask)
+def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask=None, ops=None):
+    """Launch the dK/dV pass: (dk, dv) (B, H, N, D) f32; ``ops`` the split
+    operands (``split_bwd``), split here when not given."""
+    name = "flash_attention_bwd_dkv"
+    b, h, n, d, mask, mask_ptr = _bwd_args(name, q, k, v, g, lse, delta, mask)
+    ops = split_bwd(q, k, v, g, ("dkv",)) if ops is None else ops
+    arr = _ops_array(ops, ("dkv",))
+    lse_p = F.pad(lse, (0, padded(n) - n), value=float("inf"))  # p = 0 past n
+    delta_p = F.pad(delta, (0, padded(n) - n))
     dk = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    code = _lib().flash_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides,
-                                          g.data_ptr(), *gstrides, lse.data_ptr(),
-                                          delta.data_ptr(), mask_ptr, dk.data_ptr(),
+    code = _lib().flash_attention_bwd_dkv(ctypes.addressof(arr), lse_p.data_ptr(),
+                                          delta_p.data_ptr(), mask_ptr, dk.data_ptr(),
                                           dv.data_ptr(), b, h, n, d, float(scale),
                                           _cuda.stream())
-    _cuda.check(code, "flash_attention_bwd_dkv")
+    _cuda.check(code, name)
     BWD_DKV.add()
     return dk, dv
 
 
-def flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask=None):
-    """Launch the dQ pass: dq (B, H, N, D) f32."""
-    b, h, n, d, strides, gstrides, mask, mask_ptr = _bwd_args(
-        "flash_attention_bwd_dq", q, k, v, g, lse, delta, mask)
+def flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask=None, ops=None):
+    """Launch the dQ pass: dq (B, H, N, D) f32; ``ops`` as for the dK/dV
+    pass."""
+    name = "flash_attention_bwd_dq"
+    b, h, n, d, mask, mask_ptr = _bwd_args(name, q, k, v, g, lse, delta, mask)
+    ops = split_bwd(q, k, v, g, ("dq",)) if ops is None else ops
+    arr = _ops_array(ops, ("dq",))
     dq = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
-    code = _lib().flash_attention_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides,
-                                         g.data_ptr(), *gstrides, lse.data_ptr(),
-                                         delta.data_ptr(), mask_ptr, dq.data_ptr(), b, h, n, d,
-                                         float(scale), _cuda.stream())
-    _cuda.check(code, "flash_attention_bwd_dq")
+    code = _lib().flash_attention_bwd_dq(ctypes.addressof(arr), lse.data_ptr(), delta.data_ptr(),
+                                         mask_ptr, dq.data_ptr(), b, h, n, d, float(scale),
+                                         _cuda.stream())
+    _cuda.check(code, name)
     BWD_DQ.add()
     return dq
 
 
 def flash_bwd_kernel(q, k, v, g, out, lse, scale, mask=None):
-    """(dq, dk, dv) through delta and the two backward kernels."""
+    """(dq, dk, dv) through delta, one pre-pass and the two backward
+    kernels; the dK/dV pass's own operands are freed before the dQ pass."""
     delta = delta_plain(g, out)
-    dk, dv = flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask)
-    return flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask), dk, dv
+    ops = split_bwd(q, k, v, g)
+    dk, dv = flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask, ops)
+    for op in set(ops) - _NEEDS["dq"]:
+        del ops[op]
+    return flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask, ops), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -187,8 +323,9 @@ def flash_attention(q, k, v, mask=None, block_q=256, block_k=256, scale=None):
     """softmax(q k^T * scale) v on (B, H, N, D) tensors, differentiable;
     ``mask`` an optional shared (N, N) bool on q's device, True = attend;
     ``scale`` overrides 1/sqrt(D). ``block_q``/``block_k`` are the TPU
-    kernel's blocks, accepted for its signature: the CUDA kernels stream
-    64-row tiles, and the function does not depend on the blocking."""
+    kernel's blocks, accepted for its signature: the CUDA kernels keep 64
+    rows a warpgroup and stream 32 (or 16) rows a tile, and the function
+    does not depend on the blocking."""
     del block_q, block_k
     _, _, n, d = check_shapes("flash_attention", q, k, v, mask)
     if mask is not None:
