@@ -1473,7 +1473,10 @@ def k7_kernel_phase(results, b, n, mask=None, chunk=None):
     the plain versions on ``chunk`` batch elements at a time (all at once by
     default). SDPA on the same f32 tensors (with the boolean mask) is the
     library call: its forward for the forward's row, its backward alone
-    (through autograd, all three gradients) for the backward rows. Returns
+    (through autograd, all three gradients) for the backward rows. A pass's
+    bound counts the bytes of its f32 function (q, k, v, dO, lse, delta and
+    the mask read once, its outputs written once); the split buffers'
+    bytes count only in the pre-pass's bound. Returns
     the forward + backward times: K7 through autograd, the plain forward and
     backward, SDPA through autograd."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 70 + n + b)
@@ -1513,8 +1516,9 @@ def k7_kernel_phase(results, b, n, mask=None, chunk=None):
     fwd_p = lambda: _batched(lambda *t: fla.flash_fwd_plain(*t, scale, mask),  # noqa: E731
                              chunk, q, k, v)
     out, lse = fwd()
+    bounds = {"flash_attn_fwd": split_tf32_bound(_f32_bytes(q, k, v, out, lse) + mb, 4 * pair)}
     _check("flash_attn_fwd", (out, lse), fwd_p(), results, fwd, fwd_p,
-           split_tf32_bound(_f32_bytes(q, out, lse) + 4 * buf + mb, 4 * pair), sdpa)
+           bounds["flash_attn_fwd"], sdpa)
     del kv, kr, vt
     delta = fla.delta_plain(g, out)
     bwd_p = lambda: _batched(lambda *t: fla.flash_bwd_plain(*t, scale, mask),  # noqa: E731
@@ -1522,14 +1526,18 @@ def k7_kernel_phase(results, b, n, mask=None, chunk=None):
     want = bwd_p()
     sdpa_out = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, gc, retain_graph=True)  # noqa: E731
-    stats = _f32_bytes(lse, delta) + mb
+    reads = _f32_bytes(q, k, v, g, lse, delta) + mb
     dkv = lambda: fla.flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask, ops)  # noqa: E731
+    bounds["flash_attn_bwd_dkv"] = split_tf32_bound(reads + 2 * _f32_bytes(q), 8 * pair)
     _check("flash_attn_bwd_dkv", dkv(), want[1:], results, dkv, bwd_p,
-           split_tf32_bound(stats + 12 * buf + 2 * _f32_bytes(q), 8 * pair), sdpa_bwd)
+           bounds["flash_attn_bwd_dkv"], sdpa_bwd)
     dq = lambda: fla.flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask, ops)  # noqa: E731
     dq_k = dq()
+    bounds["flash_attn_bwd_dq"] = split_tf32_bound(reads + _f32_bytes(q), 6 * pair)
     _check("flash_attn_bwd_dq", dq_k, want[0], results, dq, bwd_p,
-           split_tf32_bound(stats + 10 * buf + _f32_bytes(q), 6 * pair), sdpa_bwd)
+           bounds["flash_attn_bwd_dq"], sdpa_bwd)
+    print("  bounds: " + ", ".join(f"{nm} {ms:.4f} ms ({by})" for nm, (ms, by) in bounds.items()),
+          flush=True)
     del ops
     dead = [] if mask is None else (~mask).all(1).nonzero().flatten().tolist()
     for row in dead:  # a wholly masked row: the mean of V, and its dQ is 0 (JAX's)

@@ -23,6 +23,9 @@ CPU tests:
     mode, as tests/test_torch_flash_attention.py runs them), same bound.
   - JAX's dead-row rule in the emulated backward: every masked key's p is
     exactly 0 and the wholly masked row's dQ is exactly 0.
+  - The wrappers' ``BwdOps`` against ``k7::BwdOps`` in the header: the same
+    fields in the same order, and each pass handed exactly the buffers its
+    kernel reads.
 
 CUDA tests (marker ``cuda``; they skip without a card): the pre-pass bit
 for bit against ``split_plain`` on strided views; the three passes against
@@ -38,7 +41,9 @@ counter as expected. On the card (no JAX there):
 ``python -m pytest --noconftest -m cuda tests/test_torch_k7_tf32.py``.
 """
 
+import ctypes
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -166,6 +171,21 @@ def test_split_plain_is_two_tf32_parts():
             assert not (part.view(torch.int32) & 0x1FFF).any()  # tf32: low 13 bits zero
         assert ((hi + lo - x).abs() <= x.abs() * 2.0 ** -21).all()
         assert torch.equal(hi, tfa.tf32_plain(x))
+
+
+def test_bwd_ops_mirrors_the_kernels_struct():
+    """The wrappers' BwdOps has k7::BwdOps's fields in its order, a pointer
+    each, and each pass is handed exactly the buffers its kernel reads."""
+    src = (ROOT / "vit4hep_tpu_torch/csrc/flash_tf32.cuh").read_text()
+    body = re.search(r"struct BwdOps \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"\*(\w+)", re.sub(r"//[^\n]*", "", body))
+    assert [name for name, _ in tfa.BwdOps._fields_] == fields
+    assert ctypes.sizeof(tfa.BwdOps) == ctypes.sizeof(ctypes.c_void_p) * len(fields)
+    for kernel, passes in (("k7_bwd_dq_kernel", ("dq",)), ("k7_bwd_dkv_kernel", ("dkv",))):
+        start = src.index(f"{kernel}(BwdOps x")
+        reads = set(re.findall(r"\bx\.(\w+)", src[start:src.index("\n}\n", start)]))
+        assert reads == {tfa.bwd_field(op, part) for op in tfa._needs(passes)
+                         for part in ("hi", "lo")}, kernel
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ K5b's products, or rerun its end-to-end paths, with this checkout's
 
     python3 tree_compare.py kernels [--tree DIR] [--label NAME]
     python3 tree_compare.py paths [--tree DIR] [--label NAME] [--only PATH ...]
+    python3 tree_compare.py k7 [--tree DIR] [--label NAME]
     python3 tree_compare.py sass --tree DIR
 
 DIR (default: this checkout) goes first on the import path, so the
@@ -40,9 +41,10 @@ and
 ``cinn_phase`` and ``cfm_phase`` at ds2 and ds3 (3 requests of 256
 showers), and ds3_long (13,500 tokens, K7): its serving (``cfm_phase``,
 batch 2, 2 requests) and training (``ds3_train_phase``, batch 8,
-DS3_LONG_STEPS steps); ``--only`` picks some of them (``PATHS``). A tree
-from before K7's pre-pass gets a launch counter for it that no kernel
-moves, and launch expectations without it. Either prints one JSON line: the card's name and power limit,
+DS3_LONG_STEPS steps); ``--only`` picks some of them (``PATHS``).
+``k7``: K7's passes as ``kernels`` times them, at the tail shape and at
+the least N that each attention dispatch sends to K7 (``K7_EDGE_SHAPES``).
+Each prints one JSON line: the card's name and power limit,
 then the times in ms or the rates (train steps/s of the whole loop and of
 the steady step interior; each generator's steady showers/s, first request
 excluded, and its request seconds). ``sass`` builds the libraries of
@@ -79,24 +81,11 @@ HERE = Path(__file__).resolve().parent
 
 
 def _smoke(tree: Path):
-    """This checkout's chip_smoke, importing DIR's vit4hep_tpu_torch (a
-    tree without K7's pre-pass: a counter for it that no kernel moves, and
-    no pre-pass launches expected)."""
+    """This checkout's chip_smoke, importing DIR's vit4hep_tpu_torch."""
     sys.path.insert(0, str(tree))
-    from vit4hep_tpu_torch.ops import _cuda
-    from vit4hep_tpu_torch.ops import flash_attention as fla
-
-    legacy = not hasattr(fla, "SPLIT")
-    if legacy:
-        fla.SPLIT = _cuda.LaunchCounter("flash_attn_split")
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    if legacy:
-        cs.DS3_LONG_PER_EVAL = {k: v for k, v in cs.DS3_LONG_PER_EVAL.items()
-                                if k != "flash_attn_split"}
-        launches = cs.composed_launches
-        cs.composed_launches = lambda *a, **kw: {**launches(*a, **kw), "flash_attn_split": 0}
     return cs
 
 
@@ -198,14 +187,19 @@ def kernels(cs, torch) -> dict:
 K7_SHAPES = ((2, 13500, None, "ds3_long serving"), (8, 13500, None, "ds3_long training"),
              (64, 450, None, "ds3 training"), (64, 450, "layer-causal", "ds3 training"),
              (8, 300, "tail", "tail tile and a dead row"))
+# the tail shape and the least N each dispatch sends to K7: dot_product_attention's
+# auto past 1024 tokens, qkv_attention's auto past flash_qkv_fits (10,752 at
+# hidden 480, 6 heads)
+K7_EDGE_SHAPES = (K7_SHAPES[-1], (8, 1025, None, "dot_product_attention auto"),
+                  (2, 10753, None, "qkv_attention auto"))
 
 
-def k7_passes(cs, torch, rand) -> dict:
-    """K7's passes at K7_SHAPES, as the module docstring says."""
+def k7_passes(cs, torch, rand, shapes=K7_SHAPES) -> dict:
+    """K7's passes at ``shapes``, as the module docstring says."""
     fla, F, heads, d = cs.fla, cs.F, 6, 80
     scale, pre = d ** -0.5, hasattr(fla, "split_kernel")
     res = {}
-    for b, n, kind, label in K7_SHAPES:
+    for b, n, kind, label in shapes:
         mask = None
         if kind == "layer-causal":
             mask = cs._causal_mask((15, 5, 6))
@@ -436,7 +430,7 @@ def sass(tree: Path) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("what", choices=("kernels", "paths", "sass"))
+    p.add_argument("what", choices=("kernels", "paths", "sass", "k7"))
     p.add_argument("--tree", default=str(HERE), help="the checkout whose package runs")
     p.add_argument("--label", default=None, help="a name for the tree in the output")
     p.add_argument("--only", nargs="+", choices=PATHS, default=PATHS,
@@ -456,8 +450,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # as the smoke runs
     torch.backends.cudnn.allow_tf32 = False
     cs._cuda.build()
-    res = {"tree": args.label or str(tree), "card": cs.card_name(),
-           **(kernels(cs, torch) if args.what == "kernels" else paths(cs, torch, args.only))}
+    if args.what == "k7":
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+        rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+        res = {"k7": k7_passes(cs, torch, rand, K7_EDGE_SHAPES)}
+    else:
+        res = kernels(cs, torch) if args.what == "kernels" else paths(cs, torch, args.only)
+    res = {"tree": args.label or str(tree), "card": cs.card_name(), **res}
     print(json.dumps(res), flush=True)
     return 0
 

@@ -71,31 +71,23 @@ extern "C" int flash_attention_fwd(const float* q, long long sb, long long sh, l
                                       static_cast<cudaStream_t>(stream)))
 }
 
-// ops: 14 split buffers, k7::BwdOps's order (Q, dO, K, V rows; Q, dO, K cols;
-// each hi, lo); the dQ pass reads none of Q's and dO's cols, the dK/dV pass
-// none of K's
-static k7::BwdOps bwd_ops(const float* const* ops) {
-  return {ops[0], ops[1], ops[2],  ops[3],  ops[4],  ops[5],  ops[6],
-          ops[7], ops[8], ops[9], ops[10], ops[11], ops[12], ops[13]};
-}
-
-// lse_p, delta_p: the lse (+inf past N) and delta (0 past N), (B, H, N_pad)
-extern "C" int flash_attention_bwd_dkv(const float* const* ops, const float* lse_p,
+// ops: the split buffers, filled by field name (ops/flash_attention.py's
+// BwdOps); lse_p, delta_p: the lse (+inf past N) and delta (0 past N),
+// (B, H, N_pad)
+extern "C" int flash_attention_bwd_dkv(const k7::BwdOps* ops, const float* lse_p,
                                        const float* delta_p, const unsigned char* mask,
                                        float* dk, float* dv, int B, int H, int n, int d,
                                        float scale, void* stream) {
   if (bad(B, H, n, d)) return (int)cudaErrorInvalidValue;
-  const k7::BwdOps x = bwd_ops(ops);
-  ATTN_DISPATCH(d, k7::launch_dkv<DP>(x, lse_p, delta_p, mask, dk, dv, B, H, n, d, scale,
+  ATTN_DISPATCH(d, k7::launch_dkv<DP>(*ops, lse_p, delta_p, mask, dk, dv, B, H, n, d, scale,
                                       static_cast<cudaStream_t>(stream)))
 }
 
 // lse, delta: (B, H, N) as the forward and delta_plain give them
-extern "C" int flash_attention_bwd_dq(const float* const* ops, const float* lse,
+extern "C" int flash_attention_bwd_dq(const k7::BwdOps* ops, const float* lse,
                                       const float* delta, const unsigned char* mask, float* dq,
                                       int B, int H, int n, int d, float scale, void* stream) {
   if (bad(B, H, n, d)) return (int)cudaErrorInvalidValue;
-  const k7::BwdOps x = bwd_ops(ops);
-  ATTN_DISPATCH(d, k7::launch_dq<DP>(x, lse, delta, mask, dq, B, H, n, d, scale,
+  ATTN_DISPATCH(d, k7::launch_dq<DP>(*ops, lse, delta, mask, dq, B, H, n, d, scale,
                                      static_cast<cudaStream_t>(stream)))
 }

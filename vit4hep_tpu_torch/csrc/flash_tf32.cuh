@@ -479,7 +479,9 @@ __device__ __forceinline__ float k7_p(float s, float scale, int query, int key, 
   return __expf(attn::score<HAS_MASK, true>(s, scale, query, key, n, mask) - lse);
 }
 
-// the split operands of the backward: {hi, lo} of each layout
+// the split operands of the backward: {hi, lo} of each layout (the wrappers
+// fill ops/flash_attention.py's BwdOps, built with these field names in this
+// order, by name)
 struct BwdOps {
   const float *q_hi, *q_lo, *g_hi, *g_lo, *k_hi, *k_lo, *v_hi, *v_lo;  // rows
   const float *qt_hi, *qt_lo, *gt_hi, *gt_lo, *kt_hi, *kt_lo;            // cols

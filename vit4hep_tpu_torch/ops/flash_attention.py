@@ -61,14 +61,29 @@ PAD = 64  # the split buffers' rows: N rounded up to PAD (csrc/flash_tf32.cuh)
 ROWS, COLS = "rows", "cols"  # the two layouts of a split operand
 # the cols layout holds the 8 rows of each chunk in this order
 CHUNK_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
-# the backward's split operands in the kernels' order (k7::BwdOps), each hi
-# then lo; the dQ pass reads none of Q's and dO's cols, the dK/dV pass none
-# of K's
-BWD_OPS = (("q", ROWS), ("g", ROWS), ("k", ROWS), ("v", ROWS), ("q", COLS), ("g", COLS),
-           ("k", COLS))
-_NEEDS = {"dq": {("q", ROWS), ("g", ROWS), ("k", ROWS), ("v", ROWS), ("k", COLS)},
-          "dkv": {("q", ROWS), ("g", ROWS), ("k", ROWS), ("v", ROWS), ("q", COLS),
-                  ("g", COLS)}}
+# the backward's split operands in k7::BwdOps's field order, each with the
+# passes that read it (BwdOps below is built from this table alone)
+_BOTH = ("dq", "dkv")
+BWD_OPS = {("q", ROWS): _BOTH, ("g", ROWS): _BOTH, ("k", ROWS): _BOTH, ("v", ROWS): _BOTH,
+           ("q", COLS): ("dkv",), ("g", COLS): ("dkv",), ("k", COLS): ("dq",)}
+
+
+def bwd_field(op, part):
+    """k7::BwdOps's field for one split buffer: q_hi, g_lo, ..., qt_hi (the
+    cols layout with a t)."""
+    nm, lay = op
+    return f"{nm}{'t' if lay == COLS else ''}_{part}"
+
+
+class BwdOps(ctypes.Structure):
+    """k7::BwdOps (csrc/flash_tf32.cuh), field by field: each split
+    operand's hi and lo buffers, 0 where the pass reads none."""
+    _fields_ = [(bwd_field(op, part), ctypes.c_void_p) for op in BWD_OPS for part in ("hi", "lo")]
+
+
+def _needs(passes):
+    """The split operands that ``passes`` read."""
+    return {op for op, readers in BWD_OPS.items() if set(readers) & set(passes)}
 
 
 def _lib():
@@ -220,7 +235,7 @@ def split_bwd(q, k, v, g, passes=("dq", "dkv")):
     """The backward's split operands for ``passes``, in one pre-pass launch:
     {(tensor name, layout): (hi, lo)}."""
     b, h, n, d = q.shape
-    need = set().union(*(_NEEDS[p] for p in passes))
+    need = _needs(passes)
     names = [nm for nm in ("q", "g", "k", "v") if any(op[0] == nm for op in need)]
     tensors = {"q": q, "k": k, "v": v, "g": g}
     outs = split_kernel("flash_attention_bwd", [
@@ -229,14 +244,14 @@ def split_bwd(q, k, v, g, passes=("dq", "dkv")):
     return {(nm, lay): bufs for nm, out in zip(names, outs) for lay, bufs in out.items()}
 
 
-def _ops_array(ops, passes):
-    """The 14 buffer pointers in k7::BwdOps's order (0 where ``passes`` do
-    not read one); raises if one they read is missing."""
-    need = set().union(*(_NEEDS[p] for p in passes))
+def _ops_struct(ops, passes):
+    """k7::BwdOps filled by name from ``ops`` with the buffers ``passes``
+    read; raises if one of them is missing."""
+    need = _needs(passes)
     if not need <= set(ops):
         raise ValueError(f"flash_attention: split operands {sorted(need - set(ops))} missing")
-    ptrs = [t.data_ptr() if op in need else 0 for op in BWD_OPS for t in ops.get(op, (None,) * 2)]
-    return (ctypes.c_longlong * len(ptrs))(*ptrs)
+    return BwdOps(**{bwd_field(op, part): t.data_ptr()
+                     for op in need for part, t in zip(("hi", "lo"), ops[op])})
 
 
 def _bwd_args(name, q, k, v, g, lse, delta, mask):
@@ -256,12 +271,12 @@ def flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask=None, ops=None):
     name = "flash_attention_bwd_dkv"
     b, h, n, d, mask, mask_ptr = _bwd_args(name, q, k, v, g, lse, delta, mask)
     ops = split_bwd(q, k, v, g, ("dkv",)) if ops is None else ops
-    arr = _ops_array(ops, ("dkv",))
+    x = _ops_struct(ops, ("dkv",))
     lse_p = F.pad(lse, (0, padded(n) - n), value=float("inf"))  # p = 0 past n
     delta_p = F.pad(delta, (0, padded(n) - n))
     dk = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
-    code = _lib().flash_attention_bwd_dkv(ctypes.addressof(arr), lse_p.data_ptr(),
+    code = _lib().flash_attention_bwd_dkv(ctypes.byref(x), lse_p.data_ptr(),
                                           delta_p.data_ptr(), mask_ptr, dk.data_ptr(),
                                           dv.data_ptr(), b, h, n, d, float(scale),
                                           _cuda.stream())
@@ -276,9 +291,9 @@ def flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask=None, ops=None):
     name = "flash_attention_bwd_dq"
     b, h, n, d, mask, mask_ptr = _bwd_args(name, q, k, v, g, lse, delta, mask)
     ops = split_bwd(q, k, v, g, ("dq",)) if ops is None else ops
-    arr = _ops_array(ops, ("dq",))
+    x = _ops_struct(ops, ("dq",))
     dq = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
-    code = _lib().flash_attention_bwd_dq(ctypes.addressof(arr), lse.data_ptr(), delta.data_ptr(),
+    code = _lib().flash_attention_bwd_dq(ctypes.byref(x), lse.data_ptr(), delta.data_ptr(),
                                          mask_ptr, dq.data_ptr(), b, h, n, d, float(scale),
                                          _cuda.stream())
     _cuda.check(code, name)
@@ -292,7 +307,7 @@ def flash_bwd_kernel(q, k, v, g, out, lse, scale, mask=None):
     delta = delta_plain(g, out)
     ops = split_bwd(q, k, v, g)
     dk, dv = flash_bwd_dkv_kernel(q, k, v, g, lse, delta, scale, mask, ops)
-    for op in set(ops) - _NEEDS["dq"]:
+    for op in set(ops) - _needs(("dq",)):
         del ops[op]
     return flash_bwd_dq_kernel(q, k, v, g, lse, delta, scale, mask, ops), dk, dv
 
