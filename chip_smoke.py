@@ -25,8 +25,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``fused_qkv_attention``, forward and backward) at the ds2 training shape
    (qkv (64, 135, 1440), 6 heads) and at ds3's token count (16, 450, 1440);
    K4 (``fused_binned_rqs_inverse``) at the ds2 cINN shape (y (256, 3240),
-   theta (256, 3240, 31)) and, untimed, on its other
-   branch (identity tails, domain clamping); K1's forward at the ds2 cINN
+   theta (256, 3240, 31)), also against an f64 run of its plain version,
+   with its bytes bound and the issue-slot time its SASS loop gives
+   (``k4_issue``), and, untimed, on its other branch (identity tails,
+   domain clamping); K1's forward at the ds2 cINN
    subnet shape (qkv (256, 135, 576), 4 heads x 48); at ds3: K2v (products,
    LayerNorm, attention at qkv (256, 450, 1440), whole forward), K1's
    forward at the ds3 cINN subnet shape (256, 225, 576) and K4 at y (256,
@@ -60,7 +62,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and layer-causal, and each masked forward of K7, K6 and K2v with an
    all-True mask equal to its unmasked kernel at every padded head dim
    (``masked_forms_phase``: a register A operand lost to ptxas shows as an
-   error of the operand's own size); the block stack
+   error of the operand's own size), and K8's forward, unmasked and with an
+   all-True mask, against an f64 softmax of its bf16 operands (its two arms
+   round the exponent in another order); the block stack
    (``fused_dit_stack``): K2s without gradients (ungrouped and
    layer-causal, exactly 6 x (4 GEMM + 2 modln + 1 attention) launches;
    group 8 bit for bit the ungrouped output) against the chained f32
@@ -175,6 +179,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -420,9 +426,21 @@ def split_tf32_bound(nbytes, flops):
 # K4 (binned_rqs_inverse) is f32 like its plain version; its knots are
 # summed in another order, so a point at a knot may take the neighbouring
 # bin (the spline is C^1 there); it is held on x and on the log-determinant,
-# each against its own scale. The masked kernels and the ds3 shapes keep
-# these bounds: the mask only replaces scores by -1e30, and 450 tokens sum
-# 3.3x more softmax terms in f32.
+# each against its own scale. Its transcendentals run on the SFU: a
+# softplus is ln 2 * lg2.approx(1 + ex2.approx(-|v| log2 e)) + max(v, 0),
+# within ~3e-7 absolute of log1p(exp(-|v|)) + max(v, 0) (ex2.approx 2 ulp
+# relative on a value in (0, 1], the sum 1 + e rounded to 2^-24, lg2.approx
+# 2^-22 absolute on [1, 2]); each width or height (>= min_bin_sizes 0.001,
+# ~1.6 at the shipped domain) so moves a knot by <= bins x 3e-7 = 3e-6, and
+# each derivative (~1) by 3e-7 relative. The logs are lg2.approx (2^-22
+# absolute, 3 ulp away from 1) and the divides by a width, the Newton
+# denominators (>= half the bin's slope), the tails' slope and the softmax
+# sums are rcp.approx products (1 ulp): x moves by ~1e-6 of a scale of
+# 8-30, a log-derivative by ~1e-6, a row's sum of D of them by ~1e-6 x
+# sqrt(D) at random sign: 1e-4 of the scale holds with a margin of ~10,
+# and K4_F64_TOL holds it against f64. The masked kernels and the ds3
+# shapes keep these bounds: the mask only replaces scores by -1e30, and 450
+# tokens sum 3.3x more softmax terms in f32.
 TOL = {"energy_decoder": 1e-3, "vit_gemm": 8e-3, "vit_modln": 8e-3,
        "vit_attention": 8e-3, "fused_vit_forward": 2e-2, "qkv_attn_fwd": 1e-4,
        "qkv_attn_bwd_delta": 1e-4, "qkv_attn_bwd_dkv": 1e-4, "qkv_attn_bwd_dq": 1e-4,
@@ -509,6 +527,12 @@ TOL.update({"flash_attn_fwd": 1e-4, "flash_attn_bwd_dkv": 1e-4, "flash_attn_bwd_
 # TF32 keeps ~2^-21 of each product term, so 2e-5 of the scale; a lo term
 # lost (one TF32 product) misses it by ~10x
 K7_F64_TOL = 2e-5
+# K4 against an f64 run of its plain version: the SFU forms above keep x
+# and the log-determinant within ~1e-6 of their scales (the f32 plain
+# version itself is ~1e-7 from f64), so 2e-5 of the scale; an approximation
+# an order of magnitude coarser (a lost Newton step, tanh.approx, a
+# softplus without its log1p) misses it
+K4_F64_TOL = 2e-5
 # ds3_long training with K7 against attn_impl xla from one state: f32 on both
 # sides (the rest of the composed net is the same code), so K1's train
 # parity bounds hold (TRAIN_TOL's reasoning): loss and grad norm 1e-4
@@ -562,7 +586,7 @@ REPLACES = {
                          K1_BWD_BODIES),
     "qkv_attn_bwd_dq": (f"{K1_BWD}: qkv_bwd_dq_tf32_kernel (bound in {K1_BWD_LIB})",
                         K1_BWD_BODIES),
-    "binned_rqs_inverse": ("vit4hep_tpu_torch/csrc/binned_rqs.cu",
+    "binned_rqs_inverse": ("vit4hep_tpu_torch/csrc/binned_rqs.cu: binned_rqs_inverse_kernel",
                            "vit4hep_tpu/ops/fused_spline.py:55"),
     # the megakernel tier's training kernels (K5a also runs modln and K1's
     # forward; K5b K1's backward; K5c K5a's block kernels, then K5b's)
@@ -1579,7 +1603,13 @@ def masked_forms_phase(b=2, n=200, heads=2):
     1e-5 of the scale (the same instructions on the same values: bit for
     bit is expected; a register A operand that ptxas reused for scratch
     after a loop's first products read it gives errors of the operand's own
-    size)."""
+    size). K8's masked forward is held otherwise: its unmasked arm fuses s *
+    scale - max into one FFMA where the masked arm rounds s * scale, selects
+    it or -1e30 and then subtracts, so an exponent may differ in its last
+    bit and p round to the other bf16 neighbour; each arm, unmasked and with
+    an all-True mask, is held against an f64 softmax of the same bf16
+    operands within TOL["vmem_attn_fwd"] of the scale (a register fault
+    misses it by O(1))."""
     ones = torch.ones(n, n, dtype=torch.bool, device="cuda")
     causal = torch.tril(ones)
     worst = {}
@@ -1588,6 +1618,15 @@ def masked_forms_phase(b=2, n=200, heads=2):
         qkv = _rand(gen, b, n, 3 * heads * d)
         q, k, v = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
         scale = d ** -0.5
+        q16, k16, v16 = (t.to(torch.bfloat16).double() for t in (q, k, v))
+        ref16 = torch.matmul(torch.softmax(torch.matmul(q16, k16.transpose(-1, -2)) * scale, -1),
+                             v16)
+        for kind, m in (("unmasked", None), ("all-True", ones)):
+            err, sc = _rel_err(fva.vmem_fwd_kernel(q, k, v, scale, m)[0], ref16)
+            worst[f"K8 vs f64, {kind}"] = max(worst.get(f"K8 vs f64, {kind}", 0.0), err / sc)
+            if not err <= TOL["vmem_attn_fwd"] * sc:
+                raise PhaseError(f"K8's forward at d = {d}, {kind}: {err:.3e} from f64 (bound "
+                                 f"{TOL['vmem_attn_fwd']:g} x {sc:.3g})")
         q64, k64, v64 = (t.double() for t in (q, k, v))
         for kind, m in (("unmasked", None), ("all-True", ones), ("layer-causal", causal)):
             s64 = torch.matmul(q64, k64.transpose(-1, -2)) * scale
@@ -1750,29 +1789,99 @@ def _k4_ops(bins):
     return constrain + search + solve
 
 
+def sm_clock_mhz():
+    """The card's maximum SM clock in MHz, as nvidia-smi gives it."""
+    return float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                 "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                                check=True).stdout.split()[0])
+
+
+# the shipped cINNs' spline (cinn_ds{2,3}_electrons.yaml): bins, min_bin_sizes,
+# domain, identity_tails, domain_clamping
+K4_SPLINE = (10, (0.001, 0.001), (-8.0, 8.0, -8.0, 8.0), False, None)
+
+
+def loop_body(ins, marker):
+    """The instructions of the outermost loop of a SASS listing of
+    (address, instruction) pairs (``_cuda.sass_functions(...,
+    addresses=True)``) that holds an instruction matching the regex
+    ``marker``: from the target of a backward branch to the branch, each
+    inner loop counted once."""
+    mark = next(at for at, line in ins if re.search(marker, line))
+    loops = [(int(m.group(1), 16), at) for at, line in ins
+             for m in [re.search(r"\bBRA\b[^;]*?\b0x([0-9a-f]+)", line)]
+             if m and int(m.group(1), 16) <= mark < at]
+    lo, hi = min(loops, key=lambda loop: (loop[0], -loop[1]))
+    return [line for at, line in ins if lo <= at <= hi]
+
+
+def k4_issue(n, bins=10):
+    """The issue-slot time of K4's shipped instantiation
+    (``binned_rqs_inverse_kernel<bins, false, false>``: affine tails, no
+    clamping) over n scalars, from its
+    SASS: the instructions of the consumers' unit loop (the loop around
+    their named barrier, ``bar.sync 1``, each inner loop counted once) for
+    every consumer warp and unit, at one instruction per scheduler and
+    cycle (4 a SM), and its MUFU (SFU) instructions at 16 lanes per SM and
+    cycle, at the card's maximum SM clock. Returns (instructions a warp and
+    unit, MUFU, issue ms, SFU ms, clock MHz, (registers, spill bytes) from
+    the -Xptxas -v report where the build wrote it, else None)."""
+    name = f"binned_rqs_inverse_kernelILi{bins}ELb0ELb0E"
+    funcs = _cuda.sass_functions(_cuda._lib_path("binned_rqs"), addresses=True)
+    ins = next(v for k, v in funcs.items() if name in k)
+    body = loop_body(ins, r"^BAR\.SYNC\S* 0x1,")  # the consumers' bar.sync 1
+    mufu = sum("MUFU." in i for i in body)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_mhz()
+    warps = fsp.plan(1, n, 1).units * fsp.UNIT // 32
+    issue = len(body) * warps / (4 * sms) / (mhz * 1e6) * 1e3
+    sfu = mufu * 32 * warps / (16 * sms) / (mhz * 1e6) * 1e3
+    log = (_cuda.BUILD_DIR / "binned_rqs.log").read_text()
+    regs = re.search(name + r"\S*\s+(\d+) bytes stack frame, (\d+) bytes spill stores.*?Used (\d+) "
+                     r"registers", log, re.S)
+    return len(body), mufu, issue, sfu, mhz, (regs.group(3), regs.group(2)) if regs else None
+
+
 def k4_kernel_phase(results, d, other_branch=True):
     """K4 against its plain version at a cINN sampling shape: y (BATCH, d)
     ~ 6 N(0, 1) and theta (BATCH, d, 31) ~ N(0, 1) (ds2 d = 3240, ds3
     20250), so that points fall in every bin and in both tails; x and the
-    log-determinant are each held to TOL against their own scale, and two
-    launches must agree bit for bit. With ``other_branch``, then, untimed,
-    the softmax branch (identity tails) with domain clamping at a small
-    shape."""
+    log-determinant are each held to TOL against their own scale and to
+    K4_F64_TOL against an f64 run of the plain version, and two launches
+    must agree bit for bit. Prints the bytes bound beside the issue-slot
+    time its SASS gives (``k4_issue``). With ``other_branch``, then,
+    untimed, the softmax branch (identity tails) with domain clamping at a
+    small shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    b, bins = BATCH, 10
-    spline = (bins, (0.001, 0.001), (-8.0, 8.0, -8.0, 8.0), False, None)
+    b, spline = BATCH, K4_SPLINE
+    bins = spline[0]
     y = _rand(gen, b, d, std=6.0)
     theta = _rand(gen, b, d, 3 * bins + 1)
     ker = lambda: fsp.fused_binned_rqs_inverse(y, theta, *spline)  # noqa: E731
     pla = lambda: fsp.inverse_plain(y, theta, *spline)  # noqa: E731
     out, ref = ker(), pla()
     nbytes = 4 * (y.numel() + theta.numel() + out[0].numel() + out[1].numel())
-    _check("binned_rqs_inverse", out, ref, results, ker, pla,
-           work_bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS))
+    bound = work_bound(nbytes, y.numel() * _k4_ops(bins), F32_FLOPS)
+    _check("binned_rqs_inverse", out, ref, results, ker, pla, bound)
     again = ker()
     torch.cuda.synchronize()
     if not (torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])):
         raise PhaseError("binned_rqs_inverse: two launches on the same inputs differ")
+    del ref
+    ref64 = fsp.inverse_plain(y.double(), theta.double(), *spline)
+    errs = [_rel_err(o, r) for o, r in zip(out, ref64)]
+    del ref64
+    n_ins, mufu, issue, sfu, mhz, regs = k4_issue(b * d, bins)
+    print(f"  binned_rqs_inverse at ({b}, {d}): bytes bound {bound[0]:.4f} ms; SASS of "
+          f"binned_rqs_inverse_kernel<{bins}, false, false>: {n_ins} instructions, {mufu} MUFU a "
+          f"consumer warp and unit, so "
+          f"{issue:.4f} ms of issue slots and {sfu:.4f} ms of SFU at {mhz:g} MHz (registers, "
+          f"spill bytes: {regs}); against f64: "
+          f"x {errs[0][0] / errs[0][1]:.3e}, logdet {errs[1][0] / errs[1][1]:.3e} of the scale "
+          f"(bound {K4_F64_TOL:g})", flush=True)
+    if not all(e <= K4_F64_TOL * sc for e, sc in errs):
+        raise PhaseError(f"binned_rqs_inverse at ({b}, {d}) misses f64 by more than "
+                         f"{K4_F64_TOL:g} of the scale")
     if not other_branch:
         return
 
@@ -2040,8 +2149,7 @@ CFM_GROUPS = [
     ("cuBLAS products", _is_gemm),
 ]
 CINN_GROUPS = [
-    ("K4 binned_rqs_inverse", lambda k: "binned_rqs_inverse_kernel" in k
-     or "logdet_reduce_kernel" in k),
+    ("K4 binned_rqs_inverse", lambda k: "binned_rqs_inverse_kernel<" in k),
     ("K1 forward", _is_k1_fwd),
     ("K3 energy_decoder", _is_k3),
     ("cuBLAS products", _is_gemm),

@@ -120,20 +120,26 @@ FAKE_SASS = """
 
 
 def test_tree_compare_reads_sass_instructions(monkeypatch):
-    """``tree_compare.py sass`` compares instructions only: the addresses
-    and encodings of ``cuobjdump -sass`` are stripped, per function, and an
-    anonymous namespace's path hash leaves the function's name."""
+    """``tree_compare.py sass`` compares instructions only, read by this
+    checkout's ``_cuda.sass_functions``: the addresses and encodings of
+    ``cuobjdump -sass`` are stripped, per function, and an anonymous
+    namespace's path hash leaves the function's name."""
+    import inspect
+
+    from vit4hep_tpu_torch.ops import _cuda
+
     spec = importlib.util.spec_from_file_location("tree_compare_k6_k1", ROOT / "tree_compare.py")
     tc = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tc)
+    assert 'cudas["this checkout"].sass_functions(' in inspect.getsource(tc.sass)
     calls = []
 
     def run(cmd, **kw):
         calls.append(cmd)
         return types.SimpleNamespace(stdout=FAKE_SASS)
 
-    monkeypatch.setattr(tc.subprocess, "run", run)
-    funcs = tc._sass_functions(Path("libx.so"))
+    monkeypatch.setattr(_cuda.subprocess, "run", run)
+    funcs = _cuda.sass_functions(Path("libx.so"))
     assert funcs == {"_ZN2aw22flash_fwd_wgmma_kernelILi80ELb0EEEvN4amma4ArgsE":
                      ["LDC R1, c[0x0][0x28]", "S2R R0, SR_TID.X", "BRA `(.L_x_0)"],
                      "_ZN49_GLOBAL__N__16_qkv_attention_cu_19e22e4816bwd_delta_kernelEv": ["EXIT"]}

@@ -25,7 +25,10 @@ term, dK and dV; the lse 1e-4 (f32 sums only). Shapes: the flash/vmem
 file's ``CUDA_SHAPES`` plus N = 1 and 65 at d = 80, d = 13 and 33 (the
 4-byte copy path) and d = 128 (the one-stage ring of the dK/dV pass); q, k
 and v are strided views of a qkv panel and the upstream gradient a strided
-view of the merged one; each wrapper counts exactly one launch.
+view of the merged one; each wrapper counts exactly one launch. The
+forward unmasked and with an all-True mask is held against an f64 softmax
+of the same bf16 operands at every padded head dim (the two arms round the
+exponent in another order, so they need not agree bit for bit).
 On the card: ``python -m pytest --noconftest -m cuda tests/test_torch_vmem_wgmma.py``.
 """
 
@@ -198,3 +201,25 @@ def test_vmem_wgmma_kernels_match_plain_on_cuda(cuda_device, b, h, n, d, kind):
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                tvmem.vmem_bwd_plain(q, k, v, gh, lse, scale, mask, bf)):
         _close(got, want, TOL["bwd"], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_vmem_masked_forward_against_f64_on_cuda(cuda_device, d):
+    """K8's forward unmasked and with an all-True mask, each against an f64
+    softmax of the same bf16 operands within the forward's 2e-3 of the
+    scale. The two arms need not agree bit for bit: the unmasked arm fuses
+    s * scale - max into one FFMA, the masked arm rounds s * scale before it
+    selects it or -1e30 and subtracts the max, so an exponent may differ in
+    its last bit and p round to the other bf16 neighbour."""
+    b, h, n = 2, 2, 200
+    gen = torch.Generator(device=cuda_device).manual_seed(90 + d)
+    qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=cuda_device)
+    q, k, v = qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    scale = d ** -0.5
+    q16, k16, v16 = (t.to(torch.bfloat16).double() for t in (q, k, v))
+    ref = torch.softmax(q16 @ k16.transpose(-1, -2) * scale, -1) @ v16
+    ones = torch.ones(n, n, dtype=torch.bool, device=cuda_device)
+    for mask in (None, ones):
+        _close(tvmem.vmem_fwd_kernel(q, k, v, scale, mask)[0], ref, TOL["fwd"],
+               f"d = {d}, {'all-True' if mask is not None else 'unmasked'}")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time one tree's ViT GEMM, its K1, K6, K8 and K2v attention kernels and
-K5b's products, or rerun its end-to-end paths, with this checkout's
-``chip_smoke.py``, so that two trees can be compared on one card.
+"""Time one tree's ViT GEMM, its K1, K6, K8 and K2v attention kernels,
+K5b's products, K3, K7 and K4, or rerun its end-to-end paths, with this
+checkout's ``chip_smoke.py``, so that two trees can be compared on one
+card.
 
     python3 tree_compare.py kernels [--tree DIR] [--label NAME]
     python3 tree_compare.py paths [--tree DIR] [--label NAME] [--only PATH ...]
@@ -31,8 +32,9 @@ wrappers launch them alone (each with its own pre-pass where DIR has one),
 its backward through autograd's path (delta, one pre-pass, both passes),
 and where DIR has the pre-pass, the pre-pass alone and the passes on
 operands split beforehand, SDPA's f32 forward and backward (with the mask)
-beside them; each the median device time of ``tools.timing.time_ms`` on
-inputs made from seed 0.
+beside them; K4 at the ds2 and ds3 cINN sampling shapes (y (256, 3240 or
+20250), theta (..., 31), the shipped spline); each the median device time
+of ``tools.timing.time_ms`` on inputs made from seed 0.
 ``paths``: the smoke's
 ``train_phase`` (ds2 composed, 30 steps through the experiment) and
 ``fused_train_phase`` (the same with ``fused_block: true``),
@@ -50,8 +52,8 @@ the steady step interior; each generator's steady showers/s, first request
 excluded, and its request seconds). ``sass`` builds the libraries of
 the kernels a change should leave as they were (``SASS_KERNELS``: K6's
 three kernels, K8's three, K7's, K1's TF32 forward, delta kernel and
-backward passes, K3's, and K2v's attention with the ViT GEMM and modln
-kernels beside it) in DIR and in
+backward passes, K3's, K2v's attention with the ViT GEMM and modln
+kernels beside it, and K4's) in DIR and in
 this checkout, and prints per kernel the SASS lines (``cuobjdump -sass``,
 addresses and encodings stripped) that differ between the two.
 
@@ -70,8 +72,6 @@ import importlib.util
 import inspect
 import json
 import os
-import re
-import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -180,6 +180,19 @@ def kernels(cs, torch) -> dict:
         del qkv
     res["k5b"] = k5b_products(cs, torch, rand)
     res["k7"] = k7_passes(cs, torch, rand)
+    res["k4"] = k4_times(cs, torch, rand)
+    return res
+
+
+def k4_times(cs, torch, rand) -> dict:
+    """K4 at the ds2 and ds3 cINN sampling shapes, y (256, 3240 or 20250) ~
+    6 N(0, 1), theta (..., 31), the shipped spline (``K4_SPLINE``)."""
+    res = {}
+    for d in (3240, 20250):
+        y, theta = rand(cs.BATCH, d, sc=6.0), rand(cs.BATCH, d, 31)
+        res[f"({cs.BATCH}, {d}, 31)"] = cs.time_ms(
+            lambda: cs.fsp.fused_binned_rqs_inverse(y, theta, *cs.K4_SPLINE))
+        del y, theta
     return res
 
 
@@ -376,29 +389,8 @@ SASS_KERNELS = {"flash_qkv_attention": ("flash_fwd_wgmma_kernel", "flash_bwd_dq_
                 "qkv_attention": ("bwd_delta_kernel", "qkv_fwd_tf32_kernel"),
                 "qkv_attention_bwd": ("qkv_bwd_",),
                 "energy_decoder": ("energy_decoder",),
-                "vit_forward": ("vit_attn_wgmma_kernel", "gemm_wgmma_kernel", "modln_kernel")}
-_SASS_NOISE = re.compile(r"/\*[0-9a-fx]+\*/|;?\s*/\* 0x[0-9a-f]+ \*/")
-# an anonymous namespace's mangled name carries a hash of the source's path
-_ANON_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
-
-
-def _sass_functions(lib: Path) -> dict:
-    """{mangled name: its SASS instructions}, addresses and encodings
-    stripped, from ``cuobjdump -sass``; an anonymous namespace's path hash
-    is dropped from the name, so that two checkouts name a kernel alike."""
-    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = funcs.setdefault(_ANON_HASH.sub("_GLOBAL__N__", m.group(1)), [])
-        elif cur is not None and "/*" in line:
-            ins = _SASS_NOISE.sub("", line).strip()
-            if ins:
-                cur.append(ins)
-    return funcs
+                "vit_forward": ("vit_attn_wgmma_kernel", "gemm_wgmma_kernel", "modln_kernel"),
+                "binned_rqs": ("binned_rqs_inverse_kernel",)}
 
 
 def sass(tree: Path) -> dict:
@@ -416,7 +408,8 @@ def sass(tree: Path) -> dict:
         list(pool.map(lambda c: c.build(tuple(SASS_KERNELS)), cudas.values()))
     res = {}
     for name, patterns in SASS_KERNELS.items():
-        a, b = (_sass_functions(c._lib_path(name)) for c in cudas.values())
+        a, b = (cudas["this checkout"].sass_functions(c._lib_path(name))
+                for c in cudas.values())
         for fn in sorted(f for f in set(a) | set(b) if any(p in f for p in patterns)):
             if fn not in a or fn not in b:
                 res[fn] = "only in " + ("this checkout" if fn in b else "the tree")

@@ -125,6 +125,33 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+_SASS_NOISE = re.compile(r"/\*[0-9a-fx]+\*/|;?\s*/\* 0x[0-9a-f]+ \*/")
+# an anonymous namespace's mangled name carries a hash of the source's path
+_ANON_HASH = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+
+
+def sass_functions(lib: Path, addresses: bool = False) -> dict:
+    """{mangled name: its SASS instructions} of a built library, from
+    ``cuobjdump -sass``, addresses and encodings stripped; an anonymous
+    namespace's path hash is dropped from the name, so that two checkouts
+    name a kernel alike. With ``addresses``, each instruction comes as
+    (its address, the instruction), so that branches can be followed."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(_ANON_HASH.sub("_GLOBAL__N__", m.group(1)), [])
+        elif cur is not None and "/*" in line:
+            ins = _SASS_NOISE.sub("", line).strip()
+            if ins:
+                at = re.match(r"\s*/\*([0-9a-f]+)\*/", line)
+                cur.append((int(at.group(1), 16), ins) if addresses else ins)
+    return funcs
+
+
 def check(code: int, what: str):
     if code != 0:
         raise RuntimeError(f"CUDA kernel '{what}' failed to launch: cudaError {code}")
