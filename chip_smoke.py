@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 and ds3 two-stage
 shower generators (CFM and cINN shape models), the layer-causal ViT, the ds2
 training slice and its megakernel training tier, ds3 CFM training and
-serving through the composed block's opt-in kernels, and the 13,500-token
-ds3 ViT (ds3_long) through the streaming flash attention K7, at full width,
-through the hand-written CUDA kernels.
+serving through the composed block's opt-in kernels, the 13,500-token ds3
+ViT (ds3_long) through the streaming flash attention K7, and sampling and
+evaluation through the CaloChallenge experiment, at full width, through
+the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -166,12 +167,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    at batch 1 (K7_TRAIN_TOL: f32 both);
 11. energy: a few steps of the ds2 energy experiment at full width (batch
    256; no kernel on its path), which fits ``means_u.npy``/``stds_u.npy``.
+12. experiment sampling (``experiment_sampling_phase``): on the run dirs
+   of ds2_train and energy, ``CaloChallenge.sample_n`` of SAMPLING_SHOWERS
+   showers (10 batches of 256, the last padded and cut), staged
+   (``sample_us``) and through the fused chain (``fused_generation``), each
+   with its exact K3 and K2v launches (paths ``experiment_sampling`` and
+   ``experiment_sampling_fused``), the path that ran, and showers/s; the
+   fused chain against the staged path on the same noise, stage by stage;
+   ``to_mev``, ``plot``'s inverse pipeline; a few steps of the DNN's and
+   ResNet18's training on the card against the host's; the evaluation
+   core at calochallenge_ds2.yaml's widths on the card against synthetic
+   showers of another seed
+   (``all-cls``: cls-low, cls-high, cls-resnet; ``fpd``: FPD/KPD), and the
+   energy run's ``eval_ui_dists``, each AUC / JSD / FPD / KPD finite, with
+   its seconds. No plots and no HDF5 writes (no matplotlib, no h5py here).
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
 its main-path shape's numbers, its launches by path and their sum, and its
 numbers at the other shapes); the last line is ``{"ok": true, "device":
-{...}}``. Needs no network, no PyYAML, no h5py and nothing of JAX or of the
-JAX package: the ds2 and ds3 configs are written out below
+{...}}``. Needs no network, no PyYAML, no h5py, no matplotlib, no sklearn and
+nothing of JAX or of the JAX package: the ds2 and ds3 configs are written
+out below
 (tests/test_torch_chain.py holds them equal to the YAML files).
 """
 
@@ -400,6 +416,36 @@ DS2_TRAINING = {
 }
 DS2_SHAPE_TRAINING = dict(DS2_TRAINING, iterations=800000, batchsize=64)
 DS2_ENERGY_TRAINING = dict(DS2_TRAINING, iterations=250000, batchsize=256)
+
+# evaluation: of configs/calochallenge/cfm/calochallenge_ds2.yaml and
+# calochallenge_ds2_energy.yaml
+DS2_EVALUATION = {
+    "eval_dataset": "2", "eval_mode": "all", "eval_cut": 0.015, "eval_labels": ["ViT-CFM"],
+    "eval_p_label": "", "eval_hdf5_file": "${data_dir}/dataset_2_2.hdf5", "eval_cls_n_layer": 2,
+    "eval_cls_n_hidden": 2048, "eval_cls_dropout": 0.0, "eval_cls_lr": 2e-4,
+    "eval_cls_batch_size": 1000, "eval_cls_n_epochs": 50, "eval_cls_save_mem": True,
+    "eval_cls_resnet_layers": 18, "eval_cls_resnet_lr": 2e-4, "eval_cls_resnet_n_epochs": 50,
+}
+DS2_ENERGY_EVALUATION = {
+    "eval_dataset": "2", "eval_mode": "all", "eval_cut": 0.015,
+    "eval_hdf5_file": "${data_dir}/dataset_2_2.hdf5", "eval_cls_n_layer": 2,
+    "eval_cls_n_hidden": 512, "eval_cls_dropout": 0.0, "eval_cls_lr": 2e-4,
+    "eval_cls_batch_size": 1000, "eval_cls_n_epochs": 100, "eval_cls_save_mem": True,
+}
+# experiment_sampling_phase's cuts of the shipped settings (its docstring)
+SAMPLING_SHOWERS = 2500  # n_samples 100,000: 9 full batches of 256 and one of 196
+EVAL_EPOCHS = 2  # eval_cls_n_epochs / eval_cls_resnet_n_epochs 50 (100 for the u's)
+# sampling_parity (its docstring): one full batch of 256 and one of 44
+# padded to 256
+SAMPLING_CMP_SHOWERS = 300
+SAMPLING_U_TOL = 1e-5
+SAMPLING_SHAPE_TOL = 1e-6
+SAMPLING_TOL = 1e-4
+# classifier_parity: card against host, f32 both (its docstring)
+CLS_GRAD_TOL = 1e-4
+CLS_PARITY_TOL = 1e-4
+CLS_DNN_LR = 1e-4
+CLS_RESNET_LR = 1e-5
 
 # the TF32 tensor-core peak (NVIDIA H100 SXM data sheet, dense, at 700 W)
 TF32_FLOPS = 494.7e12
@@ -2227,13 +2273,16 @@ def _synthetic_showers(n_events, seed, geometry="ds2"):
 
 class SyntheticCaloChallenge(CaloChallenge):
     """The port's CaloChallenge experiment with synthetic MeV showers on the
-    ds2 geometry in place of the training file (the card's machine has no
-    h5py and no dataset)."""
+    ds2 geometry in place of the training and test files (the card's
+    machine has no h5py and no dataset)."""
 
     geometry, n_events = "ds2", N_EVENTS
 
     def load_showers(self):
         return _synthetic_showers(self.n_events, SEED, self.geometry)
+
+    def load_test_showers(self):
+        return _synthetic_showers(self.n_events, SEED + 1, self.geometry)
 
 
 class SyntheticCaloChallengeDS3(SyntheticCaloChallenge):
@@ -2620,6 +2669,7 @@ DS3_TRAIN_GROUPS = [
 
 
 def energy_phase(tmp: Path):
+    """A few steps of the ds2 energy experiment; returns the experiment."""
     training = dict(DS2_ENERGY_TRAINING, iterations=ENERGY_STEPS,
                     validate_every_n_steps=ENERGY_STEPS // 2)
     cfg = _experiment_config(tmp, DS2_ENERGY_MODEL, DS2_ENERGY_TRANSFORMS, training, "energy",
@@ -2633,6 +2683,303 @@ def energy_phase(tmp: Path):
     steady = exp.step_times[2:]
     print(f"  {len(exp.train_loss)} steps of batch 256: loss {exp.train_loss[0]:.4f} -> "
           f"{exp.train_loss[-1]:.4f}, {len(steady) / sum(steady):.2f} steps/s steady", flush=True)
+    return exp
+
+
+def _finite(what, *arrays):
+    for a in arrays:
+        if not np.isfinite(a).all():
+            raise PhaseError(f"{what}: non-finite values")
+
+
+def _experiment_samples(exp, label, card):
+    """``exp.sample_n()`` with the serving counters set to 0 just before and
+    read just after: (samples, conditions, launches, seconds)."""
+    for c in SERVING.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, cond = exp.sample_n()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in SERVING.items()}
+    n = int(exp.cfg.n_samples)
+    bs = int(exp.cfg.training.batchsize_sample)
+    print(f"  {label}: {n} showers in {seconds:.3f} s = {n / seconds:.2f} showers/s (host "
+          f"clock, {-(-n // bs)} batches of {bs}, the host transforms included; on {card})",
+          flush=True)
+    return samples, cond, launches, seconds
+
+
+class SamplingCaloChallenge(SyntheticCaloChallenge):
+    """The smoke's shape experiment for sampling: the energy run's config
+    comes from its experiment in memory (the card's machine has no PyYAML
+    to read ``config.yaml``)."""
+
+    energy_cfg = None  # the energy experiment's config
+
+    def energy_run_config(self):
+        return Config(self.energy_cfg.to_container(resolve=False))
+
+
+def _scaled_err(got, want):
+    """max |got - want| over max |want|."""
+    got, want = (np.asarray(a, np.float64) for a in (got, want))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def sampling_parity(exp, card):
+    """The fused chain against the staged path on the same per-batch noise
+    (drawn on the card) and the same SAMPLING_CMP_SHOWERS energies (one numpy
+    seed), the last batch padded:
+
+    - the conditions [u | E_inc]: the staged path maps the energy run's u's
+      through the host transforms in numpy, the fused chain through their
+      device twins in f32: SAMPLING_U_TOL of scale;
+    - the fused chain's showers against the staged shape stage
+      (``_sample_in_batches``) on the fused chain's conditions and the same
+      shape noise: the same kernels on the same rows, SAMPLING_SHAPE_TOL of
+      scale;
+    - the showers of the two paths end to end: SAMPLING_TOL of scale. The
+      conditions' f32 rounding reaches K2v's bf16 products, where it moves
+      a product's input across a bf16 rounding boundary now and then; the
+      ODE carries that on, but over 80 evals it stays far below bf16's own
+      2^-9 (4e-6 of scale on an NVIDIA H100 80GB HBM3 at 700.00 W).
+
+    Neither run counts on the main path."""
+    n0, fused0 = exp.cfg.n_samples, exp.cfg.get("fused_generation", False)
+    n, bs = SAMPLING_CMP_SHOWERS, int(exp.cfg.training.batchsize_sample)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    noise = tuple([torch.randn(m.token_shape(bs) or m.x_shape(bs), generator=g, device="cuda")
+                   for _ in range(-(-n // bs))] for m in (exp.energy_model, exp.model))
+    exp.cfg.n_samples, out = n, {}
+    for fused in (False, True):
+        exp.cfg.fused_generation = fused
+        np.random.seed(SEED + 11)
+        out[fused] = exp.sample_n(noise=noise)
+        if exp.last_sampling_fused != fused:
+            raise PhaseError(f"sampling parity: fused_generation {fused}, but the "
+                             f"{'fused' if exp.last_sampling_fused else 'staged'} path ran")
+    (staged, c_staged), (fused, c_fused) = out[False], out[True]
+    shape_stage = exp._sample_in_batches(exp.model, c_fused, bs, noise[1])
+    exp.cfg.n_samples, exp.cfg.fused_generation = n0, fused0
+    errs = {"conditions": _scaled_err(c_fused, c_staged),
+            "fused vs staged shape stage": _scaled_err(fused, shape_stage),
+            "showers end to end": _scaled_err(fused, staged)}
+    print(f"sampling parity, fused chain vs staged path, {n} showers on the same noise (max "
+          f"error over scale): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; on {card}", flush=True)
+    _finite("sampling parity", staged, fused, shape_stage)
+    if fused.shape != staged.shape or c_fused.shape != c_staged.shape:
+        raise PhaseError(f"sampling parity: fused {fused.shape} / {c_fused.shape}, staged "
+                         f"{staged.shape} / {c_staged.shape}")
+    if errs["conditions"] > SAMPLING_U_TOL:
+        raise PhaseError(f"sampling parity: the fused chain's conditions are "
+                         f"{errs['conditions']:.3e} of scale from the staged path's (bound "
+                         f"{SAMPLING_U_TOL})")
+    if errs["fused vs staged shape stage"] > SAMPLING_SHAPE_TOL:
+        raise PhaseError(f"sampling parity: the fused chain's showers are "
+                         f"{errs['fused vs staged shape stage']:.3e} of scale from the staged "
+                         f"shape stage on the same conditions (bound {SAMPLING_SHAPE_TOL})")
+    if errs["showers end to end"] > SAMPLING_TOL:
+        raise PhaseError(f"sampling parity: the fused chain's showers are "
+                         f"{errs['showers end to end']:.3e} of scale from the staged path's "
+                         f"(bound {SAMPLING_TOL})")
+
+
+def classifier_parity(card):
+    """cls-low's DNN (2 layers of 2048 on 1 + 6480 inputs) and cls-resnet's
+    ResNet18 on (45, 16, 9) at calochallenge_ds2.yaml's widths, from one
+    initial state on the card (cuBLAS, cuDNN's Conv3d) and on the host
+    (torch's own kernels: ``train_classifier`` turns oneDNN off there), f32
+    both (TF32 off):
+
+    - the loss gradient of the initial state on a batch of 32, each
+      parameter's to CLS_GRAD_TOL of its scale (f32 sums in another order);
+    - ``train_classifier`` for one epoch of 4 steps (120 events at batch 32,
+      the ragged tail wrapped): the best state's logits of all 160 events,
+      and the ResNet's BatchNorm running statistics, to CLS_PARITY_TOL of
+      their scale. Adam moves every parameter by ~lr in the direction of
+      its gradient's sign, so a gradient ~0 moves by ~lr whichever sign
+      rounding gives it, and the parameters are not compared one by one.
+      On an NVIDIA H100 80GB HBM3 at 700.00 W the DNN's logits part by
+      ~4e-7 at CLS_DNN_LR. ResNet18's Conv3d weight gradients are sums of
+      ~30,000 terms a batch whose rounding (9e-6 of scale) flips the sign
+      of near-zero entries, and each flipped step moves the next
+      gradients, so the spread compounds: on that card its logits part by
+      1.5e-3 after 4 steps at lr 1e-4 and by 1.2e-6 at 1e-5 (the
+      gradient's own rounding), so it trains at CLS_RESNET_LR.
+
+    Also warms cuBLAS and cuDNN up before the evaluation's classifiers are
+    timed."""
+    import copy
+
+    from vit4hep_tpu_torch.evaluation import classifiers as cls
+
+    rng = np.random.default_rng(SEED + 13)
+    n_in = 1 + _voxels("ds2")
+    labels = (rng.random(160) > 0.5).astype(np.float32)
+    data = rng.normal(size=(160, n_in)).astype(np.float32) + 0.1 * labels[:, None]
+    data = np.concatenate([data, labels[:, None]], axis=1)
+    for name, optimizer, lr, build in (
+            ("DNN 2 x 2048", "Adam", CLS_DNN_LR,
+             lambda g: cls.DNN(2, 2048, 0.0, n_in, generator=g)),
+            ("ResNet18", "AdamW", CLS_RESNET_LR,
+             lambda g: cls.generate_model(18, img_shape=(45, 16, 9), generator=g))):
+        init = build(torch.Generator().manual_seed(SEED)).state_dict()
+        models = {}
+        for dev in ("cuda", "cpu"):
+            models[dev] = build(None).to(dev)
+            models[dev].load_state_dict(init)
+        x = torch.from_numpy(data[:32, :-1])
+        y = torch.from_numpy(data[:32, -1])
+        grads = {}
+        for dev, m in models.items():
+            m.train()
+            with torch.backends.mkldnn.flags(enabled=dev != "cpu"):
+                loss = F.binary_cross_entropy_with_logits(m(x.to(dev)).squeeze(-1), y.to(dev))
+                loss.backward()
+            grads[dev] = {k: p.grad.detach().cpu().numpy() for k, p in m.named_parameters()}
+        grad_err, worst = max((_scaled_err(grads["cuda"][k], g), k)
+                              for k, g in grads["cpu"].items())
+        if not grad_err <= CLS_GRAD_TOL:
+            raise PhaseError(f"classifier parity, {name}: the card's gradient of {worst} is "
+                             f"{grad_err:.3e} of scale from the host's (bound {CLS_GRAD_TOL})")
+        cfg = cls.ClassifierConfig(lr=lr, batch_size=32, n_epochs=1, optimizer=optimizer)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            models[dev].load_state_dict(init)
+            t0 = time.perf_counter()
+            best, apply_fn = cls.train_classifier(models[dev], data[:120], data[120:], cfg,
+                                                  device=dev)
+            out[dev] = (apply_fn(data), {k: v.cpu().numpy() for k, v in best["state"].items()
+                                         if k.endswith(("running_mean", "running_var"))})
+            if dev == "cuda":
+                card_s = time.perf_counter() - t0  # apply_fn's logits are on the host
+        logit_err = _scaled_err(out["cuda"][0], out["cpu"][0])
+        stats = {k: _scaled_err(out["cuda"][1][k], v) for k, v in out["cpu"][1].items()}
+        print(f"classifier parity, {name}, lr {lr:g} (card vs host, max error over scale): "
+              f"gradient {grad_err:.3e}, logits {logit_err:.3e}, BatchNorm statistics "
+              f"{max(stats.values(), default=0.0):.3e}; {card_s:.2f} s on {card}",
+              flush=True)
+        err, worst = max([(logit_err, "the logits")] + [(v, k) for k, v in stats.items()])
+        if not err <= CLS_PARITY_TOL:
+            raise PhaseError(f"classifier parity, {name}: {worst} on the card are {err:.3e} of "
+                             f"scale from the host's (bound {CLS_PARITY_TOL})")
+
+
+def experiment_sampling_phase(shape_cfg, energy_exp, card):
+    """Sampling and evaluation through the experiment on the card, on the
+    run dirs of ds2_train (``model_run0.pt``) and energy:
+
+    1. ``sample_n`` of the ds2 shape model behind the energy run, staged
+       (``sample_us``: the energy stage, its u's through the host
+       transforms, the shape stage) and then fused (``fused_generation``):
+       (SAMPLING_SHOWERS, 1, 45, 16, 9) finite showers and (., 46)
+       conditions, the padding of the last batch cut; K3 80 launches and
+       K2v CFM_PER_EVAL x 80 per batch on each path, and the path that
+       ran the one asked for; showers/s; the fused chain held against the
+       staged path on the same noise (``sampling_parity``); then
+       ``to_mev``, the inverse pipeline of ``plot``, to MeV voxels;
+    2. the classifiers' training on the card held against the host's
+       (``classifier_parity``), then the evaluation core at
+       calochallenge_ds2.yaml's ``evaluation:`` widths, generated against
+       synthetic showers of another seed:
+       ``all-cls`` (cls-low and cls-high, a DNN with 2 layers of 2048;
+       cls-resnet, ResNet18 on (45, 16, 9)) and ``fpd`` (FPD/KPD at
+       10,000-sample draws, float64 on the card); then the energy run's
+       ``eval_ui_dists`` (a DNN with 2 layers of 512 on the 45 u's) on
+       its own SAMPLING_SHOWERS samples. Every AUC, JSD and FPD/KPD must be
+       finite.
+
+    Cut from the shipped settings: n_samples 100,000 -> SAMPLING_SHOWERS
+    (time); classifier epochs 50 (100 for the u's) -> EVAL_EPOCHS (time);
+    the reference is synthetic, not a Geant4 file (no dataset here); no
+    plots (no matplotlib here) and no HDF5 writes (no h5py here). Returns
+    {path: launches}."""
+    from vit4hep_tpu_torch.evaluation.ugr_evaluation import evaluate_showers
+    from vit4hep_tpu_torch.evaluation.us_evaluation import eval_ui_dists
+
+    cfg = Config(shape_cfg.to_container(resolve=False))
+    cfg.train = False  # a warm start from model_run0.pt
+    cfg.sample_us, cfg.n_samples = True, SAMPLING_SHOWERS
+    cfg.energy_model = energy_exp.cfg.run_dir
+    cfg.evaluation = dict(DS2_EVALUATION, eval_cls_n_epochs=EVAL_EPOCHS,
+                          eval_cls_resnet_n_epochs=EVAL_EPOCHS)
+    exp = SamplingCaloChallenge(cfg, device="cuda")
+    exp.energy_cfg = energy_exp.cfg
+    exp()
+    if next(exp.model.parameters()).device.type != "cuda":
+        raise PhaseError("experiment sampling: the shape model is not on the card")
+    n, bs = SAMPLING_SHOWERS, int(exp.cfg.training.batchsize_sample)
+    batches = -(-n // bs)
+    n_alpha, r_edges = GEOMETRY["ds2"]
+    grid, voxels = (45, n_alpha, len(r_edges) - 1), _voxels("ds2")
+    evals = exp.model.net_evals_per_sample()
+    want = {k: batches * evals * per for k, per in CFM_PER_EVAL.items()}
+    launches, rates = {}, {}
+    for path, fused in (("experiment_sampling", False), ("experiment_sampling_fused", True)):
+        exp.cfg.fused_generation = fused
+        samples, cond, got, seconds = _experiment_samples(exp, path, card)
+        if samples.shape != (n, 1, *grid) or cond.shape != (n, 46):
+            raise PhaseError(f"{path}: samples {samples.shape}, conditions {cond.shape}, "
+                             f"expected {(n, 1, *grid)} and ({n}, 46): padding not cut?")
+        _finite(path, samples, cond)
+        if next(exp.energy_model.parameters()).device.type != "cuda":
+            raise PhaseError(f"{path}: the energy model is not on the card")
+        # sample_n falls back to the staged path when the fused chain cannot
+        # be built: the launches alone would not tell the two apart
+        if exp.last_sampling_fused != fused:
+            raise PhaseError(f"{path}: fused_generation {fused}, but the "
+                             f"{'fused' if exp.last_sampling_fused else 'staged'} path ran")
+        if got != want:
+            raise PhaseError(f"{path}: launches {got}, expected {want} ({batches} batches x "
+                             f"{evals} evals x CFM_PER_EVAL)")
+        launches[path], rates[path] = got, n / seconds
+        print(f"  launches on the main path: {got}", flush=True)
+    sampling_parity(exp, card)
+    mev, e_inc = exp.to_mev(samples, cond)
+    _finite("to_mev", mev, e_inc)
+    if mev.shape != (n, voxels) or e_inc.shape != (n, 1) or (mev < 0).any():
+        raise PhaseError(f"to_mev: showers {mev.shape}, energies {e_inc.shape}, min {mev.min()}")
+    print(f"experiment sampling: staged {rates['experiment_sampling']:.2f} showers/s, fused "
+          f"{rates['experiment_sampling_fused']:.2f}; MeV showers {mev.shape}, mean total "
+          f"energy {mev.sum(1).mean():.1f} MeV; on {card}", flush=True)
+
+    classifier_parity(card)
+    ref_e, ref_showers, _ = _synthetic_showers(n, SEED + 7)
+    # all-cls twice: the first run's seconds hold one-time costs at the
+    # evaluation's shapes; the second run's are the classifiers' own
+    for mode, run in (("all-cls", " (first run)"), ("all-cls", " (second run)"), ("fpd", "")):
+        exp.cfg.evaluation.eval_mode = mode
+        results = evaluate_showers(mev, e_inc, ref_showers, ref_e, exp.cfg, device="cuda")
+        for key, r in results.items():
+            scores = [r["auc"], r["jsd"]] if "auc" in r else [r["value"], r["error"]]
+            if not np.isfinite(scores).all():
+                raise PhaseError(f"evaluation {key}: {r}")
+            shown = (f"AUC {r['auc']:.4f}, JSD {r['jsd']:.4f}" if "auc" in r
+                     else f"{r['value'] * 1e3:.4f} +- {r['error'] * 1e3:.4f} (x10^3)")
+            print(f"  {key}{run}: {shown} in {r['seconds']:.2f} s; on {card}", flush=True)
+        if mode == "all-cls" and set(results) != {"cls-low", "cls-high", "cls-resnet"}:
+            raise PhaseError(f"all-cls ran {sorted(results)}")
+
+    energy_exp.cfg.n_samples = n
+    energy_exp.cfg.evaluation = dict(DS2_ENERGY_EVALUATION, eval_cls_n_epochs=EVAL_EPOCHS)
+    for c in SERVING.values():
+        c.reset()
+    u_samples, u_cond = energy_exp.sample_n()
+    if SERVING["energy_decoder"].launches != batches * evals:
+        raise PhaseError(f"energy sample_n: {SERVING['energy_decoder'].launches} K3 launches, "
+                         f"expected {batches * evals}")
+    us, ref_us = energy_exp.energy_us(u_samples, u_cond)
+    _finite("energy_us", us, ref_us)
+    t0 = time.perf_counter()
+    _, auc, jsd = eval_ui_dists(us, ref_us, energy_exp.cfg, device="cuda")
+    if not np.isfinite([auc, jsd]).all():
+        raise PhaseError(f"eval_ui_dists: AUC {auc}, JSD {jsd}")
+    print(f"  u's DNN (eval_ui_dists, {us.shape[1]} u's): AUC {auc:.4f}, JSD {jsd:.4f} in "
+          f"{time.perf_counter() - t0:.2f} s; on {card}", flush=True)
+    return launches
 
 
 def train_profile_phase(exp, card, top=12, groups=None):
@@ -2875,6 +3222,7 @@ def main() -> int:
             torch.cuda.empty_cache()
         print("fused train profile: one ds2 fused train step", flush=True)
         train_profile_phase(fexp, card, groups=FUSED_TRAIN_GROUPS)
+        shape_cfg = Config(exp.cfg.to_container(resolve=False))
         del exp, fexp
         _binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
         rates = {}
@@ -2912,7 +3260,11 @@ def main() -> int:
             K7_TRAIN_TOL)
         torch.cuda.empty_cache()
         print("energy: ds2 energy model at full width", flush=True)
-        energy_phase(Path(tmp))
+        energy_exp = energy_phase(Path(tmp))
+        torch.cuda.empty_cache()
+        print("experiment sampling: sample_n (staged and fused), the inverse pipeline and the "
+              "evaluation core of plot, on the ds2_train and energy run dirs", flush=True)
+        launches.update(experiment_sampling_phase(shape_cfg, energy_exp, card))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = []

@@ -183,7 +183,8 @@ def test_device_u_chain_matches_staged_numpy(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """The port's modules, its launcher and chip_smoke.py load nothing of JAX
+    """The port's modules (the experiment's sampling half and the evaluation
+    package among them), its launcher and chip_smoke.py load nothing of JAX
     and nothing of the JAX package."""
     code = ("import importlib.util, sys, vit4hep_tpu_torch.utils.serving, "
             "vit4hep_tpu_torch.utils.config, vit4hep_tpu_torch.utils.jax_params, "
@@ -194,7 +195,13 @@ def test_port_imports_no_jax():
             "vit4hep_tpu_torch.experiments.base, vit4hep_tpu_torch.experiments.train_state, "
             "vit4hep_tpu_torch.ops.fused_qkv_attention, vit4hep_tpu_torch.utils.checkpoint, "
             "vit4hep_tpu_torch.ops.fused_spline, vit4hep_tpu_torch.ops.rqs, "
-            "vit4hep_tpu_torch.models.bijectors, vit4hep_tpu_torch.models.cinn; "
+            "vit4hep_tpu_torch.models.bijectors, vit4hep_tpu_torch.models.cinn, "
+            "vit4hep_tpu_torch.evaluation, vit4hep_tpu_torch.evaluation.classifiers, "
+            "vit4hep_tpu_torch.evaluation.metrics, vit4hep_tpu_torch.evaluation.plots, "
+            "vit4hep_tpu_torch.evaluation.high_level_features, "
+            "vit4hep_tpu_torch.evaluation.ugr_evaluation, "
+            "vit4hep_tpu_torch.evaluation.us_evaluation, vit4hep_tpu_torch.data.xml_handler, "
+            "vit4hep_tpu_torch.experiments.fused_chain; "
             "from vit4hep_tpu_torch.experiments.main import get_experiment; "
             "get_experiment('calochallenge'); "
             "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py'); "
@@ -224,6 +231,9 @@ def test_chip_smoke_configs_equal_yaml():
     assert smoke.DS2_CINN_MODEL == load("model/cinn/cinn_ds2_electrons.yaml")
     assert smoke.DS2_CINN_TRANSFORMS == load("calochallenge/cinn/calochallenge_ds2_noise.yaml")[
         "data"]["transforms"]
+    assert smoke.DS2_EVALUATION == load("calochallenge/cfm/calochallenge_ds2.yaml")["evaluation"]
+    assert smoke.DS2_ENERGY_EVALUATION == load("calochallenge/cfm/calochallenge_ds2_energy.yaml")[
+        "evaluation"]
 
 
 def test_chip_smoke_ds3_configs_equal_yaml():

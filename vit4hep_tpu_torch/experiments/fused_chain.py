@@ -90,7 +90,38 @@ def _twin(t, rev):
     name = type(t).__name__
     if name not in _REGISTRY:
         raise UnsupportedTransform(f"no device twin registered for u-transform {name}")
-    return _REGISTRY[name](t, rev)
+    try:
+        return _REGISTRY[name](t, rev)
+    except AttributeError as e:
+        # a *FromFile step whose statistics were never written: the staged
+        # path fits them on the fly, so the chain reports it as unsupported
+        raise UnsupportedTransform(f"u-transform {name} has no fitted statistics ({e})") from e
+
+
+def chain_fingerprint(energy_transforms, shape_transforms) -> str:
+    """Digest of the u-chain's transform state: class names and fitted
+    constants, with the list each step sits in. A cached generator bakes
+    the constants in when it is built, so keying the cache on this digest
+    rebuilds it after a refit or a reload."""
+    import hashlib
+
+    h = hashlib.sha1()
+    # "|" keeps the list placement in the key: a step in the energy list runs
+    # in reverse, the same step in the shape list forward
+    for t in list(energy_transforms) + ["|"] + list(shape_transforms):
+        if not hasattr(t, "u_transform"):
+            if isinstance(t, str) and t == "|":
+                h.update(b"|")
+            continue
+        h.update(type(t).__name__.encode())
+        for attr in ("mean", "std", "mean_u", "std_u", "factor", "delta", "rescale", "n_us",
+                     "n_layers", "exclusions", "written"):
+            v = getattr(t, attr, None)
+            if v is None:
+                continue
+            h.update(attr.encode())
+            h.update(np.asarray(v).tobytes())
+    return h.hexdigest()
 
 
 def device_u_chain(energy_transforms, shape_transforms):

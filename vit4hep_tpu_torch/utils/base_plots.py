@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 
 
-def _pyplot():
+def pyplot():
+    """``matplotlib.pyplot`` on the Agg backend, imported at first use."""
     import matplotlib
 
     matplotlib.use("Agg")
@@ -18,7 +19,7 @@ def _pyplot():
 
 def plot_loss(filename, train_loss, val_loss=None, val_every=1, logy=True):
     """Training (and optionally validation) loss curve."""
-    plt = _pyplot()
+    plt = pyplot()
     fig, ax = plt.subplots(figsize=(6, 4))
     ax.plot(np.arange(1, len(train_loss) + 1), train_loss, lw=0.8, label="train", color="#0000cc")
     if val_loss is not None and len(val_loss):
@@ -36,7 +37,7 @@ def plot_loss(filename, train_loss, val_loss=None, val_every=1, logy=True):
 
 def plot_metric(filename, values, ylabel, logy=False):
     """A per-iteration metric curve (learning rate, grad norm, ...)."""
-    plt = _pyplot()
+    plt = pyplot()
     fig, ax = plt.subplots(figsize=(6, 4))
     ax.plot(np.arange(1, len(values) + 1), values, lw=0.8, color="#0000cc")
     if logy and np.all(np.asarray(values) > 0):

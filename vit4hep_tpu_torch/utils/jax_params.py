@@ -2,7 +2,8 @@
 
 Turns a Flax param tree (nested dicts of arrays; numpy or anything
 ``np.asarray`` accepts) into the ``state_dict`` of the port's ``ViTNet``,
-``ParallelTransformerNet`` or ``CaloChallengeCINN`` flow. The name map is
+``ParallelTransformerNet`` or ``CaloChallengeCINN`` flow, or the evaluation's
+``DNN`` / ``ResNet3D`` classifiers. The name map is
 ``convert_vit_state_dict`` / ``convert_energy_state_dict`` of
 ``vit4hep_tpu/utils/torch_migration.py`` run in reverse: a Dense ``kernel (in, out)`` becomes a Linear ``weight
 (out, in)``, a LayerNorm ``scale``/``bias`` becomes ``weight``/``bias``, an
@@ -127,3 +128,56 @@ def convert_energy_params(variables) -> dict[str, torch.Tensor]:
         if f"{side}_norm" in c.params:
             c.layer_norm(f"transformer.{side}.norm", f"{side}_norm")
     return c.finish()
+
+
+def convert_classifier_params(variables) -> dict[str, torch.Tensor]:
+    """Flax ``DNN`` or ``ResNet3D`` variables (``params`` and, for the
+    ResNet, ``batch_stats``) -> the state dict of the port's
+    ``evaluation/classifiers`` network. A Conv ``kernel`` (D, H, W, in, out)
+    becomes a Conv3d ``weight`` (out, in, D, H, W); a BatchNorm's ``scale``,
+    ``bias``, ``mean`` and ``var`` become ``weight``, ``bias``,
+    ``running_mean`` and ``running_var``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    used: set[str] = set()
+
+    def dense(key, node):
+        sd[f"{key}.weight"] = _t(node["kernel"]).T.contiguous()
+        sd[f"{key}.bias"] = _t(node["bias"])
+
+    def conv(key, node):
+        sd[f"{key}.weight"] = _t(node["kernel"]).permute(4, 3, 0, 1, 2).contiguous()
+
+    def norm(key, node, stat):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _t(node["scale"]), _t(node["bias"])
+        sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = _t(stat["mean"]), _t(stat["var"])
+
+    if "stem" not in params:  # DNN: Dense_0 .. Dense_{L}, the last one the output
+        n = len(params)
+        for i in range(n):
+            dense("out" if i == n - 1 else f"hidden.{i}", params[f"Dense_{i}"])
+            used.add(f"Dense_{i}")
+    else:
+        norm("e_norm", params["e_norm"], stats["e_norm"])
+        conv("stem", params["stem"])
+        norm("bn", params["BatchNorm_0"], stats["BatchNorm_0"])
+        dense("fc", params["Dense_0"])
+        used |= {"e_norm", "stem", "BatchNorm_0", "Dense_0"}
+        kind = "BasicBlock3D" if "BasicBlock3D_0" in params else "Bottleneck3D"
+        n_conv = 2 if kind == "BasicBlock3D" else 3
+        k = 0
+        while f"{kind}_{k}" in params:
+            name = f"{kind}_{k}"
+            p, s = params[name], stats[name]
+            for j in range(n_conv):
+                conv(f"blocks.{k}.conv{j + 1}", p[f"Conv_{j}"])
+                norm(f"blocks.{k}.bn{j + 1}", p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"])
+            if f"Conv_{n_conv}" in p:
+                conv(f"blocks.{k}.shortcut.0", p[f"Conv_{n_conv}"])
+                norm(f"blocks.{k}.shortcut.1", p[f"BatchNorm_{n_conv}"], s[f"BatchNorm_{n_conv}"])
+            used.add(name)
+            k += 1
+    leftover = set(params) - used
+    if leftover:
+        raise ValueError("JAX parameters with no port counterpart: " + ", ".join(sorted(leftover)))
+    return sd
