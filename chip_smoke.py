@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: the ds2 and ds3 two-stage
-shower generators (CFM and cINN shape models), the layer-causal ViT, the ds2
-training slice and its megakernel training tier, ds3 CFM training and
-serving through the composed block's opt-in kernels, the 13,500-token ds3
-ViT (ds3_long) through the streaming flash attention K7, and sampling and
-evaluation through the CaloChallenge experiment, at full width, through
-the hand-written CUDA kernels.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: the ds1 (photons, pions),
+ds2 and ds3 two-stage shower generators (CFM and cINN shape models), the
+shipped ``_tpu`` variants, the layer-causal ViT, the ds2 training slice and
+its megakernel training tier, ds3 CFM training and serving through the
+composed block's opt-in kernels, the 13,500-token ds3 ViT (ds3_long)
+through the streaming flash attention K7, and training, sampling and
+evaluation through the CaloChallenge experiment (ds2, ds1 photons), at full
+width, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -72,7 +73,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    blocks, K5a-stack against the chained plain
    blocks on bf16 multiplicands, at x (256, 135, 480) and (64, 450, 480),
    and its gradients against the composed f32 path with its residuals,
-   with the residual tier forced off and with ``bwd="xla"``; then K10
+   with the residual tier forced off and with ``bwd="xla"``; at ds1's
+   shapes (groups ``ds1_photons``, ``ds1_pions``): K3 at the energy nets'
+   5 and 7 tokens, K2v at tokens (256, 88 / 125, 5) (its embed and final
+   products at K = 5 and N = 5), K4 at y (256, 265 / 370); at the _tpu
+   variants' head dims: K2v's attention and whole forward at 4 heads x 120
+   at 135 and 450 tokens (``tpu``, ``tpu_ds3``), K1's forward and backward at qkv (64, 135, 1440) in 4 heads
+   x 120, and K1's forward at the _tpu cINN subnet's (256, 135, 768) in 4
+   heads x 64 (``tpu_cinn``); then K10
    (``tools/megakernel_residue``): the DiT block body timed by kernel at
    ds2 and ds3, each against its bound;
 4. serving paths, each at full width with random weights from a seed
@@ -113,6 +121,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      13,500 tokens x 3, composed, attn_impl auto) at batch
      DS3_LONG_SERVE_BATCH, DS3_REQUESTS requests: K7's pre-pass and
      forward 6 each per net eval, 480 a request; the reference at batch 1 and 2 RK4 steps;
+   - ds1_photons_cfm, ds1_pions_cfm: cfm_ds1_{photons,pions} (the
+     multi-section ViT: 88 / 125 tokens x 5, hidden 480, depth 6, 6 heads x
+     80) behind cfm_ds1_*_energy (5 / 7 u's) through calochallenge_ds1_*'s
+     transforms (AddAngularBins reversed), 368 / 533 voxels (GEOMETRY: the
+     published bin counts on synthetic radial edges); the launches of
+     ds2_cfm; a profile of the photons' request;
+   - ds1_photons_cinn, ds1_pions_cinn: cinn_ds1_{photons,pions} (10
+     couplings on the (53 / 74, 1, 10) grid, ViT1D subnets of 53 / 74
+     tokens in 4 heads x 60, which take the plain attention under ``auto``)
+     through calochallenge_ds1_*_noise's transforms: K4 20, K1 0 and K3 80
+     launches per request; a profile of the photons' request;
+   - tpu_cfm, tpu_cinn: cfm_ds2_electrons_tpu (4 heads x 120) and
+     cinn_ds2_electrons_tpu (subnets of hidden 256 in 4 heads x 64) through
+     the ds2 transforms, with ds2_cfm's and ds2_cinn's launches;
 5. ds2_train: the ds2 shape model at full width (hidden 480, depth 6, 6
    heads x 80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
    clip_grad_norm 1000) through the port's ``CaloChallenge`` experiment and
@@ -181,18 +203,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (``all-cls``: cls-low, cls-high, cls-resnet; ``fpd``: FPD/KPD), and the
    energy run's ``eval_ui_dists``, each AUC / JSD / FPD / KPD finite, with
    its seconds. No plots and no HDF5 writes (no matplotlib, no h5py here).
+13. ds1_train (``ds1_train_phase``): ds1 photons through the experiment on
+   synthetic ds1 showers: the energy model, then the shape model
+   DS1_TRAIN_STEPS steps at batch 64 (plain attention: no kernel
+   launches), then ``sample_n`` of DS1_SAMPLES showers on ds1's discrete
+   incident energies with K3 and K2v counted exactly (path
+   ``ds1_sampling``), ``to_mev`` to 368 voxels, and the high-level features
+   and the ``all-cls`` DNNs (cls-low, cls-high) for one epoch.
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
 its main-path shape's numbers, its launches by path and their sum, and its
 numbers at the other shapes); the last line is ``{"ok": true, "device":
 {...}}``. Needs no network, no PyYAML, no h5py, no matplotlib, no sklearn and
-nothing of JAX or of the JAX package: the ds2 and ds3 configs are written
-out below
-(tests/test_torch_chain.py holds them equal to the YAML files).
+nothing of JAX or of the JAX package: the ds1, ds2, ds3 and _tpu configs
+are written out below (tests/test_torch_chain.py and
+tests/test_torch_ds1.py hold them equal to the YAML files).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -227,6 +257,8 @@ from vit4hep_tpu_torch.utils.serving import Generator
 
 SEED = 0
 BATCH = 256
+DS1_TRAIN_STEPS = 10  # ds1_train: shape.yaml's batch 64, iterations 800,000
+DS1_SAMPLES = 1024  # ds1_train's sample_n: 1,024 of the 121,000 the spectrum gives
 REQUESTS = 3
 REFERENCE_BATCH = 8
 TRAIN_STEPS = 30
@@ -395,13 +427,134 @@ DS3_ENERGY_TRANSFORMS = dict(
     DS2_ENERGY_TRANSFORMS,
     NormalizeByElayer={"ptype": "${data_dir}/binning_dataset_3.xml", "xml_file": "electron"})
 
-# the CaloChallenge geometries: (alpha bins, radial bin edges) of each of the
-# 45 layers. ds2's edges are the dataset's; ds3's real binning file is not in
-# the repository, so its 18 radial bins take synthetic edges
-GEOMETRY = {
-    "ds2": (16, (0, 4, 8, 13, 19, 27, 38, 54, 80, 150)),
-    "ds3": (50, (0, 2, 4, 6, 8, 10, 13, 16, 20, 24, 29, 35, 42, 50, 60, 75, 95, 120, 150)),
+# configs/model/cfm/cfm_ds1_{photons,pions}.yaml: the multi-section ViT (the
+# patcher's grids replace num_patches: 88 / 125 tokens x 5)
+_DS1_VIT = {
+    "dim": 3, "condition_dim": 6, "hidden_dim": 480, "out_channels": 1, "depth": 6,
+    "num_heads": 6, "mlp_ratio": 4, "attn_drop": 0.0, "proj_drop": 0.0,
+    "pos_embedding_coords": "cylindrical", "temperature": 10000, "learn_pos_embed": True,
+    "causal_attn": False, "checkpoint_grads": False,
+    "num_patches": [[1, 8, 1], [1, 16, 2], [1, 19, 2], [1, 5, 1], [1, 5, 1]], "patch_dim": 5,
+    "attn_impl": "auto", "fused_block": "sample", "compute_dtype": "float32",
 }
+DS1_SHAPE_MODEL = {
+    "photons": {
+        "_target_": "vit4hep_tpu.models.calochallenge.CaloChallengeCFM_DS1", "in_channels": 1,
+        "shape": [440],
+        "list_shape": [[1, 8, 5], [1, 16, 10], [1, 19, 10], [1, 5, 5], [1, 5, 5]],
+        "list_edges": [40, 160, 190, 25, 25], "patch_shape": [1, 1, 5],
+        "time_distribution": "uniform", "trajectory": "linear",
+        "odeint_kwargs": {"method": "rk4", "options": {"step_size": 0.05}},
+        "net": {"_target_": "vit4hep_tpu.models.vit.ViT", "param": _DS1_VIT},
+    },
+}
+DS1_SHAPE_MODEL["pions"] = dict(
+    DS1_SHAPE_MODEL["photons"], shape=[625],
+    list_shape=[[1, 8, 5], [1, 10, 10], [1, 10, 10], [1, 5, 5], [1, 15, 10], [1, 16, 10],
+                [1, 10, 5]],
+    list_edges=[40, 100, 100, 25, 150, 160, 50],
+    net={"_target_": "vit4hep_tpu.models.vit.ViT", "param": dict(
+        _DS1_VIT, condition_dim=8,
+        num_patches=[[1, 8, 1], [1, 10, 2], [1, 10, 2], [1, 5, 1], [1, 15, 2], [1, 16, 2],
+                     [1, 10, 1]])})
+
+# configs/model/cfm/cfm_ds1_{photons,pions}_energy.yaml (5 and 7 layers)
+DS1_ENERGY_MODEL = {
+    particle: dict(DS2_ENERGY_MODEL, shape=[n], net=dict(DS2_ENERGY_MODEL["net"], param=dict(
+        DS2_ENERGY_MODEL["net"]["param"], dims_in=n, fused_group=32)))
+    for particle, n in (("photons", 5), ("pions", 7))}
+
+# configs/model/cinn/cinn_ds1_{photons,pions}.yaml: 10 couplings on the (53 / 74,
+# 1, 10) grid AddAngularBins pads to, subnets of hidden 240 in 4 heads of 60
+DS1_CINN_MODEL = {
+    "photons": dict(
+        DS2_CINN_MODEL, shape=[53, 1, 10], patch_shape=[[1, 1, 5]], nblocks=10,
+        is_spatial=[False] * 10,
+        vit_kwargs=dict(DS2_CINN_MODEL["vit_kwargs"], condition_dim=6, hidden_dim=240,
+                        mlp_ratio=2.0)),
+}
+DS1_CINN_MODEL["pions"] = dict(
+    DS1_CINN_MODEL["photons"], shape=[74, 1, 10],
+    cinn_kwargs=dict(DS2_CINN_MODEL["cinn_kwargs"], min_bin_sizes=[0.01, 0.01]),
+    vit_kwargs=dict(DS1_CINN_MODEL["photons"]["vit_kwargs"], condition_dim=8))
+
+# data.transforms of configs/calochallenge/cfm/calochallenge_ds1_{photons,pions}.yaml,
+# their _energy twins and cinn/calochallenge_ds1_{photons,pions}_noise.yaml:
+# (particle, layers, ScaleTotalEnergy factor, AddAngularBins num_bins and the
+# CFM's add_bins (the cINN's are 10 each), CutValues cut) by particle
+_DS1 = {"photons": ("photon", 5, 0.25, [1, 10, 10, 1, 1], [5, 10, 10, 5, 5], 5.0e-7),
+        "pions": ("pion", 7, 0.125, [1, 10, 10, 1, 10, 10, 1], [5, 10, 10, 5, 10, 10, 5],
+                  1.0e-7)}
+
+
+def _ds1_transforms(p):
+    """(shape, energy, cINN) transform mappings of ds1 ``p``."""
+    particle, n, factor, bins, add, cut = _DS1[p]
+    xml = f"${{data_dir}}/binning_dataset_1_{p}.xml"
+    norm = {"ptype": xml, "xml_file": particle}
+    scale = {"e_min": 5.5452, "e_max": 15.2492}
+    angular = {"ptype": xml, "xml_filename": particle, "num_bins": bins}
+    logit = {"delta": 1.0e-6, "rescale": True}
+    flat, grid = DS1_SHAPE_MODEL[p]["shape"][0], DS1_CINN_MODEL[p]["shape"]
+    return ({"NormalizeByElayer": norm, "ScaleTotalEnergy": {"n_layers": n, "factor": factor},
+             "AddAngularBins": dict(angular, add_bins=add),
+             "CutValues": {"cut": cut, "n_layers": n}, "ExclusiveLogitTransform": logit,
+             "GlobalStandardizeFromFile": {"model_dir": None}, "LogEnergy": {},
+             "ScaleEnergy": scale, "AddFeaturesToCond": {"split_index": flat},
+             "Reshape": {"shape": [1, flat]}},
+            {"NormalizeByElayer": norm, "ScaleTotalEnergy": {"factor": factor, "n_layers": n},
+             "SelectDims": {"start": -n, "end": 0}, "ExclusiveLogitTransform": logit,
+             "StandardizeUsFromFile": {"n_us": n, "model_dir": None}, "LogEnergy": {},
+             "ScaleEnergy": scale, "Reshape": {"shape": [n]}},
+            {"NormalizeByElayer": norm, "ScaleTotalEnergy": {"n_layers": n, "factor": factor},
+             "AddAngularBins": dict(angular, add_bins=[10] * n),
+             "SelectiveUniformNoise": {"a": 1.0e-7, "b": 1.0e-6, "cut": True,
+                                       "exclusions": list(range(-n, 0))},
+             "ExclusiveLogitTransform": logit, "GlobalStandardizeFromFile": {"model_dir": None},
+             "LogEnergy": {}, "ScaleEnergy": scale,
+             "AddFeaturesToCond": {"split_index": grid[0] * grid[2]},
+             "Reshape": {"shape": [1, *grid]}})
+
+
+DS1_SHAPE_TRANSFORMS, DS1_ENERGY_TRANSFORMS, DS1_CINN_TRANSFORMS = (
+    {p: _ds1_transforms(p)[i] for p in _DS1} for i in range(3))
+
+# configs/model/cfm/cfm_ds2_electrons_tpu.yaml (4 heads of 120) and
+# configs/model/cinn/cinn_ds2_electrons_tpu.yaml (subnets of hidden 256 in 4
+# heads of 64), served through calochallenge_ds2(_noise)'s transforms
+DS2_TPU_SHAPE_MODEL = dict(DS2_SHAPE_MODEL, net=dict(DS2_SHAPE_MODEL["net"], param=dict(
+    DS2_SHAPE_MODEL["net"]["param"], num_heads=4)))
+DS2_TPU_CINN_MODEL = dict(DS2_CINN_MODEL, vit_kwargs=dict(DS2_CINN_MODEL["vit_kwargs"],
+                                                          hidden_dim=256))
+
+# the CaloChallenge geometries: (layer id, alpha bins, radial bin edges) of
+# each layer. ds2's edges are the dataset's; ds3's real binning file is not in
+# the repository, so its 18 radial bins take synthetic edges; ds1's layers
+# have the published bin counts (photons 368 voxels, pions 533) on synthetic
+# radial edges
+_DS2_EDGES = (0, 4, 8, 13, 19, 27, 38, 54, 80, 150)
+_DS3_EDGES = (0, 2, 4, 6, 8, 10, 13, 16, 20, 24, 29, 35, 42, 50, 60, 75, 95, 120, 150)
+
+
+def _edges(n_r):
+    return tuple(5 * j for j in range(n_r + 1))
+
+
+GEOMETRY = {
+    "ds2": [(i, 16, _DS2_EDGES) for i in range(45)],
+    "ds3": [(i, 50, _DS3_EDGES) for i in range(45)],
+    "ds1_photons": [(0, 1, _edges(8)), (1, 10, _edges(16)), (2, 10, _edges(19)),
+                    (3, 1, _edges(5)), (12, 1, _edges(5))],
+    "ds1_pions": [(0, 1, _edges(8)), (1, 10, _edges(10)), (2, 10, _edges(10)),
+                  (3, 1, _edges(5)), (12, 10, _edges(15)), (13, 10, _edges(16)),
+                  (14, 1, _edges(10))],
+}
+# each geometry's particle and the names of its files under data_dir
+PARTICLE = {"ds2": "electron", "ds3": "electron", "ds1_photons": "photon",
+            "ds1_pions": "pion"}
+XML_NAME = {"ds2": "binning_dataset_2.xml", "ds3": "binning_dataset_3.xml",
+            "ds1_photons": "binning_dataset_1_photons.xml",
+            "ds1_pions": "binning_dataset_1_pions.xml"}
 
 # configs/training/default.yaml with configs/training/cfm/shape.yaml and
 # cfm/energy.yaml on top (iterations are cut to the smoke's step counts)
@@ -425,6 +578,14 @@ DS2_EVALUATION = {
     "eval_cls_n_hidden": 2048, "eval_cls_dropout": 0.0, "eval_cls_lr": 2e-4,
     "eval_cls_batch_size": 1000, "eval_cls_n_epochs": 50, "eval_cls_save_mem": True,
     "eval_cls_resnet_layers": 18, "eval_cls_resnet_lr": 2e-4, "eval_cls_resnet_n_epochs": 50,
+}
+DS1_EVALUATION = {  # calochallenge_ds1_photons.yaml
+    "eval_dataset": "1-photons", "eval_mode": "all", "eval_cut": 0.015,
+    "eval_labels": ["Vit-CFM"], "eval_p_label": "",
+    "eval_hdf5_file": "${data_dir}/gamma_data_2.hdf5", "eval_cls_n_layer": 2,
+    "eval_cls_n_hidden": 2048, "eval_cls_dropout": 0.0, "eval_cls_lr": 2e-4,
+    "eval_cls_batch_size": 1000, "eval_cls_n_epochs": 100, "eval_cls_save_mem": True,
+    "eval_cls_resnet_layers": 18, "eval_cls_resnet_lr": 2e-5, "eval_cls_resnet_n_epochs": 48,
 }
 DS2_ENERGY_EVALUATION = {
     "eval_dataset": "2", "eval_mode": "all", "eval_cut": 0.015,
@@ -793,11 +954,19 @@ CINN = {"binned_rqs_inverse": fsp.INVERSE, "qkv_attn_fwd": fqa.FWD,
         "energy_decoder": fed.ENERGY_DECODER}
 CINN_PER_REQUEST = {"ds2": {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120, "energy_decoder": 80},
                     "ds3": {"binned_rqs_inverse": 20, "qkv_attn_fwd": 60, "energy_decoder": 80}}
+# ds1's cINNs: 10 couplings (20 coupling sides); their subnets' 53 / 74 tokens
+# take the plain attention under attn_impl auto (K1 from 128 tokens, as JAX)
+CINN_PER_REQUEST.update({g: {"binned_rqs_inverse": 20, "qkv_attn_fwd": 0, "energy_decoder": 80}
+                         for g in ("ds1_photons", "ds1_pions")})
 
 # the ViT GEMM's main-path shapes (K2v's sampling forward at batch BATCH;
 # tree_compare.py times the same): tokens and patch dim by geometry, and the
 # six products of a forward, (name, (K, N), epilogue)
-VIT_TOKENS = {"ds2": (135, 48), "ds3": (450, 90)}
+VIT_TOKENS = {"ds2": (135, 48), "ds3": (450, 90), "ds1_photons": (88, 5), "ds1_pions": (125, 5)}
+# the ds1 kernel shapes: the energy net's tokens (K3) and the cINN's spline
+# rows, y (BATCH, 53 / 74 tokens x 5) (K4)
+DS1_K3_TOKENS = {"ds1_photons": 5, "ds1_pions": 7}
+DS1_K4_ROW = {"ds1_photons": 265, "ds1_pions": 370}
 
 
 def vit_products(pdim, h=480, fdim=1920):
@@ -842,6 +1011,15 @@ SHAPE_GROUPS = {
     "stack_causal": "the block stack at x (256, 135, 480) with the layer-causal mask of "
                     "(15, 1, 9)",
     "stack_ds3": "the block stack at x (64, 450, 480)",
+    "ds1_photons": "ds1 photons: K3 at tgt (256, 5, 128), K2v at tokens (256, 88, 5) (qkv (256, "
+                   "88, 1440)), K4 at y (256, 265)",
+    "ds1_pions": "ds1 pions: K3 at tgt (256, 7, 128), K2v at tokens (256, 125, 5) (qkv (256, 125, "
+                 "1440)), K4 at y (256, 370)",
+    "tpu": "cfm_ds2_electrons_tpu, 4 heads x 120: K2v's attention and forward at (256, 135), K1 "
+           "forward and backward at qkv (64, 135, 1440)",
+    "tpu_cinn": "cinn_ds2_electrons_tpu: K1 forward at the subnet's qkv (256, 135, 768), 4 heads x "
+                "64",
+    "tpu_ds3": "cfm_ds3_electrons_tpu, 4 heads x 120: K2v's attention and forward at (256, 450)",
 }
 
 
@@ -928,12 +1106,13 @@ def _rand(gen, *shape, std=1.0):
     return torch.randn(*shape, generator=gen, device="cuda") * std
 
 
-def k3_inputs(b=BATCH):
+def k3_inputs(b=BATCH, n=45):
     """(K3's call, its plain version, the bytes it must move, its products'
-    operations) at the energy net's sampling shape: tgt (b, 45, 128), 4
-    layers, 4 heads, F 512, TE 64, head 512, inputs made from SEED."""
+    operations) at an energy net's sampling shape: tgt (b, n, 128) (ds2 and
+    ds3: 45 tokens, ds1 photons 5, pions 7), 4 layers, 4 heads, F 512, TE
+    64, head 512, inputs made from SEED."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    n, dm, te, fdim, hn, depth = 45, 128, 64, 512, 512, 4
+    dm, te, fdim, hn, depth = 128, 64, 512, 512, 4
     ea = [_rand(gen, b, n, dm), _rand(gen, b, te), _rand(gen, b, depth, dm, std=0.1),
           1 + _rand(gen, depth, 3, dm, std=0.05), _rand(gen, depth, 3, dm, std=0.05),
           _rand(gen, depth, dm, 3 * dm, std=0.05), _rand(gen, depth, 3 * dm, std=0.05),
@@ -951,11 +1130,11 @@ def k3_inputs(b=BATCH):
     return k3, k3_plain, k3_bytes, k3_flops
 
 
-def k3_kernel_phase(results):
-    """K3 against its plain version at the energy net's sampling shape,
-    batch BATCH (the same for ds2 and ds3). Its products hold the f32
-    function in split TF32, so its bound is split_tf32_bound's."""
-    k3, k3_plain, k3_bytes, k3_flops = k3_inputs()
+def k3_kernel_phase(results, n=45):
+    """K3 against its plain version at an energy net's sampling shape of n
+    tokens, batch BATCH (45: the same for ds2 and ds3). Its products hold
+    the f32 function in split TF32, so its bound is split_tf32_bound's."""
+    k3, k3_plain, k3_bytes, k3_flops = k3_inputs(n=n)
     _check("energy_decoder", k3(), k3_plain(), results, k3, k3_plain,
            split_tf32_bound(k3_bytes, k3_flops))
 
@@ -975,15 +1154,17 @@ def _attn_flops(b, heads, n, d, mask):
     return 4 * b * heads * pairs * d
 
 
-def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
+def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True, heads=6):
     """K2v against its plain versions at the sampling shape of n tokens x
-    pdim (ds2: 135 x 48, ds3: 450 x 90), batch BATCH, H 480, 6 heads x 80,
-    F 1920, L 6: with ``gemms`` the six product shapes of a forward (embed,
-    qkv, out-proj, fc1, fc2, final; ms/plain_ms/bound_ms of vit_gemm add up
-    one call at each) and the modulated LayerNorm; then the attention and
-    the whole forward, with the shared ``mask`` when given."""
+    pdim (ds2: 135 x 48, ds3: 450 x 90, ds1 photons 88 x 5, pions 125 x
+    5), batch BATCH, H 480 in ``heads`` heads (6 x 80; the _tpu ViTs 4 x
+    120), F 1920, L 6: with ``gemms`` the six product shapes of a forward
+    (embed, qkv, out-proj, fc1, fc2, final; ms/plain_ms/bound_ms of vit_gemm
+    add up one call at each) and the modulated LayerNorm; then the attention
+    and the whole forward, with the shared ``mask`` when given."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + n)
-    b, h, heads, fdim, depth = BATCH, 480, 6, 1920, 6
+    b, h, fdim, depth = BATCH, 480, 1920, 6
+    d = h // heads
     m = b * n
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     tokens = _rand(gen, b, n, pdim)
@@ -1049,15 +1230,15 @@ def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
     # multiplicands; its library call is SDPA on bf16 q, k, v (the TPU
     # kernel's precision), and SDPA on f32 q, k, v is timed beside it
     qkv = _rand(gen, b, n, 3 * h)
-    q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, 80).permute(2, 0, 3, 1, 4))
+    q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
     q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
-    ker = lambda m=mask: fdb.attention(qkv, heads, 80 ** -0.5, m)  # noqa: E731
+    ker = lambda m=mask: fdb.attention(qkv, heads, d ** -0.5, m)  # noqa: E731
     pla = lambda m=mask: fdb.attention_plain(  # noqa: E731
-        qkv, heads, 80 ** -0.5, m, torch.bfloat16)
+        qkv, heads, d ** -0.5, m, torch.bfloat16)
     lib = lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=mask)  # noqa: E731
     a_bytes = qkv.numel() * 4 + b * n * h * 2 + (0 if mask is None else mask.numel())
     _check("vit_attention", ker(), pla(), results, ker, pla,
-           work_bound(a_bytes, _attn_flops(b, heads, n, 80, mask), BF16_FLOPS), lib)
+           work_bound(a_bytes, _attn_flops(b, heads, n, d, mask), BF16_FLOPS), lib)
     f32_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
     results["vit_attention"]["library_f32_ms"] = f32_ms
     print(f"  vit_attention library calls: SDPA bf16 {time_ms(lib):.4f} ms, SDPA f32 "
@@ -1074,7 +1255,7 @@ def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True):
           wl((h, 3 * h)), wl((3 * h,)), wl((h, h)), wl((h,)), wl((h, fdim)), wl((fdim,)),
           wl((fdim, h)), wl((h,)), w["final"], bias["final"]]
     ker = lambda: fdb.fused_vit_forward(*va, mask, heads, None)  # noqa: E731
-    pla = lambda: fdb.vit_forward_reference(*va, mask, heads, 80 ** -0.5)  # noqa: E731
+    pla = lambda: fdb.vit_forward_reference(*va, mask, heads, d ** -0.5)  # noqa: E731
     _check("fused_vit_forward", ker(), pla(), results, ker, pla, (0.0, "operations"))
 
 
@@ -1872,20 +2053,30 @@ def k4_issue(n, bins=10):
     cycle, at the card's maximum SM clock. Returns (instructions a warp and
     unit, MUFU, issue ms, SFU ms, clock MHz, (registers, spill bytes) from
     the -Xptxas -v report where the build wrote it, else None)."""
+    n_ins, mufu, regs = _k4_loop(bins)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = sm_clock_mhz()
+    warps = fsp.plan(1, n, 1).units * fsp.UNIT // 32
+    issue = n_ins * warps / (4 * sms) / (mhz * 1e6) * 1e3
+    sfu = mufu * 32 * warps / (16 * sms) / (mhz * 1e6) * 1e3
+    return n_ins, mufu, issue, sfu, mhz, regs
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_loop(bins):
+    """(instructions, MUFU instructions) of the consumers' unit loop of
+    ``binned_rqs_inverse_kernel<bins, false, false>`` and its (registers,
+    spill bytes) from the -Xptxas -v report, or None there; read once a
+    run (``cuobjdump`` over the whole library takes seconds)."""
     name = f"binned_rqs_inverse_kernelILi{bins}ELb0ELb0E"
     funcs = _cuda.sass_functions(_cuda._lib_path("binned_rqs"), addresses=True)
     ins = next(v for k, v in funcs.items() if name in k)
     body = loop_body(ins, r"^BAR\.SYNC\S* 0x1,")  # the consumers' bar.sync 1
-    mufu = sum("MUFU." in i for i in body)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = sm_clock_mhz()
-    warps = fsp.plan(1, n, 1).units * fsp.UNIT // 32
-    issue = len(body) * warps / (4 * sms) / (mhz * 1e6) * 1e3
-    sfu = mufu * 32 * warps / (16 * sms) / (mhz * 1e6) * 1e3
     log = (_cuda.BUILD_DIR / "binned_rqs.log").read_text()
     regs = re.search(name + r"\S*\s+(\d+) bytes stack frame, (\d+) bytes spill stores.*?Used (\d+) "
                      r"registers", log, re.S)
-    return len(body), mufu, issue, sfu, mhz, (regs.group(3), regs.group(2)) if regs else None
+    return (len(body), sum("MUFU." in i for i in body),
+            (regs.group(3), regs.group(2)) if regs else None)
 
 
 def k4_kernel_phase(results, d, other_branch=True):
@@ -1938,20 +2129,23 @@ def k4_kernel_phase(results, d, other_branch=True):
           fsp.inverse_plain(y2, theta2, *other))
 
 
-def _binning_xml(path: Path, geometry: str):
-    """45 layers of a geometry's alpha x radial bins (ds2: 16 x 9 = 6480
-    voxels; ds3: 50 x 18 = 40500)."""
-    n_alpha, r_edges = GEOMETRY[geometry]
-    edges = ",".join(str(v) for v in r_edges)
-    layers = [f'    <Layer id="{i}" r_edges="{edges}" n_bin_alpha="{n_alpha}"/>'
-              for i in range(45)]
-    path.write_text("\n".join(['<Bins>', '  <Particle name="electron">', *layers,
-                               '  </Particle>', '</Bins>']))
+def _binning_xml(data_dir: Path, geometry: str):
+    """A geometry's binning file under ``data_dir`` (XML_NAME), its layers'
+    alpha x radial bins (ds2: 45 x 16 x 9 = 6480 voxels; ds3: 45 x 50 x 18
+    = 40500; ds1 photons 368, pions 533)."""
+    layers = [f'    <Layer id="{i}" r_edges="{",".join(str(v) for v in r_edges)}" '
+              f'n_bin_alpha="{n_alpha}"/>' for i, n_alpha, r_edges in GEOMETRY[geometry]]
+    (data_dir / XML_NAME[geometry]).write_text("\n".join(
+        ['<Bins>', f'  <Particle name="{PARTICLE[geometry]}">', *layers, '  </Particle>',
+         '</Bins>']))
+
+
+def _layer_sizes(geometry: str) -> list:
+    return [n_alpha * (len(r_edges) - 1) for _, n_alpha, r_edges in GEOMETRY[geometry]]
 
 
 def _voxels(geometry: str) -> int:
-    n_alpha, r_edges = GEOMETRY[geometry]
-    return 45 * n_alpha * (len(r_edges) - 1)
+    return sum(_layer_sizes(geometry))
 
 
 def _transforms(cfg: dict, data_dir: Path, run_dir: Path):
@@ -1979,17 +2173,19 @@ def _randomize(model, gen, std=0.02):
 
 
 def _run_dirs(tmp: Path, geometry: str, shape_cfg: dict, energy_cfg: dict):
-    """(shape transforms, energy transforms) on a geometry ("ds2" or
-    "ds3") with synthetic statistics in the run dirs under ``tmp``."""
+    """(shape transforms, energy transforms) on a geometry (GEOMETRY's keys)
+    with synthetic statistics in the run dirs under ``tmp``: one u a
+    layer."""
     data_dir, shape_dir, energy_dir = tmp / "data", tmp / "shape_run", tmp / "energy_run"
     for d in (data_dir, shape_dir, energy_dir):
         d.mkdir()
-    _binning_xml(data_dir / f"binning_dataset_{geometry[-1]}.xml", geometry)
+    _binning_xml(data_dir, geometry)
+    n_layers = len(GEOMETRY[geometry])
     rng = np.random.default_rng(SEED)
     np.save(shape_dir / "means.npy", np.float32(-9.0))
     np.save(shape_dir / "stds.npy", np.float32(4.0))
-    np.save(energy_dir / "means_u.npy", rng.normal(0.0, 0.3, 45).astype(np.float32))
-    np.save(energy_dir / "stds_u.npy", rng.uniform(0.8, 1.5, 45).astype(np.float32))
+    np.save(energy_dir / "means_u.npy", rng.normal(0.0, 0.3, n_layers).astype(np.float32))
+    np.save(energy_dir / "stds_u.npy", rng.uniform(0.8, 1.5, n_layers).astype(np.float32))
     return (_transforms(shape_cfg, data_dir, shape_dir),
             _transforms(energy_cfg, data_dir, energy_dir))
 
@@ -2023,11 +2219,12 @@ def _serve(generator, counters, voxels, requests=REQUESTS, batch=BATCH):
     return {k: c.launches for k, c in counters.items()}, times
 
 
-def _compare_generators(kern, plain, noise, counters, shower_tol=5e-2):
+def _compare_generators(kern, plain, noise, counters, geometry, shower_tol=5e-2):
     """The kernel generator against the plain one on the same noise (its
     batch): u 1e-3 absolute, the shower in the training basis ``shower_tol``
-    of its scale, layer energies in MeV 1e-3 relative. The plain generator
-    must launch none of the ``counters``' kernels."""
+    of its scale, layer energies in MeV (the geometry's layers) 1e-3
+    relative. The plain generator must launch none of the ``counters``'
+    kernels."""
     nb = noise[0].shape[0]
     e_inc = 10 ** np.random.default_rng(SEED).uniform(3, 6, nb)
     cond = kern.condition(e_inc)
@@ -2040,7 +2237,8 @@ def _compare_generators(kern, plain, noise, counters, shower_tol=5e-2):
     s_err, s_scale = _rel_err(basis_k, basis_p)
     mev_k = kern.sample_showers(e_inc, noise=noise)
     mev_p = plain.sample_showers(e_inc, noise=noise)
-    layer_k, layer_p = (m.reshape(nb, 45, -1).sum(-1) for m in (mev_k, mev_p))
+    starts = np.cumsum([0] + _layer_sizes(geometry)[:-1])
+    layer_k, layer_p = (np.add.reduceat(m, starts, axis=1) for m in (mev_k, mev_p))
     layer_rel = float(np.abs(layer_k - layer_p).max() / max(1e-30, np.abs(layer_p).max()))
     print(f"  reference (batch {nb}, composed plain nets, same noise): u max_abs_err "
           f"{u_err:.3e}, shower max_abs_err {s_err:.3e} (bound {shower_tol:g} x scale "
@@ -2103,11 +2301,11 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
     plain_energy = instantiate(_with_net_param(energy_cfg, fused_block=False)).cuda().eval()
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
-    noise = (torch.randn(nb, 45, generator=gen, device="cuda"),
+    noise = (torch.randn(energy_model.x_shape(nb), generator=gen, device="cuda"),
              torch.randn(shape_model.token_shape(nb), generator=gen, device="cuda"))
     _compare_generators(Generator(kern_shape, energy_model, energy_tf, shape_tf, batch=nb),
                         Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
-                        noise, COMPOSED, shower_tol)
+                        noise, COMPOSED, geometry, shower_tol)
     return launches, times, generator
 
 
@@ -2139,11 +2337,11 @@ def cinn_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
     nb = REFERENCE_BATCH
-    noise = (torch.randn(nb, 45, generator=gen, device="cuda"),
+    noise = (torch.randn(energy_model.x_shape(nb), generator=gen, device="cuda"),
              torch.randn(shape_model.x_shape(nb), generator=gen, device="cuda"))
     _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
                         Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
-                        noise, CINN)
+                        noise, CINN, geometry)
     del plain_shape, plain_energy
     return launches, times, generator
 
@@ -2254,21 +2452,25 @@ def profile_phase(generator, card, top=15, groups=None):
 # ---------------------------------------------------------------------------
 def _synthetic_showers(n_events, seed, geometry="ds2"):
     """(E_inc (N, 1), showers (N, voxels) in MeV, layer boundaries) on a
-    geometry (ds2: 6480 voxels, ds3: 40500): sparse exponential voxel
-    energies summing to 0.5-0.9 of E_inc, with a longitudinal profile
-    peaking in the first third of the layers."""
-    n_alpha, r_edges = GEOMETRY[geometry]
-    per_layer = n_alpha * (len(r_edges) - 1)
+    geometry (ds2: 6480 voxels, ds3: 40500, ds1 photons 368, pions 533):
+    sparse exponential voxel energies summing to 0.5-0.9 of E_inc, with a
+    longitudinal profile peaking in the first third of the layers. E_inc is
+    10^U(3, 6) MeV, on ds1 its discrete 2^8-2^22 MeV."""
+    sizes = _layer_sizes(geometry)
     rng = np.random.default_rng(seed)
-    e_inc = (10 ** rng.uniform(3, 6, (n_events, 1))).astype(np.float32)
-    profile = np.exp(-0.5 * ((np.arange(45) - 12) / 8.0) ** 2)
-    shape = (n_events, 45, per_layer)
-    vox = rng.exponential(1.0, shape) * (rng.random(shape) > 0.5)
-    vox *= profile[None, :, None]
-    vox /= vox.sum((1, 2), keepdims=True)
-    showers = (vox.reshape(n_events, 45 * per_layer) * e_inc
-               * rng.uniform(0.5, 0.9, (n_events, 1)))
-    return e_inc, showers.astype(np.float32), np.arange(0, 45 * per_layer + 1, per_layer)
+    if geometry.startswith("ds1"):
+        e_inc = (2.0 ** rng.integers(8, 23, (n_events, 1))).astype(np.float32)
+    else:
+        e_inc = (10 ** rng.uniform(3, 6, (n_events, 1))).astype(np.float32)
+    n_layers = len(sizes)
+    profile = np.exp(-0.5 * ((np.arange(n_layers) - n_layers * 12 / 45) / (n_layers * 8 / 45))
+                     ** 2)
+    vox = rng.exponential(1.0, (n_events, sum(sizes))) * (rng.random((n_events, sum(sizes)))
+                                                          > 0.5)
+    vox *= np.repeat(profile, sizes)[None]
+    vox /= vox.sum(1, keepdims=True)
+    showers = vox * e_inc * rng.uniform(0.5, 0.9, (n_events, 1))
+    return e_inc, showers.astype(np.float32), np.concatenate([[0], np.cumsum(sizes)])
 
 
 class SyntheticCaloChallenge(CaloChallenge):
@@ -2291,12 +2493,18 @@ class SyntheticCaloChallengeDS3(SyntheticCaloChallenge):
     geometry, n_events = "ds3", N_EVENTS_DS3
 
 
+class SyntheticCaloChallengeDS1(SyntheticCaloChallenge):
+    """The same on the ds1 photons geometry (368 voxels)."""
+
+    geometry = "ds1_photons"
+
+
 def _experiment_config(tmp: Path, model, transforms, training, model_type, train_val_frac,
                        geometry="ds2"):
-    """The composed calochallenge_ds2(_energy) config (or ds3's, with its
-    model and transforms) with the run dir under ``tmp`` and the binning XML
-    in ``tmp/data``."""
-    ds = geometry[-1]
+    """The composed calochallenge_ds2(_energy) config (or ds3's or ds1's,
+    with its model and transforms) with the run dir under ``tmp`` and the
+    binning XML in ``tmp/data``."""
+    ds = geometry[2:]
     return Config({
         "exp_name": f"smoke_{model_type}", "exp_type": "calochallenge", "run_name": "run",
         "base_dir": str(tmp), "data_dir": str(tmp / "data"), "seed": SEED, "debug": False,
@@ -2305,8 +2513,9 @@ def _experiment_config(tmp: Path, model, transforms, training, model_type, train
         "plotting": {"loss": False}, "dtype": "float32", "model_type": model_type,
         "model": model, "training": training,
         "data": {"training_file": f"${{data_dir}}/dataset_{ds}_1.hdf5",
-                 "test_file": f"${{data_dir}}/dataset_{ds}_2.hdf5", "particle_type": "electron",
-                 "xml_filename": f"${{data_dir}}/binning_dataset_{ds}.xml",
+                 "test_file": f"${{data_dir}}/dataset_{ds}_2.hdf5",
+                 "particle_type": PARTICLE[geometry],
+                 "xml_filename": f"${{data_dir}}/{XML_NAME[geometry]}",
                  "train_val_frac": train_val_frac, "transforms": transforms},
     })
 
@@ -2913,8 +3122,7 @@ def experiment_sampling_phase(shape_cfg, energy_exp, card):
         raise PhaseError("experiment sampling: the shape model is not on the card")
     n, bs = SAMPLING_SHOWERS, int(exp.cfg.training.batchsize_sample)
     batches = -(-n // bs)
-    n_alpha, r_edges = GEOMETRY["ds2"]
-    grid, voxels = (45, n_alpha, len(r_edges) - 1), _voxels("ds2")
+    grid, voxels = (45, 16, 9), _voxels("ds2")
     evals = exp.model.net_evals_per_sample()
     want = {k: batches * evals * per for k, per in CFM_PER_EVAL.items()}
     launches, rates = {}, {}
@@ -2980,6 +3188,105 @@ def experiment_sampling_phase(shape_cfg, energy_exp, card):
     print(f"  u's DNN (eval_ui_dists, {us.shape[1]} u's): AUC {auc:.4f}, JSD {jsd:.4f} in "
           f"{time.perf_counter() - t0:.2f} s; on {card}", flush=True)
     return launches
+
+
+class DS1SamplingCaloChallenge(SamplingCaloChallenge, SyntheticCaloChallengeDS1):
+    """The ds1 shape experiment for sampling: ds1's incident energies (the
+    log2-spaced spectrum, shuffled by numpy's global generator) cut to
+    DS1_SAMPLES."""
+
+    def generate_Einc_ds1(self, sample_multiplier=1000):
+        return super().generate_Einc_ds1(-(-DS1_SAMPLES // 121))[:DS1_SAMPLES]
+
+
+def ds1_train_phase(tmp: Path, card):
+    """ds1 photons through the experiment on synthetic ds1 showers (368
+    voxels; the card's machine has no dataset): the energy model
+    (cfm_ds1_photons_energy, 5 u's) ENERGY_STEPS steps at batch 256; the
+    shape model (cfm_ds1_photons at full width: 88 tokens x 5, hidden 480,
+    depth 6) DS1_TRAIN_STEPS steps at batch 64, its attention the plain one
+    (88 tokens: attn_impl auto takes K1 from 128, as JAX), so no kernel
+    launches there; then, warm-started from model_run0.pt, ``sample_n`` of
+    DS1_SAMPLES showers on ds1's discrete incident energies, staged (u's
+    from the energy run), with K3 and K2v counted exactly (4 batches of
+    256, CFM_PER_EVAL per eval); ``to_mev`` through AddAngularBins' reverse
+    to (DS1_SAMPLES, 368) MeV voxels; and the evaluation core of
+    ``eval_sample`` at calochallenge_ds1_photons.yaml's widths against
+    synthetic ds1 showers of another seed: the high-level features and the
+    ``all-cls`` DNNs (cls-low, cls-high; ds1 has no ResNet test) for one
+    epoch. Cut from the shipped settings: training steps, n_samples
+    (121,000), classifier epochs (100). Returns {path: launches}."""
+    from vit4hep_tpu_torch.evaluation.ugr_evaluation import evaluate_showers
+
+    (tmp / "data").mkdir()
+    _binning_xml(tmp / "data", "ds1_photons")
+    training = dict(DS2_ENERGY_TRAINING, iterations=ENERGY_STEPS,
+                    validate_every_n_steps=ENERGY_STEPS // 2)
+    energy_exp = SyntheticCaloChallengeDS1(_experiment_config(
+        tmp, DS1_ENERGY_MODEL["photons"], DS1_ENERGY_TRANSFORMS["photons"], training, "energy",
+        [0.9999, 0.0001], "ds1_photons"), device="cuda")
+    energy_exp()
+    _check_training(energy_exp, "ds1 energy")
+
+    training = dict(DS2_SHAPE_TRAINING, iterations=DS1_TRAIN_STEPS,
+                    validate_every_n_steps=DS1_TRAIN_STEPS // 2)
+    cfg = _experiment_config(tmp, DS1_SHAPE_MODEL["photons"], DS1_SHAPE_TRANSFORMS["photons"],
+                             training, "shape", [0.99, 0.01], "ds1_photons")
+    cfg.evaluation = dict(DS1_EVALUATION, eval_mode="all-cls", eval_cls_n_epochs=1)
+    exp = SyntheticCaloChallengeDS1(cfg, device="cuda")
+    for c in COMPOSED.values():
+        c.reset()
+    exp()
+    train_launches = {k: c.launches for k, c in COMPOSED.items()}
+    _check_training(exp, "ds1_train")
+    if any(train_launches.values()):
+        raise PhaseError(f"ds1_train: kernel launches {train_launches} on a plain-attention path")
+    if next(exp.model.parameters()).device.type != "cuda":
+        raise PhaseError("ds1_train: the shape model is not on the card")
+    steady = exp.step_times[2:]
+    print(f"  energy: {len(energy_exp.train_loss)} steps of batch 256; shape: "
+          f"{len(exp.train_loss)} steps of batch 64, loss {exp.train_loss[0]:.4f} -> "
+          f"{exp.train_loss[-1]:.4f}, {len(steady) / sum(steady):.2f} steps/s steady; on {card}",
+          flush=True)
+
+    scfg = Config(exp.cfg.to_container(resolve=False))
+    scfg.train, scfg.sample_us, scfg.energy_model = False, True, energy_exp.cfg.run_dir
+    scfg.n_samples = DS1_SAMPLES  # sample_n takes ds1's spectrum instead; the count printed
+    sexp = DS1SamplingCaloChallenge(scfg, device="cuda")
+    sexp.energy_cfg = energy_exp.cfg
+    sexp()
+    np.random.seed(SEED)
+    samples, cond, launches, _ = _experiment_samples(sexp, "ds1_sampling", card)
+    bs = int(sexp.cfg.training.batchsize_sample)
+    evals = sexp.model.net_evals_per_sample()
+    want = {k: -(-DS1_SAMPLES // bs) * evals * per for k, per in CFM_PER_EVAL.items()}
+    if launches != want:
+        raise PhaseError(f"ds1_sampling: launches {launches}, expected {want}")
+    if samples.shape != (DS1_SAMPLES, 1, 440) or cond.shape != (DS1_SAMPLES, 6) \
+            or sexp.last_sampling_fused:
+        raise PhaseError(f"ds1_sampling: samples {samples.shape}, conditions {cond.shape}, "
+                         f"fused {sexp.last_sampling_fused}")
+    _finite("ds1_sampling", samples, cond)
+    mev, e_inc = sexp.to_mev(samples, cond)
+    _finite("ds1 to_mev", mev, e_inc)
+    spectrum = 2.0 ** np.arange(8, 23)
+    if mev.shape != (DS1_SAMPLES, _voxels("ds1_photons")) or (mev < 0).any() \
+            or not np.isin(np.round(np.log2(e_inc)), np.log2(spectrum)).all():
+        raise PhaseError(f"ds1 to_mev: showers {mev.shape}, min {mev.min()}, energies "
+                         f"{np.unique(e_inc)[:20]}")
+    print(f"  launches on the main path: {launches}; MeV showers {mev.shape}, mean total energy "
+          f"{mev.sum(1).mean():.1f} MeV", flush=True)
+
+    ref_e, ref_showers, _ = _synthetic_showers(DS1_SAMPLES, SEED + 7, "ds1_photons")
+    results = evaluate_showers(mev, e_inc, ref_showers, ref_e, sexp.cfg, device="cuda")
+    if set(results) != {"cls-low", "cls-high"}:
+        raise PhaseError(f"ds1 all-cls ran {sorted(results)}")
+    for key, r in results.items():
+        if not np.isfinite([r["auc"], r["jsd"]]).all():
+            raise PhaseError(f"ds1 evaluation {key}: {r}")
+        print(f"  {key}: AUC {r['auc']:.4f}, JSD {r['jsd']:.4f} in {r['seconds']:.2f} s; on "
+              f"{card}", flush=True)
+    return {"ds1_train": {k: v for k, v in train_launches.items() if v}, "ds1_sampling": launches}
 
 
 def train_profile_phase(exp, card, top=12, groups=None):
@@ -3099,6 +3406,24 @@ def main() -> int:
     print("K7 forward vs f64, and the masked forwards of K7, K6 and K2v with an all-True mask "
           "vs their unmasked kernels, at every padded head dim 16-128", flush=True)
     masked_forms_phase()
+    for geometry in ("ds1_photons", "ds1_pions"):
+        n, pdim = VIT_TOKENS[geometry]
+        print(f"{geometry}: K3 vs plain at tgt ({BATCH}, {DS1_K3_TOKENS[geometry]}, 128); K2v at "
+              f"tokens ({BATCH}, {n}, {pdim}); K4 at y ({BATCH}, {DS1_K4_ROW[geometry]})",
+              flush=True)
+        k3_kernel_phase(groups[geometry], DS1_K3_TOKENS[geometry])
+        k2v_kernel_phase(groups[geometry], n, pdim)
+        k4_kernel_phase(groups[geometry], DS1_K4_ROW[geometry], other_branch=False)
+    print("cfm_ds2_electrons_tpu, 4 heads x 120: K2v attention and forward at (256, 135); K1 "
+          "forward and backward at qkv (64, 135, 1440)", flush=True)
+    k2v_kernel_phase(groups["tpu"], *VIT_TOKENS["ds2"], gemms=False, heads=4)
+    print("cfm_ds3_electrons_tpu, 4 heads x 120: K2v attention and forward at (256, 450)",
+          flush=True)
+    k2v_kernel_phase(groups["tpu_ds3"], *VIT_TOKENS["ds3"], gemms=False, heads=4)
+    k1_ms["_tpu, 4 heads x 120"] = k1_kernel_phase(groups["tpu"], 64, 135, heads=4, d=120)
+    print("cinn_ds2_electrons_tpu: K1 forward at qkv (256, 135, 768), 4 heads x 64", flush=True)
+    k1_fwd_phase(groups["tpu_cinn"], BATCH, 135, 4, 64)
+    torch.cuda.empty_cache()
     print("K2s and K5a-stack (fused_dit_stack) vs plain: x (256, 135, 480), depth 6, ungrouped "
           "and group 8; with the layer-causal mask of (15, 1, 9); x (64, 450, 480)", flush=True)
     stack_kernel_phase(groups["stack"], BATCH, 135, group=8)
@@ -3155,6 +3480,22 @@ def main() -> int:
          _with_net_param(DS2_SHAPE_MODEL, causal_attn=True), DS2_ENERGY_MODEL,
          DS2_SHAPE_TRANSFORMS, DS2_ENERGY_TRANSFORMS, CFM_GROUPS),
     ]
+    for particle in ("photons", "pions"):
+        geometry = f"ds1_{particle}"
+        serving += [
+            (f"{geometry}_cfm", f"ds1 {particle} CFM (multi-section ViT)", cfm_phase, geometry,
+             DS1_SHAPE_MODEL[particle], DS1_ENERGY_MODEL[particle],
+             DS1_SHAPE_TRANSFORMS[particle], DS1_ENERGY_TRANSFORMS[particle],
+             CFM_GROUPS if particle == "photons" else None),
+            (f"{geometry}_cinn", f"ds1 {particle} cINN", cinn_phase, geometry,
+             DS1_CINN_MODEL[particle], DS1_ENERGY_MODEL[particle],
+             DS1_CINN_TRANSFORMS[particle], DS1_ENERGY_TRANSFORMS[particle],
+             CINN_GROUPS if particle == "photons" else None)]
+    serving += [
+        ("tpu_cfm", "cfm_ds2_electrons_tpu (4 heads x 120)", cfm_phase, "ds2",
+         DS2_TPU_SHAPE_MODEL, DS2_ENERGY_MODEL, DS2_SHAPE_TRANSFORMS, DS2_ENERGY_TRANSFORMS, None),
+        ("tpu_cinn", "cinn_ds2_electrons_tpu (subnets of 4 heads x 64)", cinn_phase, "ds2",
+         DS2_TPU_CINN_MODEL, DS2_ENERGY_MODEL, DS2_CINN_TRANSFORMS, DS2_ENERGY_TRANSFORMS, None)]
     for path, label, phase, geometry, *cfgs, prof_groups in serving:
         with tempfile.TemporaryDirectory() as tmp:
             print(f"{path}: {label} two-stage generator at full width", flush=True)
@@ -3163,8 +3504,9 @@ def main() -> int:
                   f"{len(times)} requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady "
                   f"(first request excluded); batch {BATCH}, requests "
                   f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
-            print(f"{path} profile: one more request, by layer and by kernel", flush=True)
-            profile_phase(generator, card, groups=prof_groups)
+            if prof_groups is not None:
+                print(f"{path} profile: one more request, by layer and by kernel", flush=True)
+                profile_phase(generator, card, groups=prof_groups)
             del generator
             torch.cuda.empty_cache()
     for path, label, param, per_eval in DS3_SERVING:
@@ -3202,7 +3544,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
-        _binning_xml(Path(tmp) / "data" / "binning_dataset_2.xml", "ds2")
+        _binning_xml(Path(tmp) / "data", "ds2")
         print("ds2_train: ds2 shape model at full width through the CaloChallenge experiment",
               flush=True)
         launches["ds2_train"], exp = train_phase(Path(tmp), card)
@@ -3224,7 +3566,7 @@ def main() -> int:
         train_profile_phase(fexp, card, groups=FUSED_TRAIN_GROUPS)
         shape_cfg = Config(exp.cfg.to_container(resolve=False))
         del exp, fexp
-        _binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
+        _binning_xml(Path(tmp) / "data", "ds3")
         rates = {}
         for stem, label, setting, param in DS3_SETTINGS:
             path = f"{stem}_train"
@@ -3265,6 +3607,13 @@ def main() -> int:
         print("experiment sampling: sample_n (staged and fused), the inverse pipeline and the "
               "evaluation core of plot, on the ds2_train and energy run dirs", flush=True)
         launches.update(experiment_sampling_phase(shape_cfg, energy_exp, card))
+        del energy_exp
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        print("ds1_train: ds1 photons (energy and shape models) through the CaloChallenge "
+              "experiment, then sample_n, to_mev and the evaluation core of eval_sample",
+              flush=True)
+        launches.update(ds1_train_phase(Path(tmp), card))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = []

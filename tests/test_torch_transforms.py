@@ -167,8 +167,8 @@ def test_xml_handler_matches_jax(tmp_path):
 
 
 def test_unported_steps_and_missing_statistics_raise(run_dir, tmp_path_factory):
-    with pytest.raises(NotImplementedError, match="AddAngularBins"):
-        ttf.build_pipeline({"AddAngularBins": {}}, str(run_dir))
+    with pytest.raises(NotImplementedError, match="ScaleVoxels"):
+        ttf.build_pipeline({"ScaleVoxels": {}}, str(run_dir))
     # no statistics yet: the step builds (a forward call fits them), and
     # reversing before that raises
     empty = tmp_path_factory.mktemp("untrained")

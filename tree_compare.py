@@ -307,7 +307,7 @@ def paths(cs, torch, only=PATHS) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
         if "ds2_train" in only:
-            cs._binning_xml(Path(tmp) / "data" / "binning_dataset_2.xml", "ds2")
+            cs._binning_xml(Path(tmp) / "data", "ds2")
             _, exp = cs.train_phase(Path(tmp), cs.card_name())
             res["ds2_train_steps_per_s"] = rate(exp)
             _, fexp = cs.fused_train_phase(Path(tmp), cs.card_name(), exp)
@@ -315,7 +315,7 @@ def paths(cs, torch, only=PATHS) -> dict:
             del exp, fexp
         if "ds3_flash_train" in only:
             # the ds3 composed path through K6 (attn_impl: flash), forward and backward
-            cs._binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
+            cs._binning_xml(Path(tmp) / "data", "ds3")
             _, (loop, interior) = cs.ds3_train_phase(
                 Path(tmp), cs.card_name(), "ds3_flash_train", "attn_impl: flash (K6)", "flash",
                 {"attn_impl": "flash"})
@@ -366,7 +366,7 @@ def ds3_long_paths(cs, torch) -> dict:
         torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
-        cs._binning_xml(Path(tmp) / "data" / "binning_dataset_3.xml", "ds3")
+        cs._binning_xml(Path(tmp) / "data", "ds3")
         torch.cuda.reset_peak_memory_stats()
         _, (loop, interior) = cs.ds3_train_phase(
             Path(tmp), cs.card_name(), "ds3_long_train", "13,500 tokens, attn_impl auto (K7)",

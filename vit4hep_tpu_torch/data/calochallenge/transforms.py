@@ -1,4 +1,4 @@
-"""Invertible CaloChallenge preprocessing steps of the ds2 path (port of
+"""Invertible CaloChallenge preprocessing steps of the ds1-ds3 paths (port of
 ``vit4hep_tpu/data/calochallenge/transforms.py``; numpy, on the host).
 
 Every step keeps the JAX package's class name, constructor keywords and
@@ -14,9 +14,9 @@ forward call fits them on its input (``ddof=1``; ``exclude_zeros`` drops the
 saturated logits) and rank 0 writes ``means.npy``/``stds.npy`` (or
 ``means_u.npy``/``stds_u.npy``), as training does in the JAX package.
 ``SelectiveUniformNoise`` (the cINN chains) draws its training noise from
-an explicit numpy ``Generator``. The other families' steps
-(``ScaleVoxels``, ``AddAngularBins``, ``AddLEMURSConditions``) are not
-ported yet.
+an explicit numpy ``Generator``. ``AddAngularBins`` pads ds1's irregular
+alpha binning to a regular grid. The other families' steps
+(``ScaleVoxels``, ``AddLEMURSConditions``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -308,10 +308,52 @@ class NormalizeByElayer:
         return layer_norm * self._per_voxel(layer_es), energy
 
 
+class AddAngularBins:
+    """Pads each layer's alpha axis to a regular count: a layer of
+    ``num_bins`` alpha bins grows to ``num_bins + add_bins // num_bins - 1``,
+    the zeros split around its bins (the extra one on the right). The
+    reverse keeps the largest value of each group of ``add_bins //
+    num_bins`` slots. The u-features after the voxels pass through.
+
+    The shipped configs pass the XML path as ``ptype`` and the particle name
+    as ``xml_filename``; the keywords are read that way, as in the JAX
+    package."""
+
+    def __init__(self, xml_filename, ptype, num_bins, add_bins):
+        self.layer_boundaries = np.unique(XMLHandler(xml_filename, ptype).GetBinEdges())
+        self.num_bins = np.array(num_bins)
+        self.add_bins = np.array(add_bins)
+        self.n_voxels = int(self.layer_boundaries[-1])
+        new_alpha = self.num_bins + self.add_bins // self.num_bins - 1
+        new_sizes = np.diff(self.layer_boundaries) // self.num_bins * new_alpha
+        self.new_layer_boundaries = np.concatenate([[0], np.cumsum(new_sizes)]).astype(int)
+
+    def __call__(self, shower, energy, rev=False, rank=0):
+        b = shower.shape[0]
+        parts = []
+        if rev:
+            n_vox, bounds = int(self.new_layer_boundaries[-1]), self.new_layer_boundaries
+        else:
+            n_vox, bounds = self.n_voxels, self.layer_boundaries
+        voxels, us = shower[:, :n_vox], shower[:, n_vox:]
+        for i in range(len(bounds) - 1):
+            alpha = self.num_bins[i]
+            layer = voxels[:, bounds[i]:bounds[i + 1]]
+            if rev:
+                layer = layer.reshape(b, -1, alpha, self.add_bins[i] // alpha).max(-1)
+            else:
+                extra = self.add_bins[i] // alpha - 1
+                layer = np.pad(layer.reshape(b, -1, alpha),
+                               ((0, 0), (0, 0), (extra // 2, extra - extra // 2)))
+            parts.append(layer.reshape(b, -1))
+        return np.concatenate((np.concatenate(parts, axis=-1), us), axis=-1).astype(
+            shower.dtype), energy
+
+
 _STEPS = {cls.__name__: cls for cls in (
     GlobalStandardizeFromFile, StandardizeUsFromFile, SelectDims, AddFeaturesToCond,
     LogEnergy, ScaleTotalEnergy, ScaleEnergy, ExclusiveLogitTransform, SelectiveUniformNoise,
-    CutValues, Reshape, NormalizeByElayer)}
+    CutValues, Reshape, NormalizeByElayer, AddAngularBins)}
 
 
 def build_pipeline(transforms_cfg, run_dir: str):

@@ -1,14 +1,16 @@
 """CaloChallenge shape models over patched 3-D voxel grids (port of
-``CaloChallengeCFM`` and ``CaloChallengeCINN`` in
+``CaloChallengeCFM``, ``CaloChallengeCFM_DS1`` and ``CaloChallengeCINN`` in
 ``vit4hep_tpu/models/calochallenge.py``).
 
-Single-section (L, A, R) grids (ds2/ds3). ``CaloChallengeCFM_DS1``, the
-energy cINN (``CaloChallengeEnergyCINN``) and the nflows coupling blocks
-are not ported yet (ROADMAP.md queue 1).
+Single-section (L, A, R) grids (ds2, ds3, and ds1's cINNs on the grid that
+``AddAngularBins`` pads to) and ds1's multi-section geometry
+(``CaloChallengeCFM_DS1``). The energy cINN (``CaloChallengeEnergyCINN``)
+and the nflows coupling blocks are not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 from vit4hep_tpu_torch.models.bijectors import BinnedRQSCouplingBlock, FlowChain, Permute
@@ -48,6 +50,46 @@ class CaloChallengeCFM(CFM):
         t = int(math.prod(self.num_patches))
         p = int(math.prod(self.patch_shape)) * self.in_channels
         return (batch_size, t, p)
+
+
+class CaloChallengeCFM_DS1(CaloChallengeCFM):
+    """CFM over an irregular geometry of several sections (ds1's 5 or 7
+    calorimeter layers), stored concatenated on a flat voxel axis: the
+    input is (B, C, sum(list_edges)); each section is reshaped to its own
+    3-D grid, patched with the shared ``patch_shape``, and the token
+    sequences are concatenated (``ops/patching.MultiSectionPatcher``).
+
+    The net is rebuilt from its config with the patcher's per-section patch
+    grids as ``num_patches`` (its positional meshgrid), keeping the weights
+    it was built with, as JAX rebuilds the Flax module before its
+    parameters exist."""
+
+    def __init__(self, net, list_shape, list_edges, patch_shape, shape=None, in_channels=1,
+                 time_distribution="uniform", trajectory="linear", odeint_kwargs=None,
+                 **kwargs):
+        total = sum(int(e) for e in list_edges)
+        super().__init__(net, patch_shape, shape if shape is not None else [total],
+                         in_channels, time_distribution, trajectory, odeint_kwargs, **kwargs)
+        self.patcher = patching.MultiSectionPatcher(list_shape, list_edges, self.patch_shape,
+                                                    in_channels)
+        cfg = dataclasses.replace(net.cfg, num_patches=tuple(self.patcher.num_patches_per_dim))
+        if cfg != net.cfg:
+            rebuilt = type(net)(cfg)
+            rebuilt.load_state_dict(net.state_dict())
+            self.net = rebuilt
+        self.flat_voxels = total
+
+    def x_shape(self, batch_size: int) -> tuple:
+        return (batch_size, self.in_channels, self.flat_voxels)
+
+    def token_shape(self, batch_size: int) -> tuple:
+        return (batch_size, self.patcher.total_patches, self.patcher.patch_dim)
+
+    def to_patches(self, x):
+        return self.patcher.to_patches(x)
+
+    def from_patches(self, x):
+        return self.patcher.from_patches(x)
 
 
 def _build_flow(nblocks, block_ctor, permute_sizes_axes, permutations=None):

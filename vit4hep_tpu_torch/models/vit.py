@@ -47,8 +47,10 @@ K2v whatever they say.
 positional embedding over ``prod_num_patches`` tokens, and ``x_out``
 outputs per patch value. It runs the composed path, whose attention reaches
 K1 from 128 tokens as in JAX; its ``fused_block`` twin (K2v over a ViT1D)
-is not ported yet and raises. Not ported yet either: the fine-tuning
-mappers and the fixed sin-cos positional embeddings.
+is not ported yet and raises, nor are the fine-tuning mappers. With
+``learn_pos_embed: false`` both nets add the fixed sin-cos embedding
+(``ops/pos_embed.get_sincos_pos_embed``, a non-persistent buffer) where
+JAX does, and have no ``pos_embed_freqs``.
 """
 
 from __future__ import annotations
@@ -248,10 +250,16 @@ def _check_ported(p: ViTParams):
     if p.in_patch_dim is not None or p.in_condition_dim is not None \
             or p.out_patch_dim is not None:
         raise NotImplementedError("fine-tuning mappers are not ported yet (ROADMAP.md)")
-    if not p.learn_pos_embed:
-        raise NotImplementedError("fixed sin-cos positional embeddings are not ported yet")
     if p.compute_dtype not in ("float32", "fp32"):
         raise NotImplementedError("the port's ViT runs in float32")
+
+
+def _sincos(p: ViTParams):
+    """The fixed sin-cos embedding of ``learn_pos_embed: false``, as JAX
+    builds it: over ``num_patches[0]``, by ``pos_embedding_coords`` and
+    ``dim`` (the 1-D grid over half its token count)."""
+    return torch.from_numpy(pe_ops.get_sincos_pos_embed(
+        p.pos_embedding_coords, p.num_patches[0], p.hidden_dim, p.dim, p.temperature))
 
 
 def _attn_mask(p: ViTParams):
@@ -317,15 +325,20 @@ class ViTNet(nn.Module):
         self.x_embedder = _xavier_linear(p.patch_dim, h)
         self.t_embedder = TimestepEmbedder(h)
         self.c_embedder = ConditionEmbedder(p.condition_dim, h)
-        self.pos_embed_freqs = nn.Parameter(torch.randn(h // 6))
+        if p.learn_pos_embed:
+            self.pos_embed_freqs = nn.Parameter(torch.randn(h // 6))
+            self._grid = [torch.from_numpy(g) for g in pe_ops.create_meshgrid(p.num_patches)]
+        else:  # JAX embeds the first section's grid
+            self.register_buffer("_sincos", _sincos(p), persistent=False)
         self.blocks = nn.ModuleList(
             DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl, p.fused_mlp)
             for _ in range(p.depth))
         self.final_layer = FinalLayer(h, p.out_channels * p.patch_dim)
-        self._grid = [torch.from_numpy(g) for g in pe_ops.create_meshgrid(p.num_patches)]
         self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
 
     def pos_embedding(self):
+        if not self.cfg.learn_pos_embed:
+            return self._sincos
         dev = self.pos_embed_freqs.device
         pos_z, pos_y, pos_x = (g.to(dev) for g in self._grid)
         return pe_ops.learnable_fourier_pos_embed_3d(self.pos_embed_freqs, pos_z, pos_y, pos_x)
@@ -398,7 +411,7 @@ class ViTNet(nn.Module):
         multiplicands) and f32 on the CPU (the plain version's); with
         ``train``, the f32 parameters themselves, through views and stacks
         that autograd follows back to them."""
-        dt = torch.bfloat16 if self.pos_embed_freqs.is_cuda and not train else torch.float32
+        dt = torch.bfloat16 if self.x_embedder.weight.is_cuda and not train else torch.float32
         mat = lambda lin: lin.weight.t().to(dt).contiguous()  # noqa: E731
         blocks = []  # wqkv, bqkv, wout, bout, w1, b1, w2, b2
         for lins in zip(*((k.attn.qkv, k.attn.proj, k.mlp.fc1, k.mlp.fc2) for k in self.blocks)):
@@ -448,17 +461,22 @@ class ViT1DNet(nn.Module):
         n = p.prod_num_patches
         self.x_embedder = _xavier_linear(p.patch_dim, h)
         self.c_embedder = ConditionEmbedder(p.condition_dim, h)
-        self.pos_embed_freqs = nn.Parameter(torch.randn(h // 2))
+        if p.learn_pos_embed:
+            self.pos_embed_freqs = nn.Parameter(torch.randn(h // 2))
+            # arange(T) / T in float32, as JAX computes it
+            self.register_buffer("_grid", torch.from_numpy(
+                np.arange(n, dtype=np.float32) / np.float32(n)), persistent=False)
+        else:
+            self.register_buffer("_sincos", _sincos(p), persistent=False)
         self.blocks = nn.ModuleList(
             DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl, p.fused_mlp)
             for _ in range(p.depth))
         self.final_layer = FinalLayer(h, p.out_channels * (p.x_out or 1) * p.patch_dim)
-        # arange(T) / T in float32, as JAX computes it
-        self.register_buffer("_grid", torch.from_numpy(
-            np.arange(n, dtype=np.float32) / np.float32(n)), persistent=False)
         self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
 
     def pos_embedding(self):
+        if not self.cfg.learn_pos_embed:
+            return self._sincos
         return pe_ops.learnable_fourier_pos_embed_1d(self.pos_embed_freqs, self._grid)
 
     def forward(self, x, c):

@@ -10,6 +10,11 @@ Turns a Flax param tree (nested dicts of arrays; numpy or anything
 ``nn.Embed`` table becomes an ``nn.Embedding`` weight, and the energy
 transformer's q/k/v Dense triples are packed into ``in_proj_weight`` rows.
 Unmapped entries raise, so no weight is dropped silently.
+
+A ``CaloChallengeCFM_DS1``'s net is a ViT whose positional grid spans the
+sections: its params take :func:`convert_vit_params` as any ViT's (the grid
+is not a parameter), and its energy model's :func:`convert_energy_params`.
+A ViT with ``learn_pos_embed: false`` has no ``pos_embed_freqs``.
 """
 
 from __future__ import annotations
