@@ -4,9 +4,10 @@ ds2 and ds3 two-stage shower generators (CFM and cINN shape models), the
 shipped ``_tpu`` variants, the layer-causal ViT, the ds2 training slice and
 its megakernel training tier, ds3 CFM training and serving through the
 composed block's opt-in kernels, the 13,500-token ds3 ViT (ds3_long)
-through the streaming flash attention K7, and training, sampling and
-evaluation through the CaloChallenge experiment (ds2, ds1 photons), at full
-width, through the hand-written CUDA kernels.
+through the streaming flash attention K7, training, sampling and
+evaluation through the CaloChallenge experiment (ds2, ds1 photons), and the
+rest of the cINN (its training, the energy cINN, the nflows couplings, the
+ViT1D kernel twins), at full width, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -80,7 +81,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    variants' head dims: K2v's attention and whole forward at 4 heads x 120
    at 135 and 450 tokens (``tpu``, ``tpu_ds3``), K1's forward and backward at qkv (64, 135, 1440) in 4 heads
    x 120, and K1's forward at the _tpu cINN subnet's (256, 135, 768) in 4
-   heads x 64 (``tpu_cinn``); then K10
+   heads x 64 (``tpu_cinn``); at the cINN's (``cinn_train``, ``cinn_twin``,
+   ``nflows*``): K1's forward and backward at cinn_ds2_electrons' training
+   shape qkv (64, 135, 576) in 4 heads x 48, K5b, K2b, K5c and K5a at its
+   ViT1D subnet's x (64, 135, 192) (F 768, depth 3, 744 outputs a token),
+   K2v at the subnet's sampling shape (256, 135, 24), K1's forward and
+   backward at cinn_nflows' (64, 135 / 270, 1080) in 6 heads x 60 and
+   cinn_nflows_ds3's (16, 675, 1080) in 4 heads x 90, and K1's forward at
+   their serving shapes (batch 256); then K10
    (``tools/megakernel_residue``): the DiT block body timed by kernel at
    ds2 and ds3, each against its bound;
 4. serving paths, each at full width with random weights from a seed
@@ -135,6 +143,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - tpu_cfm, tpu_cinn: cfm_ds2_electrons_tpu (4 heads x 120) and
      cinn_ds2_electrons_tpu (subnets of hidden 256 in 4 heads x 64) through
      the ds2 transforms, with ds2_cfm's and ds2_cinn's launches;
+   - energy_cinn_chain: cinn_ds2_electrons behind the energy cINN
+     (cinn_energy: 6 nflows couplings over the 45 u's, MLPs 3 x 128; no
+     kernel), K4 40 and K1 120 launches a request, no K3;
+   - nflows_cinn, nflows_oneside_cinn, nflows_ds3_cinn: cinn_nflows (8
+     couplings, subnets of hidden 360 in 6 heads x 60 over 135 or, spatial,
+     270 tokens), cinn_nflows_oneside (10 one-sided couplings) and, one
+     request, cinn_nflows_ds3 (1350 tokens x 30; subnets over 675 tokens in
+     4 heads x 90) behind the energy CFM: their spline is the plain
+     nflows_rqs (no K4, as in JAX), K1's forward 32 / 20 / 24 a request;
+   - vit1d_twin_cinn: cinn_ds2_electrons with ``fused_block: sample``:
+     sampling through the flow's twin, K2v over each of the 40 subnets
+     (GEMM 14, modln 7, attention 3 each), K4 40, no K1;
 5. ds2_train: the ds2 shape model at full width (hidden 480, depth 6, 6
    heads x 80, 135 tokens x 48, batch 64, AdamW lr 1e-4 wd 0.1, cosine,
    clip_grad_norm 1000) through the port's ``CaloChallenge`` experiment and
@@ -210,14 +230,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    incident energies with K3 and K2v counted exactly (path
    ``ds1_sampling``), ``to_mev`` to 368 voxels, and the high-level features
    and the ``all-cls`` DNNs (cls-low, cls-high) for one epoch.
+14. the rest of the cINN: ds2_cinn_train (cinn_ds2_electrons at full
+   width, 90.7 M params, through the experiment with training/cinn/ds23:
+   batch 64, AdamW, clip_grad_norm 1000; CINN_TRAIN_STEPS steps on
+   synthetic ds2 showers, validating every VALIDATE_EVERY; K1's forward on
+   all 120 subnet blocks of every step and validation batch, its backward
+   on every step's, no K4; steps/s and one profiled step); then from one
+   state (``parity_phase``, CINN_PARITY) K1 against the plain attention
+   (cinn_ds2_electrons, cinn_nflows, cinn_nflows_oneside: CINN_TRAIN_TOL),
+   ``remat_spline: true`` against false, and the ViT1D twins' training
+   (``fused_block: true``: K5a and K5b; ``fused_stack: false``: K2b and
+   K5c) against the composed subnets (CINN_FUSED_TRAIN_TOL), every launch
+   counted (``"hybrid"``, K5a with the plain backward, is held on the CPU);
+   energy_cinn: cinn_energy trained ENERGY_STEPS steps as a ``model_type:
+   energy`` experiment (no launch); cinn_sampling: ``sample_n`` of
+   CINN_SAMPLES showers of the ds2_cinn_train run behind the energy-cINN
+   run, staged and fused (K4 40 and K1 120 a batch), the fused chain held
+   against the staged path on the same noise.
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
 its main-path shape's numbers, its launches by path and their sum, and its
 numbers at the other shapes); the last line is ``{"ok": true, "device":
 {...}}``. Needs no network, no PyYAML, no h5py, no matplotlib, no sklearn and
-nothing of JAX or of the JAX package: the ds1, ds2, ds3 and _tpu configs
-are written out below (tests/test_torch_chain.py and
-tests/test_torch_ds1.py hold them equal to the YAML files).
+nothing of JAX or of the JAX package: the ds1, ds2, ds3, _tpu, nflows
+and energy-cINN configs are written out below (tests/test_torch_chain.py,
+tests/test_torch_ds1.py and tests/test_torch_cinn_configs.py hold them equal
+to the YAML files).
 """
 
 from __future__ import annotations
@@ -266,6 +304,8 @@ VALIDATE_EVERY = 10
 WARM_START_STEPS = 5
 TRAIN_PARITY_STEPS = 3
 ENERGY_STEPS = 10
+CINN_TRAIN_STEPS = 20  # ds2_cinn_train: cinn/ds23.yaml's batch 64, iterations 100,000
+CINN_SAMPLES = 512  # cinn_sampling's sample_n: 2 batches of 256 (n_samples 100,000)
 N_EVENTS = 2560  # synthetic showers: 39 training batches of 64, 25 validation events
 N_EVENTS_DS3 = 1280  # ds3 (40500 voxels): 19 training batches of 64 (cycled), 13 validation
 DS3_REQUESTS = 2  # requests of the composed ds3 serving paths (fused_block: false)
@@ -527,6 +567,39 @@ DS2_TPU_SHAPE_MODEL = dict(DS2_SHAPE_MODEL, net=dict(DS2_SHAPE_MODEL["net"], par
 DS2_TPU_CINN_MODEL = dict(DS2_CINN_MODEL, vit_kwargs=dict(DS2_CINN_MODEL["vit_kwargs"],
                                                           hidden_dim=256))
 
+# configs/model/cinn/cinn_nflows.yaml: 8 nflows couplings (two spatial) with
+# ViT1D subnets of hidden 360 in 6 heads of 60 over 135 (token halves) or 270
+# tokens (spatial: all tokens, 12 values); cinn_nflows_oneside.yaml: 10
+# one-sided couplings, every other one spatial, 14 bins, bound 23;
+# cinn_nflows_ds3.yaml: 6 couplings on ds3 in (3, 5, 2) patches: 1350 tokens
+# of 30, subnets over 675 tokens in 4 heads of 90
+_NFLOWS_VIT = {
+    "dim": 1, "condition_dim": 46, "hidden_dim": 360, "out_channels": 1, "depth": 2,
+    "num_heads": 6, "mlp_ratio": 4.0, "pos_embedding_coords": "cartesian", "temperature": 10000,
+    "learn_pos_embed": True, "causal_attn": False, "checkpoint_grads": False,
+}
+NFLOWS_MODEL = {
+    "_target_": "vit4hep_tpu.models.calochallenge.CaloChallengeCINN", "in_channels": 1,
+    "shape": [45, 16, 9], "patch_shape": [[3, 8, 1]], "coupling_block": "CaloRQSplineNFlows",
+    "nblocks": 8, "is_spatial": [False, False, False, True, False, False, False, True],
+    "cinn_kwargs": {"num_bins": 10, "bounds_init": 4}, "vit_kwargs": _NFLOWS_VIT,
+}
+NFLOWS_ONESIDE_MODEL = dict(NFLOWS_MODEL, coupling_block="OneSidedCaloRQSplineNFlows",
+                            nblocks=10, is_spatial=[False, True] * 5,
+                            cinn_kwargs={"num_bins": 14, "bounds_init": 23})
+NFLOWS_DS3_MODEL = dict(NFLOWS_MODEL, shape=[45, 50, 18], patch_shape=[[3, 5, 2]], nblocks=6,
+                        is_spatial=[False] * 6, cinn_kwargs={"num_bins": 10, "bounds_init": 20},
+                        vit_kwargs=dict(_NFLOWS_VIT, num_heads=4))
+
+# configs/model/cinn/cinn_energy.yaml: 6 RQSplineNFlows couplings over the 45
+# u's (halves 22 and 23), 14 bins, bound 25, MLP subnets 3 x 128
+ENERGY_CINN_MODEL = {
+    "_target_": "vit4hep_tpu.models.calochallenge.CaloChallengeEnergyCINN", "shape": [45],
+    "coupling_block": "RQSplineNFlows", "nblocks": 6,
+    "cinn_kwargs": {"num_bins": 14, "bounds_init": 25},
+    "subnet_kwargs": {"n_layers": 3, "hidden_channels": [128, 128, 128], "dropout": 0.0},
+}
+
 # the CaloChallenge geometries: (layer id, alpha bins, radial bin edges) of
 # each layer. ds2's edges are the dataset's; ds3's real binning file is not in
 # the repository, so its 18 radial bins take synthetic edges; ds1's layers
@@ -569,6 +642,8 @@ DS2_TRAINING = {
 }
 DS2_SHAPE_TRAINING = dict(DS2_TRAINING, iterations=800000, batchsize=64)
 DS2_ENERGY_TRAINING = dict(DS2_TRAINING, iterations=250000, batchsize=256)
+# configs/training/cinn/ds23.yaml on top of default.yaml (the ds2 and ds3 cINNs)
+CINN_TRAINING = dict(DS2_TRAINING, iterations=100000, batchsize=64)
 
 # evaluation: of configs/calochallenge/cfm/calochallenge_ds2.yaml and
 # calochallenge_ds2_energy.yaml
@@ -748,6 +823,51 @@ K4_F64_TOL = 2e-5
 # relative (Adam divides each entry by its own RMS, so entries whose gradient
 # is rounding noise -- the key biases -- move by a fraction of lr)
 K7_TRAIN_TOL = {"loss": 1e-4, "grad_rel_l2": 1e-3, "grad_norm": 1e-4, "update_rel": 1e-2}
+# cINN training from one state. A cINN's loss sums ~6480 spline
+# log-derivatives through 20 couplings, and on random draws the gradient of
+# its first subnets is a sum over 8640 rows of terms that nearly cancel (a
+# flow near the identity), so such a tensor's relative error far exceeds its
+# products': with K1 (split TF32) against the plain f32 attention the first
+# subnet's embedding gradient moved by 1.9e-3 of its norm, the median tensor
+# by 3e-5; with the ViT1D twin's bf16 products by 0.10, the median by 4.4e-3
+# (the first card run of these paths, NVIDIA H100 80GB HBM3, 700.00 W). So a
+# cINN path holds the whole gradient vector's relative L2
+# ("grad_rel_l2_all") and prints its worst tensor beside it; and, as Adam
+# divides each entry by its own RMS, entries at noise level flip sign, so the
+# parameters are held as the update vector (update_rel), not one by one.
+# K1 against the plain attention, f32 both (and remat_spline against none):
+# TRAIN_TOL's loss and update bounds, the gradient vector and the grad norm
+# 1e-3 (the norm, over the subnets' output layers that see the spline's
+# log-derivatives, moved by 4.8e-5 to 3.7e-4 in that run); a missing or
+# wrong gradient term misses by O(1).
+CINN_TRAIN_TOL = {"loss": TRAIN_TOL["loss"], "grad_rel_l2_all": 1e-3, "grad_norm": 1e-3,
+                  "update_rel": TRAIN_TOL["update_rel"]}
+# the ViT1D twins (bf16 products) against the composed f32 subnets:
+# FUSED_TRAIN_TOL, the whole gradient vector in place of each tensor
+CINN_FUSED_TRAIN_TOL = {"loss": FUSED_TRAIN_TOL["loss"],
+                        "grad_rel_l2_all": FUSED_TRAIN_TOL["grad_rel_l2"],
+                        "grad_norm": FUSED_TRAIN_TOL["grad_norm"],
+                        "update_rel": FUSED_TRAIN_TOL["update_rel"]}
+# the cINN parity draws lie in [-CINN_DRAW_CLIP, CINN_DRAW_CLIP]: an nflows
+# coupling passes an event through unchanged once any of its values leaves
+# [-bound, bound] (4 in cinn_nflows), so a value within rounding of the bound
+# may take the other branch on one of two paths that differ by rounding, and
+# its event's loss jumps; the draws stay 1 inside the smallest shipped bound.
+# The gate itself is held on the CPU (tests/test_torch_cinn_rest.py), and the
+# serving paths sample events on both sides of it.
+CINN_DRAW_CLIP = 3.0
+# where a cINN's run misses CINN_TRAIN_TOL or CINN_FUSED_TRAIN_TOL, the
+# reference's own sensitivity decides: its run on draws perturbed by
+# CINN_PROBE_REL relative (the rounding K1's split TF32 leaves in the
+# attention, ~2^-21 a product term, ~1e-6 of the output) against its run on
+# the draws themselves. On random draws an nflows cINN is chaotic to
+# rounding: such a perturbation moved cinn_nflows' gradient vector by
+# 3.2e-2 where K1 against the plain attention moved it by 1.3e-3 (NVIDIA
+# H100 80GB HBM3, 700.00 W). A kernel path within CINN_PROBE_FACTOR times
+# the probe's errors moves the training no more than rounding the inputs
+# would; a missing or wrong term misses by O(1).
+CINN_PROBE_REL = 1e-6
+CINN_PROBE_FACTOR = 10.0
 K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
 K1_BWD = "vit4hep_tpu_torch/csrc/qkv_bwd_tf32.cuh"
 K1_BWD_LIB = "vit4hep_tpu_torch/csrc/qkv_attention_bwd.cu"
@@ -958,6 +1078,21 @@ CINN_PER_REQUEST = {"ds2": {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120, "ener
 # take the plain attention under attn_impl auto (K1 from 128 tokens, as JAX)
 CINN_PER_REQUEST.update({g: {"binned_rqs_inverse": 20, "qkv_attn_fwd": 0, "energy_decoder": 80}
                          for g in ("ds1_photons", "ds1_pions")})
+# this slice's cINN paths: cinn_ds2_electrons behind the energy cINN (no K3:
+# its MLP subnets and nflows spline are plain); the nflows cINNs (their
+# spline is the plain nflows_rqs, as in JAX: no K4) behind the energy CFM,
+# K1 in each subnet block (ds2: 16 subnets x 2 blocks at 135 and 270 tokens;
+# one-sided 10 x 2; ds3 12 x 2 at 675); the ViT1D twin of cinn_ds2_electrons
+# (fused_block: sample): K2v over each of the 40 subnets (depth 3: GEMM 2 +
+# 4 x 3, modln 2 x 3 + 1, attention 3) and no K1
+CINN_PER_REQUEST.update({
+    "energy_cinn_chain": {"binned_rqs_inverse": 40, "qkv_attn_fwd": 120},
+    "nflows_cinn": {"qkv_attn_fwd": 32, "energy_decoder": 80},
+    "nflows_oneside_cinn": {"qkv_attn_fwd": 20, "energy_decoder": 80},
+    "nflows_ds3_cinn": {"qkv_attn_fwd": 24, "energy_decoder": 80},
+    "vit1d_twin_cinn": {"binned_rqs_inverse": 40, "energy_decoder": 80, "vit_gemm": 40 * 14,
+                        "vit_modln": 40 * 7, "vit_attention": 40 * 3},
+})
 
 # the ViT GEMM's main-path shapes (K2v's sampling forward at batch BATCH;
 # tree_compare.py times the same): tokens and patch dim by geometry, and the
@@ -969,10 +1104,12 @@ DS1_K3_TOKENS = {"ds1_photons": 5, "ds1_pions": 7}
 DS1_K4_ROW = {"ds1_photons": 265, "ds1_pions": 370}
 
 
-def vit_products(pdim, h=480, fdim=1920):
+def vit_products(pdim, h=480, fdim=1920, out=None):
+    """The products of a ViT forward; the final one emits ``out`` values a
+    token (a ViT1D subnet's x_out x patch_dim), ``pdim`` by default."""
     return (("embed", (pdim, h), fdb.EPI_BIAS_POS), ("qkv", (h, 3 * h), fdb.EPI_BIAS),
             ("out", (h, h), fdb.EPI_GATED_RESID), ("fc1", (h, fdim), fdb.EPI_BIAS_GELU),
-            ("fc2", (fdim, h), fdb.EPI_GATED_RESID), ("final", (h, pdim), fdb.EPI_BIAS))
+            ("fc2", (fdim, h), fdb.EPI_GATED_RESID), ("final", (h, out or pdim), fdb.EPI_BIAS))
 
 
 # K6's and K8's ds3 shapes, qkv (batch, 450, 1440): (shape group, batch,
@@ -1020,6 +1157,19 @@ SHAPE_GROUPS = {
     "tpu_cinn": "cinn_ds2_electrons_tpu: K1 forward at the subnet's qkv (256, 135, 768), 4 heads x "
                 "64",
     "tpu_ds3": "cfm_ds3_electrons_tpu, 4 heads x 120: K2v's attention and forward at (256, 450)",
+    "cinn_train": "cinn_ds2_electrons training: K1 forward and backward at qkv (64, 135, 576), 4 "
+                  "heads x 48; K5b, K2b, K5c and K5a at its ViT1D subnet's x (64, 135, 192), F "
+                  "768, depth 3, 24-value patches, 744 outputs a token",
+    "cinn_twin": "the ViT1D twin of cinn_ds2_electrons: K2v at tokens (256, 135, 24), hidden "
+                 "192 in 4 heads x 48, F 768, depth 3, 744 outputs a token",
+    "nflows": "cinn_nflows: K1 forward and backward at qkv (64, 135, 1080), 6 heads x 60",
+    "nflows_serve": "cinn_nflows: K1 forward at the serving shape (256, 135, 1080), 6 heads x 60",
+    "nflows_270": "cinn_nflows' spatial subnets: K1 forward and backward at qkv (64, 270, 1080), "
+                  "6 heads x 60",
+    "nflows_270_serve": "cinn_nflows' spatial subnets: K1 forward at (256, 270, 1080)",
+    "nflows_ds3": "cinn_nflows_ds3: K1 forward and backward at qkv (16, 675, 1080), 4 heads x 90",
+    "nflows_ds3_serve": "cinn_nflows_ds3: K1 forward at the serving shape (256, 675, 1080), 4 "
+                        "heads x 90",
 }
 
 
@@ -1154,16 +1304,19 @@ def _attn_flops(b, heads, n, d, mask):
     return 4 * b * heads * pairs * d
 
 
-def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True, heads=6):
+def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True, heads=6, h=480, depth=6,
+                     mlp=4, out=None):
     """K2v against its plain versions at the sampling shape of n tokens x
     pdim (ds2: 135 x 48, ds3: 450 x 90, ds1 photons 88 x 5, pions 125 x
-    5), batch BATCH, H 480 in ``heads`` heads (6 x 80; the _tpu ViTs 4 x
-    120), F 1920, L 6: with ``gemms`` the six product shapes of a forward
+    5), batch BATCH, H ``h`` in ``heads`` heads (480 in 6 x 80; the _tpu
+    ViTs 4 x 120; the ViT1D subnet of cinn_ds2_electrons 192 in 4 x 48, depth
+    3, F 768, 744 = 31 x 24 outputs a token), F ``mlp`` x H, L ``depth``:
+    with ``gemms`` the six product shapes of a forward
     (embed, qkv, out-proj, fc1, fc2, final; ms/plain_ms/bound_ms of vit_gemm
     add up one call at each) and the modulated LayerNorm; then the attention
     and the whole forward, with the shared ``mask`` when given."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + n)
-    b, h, fdim, depth = BATCH, 480, 1920, 6
+    b, fdim = BATCH, mlp * h
     d = h // heads
     m = b * n
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
@@ -1171,7 +1324,7 @@ def k2v_kernel_phase(results, n, pdim, mask=None, gemms=True, heads=6):
     pos = _rand(gen, n, h)
     mods = _rand(gen, b, depth, 6, h, std=0.1)
     fmod = _rand(gen, b, 2, h, std=0.1)
-    products = vit_products(pdim, h, fdim)
+    products = vit_products(pdim, h, fdim, out)
     w = {key: _rand(gen, *s, std=0.05) for key, s, _ in products}
     bias = {key: _rand(gen, s[1], std=0.05) for key, s, _ in products}
     if gemms:
@@ -1375,22 +1528,25 @@ def _bwd_flops(m, h, fdim, attn_pairs, d, save_a1=True):
             + (0 if save_a1 else 2 * m * h * fdim))
 
 
-def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, composites=True):
+def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, composites=True,
+                    h=480, heads=6, fdim=1920, depth=6, pdim=48, out=None):
     """The megakernel tier's training kernels against their plain versions
-    at x (b, n, 480), 6 heads x 80, F 1920 (ds2 training: b 64, n 135),
-    with the shared ``mask`` when given. With ``primitives``: the training
+    at x (b, n, h), ``heads`` heads, F ``fdim`` (ds2 training: b 64, n 135,
+    h 480 in 6 heads x 80, F 1920; the cINN's ViT1D subnet: h 192 in 4 x 48,
+    F 768, depth 3, 24-value patches, 744 outputs a token), with the shared
+    ``mask`` when given. With ``primitives``: the training
     GEMM's two saving epilogues, the four NT and four split-K TN products of
     a block's gradient, their reduction, the three row passes and the adaLN
     reduction (ms of a name add up over its calls). Then K5b from the plain
     forward's residuals (a1 bf16 or, without ``save_a1``, recomputed; y
     bf16; lse), and with ``composites`` K2b, K5c and the whole-ViT K5a
-    (depth 6, 48-value patches)."""
+    (``depth`` blocks, ``pdim``-value patches, ``out`` outputs a token)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + n)
-    h, heads, d, fdim, depth = 480, 6, 80, 1920, 6
+    d, n_out = h // heads, out or pdim
     m, scale, bf = b * n, d ** -0.5, torch.bfloat16
     x, g = _rand(gen, b, n, h), _rand(gen, b, n, h)
     mod6 = _rand(gen, b, 6, h, std=0.3)
-    ws = _block_weights(gen)
+    ws = _block_weights(gen, h, fdim)
     wqkv, bqkv, wout, bout, w1, b1, w2, b2 = ws
     wbytes = 2 * (4 * h * h + 2 * h * fdim) + 4 * (5 * h + fdim)
     pairs = _attn_flops(b, heads, n, d, mask) // (4 * d)  # (b, head, query, key) kept
@@ -1542,11 +1698,10 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
            work_bound(4 * (3 * m * h + 2 * b * 6 * h) + 3 * wbytes + mask_bytes,
                   _block_flops(m, h, fdim) + 4 * pairs * d + _bwd_flops(m, h, fdim, pairs, d),
                   BF16_FLOPS))
-    pdim = 48
     va = [_rand(gen, b, n, pdim), _rand(gen, n, h), _rand(gen, b, depth, 6, h, std=0.3),
           _rand(gen, b, 2, h, std=0.3), _rand(gen, pdim, h, std=0.05), _rand(gen, h, std=0.05),
-          *(torch.stack([t] * depth) for t in _block_weights(gen)), _rand(gen, h, pdim, std=0.05),
-          _rand(gen, pdim, std=0.05)]
+          *(torch.stack([t] * depth) for t in _block_weights(gen, h, fdim)),
+          _rand(gen, h, n_out, std=0.05), _rand(gen, n_out, std=0.05)]
     ker = lambda: fdb.vit_fwd_train(*va, mask, heads, None)  # noqa: E731
     pla = lambda: fdb.vit_fwd_train_plain(*va, mask, heads, scale, mm_dtype=bf)  # noqa: E731
     out, res, lses = ker()
@@ -1555,9 +1710,9 @@ def k5_kernel_phase(results, b, n, mask=None, primitives=True, save_a1=True, com
     res_bytes = 4 * m * ((depth + 1) * h + depth * 4 * h) + 2 * m * depth * (fdim + h) + \
         4 * lses.numel()
     _check("vit_fwd_train", (out, *res, lses), (pout, *pres, plses), results, ker, pla,
-           work_bound(4 * (m * pdim + n * h + b * (6 * depth + 2) * h + m * pdim) + depth * wbytes
-                  + 2 * 2 * pdim * h + mask_bytes + res_bytes,
-                  2 * m * pdim * h * 2 + depth * (_block_flops(m, h, fdim) + 4 * pairs * d),
+           work_bound(4 * (m * pdim + n * h + b * (6 * depth + 2) * h + m * n_out)
+                  + depth * wbytes + 2 * (pdim + n_out) * h + mask_bytes + res_bytes,
+                  2 * m * (pdim + n_out) * h + depth * (_block_flops(m, h, fdim) + 4 * pairs * d),
                   BF16_FLOPS))
 
 
@@ -2158,6 +2313,14 @@ def _with_net_param(cfg: dict, **param):
     return dict(cfg, net=dict(cfg["net"], param=dict(cfg["net"]["param"], **param)))
 
 
+def _on_card(cfg: dict):
+    """The model of ``cfg``, built on the card: its initial weights are
+    drawn there, not on the host (every caller overwrites them, by
+    ``_randomize`` or a state dict)."""
+    with torch.device("cuda"):
+        return instantiate(cfg).cuda()
+
+
 def _randomize(model, gen, std=0.02):
     """N(0, std) weights everywhere (LayerNorm gains 1 + N(0, std); the
     learnable positional frequencies N(0, 1) as the JAX init draws them)."""
@@ -2251,8 +2414,8 @@ def _models(shape_cfg, energy_cfg, seed):
     """The shape and energy models on the card in eval mode, with random
     weights from ``seed`` (final layers included, so that nothing is 0)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape_model = instantiate(shape_cfg).cuda().eval()
-    energy_model = instantiate(energy_cfg).cuda().eval()
+    shape_model = _on_card(shape_cfg).eval()
+    energy_model = _on_card(energy_cfg).eval()
     _randomize(shape_model, gen)
     _randomize(energy_model, gen)
     return shape_model, energy_model, gen
@@ -2294,11 +2457,11 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
     ref_cfg, kern_shape = shape_cfg, shape_model
     if step is not None:
         ref_cfg = dict(shape_cfg, odeint_kwargs={"method": "rk4", "options": {"step_size": step}})
-        kern_shape = instantiate(ref_cfg).cuda().eval()
+        kern_shape = _on_card(ref_cfg).eval()
         kern_shape.load_state_dict(shape_model.state_dict())
-    plain_shape = instantiate(_with_net_param(ref_cfg, fused_block=False, attn_impl="xla",
-                                              fused_mlp=False)).cuda().eval()
-    plain_energy = instantiate(_with_net_param(energy_cfg, fused_block=False)).cuda().eval()
+    plain_shape = _on_card(_with_net_param(ref_cfg, fused_block=False, attn_impl="xla",
+                                           fused_mlp=False)).eval()
+    plain_energy = _on_card(_with_net_param(energy_cfg, fused_block=False)).eval()
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
     noise = (torch.randn(energy_model.x_shape(nb), generator=gen, device="cuda"),
@@ -2309,31 +2472,48 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
     return launches, times, generator
 
 
-def cinn_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg):
+def _plain_cinn(cfg: dict) -> dict:
+    """A shape cINN's composed plain twin: the plain attention, the composed
+    subnets (no fused_block) and, for a binned coupling, the plain spline
+    inverse."""
+    plain = dict(cfg, vit_kwargs=dict(cfg["vit_kwargs"], attn_impl="xla", fused_block=False))
+    if cfg["coupling_block"] == "CaloRQSplineFrEIA":
+        plain["cinn_kwargs"] = dict(cfg["cinn_kwargs"], fused_spline=False)
+    return plain
+
+
+def _plain_energy(cfg: dict) -> dict:
+    """An energy model's composed plain twin (the energy cINN has no kernel)."""
+    return _with_net_param(cfg, fused_block=False) if "net" in cfg else cfg
+
+
+def cinn_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg,
+               requests=REQUESTS, per_request=None, counters=CINN):
     """A cINN shape model (ds2: 20 coupling blocks, 40 ViT1D subnets of 135
-    tokens; ds3: 10 and 20 of 225) behind its energy model at full width:
-    REQUESTS requests with CINN_PER_REQUEST launches each, then the composed
-    plain generator (plain spline, plain attention, plain energy decoder;
-    all f32, so the chain tolerances hold with margin) on the same noise."""
+    tokens; ds3: 10 and 20 of 225; or an nflows cINN, or the ViT1D twin)
+    behind its energy model (the energy CFM, or the energy cINN) at full
+    width: ``requests`` requests with ``per_request`` launches each of
+    ``counters`` (CINN_PER_REQUEST[geometry] by default; 0 where absent),
+    then the composed plain generator (plain spline, plain attention,
+    composed subnets, plain energy decoder) on the same noise. All f32 but
+    the twin's bf16 products, so the chain tolerances hold with margin."""
     shape_tf, energy_tf = _run_dirs(tmp, geometry, shape_tf_cfg, energy_tf_cfg)
     shape_model, energy_model, gen = _models(shape_cfg, energy_cfg, SEED + 5)
     print(f"  cINN shape model {shape_model.param_count()} params ({shape_cfg['nblocks']} "
-          f"coupling blocks, {2 * shape_cfg['nblocks']} ViT1D subnets), energy model "
-          f"{energy_model.param_count()} params", flush=True)
+          f"{shape_cfg['coupling_block']} couplings), energy model "
+          f"{type(energy_model).__name__} {energy_model.param_count()} params", flush=True)
     generator = Generator(shape_model, energy_model, energy_tf, shape_tf, batch=BATCH)
-    launches, times = _serve(generator, CINN, _voxels(geometry))
-    per_request = CINN_PER_REQUEST[geometry]
-    want = {k: REQUESTS * per for k, per in per_request.items()}
+    launches, times = _serve(generator, counters, _voxels(geometry), requests)
+    per_request = per_request or CINN_PER_REQUEST[geometry]
+    want = {k: requests * per_request.get(k, 0) for k in counters}
     if launches != want:
         raise PhaseError(f"cinn: launches {launches} on the main path, expected {want} "
-                         f"({per_request} per request, {REQUESTS} requests)")
+                         f"({per_request} per request, {requests} requests)")
+    launches = {k: v for k, v in launches.items() if v}
     print(f"  launches on the main path: {launches}", flush=True)
 
-    plain_cfg = dict(shape_cfg,
-                     cinn_kwargs=dict(shape_cfg["cinn_kwargs"], fused_spline=False),
-                     vit_kwargs=dict(shape_cfg["vit_kwargs"], attn_impl="xla"))
-    plain_shape = instantiate(plain_cfg).cuda().eval()
-    plain_energy = instantiate(_with_net_param(energy_cfg, fused_block=False)).cuda().eval()
+    plain_shape = _on_card(_plain_cinn(shape_cfg)).eval()
+    plain_energy = _on_card(_plain_energy(energy_cfg)).eval()
     plain_shape.load_state_dict(shape_model.state_dict())
     plain_energy.load_state_dict(energy_model.state_dict())
     nb = REFERENCE_BATCH
@@ -2341,7 +2521,7 @@ def cinn_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_
              torch.randn(shape_model.x_shape(nb), generator=gen, device="cuda"))
     _compare_generators(Generator(shape_model, energy_model, energy_tf, shape_tf, batch=nb),
                         Generator(plain_shape, plain_energy, energy_tf, shape_tf, batch=nb),
-                        noise, CINN, geometry)
+                        noise, {**CINN, **SERVING}, geometry)
     del plain_shape, plain_energy
     return launches, times, generator
 
@@ -2781,62 +2961,114 @@ def fused_parity_phase(label, cfg, batch, variant):
                         FUSED_TRAINING, fused_launches(variant, TRAIN_PARITY_STEPS, 0))
 
 
-def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL):
-    """The net of ``cfg`` against the one of ``ref_cfg`` from one state: per
-    parameter tensor the relative L2 of the gradients of one batch, then
-    TRAIN_PARITY_STEPS train steps of each on the same random batches and
-    draws (x ~ N(0, 1), c ~ U(0, 1)), held to ``tol``. The first net's steps
-    must launch ``want`` of each of ``counters``. Returns (worst errors,
-    launches)."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    fused = instantiate(cfg).cuda()
-    _randomize(fused, gen)
-    composed = instantiate(ref_cfg).cuda()
-    composed.load_state_dict(fused.state_dict())
-    init = {k: v.clone() for k, v in fused.state_dict().items()}
-    shape = (batch, cfg["in_channels"], *cfg["shape"])
-    cdim = cfg["net"]["param"]["condition_dim"]
-    draws = [(torch.randn(shape, generator=gen, device="cuda"),
-              torch.rand((batch, cdim), generator=gen, device="cuda"),
-              torch.rand((batch, 1, 1, 1, 1), generator=gen, device="cuda"),
-              torch.randn(shape, generator=gen, device="cuda"))
-             for _ in range(TRAIN_PARITY_STEPS)]
-    loss = lambda model, d: model.batch_loss(d[0], d[1], t=d[2], x_0=d[3])  # noqa: E731
-    gf, gc = (torch.autograd.grad(loss(m, draws[0]), list(m.parameters()))
-              for m in (fused, composed))
-    names = [n for n, _ in fused.named_parameters()]
-    rel = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, gf, gc)
+def _train_run(model, draws, loss, training, counters):
+    """The gradients of ``model`` at ``draws[0]``, then TRAIN_PARITY_STEPS
+    train steps of it (``training``'s optimizer and clipping) on ``draws``:
+    (gradients, the steps' metrics, the parameters after, the launches of
+    ``counters`` in the steps)."""
+    grads = torch.autograd.grad(loss(model, draws[0]), list(model.parameters()))
+    state = ts.create_train_state(model, Config(training), use_ema=False)
+    step = ts.make_train_step(lambda *d: loss(model, d), clip_grad_norm=training["clip_grad_norm"])
+    before = {k: c.launches for k, c in counters.items()}
+    metrics = [step(state, d) for d in draws]
+    counts = {k: c.launches - before[k] for k, c in counters.items()}
+    if any(m["skipped"] for m in metrics):
+        raise PhaseError("parity: a step was skipped")
+    return grads, metrics, dict(model.named_parameters()), counts
+
+
+def _deviation(run, ref, names, init):
+    """How far ``run`` (a _train_run) is from ``ref``: the gradients'
+    relative L2 by tensor (the worst, and of the whole vector), the loss and
+    grad norm relative (the worst step), the largest parameter difference
+    and the update vector's relative error after the steps. Returns (worst,
+    the gradients' relative L2 by tensor name)."""
+    (ga, ma, pa, _), (gb, mb, pb, _) = run, ref
+    rel = {n: ((a - b).norm() / b.norm()).item() for n, a, b in zip(names, ga, gb)
            if b.norm() > 0}
-    worst = {"grad_rel_l2": max(rel.values()), "loss": 0.0, "grad_norm": 0.0}
-    worst_name = max(rel, key=rel.get)
-    del gf, gc
-    states = {k: ts.create_train_state(m, Config(DS2_SHAPE_TRAINING), use_ema=False)
-              for k, m in (("fused", fused), ("composed", composed))}
-    steps = {k: ts.make_train_step(lambda *d, m=m: loss(m, d),
-                                   clip_grad_norm=DS2_SHAPE_TRAINING["clip_grad_norm"])
-             for k, m in (("fused", fused), ("composed", composed))}
-    counts = dict.fromkeys(counters, 0)
-    for d in draws:
-        before = {k: c.launches for k, c in counters.items()}
-        mf = steps["fused"](states["fused"], d)
-        counts = {k: counts[k] + c.launches - before[k] for k, c in counters.items()}
-        mc = steps["composed"](states["composed"], d)
-        for key in ("loss", "grad_norm"):
-            worst[key] = max(worst[key], abs(float(mf[key]) - float(mc[key])) / abs(float(mc[key])))
-        if mf["skipped"] or mc["skipped"]:
-            raise PhaseError(f"parity ({label}): a step was skipped")
+    worst = {"grad_rel_l2": max(rel.values()),
+             "grad_rel_l2_all": math.sqrt(sum((a - b).norm().item() ** 2 for a, b in zip(ga, gb))
+                                          / sum(b.norm().item() ** 2 for b in gb))}
+    for key in ("loss", "grad_norm"):
+        worst[key] = max(abs(float(x[key]) - float(y[key])) / abs(float(y[key]))
+                         for x, y in zip(ma, mb))
+    du = torch.cat([(pa[n] - init[n]).flatten() for n in pb])
+    dc = torch.cat([(pb[n] - init[n]).flatten() for n in pb])
+    worst["update_rel"] = ((du - dc).norm() / dc.norm()).item()
+    worst["param_abs"] = max((pa[n] - pb[n]).abs().max().item() for n in pb)
+    return worst, rel
+
+
+def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL,
+                 training=DS2_SHAPE_TRAINING):
+    """The model of ``cfg`` against the one of ``ref_cfg`` from one state:
+    per parameter tensor the relative L2 of the gradients of one batch, then
+    TRAIN_PARITY_STEPS train steps of each (``training``'s optimizer and
+    clipping) on the same random batches and draws (x ~ N(0, 1), c ~ U(0,
+    1); a CFM's t ~ U(0, 1) and x_0 ~ N(0, 1); a cINN's x clipped to
+    CINN_DRAW_CLIP), held to ``tol`` (of the loss, the gradients' relative
+    L2, the grad norm, the largest parameter difference and the update
+    vector's relative error, the keys it has). For a cINN whose run misses
+    a bound, the reference model's own sensitivity decides (the rounding
+    probe, CINN_PROBE_REL): a third run, the reference on the draws
+    perturbed by CINN_PROBE_REL relative, against the reference; each
+    error may then reach CINN_PROBE_FACTOR times the probe's. The first
+    model's steps must launch ``want`` of each of ``counters``. Returns
+    (worst errors, launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    fused = _on_card(cfg)
+    _randomize(fused, gen)
+    init = {k: v.clone() for k, v in fused.state_dict().items()}
+    shape = fused.x_shape(batch)
+    cfm = fused.model_type == "cfm"
+    clip = math.inf if cfm else CINN_DRAW_CLIP
+    draws = [(torch.randn(shape, generator=gen, device="cuda").clamp(-clip, clip),
+              torch.rand((batch, fused.condition_dim), generator=gen, device="cuda"),
+              *((torch.rand((batch, 1, 1, 1, 1), generator=gen, device="cuda"),
+                 torch.randn(shape, generator=gen, device="cuda")) if cfm else ()))
+             for _ in range(TRAIN_PARITY_STEPS)]
+    loss = lambda model, d: (model.batch_loss(d[0], d[1], t=d[2], x_0=d[3]) if cfm  # noqa: E731
+                             else model.batch_loss(*d))
+    names = [n for n, _ in fused.named_parameters()]
+
+    def reference(draws):
+        model = _on_card(ref_cfg)
+        model.load_state_dict(init)
+        return _train_run(model, draws, loss, training, counters)
+
+    run = _train_run(fused, draws, loss, training, counters)
+    ref = reference(draws)
+    worst, rel = _deviation(run, ref, names, init)
+    counts = run[3]
     if counts != want:
         raise PhaseError(f"parity ({label}): launches {counts}, expected {want}")
-    pf, pc = (dict(m.named_parameters()) for m in (fused, composed))
-    du = torch.cat([(pf[n] - init[n]).flatten() for n in pc])
-    dc = torch.cat([(pc[n] - init[n]).flatten() for n in pc])
-    worst["update_rel"] = ((du - dc).norm() / dc.norm()).item()
-    ok = all(worst[k] <= tol[k] for k in tol)
+    same = all(torch.equal(run[2][n], ref[2][n]) for n in ref[2])
+    bounds = dict(tol)
+    ok = all(worst[k] <= bounds[k] for k in tol)
+    probe = None
+    if not ok and not cfm:
+        perturbed = [(d[0] * (1 + CINN_PROBE_REL * torch.randn(d[0].shape, generator=gen,
+                                                               device="cuda")), *d[1:])
+                     for d in draws]
+        probe, _ = _deviation(reference(perturbed), ref, names, init)
+        bounds = {k: max(tol[k], CINN_PROBE_FACTOR * probe[k]) for k in tol}
+        ok = all(worst[k] <= bounds[k] for k in tol)
+    del run, ref
+    worst_name = max(rel, key=rel.get)
     print(f"  {label}, batch {batch}: gradient rel L2 worst {worst['grad_rel_l2']:.3e} "
-          f"({worst_name}), median {float(np.median(list(rel.values()))):.3e}; "
+          f"({worst_name}), median {float(np.median(list(rel.values()))):.3e}, of the whole "
+          f"vector {worst['grad_rel_l2_all']:.3e}; "
           f"{TRAIN_PARITY_STEPS} steps: loss rel {worst['loss']:.3e}, grad_norm rel "
-          f"{worst['grad_norm']:.3e}, update rel {worst['update_rel']:.3e} (bounds "
-          f"{tol}) {'ok' if ok else 'FAILED'}", flush=True)
+          f"{worst['grad_norm']:.3e}, param max abs {worst['param_abs']:.3e}"
+          f"{' (equal bit for bit)' if same else ''}, update rel {worst['update_rel']:.3e} "
+          f"(bounds {tol}) {'ok' if ok and probe is None else 'FAILED' if not ok else ''}",
+          flush=True)
+    if probe is not None:
+        print(f"  rounding probe (the reference on draws x (1 + {CINN_PROBE_REL:g} N(0, 1))): "
+              + ", ".join(f"{k} {probe[k]:.3e}" for k in tol)
+              + f"; bounds max(tol, {CINN_PROBE_FACTOR:g} x probe): "
+              + ", ".join(f"{k} {bounds[k]:.3e}" for k in tol) + f" {'ok' if ok else 'FAILED'}",
+              flush=True)
     print(f"  launches: { {k: v for k, v in counts.items() if v} }", flush=True)
     if not ok:
         raise PhaseError(f"parity ({label}): training disagrees with the reference path")
@@ -2901,17 +3133,17 @@ def _finite(what, *arrays):
             raise PhaseError(f"{what}: non-finite values")
 
 
-def _experiment_samples(exp, label, card):
-    """``exp.sample_n()`` with the serving counters set to 0 just before and
+def _experiment_samples(exp, label, card, counters=SERVING):
+    """``exp.sample_n()`` with the ``counters`` set to 0 just before and
     read just after: (samples, conditions, launches, seconds)."""
-    for c in SERVING.values():
+    for c in counters.values():
         c.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     samples, cond = exp.sample_n()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in SERVING.items()}
+    launches = {k: c.launches for k, c in counters.items()}
     n = int(exp.cfg.n_samples)
     bs = int(exp.cfg.training.batchsize_sample)
     print(f"  {label}: {n} showers in {seconds:.3f} s = {n / seconds:.2f} showers/s (host "
@@ -2959,8 +3191,10 @@ def sampling_parity(exp, card):
     n0, fused0 = exp.cfg.n_samples, exp.cfg.get("fused_generation", False)
     n, bs = SAMPLING_CMP_SHOWERS, int(exp.cfg.training.batchsize_sample)
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    noise = tuple([torch.randn(m.token_shape(bs) or m.x_shape(bs), generator=g, device="cuda")
-                   for _ in range(-(-n // bs))] for m in (exp.energy_model, exp.model))
+    shapes = [getattr(m, "token_shape", lambda b: None)(bs) or m.x_shape(bs)  # a CFM's tokens
+              for m in (exp.energy_model, exp.model)]
+    noise = tuple([torch.randn(shape, generator=g, device="cuda") for _ in range(-(-n // bs))]
+                  for shape in shapes)
     exp.cfg.n_samples, out = n, {}
     for fused in (False, True):
         exp.cfg.fused_generation = fused
@@ -3289,6 +3523,171 @@ def ds1_train_phase(tmp: Path, card):
     return {"ds1_train": {k: v for k, v in train_launches.items() if v}, "ds1_sampling": launches}
 
 
+# ---------------------------------------------------------------------------
+# the rest of the cINN: its training, the energy cINN, the nflows couplings,
+# the ViT1D twins
+# ---------------------------------------------------------------------------
+def cinn_train_launches(subnets, depth, steps, val_batches):
+    """K1's launches when a cINN of ``subnets`` ViT1D subnets of ``depth``
+    blocks (each block's attention on K1) trains ``steps`` steps and runs
+    ``val_batches`` likelihood batches without gradients."""
+    n = dict.fromkeys(TRAINING, subnets * depth * steps)
+    n["qkv_attn_fwd"] = subnets * depth * (steps + val_batches)
+    return n
+
+
+def cinn_fused_launches(variant, subnets=40, depth=3, steps=TRAIN_PARITY_STEPS):
+    """The launches of a cINN's train steps whose ViT1D subnets run the
+    megakernel tier: fused_launches of one subnet, times the subnets."""
+    return {k: subnets * v for k, v in fused_launches(variant, steps, 0, depth).items()}
+
+
+# the cINN parity paths from one state: (path, label, model config, the
+# reference's, tolerance, counters, launches of the first model's steps)
+def _vit_kw(cfg: dict, **kw) -> dict:
+    """A shape cINN's config with ``kw`` in its subnets' ``vit_kwargs``."""
+    return dict(cfg, vit_kwargs=dict(cfg["vit_kwargs"], **kw))
+
+
+_TWIN = functools.partial(_vit_kw, DS2_CINN_MODEL)
+_PLAIN_ATTN = functools.partial(_vit_kw, attn_impl="xla")
+CINN_PARITY = [
+    ("cinn_train_parity", "cinn_ds2_electrons, K1 against the plain attention", DS2_CINN_MODEL,
+     _PLAIN_ATTN(DS2_CINN_MODEL), CINN_TRAIN_TOL, TRAINING,
+     cinn_train_launches(40, 3, TRAIN_PARITY_STEPS, 0)),
+    ("cinn_remat_parity", "cinn_ds2_electrons, remat_spline: true against false",
+     dict(DS2_CINN_MODEL, cinn_kwargs=dict(DS2_CINN_MODEL["cinn_kwargs"], remat_spline=True)),
+     DS2_CINN_MODEL, CINN_TRAIN_TOL, TRAINING, cinn_train_launches(40, 3, TRAIN_PARITY_STEPS, 0)),
+    ("nflows_parity", "cinn_nflows, K1 against the plain attention", NFLOWS_MODEL,
+     _PLAIN_ATTN(NFLOWS_MODEL), CINN_TRAIN_TOL, TRAINING,
+     cinn_train_launches(16, 2, TRAIN_PARITY_STEPS, 0)),
+    ("nflows_oneside_parity", "cinn_nflows_oneside, K1 against the plain attention",
+     NFLOWS_ONESIDE_MODEL, _PLAIN_ATTN(NFLOWS_ONESIDE_MODEL), CINN_TRAIN_TOL, TRAINING,
+     cinn_train_launches(10, 2, TRAIN_PARITY_STEPS, 0)),
+    ("vit1d_fused_parity", "cinn_ds2_electrons, fused_block: true against composed (K1)",
+     _TWIN(fused_block=True), DS2_CINN_MODEL, CINN_FUSED_TRAIN_TOL, FUSED_TRAINING,
+     cinn_fused_launches("true")),
+    ("vit1d_nostack_parity", "cinn_ds2_electrons, fused_block: true, fused_stack: false "
+     "against composed (K1)", _TWIN(fused_block=True, fused_stack=False), DS2_CINN_MODEL,
+     CINN_FUSED_TRAIN_TOL, FUSED_TRAINING, cinn_fused_launches("nostack")),
+]
+# device-time groups of a cINN train step
+CINN_TRAIN_GROUPS = [("K1 forward", _is_k1_fwd), ("K1 backward", _is_k1_bwd),
+                     ("cuBLAS products", _is_gemm)]
+
+
+def cinn_train_phase(tmp: Path, card):
+    """cinn_ds2_electrons (20 couplings, 40 ViT1D subnets of hidden 192,
+    depth 3, 4 heads x 48 over 135 tokens; 90.7 M params) trained
+    CINN_TRAIN_STEPS steps at full width through the experiment with
+    training/cinn/ds23 (batch 64, AdamW lr 1e-4 wd 0.1, cosine,
+    clip_grad_norm 1000), validating every VALIDATE_EVERY, on synthetic ds2
+    showers through calochallenge_ds2_noise's transforms. K1's counters and
+    K4's are set to 0 just before and read just after: K1's forward on every
+    subnet block of every step and validation batch, its backward on every
+    block of every step, and no K4 (the likelihood direction runs the
+    composed spline). Every loss and grad norm finite, no step skipped,
+    ``model_run0.pt`` written; steps/s; one step profiled. Returns
+    (launches, the experiment)."""
+    training = dict(CINN_TRAINING, iterations=CINN_TRAIN_STEPS,
+                    validate_every_n_steps=VALIDATE_EVERY)
+    cfg = _experiment_config(tmp, DS2_CINN_MODEL, DS2_CINN_TRANSFORMS, training, "shape",
+                             [0.99, 0.01])
+    cfg.exp_name = "smoke_cinn"
+    exp = SyntheticCaloChallenge(cfg, device="cuda")
+    counters = {**TRAINING, "binned_rqs_inverse": fsp.INVERSE}
+    for c in counters.values():
+        c.reset()
+    exp()
+    launches = {k: c.launches for k, c in counters.items()}
+    _check_training(exp, "cinn train")
+    steps = len(exp.train_loss)
+    val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
+    want = {**cinn_train_launches(40, 3, steps, val_batches), "binned_rqs_inverse": 0}
+    if steps != CINN_TRAIN_STEPS or launches != want:
+        raise PhaseError(f"cinn train: {steps} steps, launches {launches}, expected {want}")
+    if not (Path(exp.cfg.run_dir) / "models" / "model_run0.pt").exists():
+        raise PhaseError("cinn train: model_run0.pt missing from the run dir")
+    steady = exp.step_times[2:]
+    print(f"  {steps} steps, {len(exp.val_loss)} validations ({val_batches} batches): loss "
+          f"{exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}, val {exp.val_loss}", flush=True)
+    print(f"  launches on the main path: {launches}", flush=True)
+    print(f"ds2_cinn_train: {steps / exp.train_seconds:.3f} steps/s over the whole train() loop, "
+          f"{len(steady) / sum(steady):.3f} steady step interior (steps 3-{steps}); batch "
+          f"{int(cfg.training.batchsize)}; on {card}", flush=True)
+    print("ds2_cinn_train profile: one train step", flush=True)
+    train_profile_phase(exp, card, groups=CINN_TRAIN_GROUPS)
+    return {k: v for k, v in launches.items() if v}, exp
+
+
+def energy_cinn_phase(tmp: Path, card):
+    """cinn_energy (6 nflows couplings over the 45 u's, MLPs 3 x 128)
+    trained ENERGY_STEPS steps as a ``model_type: energy`` experiment
+    (calochallenge_ds2_energy with model=cinn/cinn_energy: cfm/energy's
+    batch 256), which fits ``means_u.npy``/``stds_u.npy``; no kernel on its
+    path, so no launch of any. Returns the experiment."""
+    training = dict(DS2_ENERGY_TRAINING, iterations=ENERGY_STEPS,
+                    validate_every_n_steps=ENERGY_STEPS // 2)
+    cfg = _experiment_config(tmp, ENERGY_CINN_MODEL, DS2_ENERGY_TRANSFORMS, training, "energy",
+                             [0.9999, 0.0001])
+    cfg.exp_name = "smoke_energy_cinn"
+    exp = SyntheticCaloChallenge(cfg, device="cuda")
+    counters = {**COMPOSED, **FUSED_TRAINING, "binned_rqs_inverse": fsp.INVERSE}
+    for c in counters.values():
+        c.reset()
+    exp()
+    _check_training(exp, "energy cinn")
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    if launched or type(exp.model).__name__ != "CaloChallengeEnergyCINN":
+        raise PhaseError(f"energy cinn: {type(exp.model).__name__}, launches {launched}")
+    steady = exp.step_times[2:]
+    print(f"  {type(exp.model).__name__} {exp.model.param_count()} params: "
+          f"{len(exp.train_loss)} steps of batch 256, loss {exp.train_loss[0]:.4f} -> "
+          f"{exp.train_loss[-1]:.4f}, {len(steady) / sum(steady):.2f} steps/s steady; on {card}",
+          flush=True)
+    return exp
+
+
+def cinn_sampling_phase(shape_cfg, energy_exp, card):
+    """The all-cINN chain through the experiment: ``sample_n`` of
+    CINN_SAMPLES showers of the ds2_cinn_train run (warm-started from
+    ``model_run0.pt``) behind the energy-cINN run, staged (``sample_us``)
+    and fused (``fused_generation``), each with K4 40 and K1 120 launches a
+    batch and nothing else (the energy cINN has no kernel), the path that
+    ran the one asked for, finite showers and conditions of their shapes;
+    then the fused chain against the staged path on the same noise
+    (``sampling_parity``). Returns {path: launches}."""
+    cfg = Config(shape_cfg.to_container(resolve=False))
+    cfg.train = False
+    cfg.sample_us, cfg.n_samples = True, CINN_SAMPLES
+    cfg.energy_model = energy_exp.cfg.run_dir
+    cfg.evaluation = dict(DS2_EVALUATION)  # sample_n reads eval_dataset "2"
+    exp = SamplingCaloChallenge(cfg, device="cuda")
+    exp.energy_cfg = energy_exp.cfg
+    exp()
+    bs = int(exp.cfg.training.batchsize_sample)
+    batches = -(-CINN_SAMPLES // bs)
+    counters = {**CINN, **SERVING}
+    want = {k: batches * CINN_PER_REQUEST["energy_cinn_chain"].get(k, 0) for k in counters}
+    launches = {}
+    for path, fused in (("cinn_sampling", False), ("cinn_sampling_fused", True)):
+        exp.cfg.fused_generation = fused
+        samples, cond, got, _ = _experiment_samples(exp, path, card, counters)
+        if samples.shape != (CINN_SAMPLES, 1, 45, 16, 9) or cond.shape != (CINN_SAMPLES, 46):
+            raise PhaseError(f"{path}: samples {samples.shape}, conditions {cond.shape}")
+        _finite(path, samples, cond)
+        if exp.last_sampling_fused != fused or \
+                type(exp.energy_model).__name__ != "CaloChallengeEnergyCINN":
+            raise PhaseError(f"{path}: fused {exp.last_sampling_fused}, energy model "
+                             f"{type(exp.energy_model).__name__}")
+        if got != want:
+            raise PhaseError(f"{path}: launches {got}, expected {want}")
+        launches[path] = {k: v for k, v in got.items() if v}
+        print(f"  launches on the main path: {launches[path]}", flush=True)
+    sampling_parity(exp, card)
+    return launches
+
+
 def train_profile_phase(exp, card, top=12, groups=None):
     """One train step of the trained experiment under torch.profiler:
     device ms by group (default: K1's kernels, the cuBLAS products; then
@@ -3424,6 +3823,23 @@ def main() -> int:
     print("cinn_ds2_electrons_tpu: K1 forward at qkv (256, 135, 768), 4 heads x 64", flush=True)
     k1_fwd_phase(groups["tpu_cinn"], BATCH, 135, 4, 64)
     torch.cuda.empty_cache()
+    print("cinn_ds2_electrons training: K1 at qkv (64, 135, 576), 4 heads x 48; K5b, K2b, K5c, "
+          "K5a at its ViT1D subnet's x (64, 135, 192); K2v at the subnet's sampling shape "
+          "(256, 135, 24)", flush=True)
+    k1_ms["cINN training, 4 heads x 48"] = k1_kernel_phase(groups["cinn_train"], 64, 135,
+                                                           heads=4, d=48)
+    k5_kernel_phase(groups["cinn_train"], 64, 135, primitives=False, h=192, heads=4, fdim=768,
+                    depth=3, pdim=24, out=744)
+    k2v_kernel_phase(groups["cinn_twin"], 135, 24, heads=4, h=192, depth=3, out=744)
+    for group, n, heads, d, b, label in (("nflows", 135, 6, 60, 64, "cinn_nflows"),
+                                         ("nflows_270", 270, 6, 60, 64, "cinn_nflows, spatial"),
+                                         ("nflows_ds3", 675, 4, 90, 16, "cinn_nflows_ds3")):
+        print(f"{label}: K1 at qkv ({b}, {n}, {3 * heads * d}) and forward at ({BATCH}, {n}, "
+              f"{3 * heads * d}), {heads} heads x {d}", flush=True)
+        k1_ms[f"{label}, {n} tokens, {heads} heads x {d}"] = k1_kernel_phase(
+            groups[group], b, n, heads=heads, d=d)
+        k1_fwd_phase(groups[f"{group}_serve"], BATCH, n, heads, d)
+        torch.cuda.empty_cache()
     print("K2s and K5a-stack (fused_dit_stack) vs plain: x (256, 135, 480), depth 6, ungrouped "
           "and group 8; with the layer-causal mask of (15, 1, 9); x (64, 450, 480)", flush=True)
     stack_kernel_phase(groups["stack"], BATCH, 135, group=8)
@@ -3496,13 +3912,33 @@ def main() -> int:
          DS2_TPU_SHAPE_MODEL, DS2_ENERGY_MODEL, DS2_SHAPE_TRANSFORMS, DS2_ENERGY_TRANSFORMS, None),
         ("tpu_cinn", "cinn_ds2_electrons_tpu (subnets of 4 heads x 64)", cinn_phase, "ds2",
          DS2_TPU_CINN_MODEL, DS2_ENERGY_MODEL, DS2_CINN_TRANSFORMS, DS2_ENERGY_TRANSFORMS, None)]
+    # this slice's cINN paths: (path, label, geometry, shape model, energy
+    # model, their transforms, requests, counters)
+    for path, label, geometry, shape_cfg, energy_cfg, requests, counters in (
+            ("energy_cinn_chain", "cinn_ds2_electrons behind the energy cINN (cinn_energy)",
+             "ds2", DS2_CINN_MODEL, ENERGY_CINN_MODEL, REQUESTS, CINN),
+            ("nflows_cinn", "cinn_nflows (8 nflows couplings, subnets of 6 heads x 60)", "ds2",
+             NFLOWS_MODEL, DS2_ENERGY_MODEL, REQUESTS, CINN),
+            ("nflows_oneside_cinn", "cinn_nflows_oneside (10 one-sided couplings)", "ds2",
+             NFLOWS_ONESIDE_MODEL, DS2_ENERGY_MODEL, REQUESTS, CINN),
+            ("nflows_ds3_cinn", "cinn_nflows_ds3 (1350 tokens x 30, subnets over 675 tokens in 4 "
+             "heads x 90)", "ds3", NFLOWS_DS3_MODEL, DS3_ENERGY_MODEL, 1, CINN),
+            ("vit1d_twin_cinn", "cinn_ds2_electrons with fused_block: sample (K2v over each "
+             "ViT1D subnet)", "ds2", _TWIN(fused_block="sample"), DS2_ENERGY_MODEL, REQUESTS,
+             {**CINN, **SERVING})):
+        tf = (DS3_CINN_TRANSFORMS, DS3_ENERGY_TRANSFORMS) if geometry == "ds3" else \
+            (DS2_CINN_TRANSFORMS, DS2_ENERGY_TRANSFORMS)
+        serving.append((path, label, functools.partial(
+            cinn_phase, requests=requests, per_request=CINN_PER_REQUEST[path], counters=counters),
+            geometry, shape_cfg, energy_cfg, *tf, None))
     for path, label, phase, geometry, *cfgs, prof_groups in serving:
         with tempfile.TemporaryDirectory() as tmp:
             print(f"{path}: {label} two-stage generator at full width", flush=True)
             launches[path], times, generator = phase(Path(tmp), geometry, *cfgs)
+            steady = "" if len(times) < 2 else \
+                f", {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady (first request excluded)"
             print(f"{path}: {BATCH * len(times) / sum(times):.2f} showers/s over all "
-                  f"{len(times)} requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady "
-                  f"(first request excluded); batch {BATCH}, requests "
+                  f"{len(times)} requests{steady}; batch {BATCH}, requests "
                   f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
             if prof_groups is not None:
                 print(f"{path} profile: one more request, by layer and by kernel", flush=True)
@@ -3614,6 +4050,28 @@ def main() -> int:
               "experiment, then sample_n, to_mev and the evaluation core of eval_sample",
               flush=True)
         launches.update(ds1_train_phase(Path(tmp), card))
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "data").mkdir()
+        _binning_xml(Path(tmp) / "data", "ds2")
+        print("ds2_cinn_train: cinn_ds2_electrons at full width through the CaloChallenge "
+              "experiment", flush=True)
+        launches["ds2_cinn_train"], cexp = cinn_train_phase(Path(tmp), card)
+        shape_cfg = Config(cexp.cfg.to_container(resolve=False))
+        del cexp
+        torch.cuda.empty_cache()
+        print("cINN train parity: K1, remat_spline, the nflows couplings and the ViT1D twins "
+              "against their reference paths from one state", flush=True)
+        for path, label, cfg, ref, tol, counters, want in CINN_PARITY:
+            _, launches[path] = parity_phase(label, cfg, ref, 64, counters, want, tol,
+                                             CINN_TRAINING)
+            torch.cuda.empty_cache()
+        print("energy_cinn: the energy cINN through the CaloChallenge experiment", flush=True)
+        energy_exp = energy_cinn_phase(Path(tmp), card)
+        print("cinn_sampling: sample_n of the ds2_cinn_train run behind the energy-cINN run, "
+              "staged and fused", flush=True)
+        launches.update(cinn_sampling_phase(shape_cfg, energy_exp, card))
+        del energy_exp
+        torch.cuda.empty_cache()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = []

@@ -182,16 +182,23 @@ def test_vit1d_matches_jax(n_tok, attn_impl):
 
 
 def test_vit1d_kernel_twin_and_unported_blocks_raise():
+    """The ViT1D kernel twin and the nflows couplings build (their parity
+    is held in tests/test_torch_cinn_rest.py); an unknown coupling type
+    still raises."""
+    from vit4hep_tpu_torch.models.bijectors import NFlowsRQSCouplingBlock
     from vit4hep_tpu_torch.models.calochallenge import CaloChallengeCINN
-    from vit4hep_tpu_torch.models.vit import ViT1D
+    from vit4hep_tpu_torch.models.vit import ViT1D, sampling_variant
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ViT1D(dict(_vit1d_param(10, "auto"), fused_block="sample"))
+    twin = sampling_variant(ViT1D(dict(_vit1d_param(10, "auto"), fused_block="sample")))
+    assert twin.cfg.fused_block is True
     kw = _tiny_cinn_kwargs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CaloChallengeCINN(**dict(kw, coupling_block="CaloRQSplineNFlows"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CaloChallengeCINN(**dict(kw, vit_kwargs=dict(kw["vit_kwargs"], fused_block="sample")))
+    for coupling in ("CaloRQSplineNFlows", "OneSidedCaloRQSplineNFlows"):
+        model = CaloChallengeCINN(**dict(kw, coupling_block=coupling,
+                                         cinn_kwargs={"num_bins": 8, "bounds_init": 4}))
+        assert isinstance(model.net.blocks[0], NFlowsRQSCouplingBlock)
+        assert model.net.blocks[0].one_sided == coupling.startswith("OneSided")
+    model = CaloChallengeCINN(**dict(kw, vit_kwargs=dict(kw["vit_kwargs"], fused_block="sample")))
+    assert model.sample_net.blocks[0].subnet1.cfg.fused_block is True
     with pytest.raises(ValueError, match="Unknown Coupling block"):
         CaloChallengeCINN(**dict(kw, coupling_block="Nope"))
 

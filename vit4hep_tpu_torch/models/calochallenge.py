@@ -1,22 +1,29 @@
-"""CaloChallenge shape models over patched 3-D voxel grids (port of
-``CaloChallengeCFM``, ``CaloChallengeCFM_DS1`` and ``CaloChallengeCINN`` in
-``vit4hep_tpu/models/calochallenge.py``).
+"""CaloChallenge models (port of ``CaloChallengeCFM``,
+``CaloChallengeCFM_DS1``, ``CaloChallengeCINN`` and ``CaloChallengeEnergyCINN``
+in ``vit4hep_tpu/models/calochallenge.py``).
 
-Single-section (L, A, R) grids (ds2, ds3, and ds1's cINNs on the grid that
-``AddAngularBins`` pads to) and ds1's multi-section geometry
-(``CaloChallengeCFM_DS1``). The energy cINN (``CaloChallengeEnergyCINN``)
-and the nflows coupling blocks are not ported yet (ROADMAP.md queue 1).
+Shape models over single-section (L, A, R) grids (ds2, ds3, and ds1's
+cINNs on the grid that ``AddAngularBins`` pads to) and ds1's multi-section
+geometry (``CaloChallengeCFM_DS1``); the energy cINN over the flat
+u-vector. A shape cINN's coupling blocks are binned (``CaloRQSplineFrEIA``)
+or nflows splines (``CaloRQSplineNFlows``, ``OneSidedCaloRQSplineNFlows``)
+with ViT1D subnets; with ``vit_kwargs.fused_block: sample`` its sampling
+runs through :attr:`CaloChallengeCINN.sample_net`, the same flow with the
+subnets' kernel twins (``models/vit.sampling_variant``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
-from vit4hep_tpu_torch.models.bijectors import BinnedRQSCouplingBlock, FlowChain, Permute
+from vit4hep_tpu_torch.models.bijectors import (BinnedRQSCouplingBlock, FlowChain,
+                                                NFlowsRQSCouplingBlock, Permute,
+                                                SimpleRQSCouplingBlock)
 from vit4hep_tpu_torch.models.cfm import CFM
 from vit4hep_tpu_torch.models.cinn import CINN
-from vit4hep_tpu_torch.models.vit import ViT1D
+from vit4hep_tpu_torch.models.vit import ViT1D, sampling_variant
 from vit4hep_tpu_torch.ops import patching
 
 
@@ -108,10 +115,13 @@ def _build_flow(nblocks, block_ctor, permute_sizes_axes, permutations=None):
 
 
 class CaloChallengeCINN(CINN):
-    """Shape cINN over (B, C, L, A, R) voxel grids: ``nblocks`` binned-RQS
-    coupling blocks (``CaloRQSplineFrEIA``) with ViT1D subnets, each
-    followed by a fixed permutation of the tokens (of the features for a
-    spatial block)."""
+    """Shape cINN over (B, C, L, A, R) voxel grids: ``nblocks`` coupling
+    blocks with ViT1D subnets, each followed by a fixed permutation of the
+    tokens (of the features for a spatial block). A spatial block's subnet
+    sees all T tokens of P // 2 values, a token-split one T // 2 tokens of
+    P."""
+
+    _COUPLINGS = ("CaloRQSplineFrEIA", "CaloRQSplineNFlows", "OneSidedCaloRQSplineNFlows")
 
     def __init__(self, shape, patch_shape, in_channels, coupling_block, nblocks, is_spatial,
                  cinn_kwargs, vit_kwargs, permutations=None, **kwargs):
@@ -123,10 +133,7 @@ class CaloChallengeCINN(CINN):
         self.num_patches = tuple(s // p for s, p in zip(self.shape, self.patch_shape))
         self.in_channels = int(in_channels)
         self.condition_dim = int(vit_kwargs.get("condition_dim", 1))
-        if coupling_block in ("CaloRQSplineNFlows", "OneSidedCaloRQSplineNFlows"):
-            raise NotImplementedError(f"coupling block {coupling_block} is not ported yet "
-                                      "(ROADMAP.md queue 1, cINN)")
-        if coupling_block != "CaloRQSplineFrEIA":
+        if coupling_block not in self._COUPLINGS:
             raise ValueError(f"Unknown Coupling block type {coupling_block}")
 
         n_tok = int(math.prod(self.num_patches))
@@ -134,7 +141,6 @@ class CaloChallengeCINN(CINN):
         spatial = [bool(is_spatial[i]) if is_spatial is not None else False
                    for i in range(int(nblocks))]
         cinn_kwargs = dict(cinn_kwargs or {})
-        cinn_kwargs.setdefault("bins", 10)
 
         def block_ctor(i):
             def subnet(n_params):
@@ -145,10 +151,34 @@ class CaloChallengeCINN(CINN):
                                   num_patches=[list(self.num_patches)],
                                   prod_num_patches=n_tok if spatial[i] else n_tok // 2))
 
-            return BinnedRQSCouplingBlock(subnet_ctor=subnet, spatial=spatial[i], **cinn_kwargs)
+            if coupling_block == "CaloRQSplineFrEIA":
+                return BinnedRQSCouplingBlock(subnet_ctor=subnet, spatial=spatial[i],
+                                              **{"bins": 10, **cinn_kwargs})
+            return NFlowsRQSCouplingBlock(subnet_ctor=subnet, spatial=spatial[i],
+                                          one_sided=coupling_block.startswith("OneSided"),
+                                          **cinn_kwargs)
 
         permutes = [(p_dim, 2) if sp else (n_tok, 1) for sp in spatial]
         self.net = _build_flow(int(nblocks), block_ctor, permutes, permutations=permutations)
+        self._sample_twin = vit_kwargs.get("fused_block") == "sample"
+
+    @property
+    def sample_net(self):
+        """The flow for sampling: with ``fused_block: sample`` the same flow
+        (the same parameters and permutations) whose ViT1D subnets are their
+        kernel twins; else the flow itself. Made at each call, so a twin
+        never holds weights from before an update."""
+        if not self._sample_twin:
+            return self.net
+        blocks = []
+        for block in self.net.blocks:
+            if isinstance(block, Permute):
+                blocks.append(block)
+                continue
+            twin = copy.copy(block)
+            twin._modules = {k: sampling_variant(m) for k, m in block._modules.items()}
+            blocks.append(twin)
+        return FlowChain(blocks)
 
     def x_shape(self, batch_size: int) -> tuple:
         return (batch_size, self.in_channels, *self.shape)
@@ -158,3 +188,31 @@ class CaloChallengeCINN(CINN):
 
     def from_patches(self, x):
         return patching.from_patches(x, self.num_patches, self.patch_shape)
+
+
+class CaloChallengeEnergyCINN(CINN):
+    """Energy cINN over the flat u-vector (B, d), conditioned on the
+    incident energy: ``nblocks`` ``RQSplineNFlows`` couplings
+    (:class:`SimpleRQSCouplingBlock`, MLP subnets), each followed by a
+    fixed permutation of the d features."""
+
+    def __init__(self, shape, coupling_block, nblocks, cinn_kwargs, subnet_kwargs,
+                 permutations=None, **kwargs):
+        super().__init__(shape, **kwargs)
+        if coupling_block != "RQSplineNFlows":
+            raise ValueError(f"Unknown Coupling block type {coupling_block}")
+        d = self.shape[0]
+        cinn_kwargs = dict(cinn_kwargs or {})
+        sub = dict(subnet_kwargs or {})
+        subnet_kw = dict(hidden_channels=tuple(sub.get("hidden_channels", (128, 128))),
+                         n_layers=int(sub.get("n_layers", 2)),
+                         dropout=float(sub.get("dropout", 0.0)))
+
+        def block_ctor(i):
+            return SimpleRQSCouplingBlock(
+                dims_in=d, num_bins=int(cinn_kwargs.get("num_bins", 10)),
+                bounds_init=float(cinn_kwargs.get("bounds_init", 1.0)),
+                subnet_kwargs=subnet_kw, condition_dim=self.condition_dim)
+
+        self.net = _build_flow(int(nblocks), block_ctor, [(d, 1)] * int(nblocks),
+                               permutations=permutations)

@@ -5,9 +5,10 @@ Maximum likelihood with ``log p(x|c) = -||z||^2/2 + log|det J| - d/2 log
 1)`` (or takes it from the caller) and runs the flow's inverse. The JAX
 model wraps pure functions of ``(params, inputs, rng)``; here it is an
 ``nn.Module`` that owns its flow (``net.*`` in the state dict), and
-randomness comes from an explicit ``torch.Generator``. ``log_prob`` and
-``batch_loss`` are ported for parity on the CPU; training the cINN on the
-card is not ported yet (ROADMAP.md queue 1).
+randomness comes from an explicit ``torch.Generator``. Sampling runs the
+inverse of :attr:`CINN.sample_net` (a shape cINN's kernel twin with
+``fused_block: sample``); the likelihood, and so training, always runs
+``net``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ class CINN(nn.Module):
     def from_patches(self, x):
         return x
 
+    @property
+    def sample_net(self):
+        """The flow that sampling inverts (subclasses may give a twin)."""
+        return self.net
+
     def forward(self, x, c, rev=False):
         """rev=False: x -> (z, log|det J|); rev=True: z -> (x, log|det J^-1|)."""
         tokens = self.to_patches(x)
@@ -69,8 +75,8 @@ class CINN(nn.Module):
             z = torch.randn(shape, generator=generator, device=c.device, dtype=torch.float32)
         elif tuple(z.shape) != tuple(shape):
             raise ValueError(f"z has shape {tuple(z.shape)}, expected {tuple(shape)}")
-        x, _ = self.forward(z, c, rev=True)
-        return x.reshape(z.shape)
+        x, _ = self.sample_net.inverse(self.to_patches(z), c)
+        return self.from_patches(x).reshape(z.shape)
 
     def net_evals_per_sample(self) -> int:
         return 1

@@ -45,9 +45,11 @@ K2v whatever they say.
 
 ``ViT1D`` is the cINN coupling subnet: no time input, a 1-D learnable
 positional embedding over ``prod_num_patches`` tokens, and ``x_out``
-outputs per patch value. It runs the composed path, whose attention reaches
-K1 from 128 tokens as in JAX; its ``fused_block`` twin (K2v over a ViT1D)
-is not ported yet and raises, nor are the fine-tuning mappers. With
+outputs per patch value. It shares ViTNet's trunk (``_FusedViT``): the
+composed path, whose attention reaches K1 from 128 tokens as in JAX, or
+with ``fused_block`` the same kernels as ViTNet (K2v over the 1-D
+embedding and the condition alone; K5a/K5b, K2b/K5c under a gradient).
+The fine-tuning mappers are not ported. With
 ``learn_pos_embed: false`` both nets add the fixed sin-cos embedding
 (``ops/pos_embed.get_sincos_pos_embed``, a non-persistent buffer) where
 JAX does, and have no ``pos_embed_freqs``.
@@ -308,45 +310,17 @@ def _run_blocks(blocks, x, cond, mask, checkpoint_grads):
     return x
 
 
-class ViTNet(nn.Module):
-    """3-D voxel-patch DiT predicting the CFM velocity per patch.
-
-    forward(x (B, T, patch_dim), t (B,) or (B, 1), c (B, condition_dim))
-    -> (B, T, out_channels * patch_dim)."""
+class _FusedViT(nn.Module):
+    """What ViTNet and ViT1DNet share: the trunk from the embedded tokens
+    and the conditioning vector to the FinalLayer, composed or through the
+    megakernel tier, and the weights in the kernels' layout."""
 
     _sampling_weights = None  # kernel_weights() of a sampling twin, made once
 
-    def __init__(self, cfg: ViTParams):
-        super().__init__()
-        p = cfg
-        _check_ported(p)
-        self.cfg = cfg
-        h = p.hidden_dim
-        self.x_embedder = _xavier_linear(p.patch_dim, h)
-        self.t_embedder = TimestepEmbedder(h)
-        self.c_embedder = ConditionEmbedder(p.condition_dim, h)
-        if p.learn_pos_embed:
-            self.pos_embed_freqs = nn.Parameter(torch.randn(h // 6))
-            self._grid = [torch.from_numpy(g) for g in pe_ops.create_meshgrid(p.num_patches)]
-        else:  # JAX embeds the first section's grid
-            self.register_buffer("_sincos", _sincos(p), persistent=False)
-        self.blocks = nn.ModuleList(
-            DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl, p.fused_mlp)
-            for _ in range(p.depth))
-        self.final_layer = FinalLayer(h, p.out_channels * p.patch_dim)
-        self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
-
-    def pos_embedding(self):
-        if not self.cfg.learn_pos_embed:
-            return self._sincos
-        dev = self.pos_embed_freqs.device
-        pos_z, pos_y, pos_x = (g.to(dev) for g in self._grid)
-        return pe_ops.learnable_fourier_pos_embed_3d(self.pos_embed_freqs, pos_z, pos_y, pos_x)
-
-    def forward(self, x, t, c):
+    def _trunk(self, x, cond):
+        """The embedder, the blocks and the FinalLayer on tokens x (B, T,
+        patch_dim) f32 under the conditioning vector cond (B, hidden)."""
         p = self.cfg
-        x = x.float()
-        cond = self.t_embedder(t) + self.c_embedder(c.float())
         mask = _checked_mask(self)
         fused = p.fused_block in (True, "hybrid") and not p.checkpoint_grads \
             and not p.pad_attn_heads
@@ -421,6 +395,43 @@ class ViTNet(nn.Module):
                 mat(self.final_layer.linear), self.final_layer.linear.bias)
 
 
+class ViTNet(_FusedViT):
+    """3-D voxel-patch DiT predicting the CFM velocity per patch.
+
+    forward(x (B, T, patch_dim), t (B,) or (B, 1), c (B, condition_dim))
+    -> (B, T, out_channels * patch_dim)."""
+
+    def __init__(self, cfg: ViTParams):
+        super().__init__()
+        p = cfg
+        _check_ported(p)
+        self.cfg = cfg
+        h = p.hidden_dim
+        self.x_embedder = _xavier_linear(p.patch_dim, h)
+        self.t_embedder = TimestepEmbedder(h)
+        self.c_embedder = ConditionEmbedder(p.condition_dim, h)
+        if p.learn_pos_embed:
+            self.pos_embed_freqs = nn.Parameter(torch.randn(h // 6))
+            self._grid = [torch.from_numpy(g) for g in pe_ops.create_meshgrid(p.num_patches)]
+        else:  # JAX embeds the first section's grid
+            self.register_buffer("_sincos", _sincos(p), persistent=False)
+        self.blocks = nn.ModuleList(
+            DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl, p.fused_mlp)
+            for _ in range(p.depth))
+        self.final_layer = FinalLayer(h, p.out_channels * p.patch_dim)
+        self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
+
+    def pos_embedding(self):
+        if not self.cfg.learn_pos_embed:
+            return self._sincos
+        dev = self.pos_embed_freqs.device
+        pos_z, pos_y, pos_x = (g.to(dev) for g in self._grid)
+        return pe_ops.learnable_fourier_pos_embed_3d(self.pos_embed_freqs, pos_z, pos_y, pos_x)
+
+    def forward(self, x, t, c):
+        return self._trunk(x.float(), self.t_embedder(t) + self.c_embedder(c.float()))
+
+
 def sampling_variant(net):
     """The forward-only twin of a net whose config requests ``fused_block:
     sample``: the same parameters (a shallow copy shares them), with the
@@ -441,7 +452,7 @@ def sampling_variant(net):
     return net
 
 
-class ViT1DNet(nn.Module):
+class ViT1DNet(_FusedViT):
     """ViT with a 1-D positional embedding and no time input: the coupling
     subnet of the cINN flow.
 
@@ -452,10 +463,6 @@ class ViT1DNet(nn.Module):
         super().__init__()
         p = cfg
         _check_ported(p)
-        if p.fused_block is not False:
-            raise NotImplementedError(
-                f"fused_block: {p.fused_block!r} in a ViT1D needs the whole-ViT kernel (K2v) over "
-                "the 1-D subnet, not ported yet (ROADMAP.md queue 1, cINN)")
         self.cfg = cfg
         h = p.hidden_dim
         n = p.prod_num_patches
@@ -480,12 +487,7 @@ class ViT1DNet(nn.Module):
         return pe_ops.learnable_fourier_pos_embed_1d(self.pos_embed_freqs, self._grid)
 
     def forward(self, x, c):
-        p = self.cfg
-        cond = self.c_embedder(c.float())
-        mask = _checked_mask(self)
-        x = _run_blocks(self.blocks, self.x_embedder(x.float()) + self.pos_embedding(), cond,
-                        mask, p.checkpoint_grads)
-        return self.final_layer(x, cond)
+        return self._trunk(x.float(), self.c_embedder(c.float()))
 
 
 def ViT(param: dict) -> ViTNet:

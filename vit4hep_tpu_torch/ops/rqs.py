@@ -5,20 +5,30 @@ arXiv:1906.04032, in the FrEIA "binned" parametrization of the
 
 :func:`binned_constrain` turns the raw subnet outputs into knots,
 derivatives and the affine tails; :func:`binned_rqs` applies the spline in
-either direction. The JAX module avoids ``cumsum`` and ``take_along_axis``
-for the TPU's sake; here the knots come from ``torch.cumsum`` and the
-active bin's parameters from ``torch.gather``, which state the same
-function. The inverse keeps the JAX solve exactly: the Citardauq root
-``2c / (-b - sqrt(disc))`` with its ``1e-30`` guard, xi clipped to [0, 1],
-and two Newton steps whose slope is floored at ``1e-12``, all in float32.
-The nflows parametrization (``nflows_rqs``, the energy cINN) is not ported
-yet (ROADMAP.md queue 1).
+either direction. The knots are partial sums (:func:`_csum0`: a scan on
+the CPU, a product with a triangular matrix on the card); the active bin's
+parameters come from ``torch.gather``, where JAX takes a one-hot sum for
+the TPU's sake: the same function. The inverse keeps the JAX solve
+exactly: the Citardauq root ``2c / (-b - sqrt(disc))`` with its ``1e-30``
+guard, xi clipped to [0, 1], and two Newton steps whose slope is floored
+at ``1e-12``, all in float32.
+
+:func:`nflows_rqs` is the nflows parametrization of the energy cINN and the
+``CaloRQSplineNFlows`` blocks: a fixed domain [-B, B], softmax widths and
+heights floored at ``MIN_BIN_WIDTH`` / ``MIN_BIN_HEIGHT``, softplus knot
+derivatives floored at ``MIN_DERIVATIVE``, and identity outside the domain.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+MIN_BIN_WIDTH = 1e-6
+MIN_BIN_HEIGHT = 1e-6
+MIN_DERIVATIVE = 1e-6
 
 
 def _softplus(x):
@@ -32,8 +42,22 @@ def _searchsorted(knots, x):
     return torch.clamp((x[..., None] >= knots).sum(-1) - 1, 0, knots.shape[-1] - 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _triangle(k, dtype, device):
+    """The (k, k + 1) strictly upper-triangular matrix of ones."""
+    return torch.ones(k, k + 1, dtype=dtype, device=device).triu(1)
+
+
 def _csum0(vals):
-    """``[0, cumsum(vals)]`` along the last axis."""
+    """``[0, cumsum(vals)]`` along the last axis. On the card, one product
+    with a strictly upper-triangular matrix of ones, as JAX forms it:
+    torch's scan over a last axis of a few bins runs far below the memory
+    rate there (1.2 ms a call at the ds2 cINN's (64, 3240, 10) on an H100,
+    38% of a train step's device time). Its products are exact (x 1 or x
+    0), so only the order of the f32 additions differs from the scan the
+    CPU keeps."""
+    if vals.is_cuda:
+        return vals @ _triangle(vals.shape[-1], vals.dtype, vals.device)
     return torch.cat([torch.zeros_like(vals[..., :1]), torch.cumsum(vals, -1)], dim=-1)
 
 
@@ -166,4 +190,46 @@ def binned_rqs(x, params, rev=False):
     y_spline, log_deriv = _rq_bin(x_safe, xk, xkp, yk, ykp, dk, dkp, rev)
     y = torch.where(inside, y_spline, tail)
     logdet = torch.where(inside, log_deriv, torch.log(scale)).sum(-1)
+    return y, (-logdet if rev else logdet)
+
+
+def nflows_knots(theta, num_bins, bound):
+    """Split and constrain nflows spline parameters theta (..., 3 bins - 1):
+    (knot_x, knot_y, derivs), each (..., bins + 1); the boundary
+    derivatives are 1 (the identity tails' slope)."""
+    uw = theta[..., :num_bins]
+    uh = theta[..., num_bins:2 * num_bins]
+    ud = theta[..., 2 * num_bins:]
+    widths = MIN_BIN_WIDTH + (1 - MIN_BIN_WIDTH * num_bins) * torch.softmax(uw, -1)
+    knot_x = 2 * bound * _csum0(widths) - bound
+    heights = MIN_BIN_HEIGHT + (1 - MIN_BIN_HEIGHT * num_bins) * torch.softmax(uh, -1)
+    knot_y = 2 * bound * _csum0(heights) - bound
+    edge = torch.full_like(ud[..., :1], float(np.log(np.exp(1 - MIN_DERIVATIVE) - 1)))
+    derivs = MIN_DERIVATIVE + _softplus(torch.cat([edge, ud, edge], dim=-1))
+    return knot_x, knot_y, derivs
+
+
+def nflows_rqs(x, theta, num_bins, bound, rev=False, event_mask=True):
+    """The nflows spline on (..., D) inputs with raw parameters theta (..., D,
+    3 bins - 1). Returns (y, logdet), logdet summed over D, negated when
+    ``rev``: the log-derivative is always the forward one, at the recovered
+    point in reverse.
+
+    ``event_mask`` gates by event, as the reference does: an event is
+    splined only if all of its D values lie in [-bound, bound]; otherwise
+    it passes through unchanged with logdet 0, and its spline parameters
+    get no gradient. Without it each value is gated on its own."""
+    knot_x, knot_y, derivs = nflows_knots(theta, num_bins, bound)
+    inside = (x >= -bound) & (x <= bound)
+    x_safe = torch.clamp(x, -bound, bound)
+    idx = _searchsorted(knot_y if rev else knot_x, x_safe)
+    xk, xkp, yk, ykp, dk, dkp = _gather_bin_params(idx, knot_x, knot_y, derivs)
+    y_spline, log_deriv = _rq_bin(x_safe, xk, xkp, yk, ykp, dk, dkp, rev)
+    if event_mask:
+        ev_inside = inside.all(-1, keepdim=True)
+        y = torch.where(ev_inside, y_spline, x)
+        logdet = torch.where(ev_inside[..., 0], log_deriv.sum(-1), torch.zeros_like(x[..., 0]))
+    else:
+        y = torch.where(inside, y_spline, x)
+        logdet = torch.where(inside, log_deriv, torch.zeros_like(log_deriv)).sum(-1)
     return y, (-logdet if rev else logdet)

@@ -39,6 +39,7 @@ _ENERGY = f"{_MODELS}.energy_transformer.ParallelTransformer"
 _CALO_CFM = f"{_MODELS}.calochallenge.CaloChallengeCFM"
 _CALO_CFM_DS1 = f"{_MODELS}.calochallenge.CaloChallengeCFM_DS1"
 _CALO_CINN = f"{_MODELS}.calochallenge.CaloChallengeCINN"
+_CALO_ENERGY_CINN = f"{_MODELS}.calochallenge.CaloChallengeEnergyCINN"
 _VIT1D = f"{_MODELS}.vit.ViT1D"
 
 TARGET_REMAP = {
@@ -49,6 +50,7 @@ TARGET_REMAP = {
     "vit4hep_tpu.models.calochallenge.CaloChallengeCFM": _CALO_CFM,
     "vit4hep_tpu.models.calochallenge.CaloChallengeCFM_DS1": _CALO_CFM_DS1,
     "vit4hep_tpu.models.calochallenge.CaloChallengeCINN": _CALO_CINN,
+    "vit4hep_tpu.models.calochallenge.CaloChallengeEnergyCINN": _CALO_ENERGY_CINN,
     "vit4hep_tpu.models.vit.ViT1D": _VIT1D,
     # the reference's paths, as the JAX package maps them
     "models.base_model.CFM": _CFM,
@@ -61,6 +63,8 @@ TARGET_REMAP = {
     "nn.vit.ViT1D": _VIT1D,
     "experiments.calochallenge.calochallenge_cinn.model.CaloChallengeCINN": _CALO_CINN,
     "experiments.calochallenge.model.CaloChallengeCINN": _CALO_CINN,
+    "experiments.calochallenge.calochallenge_cinn.model.CaloChallengeEnergyCINN": _CALO_ENERGY_CINN,
+    "experiments.calochallenge.model.CaloChallengeEnergy": _CALO_ENERGY_CINN,
 }
 
 

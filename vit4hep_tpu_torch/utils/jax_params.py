@@ -2,7 +2,8 @@
 
 Turns a Flax param tree (nested dicts of arrays; numpy or anything
 ``np.asarray`` accepts) into the ``state_dict`` of the port's ``ViTNet``,
-``ParallelTransformerNet`` or ``CaloChallengeCINN`` flow, or the evaluation's
+``ParallelTransformerNet``, cINN flow (``CaloChallengeCINN``,
+``CaloChallengeEnergyCINN``), or the evaluation's
 ``DNN`` / ``ResNet3D`` classifiers. The name map is
 ``convert_vit_state_dict`` / ``convert_energy_state_dict`` of
 ``vit4hep_tpu/utils/torch_migration.py`` run in reverse: a Dense ``kernel (in, out)`` becomes a Linear ``weight
@@ -84,17 +85,38 @@ def convert_vit_params(variables) -> dict[str, torch.Tensor]:
     return c.finish()
 
 
+def convert_mlp_params(variables) -> dict[str, torch.Tensor]:
+    """Flax ``SubnetMLP`` params (``Dense_0`` .. ``Dense_n``) -> the port's
+    ``SubnetMLP`` state dict (``layers.<i>``)."""
+    c = _Converter(variables)
+    i = 0
+    while f"Dense_{i}" in c.params:
+        c.dense(f"layers.{i}", f"Dense_{i}")
+        i += 1
+    return c.finish()
+
+
+# a block's own arrays: AllInOneBlock's ActNorm, ElementwiseRQSBlock's free spline
+_BLOCK_ARRAYS = ("global_scale", "global_offset", "spline_parameters")
+
+
 def convert_cinn_params(variables) -> dict[str, torch.Tensor]:
-    """Flax ``FlowChain`` params of a ``CaloChallengeCINN`` (coupling block
-    ``blocks_<j>`` with ViT1D subnets ``subnet1``/``subnet2``; the
-    permutations have none) -> the state dict of the port's flow
-    (``model.net``)."""
+    """Flax ``FlowChain`` params of a cINN (coupling blocks ``blocks_<j>``;
+    the permutations have none) -> the state dict of the port's flow
+    (``model.net``). A block's subnets (``subnet1``, ``subnet2``, or
+    ``subnet``) are ViT1Ds or ``SubnetMLP``s; its own arrays
+    (``global_scale``, ``global_offset``, ``spline_parameters``) keep their
+    names."""
     c = _Converter(variables)
     for block in [k for k in c.params if k.startswith("blocks_")]:
         j = block[len("blocks_"):]
-        for sub in ("subnet1", "subnet2"):
-            sd = convert_vit_params(c.node(block, sub))
-            c.sd.update({f"blocks.{j}.{sub}.{k}": v for k, v in sd.items()})
+        for name, node in c.node(block).items():
+            key = f"blocks.{j}.{name}"
+            if name in _BLOCK_ARRAYS:
+                c.sd[key] = _t(node)
+                continue
+            sd = (convert_vit_params if "x_embedder" in node else convert_mlp_params)(node)
+            c.sd.update({f"{key}.{k}": v for k, v in sd.items()})
     return c.finish()
 
 
