@@ -5,9 +5,11 @@ shipped ``_tpu`` variants, the layer-causal ViT, the ds2 training slice and
 its megakernel training tier, ds3 CFM training and serving through the
 composed block's opt-in kernels, the 13,500-token ds3 ViT (ds3_long)
 through the streaming flash attention K7, training, sampling and
-evaluation through the CaloChallenge experiment (ds2, ds1 photons), and the
+evaluation through the CaloChallenge experiment (ds2, ds1 photons), the
 rest of the cINN (its training, the energy cINN, the nflows couplings, the
-ViT1D kernel twins), at full width, through the hand-written CUDA kernels.
+ViT1D kernel twins), and the other three families (CaloGAN, LEMURS,
+CaloHadronic: serving, training, sampling and evaluation through their
+experiments), at full width, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -247,15 +249,44 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CINN_SAMPLES showers of the ds2_cinn_train run behind the energy-cINN
    run, staged and fused (K4 40 and K1 120 a batch), the fused chain held
    against the staged path on the same noise.
+15. the other families (configs written out below as dicts; the card gets
+   synthetic events in each family's raw layout through the experiments'
+   readers: ``SyntheticCaloGAN``, ``SyntheticLEMURS``,
+   ``SyntheticCaloHadronic``). Kernel groups ``calogan`` (K2v at tokens
+   (256, 84, 6)), ``calohad`` (K2v at (256, 606, 75): the embed product's K
+   and the final one's N 75, the attention's last 64-row tile 30 rows
+   full), ``calohad_tpu`` (4 heads x 120 at 606) and ``calohad_train`` (K1
+   at qkv (32, 606, 1440)); cfm_lemurs serves and trains at ds2's shapes.
+   After ds3_long_cfm, ``family_serving_phase`` on ``FAMILY_SERVING``:
+   cfm_eplus behind cfm_eplus_energy ([E | u]), cfm_lemurs behind
+   cfm_lemurs_energy (the energy model on [E, theta, phi], the shape model
+   on [u | E, theta, phi | labels]), cfm_calohad behind cfm_calohad_energy
+   ([u | E]) through ``Generator``, REQUESTS requests of BATCH each (the
+   _tpu CaloHadronic one), the conditions drawn and transformed as
+   ``sample_n`` does and the showers reversed to physical units on the host
+   (``to_showers``): K2v's launches exact (the family energy nets run
+   composed: no K3, as in JAX), the kernel generator against the composed
+   plain one on the same noise, one request profiled (device events only).
+   Last, for each family (``FAMILY_TRAIN``): ``family_train_phase`` (the
+   energy model FAMILY_ENERGY_STEPS steps, the shape model
+   FAMILY_TRAIN_STEPS at the shipped batch through ``train()``, K1's
+   launches exact, a profiled step, the collator's host seconds),
+   ``family_parity_phase`` (LEMURS and CaloHadronic: 3 steps with K1
+   against the plain attention, TRAIN_TOL) and ``family_sampling_phase``
+   (``sample_n`` of FAMILY_SAMPLES staged and fused on the same conditions
+   and noise, exact launches, SAMPLING_U_TOL / SAMPLING_TOL, then
+   ``to_showers`` and the evaluation on arrays: CaloGAN's DNN,
+   LEMURS's ``all-cls``, CaloHadronic's feature DNN, one epoch each).
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
 its main-path shape's numbers, its launches by path and their sum, and its
 numbers at the other shapes); the last line is ``{"ok": true, "device":
 {...}}``. Needs no network, no PyYAML, no h5py, no matplotlib, no sklearn and
-nothing of JAX or of the JAX package: the ds1, ds2, ds3, _tpu, nflows
-and energy-cINN configs are written out below (tests/test_torch_chain.py,
-tests/test_torch_ds1.py and tests/test_torch_cinn_configs.py hold them equal
-to the YAML files).
+nothing of JAX or of the JAX package: the ds1, ds2, ds3, _tpu, nflows,
+energy-cINN and family configs are written out below
+(tests/test_torch_chain.py, tests/test_torch_ds1.py,
+tests/test_torch_cinn_configs.py and the three family test files hold them
+equal to the YAML files).
 """
 
 from __future__ import annotations
@@ -275,8 +306,12 @@ import torch
 import torch.nn.functional as F
 
 from vit4hep_tpu_torch.data.calochallenge.transforms import build_pipeline
+from vit4hep_tpu_torch.data.lemurs.datasets import ArrayEvents
 from vit4hep_tpu_torch.experiments import train_state as ts
 from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
+from vit4hep_tpu_torch.experiments.calogan import CaloGAN
+from vit4hep_tpu_torch.experiments.calohadronic import CaloHadronic
+from vit4hep_tpu_torch.experiments.lemurs import LEMURS
 from vit4hep_tpu_torch.ops import _cuda
 from vit4hep_tpu_torch.ops import attention as attn
 from vit4hep_tpu_torch.ops import flash_attention as fla
@@ -1170,6 +1205,13 @@ SHAPE_GROUPS = {
     "nflows_ds3": "cinn_nflows_ds3: K1 forward and backward at qkv (16, 675, 1080), 4 heads x 90",
     "nflows_ds3_serve": "cinn_nflows_ds3: K1 forward at the serving shape (256, 675, 1080), 4 "
                         "heads x 90",
+    "calogan": "cfm_eplus (CaloGAN): K2v at tokens (256, 84, 6) (qkv (256, 84, 1440); the embed "
+               "product's K and the final one's N 6), 6 heads x 80",
+    "calohad": "cfm_calohad (CaloHadronic): K2v at tokens (256, 606, 75) (qkv (256, 606, 1440); "
+               "the embed product's K and the final one's N 75), 6 heads x 80",
+    "calohad_tpu": "cfm_calohad_tpu: K2v's attention and forward at (256, 606), 4 heads x 120",
+    "calohad_train": "CaloHadronic training: K1 forward and backward at qkv (32, 606, 1440), 6 "
+                     "heads x 80",
 }
 
 
@@ -3000,7 +3042,7 @@ def _deviation(run, ref, names, init):
 
 
 def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL,
-                 training=DS2_SHAPE_TRAINING):
+                 training=DS2_SHAPE_TRAINING, data_shape=None):
     """The model of ``cfg`` against the one of ``ref_cfg`` from one state:
     per parameter tensor the relative L2 of the gradients of one batch, then
     TRAIN_PARITY_STEPS train steps of each (``training``'s optimizer and
@@ -3013,8 +3055,10 @@ def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL
     probe, CINN_PROBE_REL): a third run, the reference on the draws
     perturbed by CINN_PROBE_REL relative, against the reference; each
     error may then reach CINN_PROBE_FACTOR times the probe's. The first
-    model's steps must launch ``want`` of each of ``counters``. Returns
-    (worst errors, launches)."""
+    model's steps must launch ``want`` of each of ``counters``. A batch's x
+    is drawn in ``data_shape`` where the model's loss takes another layout
+    than its ``x_shape`` (LEMURS's (B, H, W, L)). Returns (worst errors,
+    launches)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     fused = _on_card(cfg)
     _randomize(fused, gen)
@@ -3022,9 +3066,10 @@ def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL
     shape = fused.x_shape(batch)
     cfm = fused.model_type == "cfm"
     clip = math.inf if cfm else CINN_DRAW_CLIP
-    draws = [(torch.randn(shape, generator=gen, device="cuda").clamp(-clip, clip),
+    t_shape = (batch,) + (1,) * (len(shape) - 1)
+    draws = [(torch.randn(data_shape or shape, generator=gen, device="cuda").clamp(-clip, clip),
               torch.rand((batch, fused.condition_dim), generator=gen, device="cuda"),
-              *((torch.rand((batch, 1, 1, 1, 1), generator=gen, device="cuda"),
+              *((torch.rand(t_shape, generator=gen, device="cuda"),
                  torch.randn(shape, generator=gen, device="cuda")) if cfm else ()))
              for _ in range(TRAIN_PARITY_STEPS)]
     loss = lambda model, d: (model.batch_loss(d[0], d[1], t=d[2], x_0=d[3]) if cfm  # noqa: E731
@@ -3152,15 +3197,19 @@ def _experiment_samples(exp, label, card, counters=SERVING):
     return samples, cond, launches, seconds
 
 
-class SamplingCaloChallenge(SyntheticCaloChallenge):
-    """The smoke's shape experiment for sampling: the energy run's config
-    comes from its experiment in memory (the card's machine has no PyYAML
-    to read ``config.yaml``)."""
+class _EnergyRunInMemory:
+    """The energy run's config from its experiment in memory (the card's
+    machine has no PyYAML to read ``config.yaml``)."""
 
     energy_cfg = None  # the energy experiment's config
 
     def energy_run_config(self):
         return Config(self.energy_cfg.to_container(resolve=False))
+
+
+class SamplingCaloChallenge(_EnergyRunInMemory, SyntheticCaloChallenge):
+    """The smoke's shape experiment for sampling behind an energy run in
+    memory."""
 
 
 def _scaled_err(got, want):
@@ -3712,6 +3761,569 @@ def train_profile_phase(exp, card, top=12, groups=None):
         print(f"  {ms:10.3f} ms {count:6d}x  {key[:100]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the other families: CaloGAN, LEMURS, CaloHadronic
+# ---------------------------------------------------------------------------
+# configs/model/cfm_calogan/cfm_eplus.yaml
+CALOGAN_SHAPE_MODEL = {
+    "_target_": "vit4hep_tpu.models.calogan.CaloGANCFM",
+    "in_channels": 1,
+    "shape": [504],
+    "list_shape": [[1, 96, 3], [1, 12, 12], [1, 6, 12]],
+    "list_edges": [288, 144, 72],
+    "list_patch_shape": [[1, 6, 1], [1, 2, 3], [1, 2, 3]],
+    "time_distribution": "uniform",
+    "trajectory": "linear",
+    "odeint_kwargs": {"method": "rk4", "options": {"step_size": 0.05}},
+    "net": {"_target_": "vit4hep_tpu.models.vit.ViT",
+            "param": {"dim": 3, "condition_dim": 4, "hidden_dim": 480, "out_channels": 1,
+                      "depth": 6, "num_heads": 6, "mlp_ratio": 4, "attn_drop": 0.0,
+                      "proj_drop": 0.0, "pos_embedding_coords": "cylindrical",
+                      "temperature": 10000, "learn_pos_embed": True, "causal_attn": False,
+                      "checkpoint_grads": False, "num_patches": [[1, 16, 3], [1, 6, 4], [1, 3, 4]],
+                      "patch_dim": 6, "fused_block": "sample", "compute_dtype": "float32"}},
+}
+# configs/model/cfm_calohad/cfm_calohad.yaml and its _tpu variant (4 heads)
+CALOHAD_SHAPE_MODEL = dict(
+    _with_net_param(CALOGAN_SHAPE_MODEL, condition_dim=59, num_patches=[[2, 3, 5], [16, 6, 6]],
+                    patch_dim=75),
+    _target_="vit4hep_tpu.models.calohadronic.CaloHadCFM", shape=[45450],
+    list_shape=[[10, 15, 15], [48, 30, 30]], list_edges=[2250, 43200],
+    list_patch_shape=[[5, 5, 3], [3, 5, 5]])
+CALOHAD_TPU_MODEL = _with_net_param(CALOHAD_SHAPE_MODEL, num_heads=4)
+# configs/model/cfm_lemurs/cfm_lemurs.yaml: cfm_ds2_electrons' ViT on 53 conditions
+LEMURS_SHAPE_MODEL = dict(DS2_SHAPE_MODEL, _target_="vit4hep_tpu.models.lemurs.LEMURSCFM",
+                          net=dict(DS2_SHAPE_MODEL["net"], param={
+                              k: v for k, v in dict(DS2_SHAPE_MODEL["net"]["param"],
+                                                    condition_dim=53).items()
+                              if k != "attn_impl"}))
+# configs/model/cfm_{calogan,lemurs,calohad}/*_energy.yaml: the energy
+# transformer composed (no fused_block: no K3, as in JAX)
+_FAMILY_ENERGY_NET = {"dim_embedding": 64, "nhead": 4, "num_encoder_layers": 4,
+                      "num_decoder_layers": 4, "dim_feedforward": 512, "dropout": 0.0,
+                      "activation": "relu"}
+
+
+def _family_energy(n_us, dims_c, embeds):
+    param = {"dims_in": n_us, "dims_c": dims_c, **_FAMILY_ENERGY_NET, "embeds": embeds,
+             "encode_t_scale": 30, **({} if embeds else {"encode_t_dim": 64})}
+    return {"_target_": "vit4hep_tpu.models.cfm.CFM", "shape": [n_us],
+            "time_distribution": "uniform", "trajectory": "linear",
+            "odeint_kwargs": {"method": "rk4", "options": {"step_size": 0.05}},
+            "net": {"_target_": "vit4hep_tpu.models.energy_transformer.ParallelTransformer",
+                    "param": param}}
+
+
+CALOGAN_ENERGY_MODEL = _family_energy(3, 1, True)
+LEMURS_ENERGY_MODEL = _family_energy(45, 3, False)
+CALOHAD_ENERGY_MODEL = _family_energy(58, 1, False)
+
+# data.transforms of calogan.yaml / calogan_eplus_energy.yaml, lemurs.yaml /
+# lemurs_energy_*.yaml, calohadronic.yaml / calohadronic_energy.yaml
+_GAN_COMMON = {"NormalizeLayerEnergyGAN": {},
+               "ExclusiveLogitTransformGAN": {"delta": 1.0e-6, "rescale": False}}
+_GAN_COND = {"LogEnergyGAN": {}, "ScaleEnergyGAN": {"e_min": 6.907755, "e_max": 13.81551}}
+CALOGAN_SHAPE_TRANSFORMS = {**_GAN_COMMON,
+                            "GlobalStandardizeFromFileGAN": {"model_dir": None, "eps": 1.0e-10},
+                            **_GAN_COND}
+CALOGAN_ENERGY_TRANSFORMS = {**_GAN_COMMON, "GlobalStandardizeFromFileGAN": {"model_dir": None},
+                             **_GAN_COND}
+_LEMURS_LOGIT = {"LEMURSExclusiveLogitTransform": {"delta": 1.0e-6, "rescale": True}}
+LEMURS_SHAPE_TRANSFORMS = {"LEMURSNormalizeByElayer": {}, "LEMURSCutValues": {"cut": 1.0e-7},
+                           **_LEMURS_LOGIT, "LEMURSGlobalStandardizeFromFile": {"model_dir": None},
+                           "LEMURSPreprocessConds": {}}
+LEMURS_ENERGY_TRANSFORMS = {"LEMURSNormalizeByElayer": {}, **_LEMURS_LOGIT,
+                            "LEMURSStandardizeUsFromFile": {"n_us": 45, "model_dir": None},
+                            "LEMURSPreprocessConds": {}}
+_HAD_HEAD = {"SumPool3dDownScale": {}, "CaloHadNormalizeByElayer": {},
+             "CaloHadCutValues": {"cut": 1.0e-7},
+             "CaloHadExclusiveLogitTransform": {"delta": 1.0e-6, "rescale": True}}
+_HAD_TAIL = {"CaloHadPreprocessConds": {},
+             "Reshape": {"dict_shape": {"ecal": [10, 15, 15], "hcal": [48, 30, 30]}}}
+CALOHAD_SHAPE_TRANSFORMS = {**_HAD_HEAD, "CaloHadGlobalStandardizeFromFile": {"model_dir": None},
+                            **_HAD_TAIL}
+CALOHAD_ENERGY_TRANSFORMS = {**_HAD_HEAD,
+                             "CaloHadStandardizeUsFromFile": {"n_us": 58, "model_dir": None},
+                             **_HAD_TAIL}
+# the evaluation: of calogan.yaml, lemurs.yaml and calohadronic.yaml
+_CLS = {"eval_cls_n_layer": 2, "eval_cls_n_hidden": 2048, "eval_cls_dropout": 0.0,
+        "eval_cls_lr": 2e-4, "eval_cls_batch_size": 1000, "eval_cls_save_mem": True}
+CALOGAN_EVALUATION = {"eval_dataset": "CaloGAN", "eval_mode": "low-level",
+                      "eval_hdf5_file": "${data_dir}/full_cls_eplus.hdf5", **_CLS,
+                      "eval_cls_n_epochs": 100}
+LEMURS_EVALUATION = {
+    "eval_labels": ["ViT-CFM"], "eval_p_label": "", "eval_dataset": "2",
+    "eval_energy_bin": ["1e3", "1e5"], "eval_theta_bin": [0.87, 2.27], "eval_phi_bin": None,
+    "eval_mode": "all", "eval_cut": 0.015,
+    "eval_hdf5_file": "${data_dir}/lemurs/LEMURS_Par04SiW_gamma_100kEvents_1GeV1TeV_GPSflat_"
+                      "part10.h5", **_CLS, "eval_cls_n_epochs": 50, "eval_cls_resnet_layers": 18,
+    "eval_cls_resnet_lr": 2e-4, "eval_cls_resnet_n_epochs": 50}
+CALOHAD_EVALUATION = {
+    "label": "ViT", "eval_dataset": "1-photons", "eval_mode": "all", "eval_cut": 0.015,
+    "eval_hdf5_file": "${data_dir}/calohadronic/pions_ECAL+HCAL_10-90GeV_10_test.hdf5", **_CLS,
+    "eval_cls_n_epochs": 100, "eval_cls_resnet_layers": 18, "eval_cls_resnet_lr": 2e-5,
+    "eval_cls_resnet_n_epochs": 48}
+# configs/training/cfm/shape_lemurs.yaml and shape_calohadronic.yaml on default.yaml
+LEMURS_TRAINING = dict(DS2_TRAINING, iterations=2000000, batchsize=64, weight_decay=1e-5)
+CALOHAD_TRAINING = dict(DS2_TRAINING, iterations=1200000, batchsize=32, weight_decay=1e-5)
+
+LEMURS_DETECTORS = ("Par04SiW", "Par04SciPb", "ODD", "FCCeeCLD", "FCCeeALLEGRO")
+LEMURS_GRID = (9, 16, 45)  # (H, W, L) of a LEMURS event
+CALOHAD_ECAL_RAW, CALOHAD_HCAL = (30, 180, 180), (48, 30, 30)
+# each family: its experiment, models, transform chains, training, the
+# smoke's synthetic events (training, test: per detector for LEMURS) and its
+# energy run's batch (cfm/energy.yaml's 256; CaloHadronic's cut to 64, its
+# test events: a raw event is 4 MB)
+FAMILIES = {
+    "calogan": dict(exp=CaloGAN, shape=CALOGAN_SHAPE_MODEL, energy=CALOGAN_ENERGY_MODEL,
+                    shape_tf=CALOGAN_SHAPE_TRANSFORMS, energy_tf=CALOGAN_ENERGY_TRANSFORMS,
+                    training=DS2_SHAPE_TRAINING, evaluation=CALOGAN_EVALUATION,
+                    events=(1280, 512), energy_batch=256, n_us=3),
+    "lemurs": dict(exp=LEMURS, shape=LEMURS_SHAPE_MODEL, energy=LEMURS_ENERGY_MODEL,
+                   shape_tf=LEMURS_SHAPE_TRANSFORMS, energy_tf=LEMURS_ENERGY_TRANSFORMS,
+                   training=LEMURS_TRAINING, evaluation=LEMURS_EVALUATION,
+                   events=(256, 256), energy_batch=256, n_us=45),
+    "calohadronic": dict(exp=CaloHadronic, shape=CALOHAD_SHAPE_MODEL, energy=CALOHAD_ENERGY_MODEL,
+                         shape_tf=CALOHAD_SHAPE_TRANSFORMS, energy_tf=CALOHAD_ENERGY_TRANSFORMS,
+                         training=CALOHAD_TRAINING, evaluation=CALOHAD_EVALUATION,
+                         events=(96, 64), energy_batch=64, n_us=58),
+}
+FAMILY_TRAIN_STEPS = 10
+FAMILY_ENERGY_STEPS = 5
+FAMILY_SAMPLES = 512  # families_sampling's sample_n: 2 batches of 256 (n_samples 50,000-100,000)
+# the serving paths' launches per net eval: K2v only (the family energy nets
+# run composed)
+FAMILY_PER_EVAL = {k: v for k, v in CFM_PER_EVAL.items() if k != "energy_decoder"}
+
+
+def _shower_fractions(rng, n, *shape):
+    """Sparse exponential voxel weights of (n, *shape) f32, each event
+    summing to 1."""
+    w = rng.standard_exponential((n, *shape), dtype=np.float32)
+    w *= rng.random((n, *shape), dtype=np.float32) > 0.5
+    return w / w.reshape(n, -1).sum(1).reshape(n, *([1] * len(shape)))
+
+
+def family_events(family, n, seed):
+    """Synthetic raw events in the family's layout (the card's machine has
+    no dataset and no h5py): CaloGAN's three layers (n, 3, 96), (n, 12, 12),
+    (n, 12, 6) in GeV with E_inc ~ U(1, 100) GeV; LEMURS's E (10^U(3, 6)
+    MeV), theta, phi and showers (n, 9, 16, 45) in MeV; CaloHadronic's E ~
+    U(10, 90) GeV, raw ECal (n, 30, 180, 180) and HCal (n, 48, 30, 30).
+    Each event deposits 0.5-0.9 of its incident energy."""
+    rng = np.random.default_rng(seed)
+    frac = rng.uniform(0.5, 0.9, (n, 1)).astype(np.float32)
+    if family == "calogan":
+        e = rng.uniform(1, 100, (n, 1)).astype(np.float32)
+        split = rng.dirichlet((3.0, 5.0, 1.0), n).astype(np.float32) * e * frac
+        return {"energy": e, **{f"layer_{i}": _shower_fractions(rng, n, *s)
+                                * split[:, i, None, None]
+                                for i, s in enumerate(((3, 96), (12, 12), (12, 6)))}}
+    if family == "lemurs":
+        e = (10 ** rng.uniform(3, 6, (n, 1))).astype(np.float32)
+        return {"incident_energy": e,
+                "incident_theta": rng.uniform(0.87, 2.27, (n, 1)).astype(np.float32),
+                "incident_phi": rng.uniform(-np.pi, np.pi, (n, 1)).astype(np.float32),
+                "showers": _shower_fractions(rng, n, *LEMURS_GRID) * (e * frac)[:, :, None, None]}
+    e = rng.uniform(10, 90, (n, 1)).astype(np.float32)
+    split = rng.uniform(0.2, 0.6, (n, 1)).astype(np.float32) * e * frac
+    return {"energy": e,
+            "ecal": _shower_fractions(rng, n, *CALOHAD_ECAL_RAW) * split[:, :, None, None],
+            "hcal": _shower_fractions(rng, n, *CALOHAD_HCAL)
+            * (e * frac - split)[:, :, None, None]}
+
+
+class SyntheticCaloGAN(_EnergyRunInMemory, CaloGAN):
+    """CaloGAN on synthetic events in place of the training and test files."""
+
+    def load_showers(self):
+        return family_events("calogan", FAMILIES["calogan"]["events"][0], SEED)
+
+    def load_test_showers(self):
+        return family_events("calogan", FAMILIES["calogan"]["events"][1], SEED + 1)
+
+
+class _SyntheticLazyFamily(_EnergyRunInMemory):
+    """LEMURS or CaloHadronic on synthetic events held in memory
+    (``ArrayEvents``) in place of the lazy HDF5 reader: each label of a
+    split's file dict gets its own events; a split's warm-up events are its
+    first label's."""
+
+    family = None
+
+    def open_events(self, files_dict):
+        n_train, n_test = FAMILIES[self.family]["events"]
+        train = files_dict is self.hdf5_dict_train
+        events = {label: family_events(self.family, n_train if train else n_test,
+                                       SEED + (0 if train else 100) + i)
+                  for i, label in enumerate(files_dict)}
+        self._first_events = getattr(self, "_first_events", {})
+        self._first_events[train] = next(iter(events.values()))
+        return ArrayEvents(events)
+
+    def warmup_events(self, files_dict):
+        return dict(self._first_events[files_dict is self.hdf5_dict_train])
+
+
+class SyntheticLEMURS(_SyntheticLazyFamily, LEMURS):
+    family = "lemurs"
+
+
+class SyntheticCaloHadronic(_SyntheticLazyFamily, CaloHadronic):
+    family = "calohadronic"
+
+
+SYNTHETIC = {"calogan": SyntheticCaloGAN, "lemurs": SyntheticLEMURS,
+             "calohadronic": SyntheticCaloHadronic}
+
+
+def _family_data(family, model_type):
+    """The ``data:`` section of the family's shipped experiment config."""
+    energy = model_type == "energy"
+    transforms = FAMILIES[family]["energy_tf" if energy else "shape_tf"]
+    if family == "calogan":
+        return {"training_file": "${data_dir}/train_eplus.hdf5",
+                "test_file": "${data_dir}/test_eplus.hdf5", "bin_edges": [0, 288, 432, 504],
+                "return_us": energy, "transforms": transforms}
+    if family == "lemurs":
+        detectors = ("ODD",) if energy else LEMURS_DETECTORS
+        return {"xml_filename": "${data_dir}/binning_dataset_2.xml", "return_us": energy,
+                "native_cache": None, "max_files_per_worker": 10 if energy else 40,
+                "num_classes": 5, "gen_Einc": ["1e3", "1e6"], "gen_theta": [0.87, 2.27],
+                "gen_phi": None, "gen_label_vector": [0, 0, 0, 0, 1] if energy else [1, 0, 0, 0, 0],
+                "training_file_dict": {d: [f"${{data_dir}}/lemurs/{d}_train.h5"]
+                                       for d in detectors},
+                "test_file_dict": {d: [f"${{data_dir}}/lemurs/{d}_test.h5"] for d in detectors},
+                "transforms": transforms}
+    return {"return_us": energy, "native_cache": None, "max_files_per_worker": 5,
+            "training_file_dict": {"CaloHad": ["${data_dir}/calohadronic/train.hdf5"]},
+            "test_file_dict": {"CaloHad": ["${data_dir}/calohadronic/test.hdf5"]},
+            "train_val_frac": [0.99, 0.01], "transforms": transforms}
+
+
+def family_config(tmp: Path, family, model_type, steps, model=None):
+    """The family's composed experiment config (shape or energy run) with
+    the run dir under ``tmp``, ``steps`` training steps validating twice."""
+    f = FAMILIES[family]
+    energy = model_type == "energy"
+    training = dict(DS2_ENERGY_TRAINING, batchsize=f["energy_batch"]) if energy \
+        else f["training"]
+    return Config({
+        "exp_name": f"smoke_{family}_{model_type}", "exp_type": family, "run_name": "run",
+        "base_dir": str(tmp), "data_dir": str(tmp / "data"), "seed": SEED, "debug": False,
+        "warm_start_idx": None, "save": True, "use_mlflow": True, "save_source": False,
+        "ema": False, "train": True, "evaluate": False, "plot": False,
+        "plotting": {"loss": False}, "dtype": "float32", "model_type": model_type,
+        "sample_us": False, "finetuning": False, "n_samples": FAMILY_SAMPLES,
+        "model": model or f["energy" if energy else "shape"],
+        "training": dict(training, iterations=steps, validate_every_n_steps=max(1, steps // 2)),
+        "data": _family_data(family, model_type), "evaluation": dict(f["evaluation"]),
+    })
+
+
+def _family_view(family, cfg, transforms):
+    """The family's experiment object without a run: its condition draws
+    (``draw_conditions``, ``sampling_conditions``) and the inverse of its
+    transform chain (``to_showers``) over ``transforms``."""
+    exp = object.__new__(FAMILIES[family]["exp"])
+    exp.cfg, exp.transforms = cfg, transforms
+    return exp
+
+
+def _family_run_dirs(tmp: Path, family):
+    """(shape transforms, energy transforms) of the family with synthetic
+    statistics in run dirs under ``tmp``: a scalar mean/std for the global
+    standardizations, one per u for the energy runs' per-u ones."""
+    f = FAMILIES[family]
+    build = f["exp"].pipeline
+    shape_dir, energy_dir = tmp / "shape_run", tmp / "energy_run"
+    for d in (shape_dir, energy_dir):
+        d.mkdir()
+        np.save(d / "means.npy", np.float32(-9.0))
+        np.save(d / "stds.npy", np.float32(4.0))
+    rng = np.random.default_rng(SEED)
+    np.save(energy_dir / "means_u.npy", rng.normal(0.0, 0.3, f["n_us"]).astype(np.float32))
+    np.save(energy_dir / "stds_u.npy", rng.uniform(0.8, 1.5, f["n_us"]).astype(np.float32))
+    return build(f["shape_tf"], str(shape_dir)), build(f["energy_tf"], str(energy_dir))
+
+
+def _check_showers(what, data, family):
+    """The physical showers of ``to_showers``: finite, non-negative, of the
+    family's shapes."""
+    keys = {"calogan": ("layer_0", "layer_1", "layer_2"), "lemurs": ("showers",),
+            "calohadronic": ("ecal", "hcal")}[family]
+    for k in keys:
+        _finite(f"{what} {k}", data[k])
+        if (np.asarray(data[k]) < 0).any():
+            raise PhaseError(f"{what}: negative {k} voxels")
+    return sum(int(np.prod(np.shape(data[k])[1:])) for k in keys)
+
+
+def family_serving_phase(tmp: Path, family, shape_cfg, card, requests=REQUESTS, profile=True):
+    """A family's two-stage chain at full width and depth (the shape CFM
+    behind its energy CFM, through ``utils/serving.Generator`` with the
+    family's condition layout) answering ``requests`` requests of BATCH: the
+    conditions drawn and transformed as the experiment's ``sample_n`` does,
+    the showers reversed to physical units through the family's transforms
+    (``to_showers``). K2v's launches exact (FAMILY_PER_EVAL a net eval; the
+    energy net composed: no K3); the kernel generator against the composed
+    plain one on the same noise (REFERENCE_BATCH; u's 1e-3, showers 5e-2 of
+    scale, as cfm_phase); with ``profile`` one more request under
+    torch.profiler. Returns (launches, seconds a request)."""
+    (tmp / "data").mkdir()
+    shape_tf, energy_tf = _family_run_dirs(tmp, family)
+    view = _family_view(family, family_config(tmp, family, "shape", 1), shape_tf)
+    shape_model, energy_model, gen = _models(shape_cfg, FAMILIES[family]["energy"], SEED)
+    evals = shape_model.net_evals_per_sample()
+    layout = dict(u_position=view.u_position, energy_cond_width=view.energy_cond_width)
+    generator = Generator(shape_model, energy_model, energy_tf, shape_tf, BATCH, **layout)
+    print(f"  shape model {shape_model.param_count()} params ({shape_model.token_shape(1)[1:]} "
+          f"tokens x patch, {shape_model.net.cfg.num_heads} heads), energy model "
+          f"{energy_model.param_count()} params, condition {layout}", flush=True)
+
+    def request(i, batch=BATCH, gen_obj=generator, noise=None):
+        cond = view.sampling_conditions(view.draw_conditions(
+            batch, np.random.default_rng(SEED + 1 + i)))
+        shower, full = gen_obj.generate(cond, seed=SEED + i, noise=noise)
+        t_host = time.perf_counter()
+        data = view.to_showers(shower.cpu().numpy(), full.cpu().numpy())
+        return shower, full, data, time.perf_counter() - t_host
+
+    for c in SERVING.values():
+        c.reset()
+    times, host = [], []
+    for i in range(requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, data, host_s = request(i)
+        times.append(time.perf_counter() - t0)
+        host.append(host_s)
+        voxels = _check_showers(f"{family} request {i}", data, family)
+        print(f"  request {i}: {BATCH} showers of {voxels} voxels in {times[-1]:.3f} s (the "
+              f"inverse transforms on the host {host_s:.3f} s)", flush=True)
+    launches = {k: c.launches for k, c in SERVING.items()}
+    want = {k: requests * evals * FAMILY_PER_EVAL.get(k, 0) for k in SERVING}
+    if launches != want:
+        raise PhaseError(f"{family} serving: launches {launches}, expected {want}")
+    launches = {k: v for k, v in launches.items() if v}
+    print(f"  launches on the main path: {launches}", flush=True)
+
+    plain_shape = _on_card(_with_net_param(shape_cfg, fused_block=False, attn_impl="xla")).eval()
+    plain_energy = _on_card(FAMILIES[family]["energy"]).eval()
+    plain_shape.load_state_dict(shape_model.state_dict())
+    plain_energy.load_state_dict(energy_model.state_dict())
+    nb = REFERENCE_BATCH
+    noise = (torch.randn(energy_model.x_shape(nb), generator=gen, device="cuda"),
+             torch.randn(shape_model.token_shape(nb), generator=gen, device="cuda"))
+    kern = Generator(shape_model, energy_model, energy_tf, shape_tf, nb, **layout)
+    plain = Generator(plain_shape, plain_energy, energy_tf, shape_tf, nb, **layout)
+    basis_k, full_k, _, _ = request(0, nb, kern, noise)
+    before = {k: c.launches for k, c in COMPOSED.items()}
+    basis_p, full_p, _, _ = request(0, nb, plain, noise)
+    if {k: c.launches for k, c in COMPOSED.items()} != before:
+        raise PhaseError(f"{family}: the plain reference generator launched a kernel")
+    u_err = (full_k - full_p).abs().max().item()
+    s_err, s_scale = _rel_err(basis_k, basis_p)
+    print(f"  reference (batch {nb}, composed plain nets, same noise): conditions max_abs_err "
+          f"{u_err:.3e} (bound 1e-3), shower max_abs_err {s_err:.3e} (bound 5e-2 x scale "
+          f"{s_scale:.3g})", flush=True)
+    if not (u_err <= 1e-3 and s_err <= 5e-2 * s_scale):
+        raise PhaseError(f"{family}: kernel generator disagrees with the composed plain one")
+    del plain_shape, plain_energy, kern, plain
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        # device events only: the composed energy net's ~100 host ops a net
+        # eval make a CPU trace slow to reduce
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            request(requests)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = _device_rows(prof)
+        busy_ms = sum(r[0] for r in rows)
+        print(f"  torch.profiler ({card}): one request, wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.4f}; "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in _grouped(rows, CFM_GROUPS).items()),
+              flush=True)
+    steady = times[1:] or times
+    print(f"{family} serving: {BATCH * len(steady) / sum(steady):.2f} showers/s steady (first "
+          f"request excluded), {BATCH * len(times) / sum(times):.2f} over all {len(times)}; "
+          f"requests {[round(t, 4) for t in times]} s, the host inverse "
+          f"{[round(t, 4) for t in host]} s; batch {BATCH}; on {card}", flush=True)
+    del generator, shape_model, energy_model
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def family_train_phase(tmp: Path, family, card):
+    """The family's energy model FAMILY_ENERGY_STEPS steps, then its shape
+    model FAMILY_TRAIN_STEPS steps at full width and the shipped batch
+    (CaloGAN 64, LEMURS 64, CaloHadronic 32) through the experiment's
+    ``train()`` on synthetic events in the family's raw layout (the
+    transforms fitted on them, CaloHadronic's ECal sum-pooled from 30x180x180
+    on the host in each batch). K1's launches exact: 6 forwards a step and
+    a validation batch, 6 of each backward kernel a step (LEMURS's 135 and
+    CaloHadronic's 606 tokens; none for CaloGAN's 84: the plain attention
+    under ``auto``, as in JAX). One step profiled (device busy beside the
+    host clock), and the collator's host seconds for one batch. Returns
+    (K1 launches, the shape experiment, the energy experiment)."""
+    data = tmp / "data"
+    data.mkdir(exist_ok=True)
+    _binning_xml(data, "ds2")  # LEMURS's evaluation features
+    cls = SYNTHETIC[family]
+    energy_exp = cls(family_config(tmp, family, "energy", FAMILY_ENERGY_STEPS), device="cuda")
+    energy_exp()
+    _check_training(energy_exp, f"{family} energy")
+    exp = cls(family_config(tmp, family, "shape", FAMILY_TRAIN_STEPS), device="cuda")
+    for c in TRAINING.values():
+        c.reset()
+    exp()
+    launches = {k: c.launches for k, c in TRAINING.items()}
+    _check_training(exp, f"{family} shape")
+    steps = len(exp.train_loss)
+    val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
+    k1 = exp.model.token_shape(1)[1] >= 128
+    want = {k: 6 * (steps + (val_batches if k == "qkv_attn_fwd" else 0)) * k1 for k in TRAINING}
+    if steps != FAMILY_TRAIN_STEPS or launches != want:
+        raise PhaseError(f"{family} train: {steps} steps, K1 launches {launches}, expected {want}")
+    batch = int(exp.cfg.training.batchsize)
+    steady = exp.step_times[2:]
+    fed = [s + f for s, f in zip(steady, exp.fetch_times[2:])]
+    collate = ""
+    if hasattr(exp.val_dataset, "read_indices"):  # the lazy families collate each batch
+        t0 = time.perf_counter()
+        exp._val_iterator.collator(*exp.val_dataset.read_indices(np.arange(batch)))
+        collate = (f"; the collator {time.perf_counter() - t0:.3f} s for a batch of {batch} on "
+                   "the host")
+    print(f"  energy: {len(energy_exp.train_loss)} steps of batch "
+          f"{int(energy_exp.cfg.training.batchsize)}; shape: {steps} steps of batch {batch}, "
+          f"{len(exp.val_loss)} validations ({val_batches} batches), loss "
+          f"{exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}", flush=True)
+    print(f"{family} train: {steps / exp.train_seconds:.3f} steps/s over the whole train() loop, "
+          f"{len(steady) / sum(steady):.3f} steady step interior, {len(fed) / sum(fed):.3f} "
+          f"steady with each step's batch fetch{collate}; K1 launches "
+          f"{ {k: v for k, v in launches.items() if v} }; on {card}", flush=True)
+    train_profile_phase(exp, card)
+    return {k: v for k, v in launches.items() if v}, exp, energy_exp
+
+
+def family_parity_phase(family, batch):
+    """3 train steps of the family's shape model with K1 (``attn_impl:
+    auto``) against the plain attention (``xla``) from one state, TRAIN_TOL
+    (``parity_phase``), every K1 kernel on every block of every step."""
+    cfg = FAMILIES[family]["shape"]
+    data_shape = (batch, *LEMURS_GRID) if family == "lemurs" else None
+    return parity_phase(f"{family}, K1 against the plain attention", cfg,
+                        _with_net_param(cfg, attn_impl="xla"), batch, TRAINING,
+                        {k: 6 * TRAIN_PARITY_STEPS for k in TRAINING}, TRAIN_TOL,
+                        FAMILIES[family]["training"], data_shape)
+
+
+def family_sampling_phase(family, exp, energy_exp, card):
+    """``sample_n`` of FAMILY_SAMPLES showers of the trained shape run
+    (warm-started from ``model_run0.pt``) on the energy run's u's, staged
+    (``sample_us``) and through the fused chain (``fused_generation``) on
+    the same conditions and noise: K2v's launches exact on each path, the
+    path that ran the one asked for, the fused chain held against the
+    staged path (conditions SAMPLING_U_TOL, showers SAMPLING_TOL of scale);
+    then ``plot``'s inverse (``to_showers``) and its evaluation on arrays
+    against the synthetic test events (one classifier epoch; CaloGAN's DNN
+    on the 504 voxels, LEMURS's all-cls, CaloHadronic's feature DNN; no
+    plots, no HDF5). Returns {path: launches}."""
+    cfg = Config(exp.cfg.to_container(resolve=False))
+    cfg.train, cfg.sample_us, cfg.energy_model = False, True, energy_exp.cfg.run_dir
+    cfg.evaluation = dict(cfg.evaluation, eval_mode="all-cls", eval_cls_n_epochs=1,
+                          eval_cls_resnet_n_epochs=1)
+    sexp = SYNTHETIC[family](cfg, device="cuda")
+    sexp.energy_cfg = energy_exp.cfg
+    sexp()
+    sexp._energy_model_for_cfg()
+    n, bs = FAMILY_SAMPLES, int(sexp.cfg.training.batchsize_sample)
+    batches = -(-n // bs)
+    evals = sexp.model.net_evals_per_sample()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    noise = tuple([torch.randn(shape, generator=g, device="cuda") for _ in range(batches)]
+                  for shape in (sexp.energy_model.x_shape(bs), sexp.model.token_shape(bs)))
+    conditions = sexp.draw_conditions(n, np.random.default_rng(SEED + 13))
+    want = {k: batches * evals * FAMILY_PER_EVAL.get(k, 0) for k in SERVING}
+    out, launches = {}, {}
+    for fused in (False, True):
+        path = f"{family}_sampling{'_fused' if fused else ''}"
+        sexp.cfg.fused_generation = fused
+        for c in SERVING.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[fused] = sexp.sample_n(noise=noise, conditions=conditions)
+        seconds = time.perf_counter() - t0
+        got = {k: c.launches for k, c in SERVING.items()}
+        if sexp.last_sampling_fused != fused:
+            raise PhaseError(f"{path}: fused_generation {fused}, but the "
+                             f"{'fused' if sexp.last_sampling_fused else 'staged'} path ran")
+        if got != want:
+            raise PhaseError(f"{path}: launches {got}, expected {want}")
+        _finite(path, *out[fused])
+        launches[path] = {k: v for k, v in got.items() if v}
+        print(f"  {path}: {n} showers in {seconds:.3f} s = {n / seconds:.2f} showers/s (host "
+              f"clock, {batches} batches of {bs}, the host transforms included; on {card}); "
+              f"launches {launches[path]}", flush=True)
+    (staged, c_staged), (fused, c_fused) = out[False], out[True]
+    errs = {"conditions": _scaled_err(c_fused, c_staged), "showers": _scaled_err(fused, staged)}
+    print(f"  {family} fused chain vs staged path on the same noise (max error over scale): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    if errs["conditions"] > SAMPLING_U_TOL or errs["showers"] > SAMPLING_TOL:
+        raise PhaseError(f"{family} sampling parity: {errs} (bounds {SAMPLING_U_TOL}, "
+                         f"{SAMPLING_TOL})")
+
+    from vit4hep_tpu_torch.evaluation.calogan import evaluate_calogan, reference_showers
+    from vit4hep_tpu_torch.evaluation.calohadronic import evaluate_calohad
+    from vit4hep_tpu_torch.evaluation.lemurs import evaluate_lemurs
+
+    data = sexp.to_showers(staged, c_staged)
+    voxels = _check_showers(f"{family} to_showers", data, family)
+    t0 = time.perf_counter()
+    if family == "calogan":
+        ref = family_events(family, n, SEED + 7)
+        scores = {"low-level": evaluate_calogan(
+            np.concatenate([data[f"layer_{i}"] for i in range(3)], axis=1),
+            reference_showers(ref), sexp.cfg, device="cuda")[1:]}
+    elif family == "lemurs":
+        ref = family_events(family, n, SEED + 7)
+        results = evaluate_lemurs(data["showers"], data["incident_energy"],
+                                  data["incident_theta"], data["incident_phi"], ref, sexp.cfg,
+                                  device="cuda")
+        scores = {k: (r["auc"], r["jsd"]) for k, r in results.items()}
+        if set(scores) != {"cls-low", "cls-high", "cls-resnet"}:
+            raise PhaseError(f"lemurs all-cls ran {sorted(scores)}")
+    else:
+        ref = family_events(family, 64, SEED + 7)
+        scores = {"features": evaluate_calohad(data["ecal"], data["hcal"], data["energy"], ref,
+                                               sexp.cfg, device="cuda", draw=False)[1:]}
+    seconds = time.perf_counter() - t0
+    for key, (auc, jsd) in scores.items():
+        if not np.isfinite([auc, jsd]).all():
+            raise PhaseError(f"{family} evaluation {key}: AUC {auc}, JSD {jsd}")
+    print(f"  {family} plot's evaluation on arrays ({n} showers of {voxels} voxels): "
+          + ", ".join(f"{k} AUC {a:.4f} JSD {j:.4f}" for k, (a, j) in scores.items())
+          + f" in {seconds:.2f} s; on {card}", flush=True)
+    del sexp
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the family paths of main(): (path, family, shape model, requests, profiled)
+FAMILY_SERVING = (("calogan_serving", "calogan", CALOGAN_SHAPE_MODEL, REQUESTS, True),
+                  ("lemurs_serving", "lemurs", LEMURS_SHAPE_MODEL, REQUESTS, True),
+                  ("calohad_serving", "calohadronic", CALOHAD_SHAPE_MODEL, REQUESTS, True),
+                  ("calohad_tpu_serving", "calohadronic", CALOHAD_TPU_MODEL, 1, False))
+# (family, the batch of its K1 parity, 0 for none: CaloGAN's 84 tokens take
+# the plain attention)
+FAMILY_TRAIN = (("calogan", 0), ("lemurs", 64), ("calohadronic", 32))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU",
@@ -3840,6 +4452,17 @@ def main() -> int:
             groups[group], b, n, heads=heads, d=d)
         k1_fwd_phase(groups[f"{group}_serve"], BATCH, n, heads, d)
         torch.cuda.empty_cache()
+    print("cfm_eplus (CaloGAN): K2v at tokens (256, 84, 6), 6 heads x 80 (cfm_lemurs serves and "
+          "trains at ds2's shapes: the main group's K2v and K1)", flush=True)
+    k2v_kernel_phase(groups["calogan"], 84, 6)
+    print("cfm_calohad (CaloHadronic): K2v at tokens (256, 606, 75), 6 heads x 80, and "
+          "cfm_calohad_tpu's 4 heads x 120; K1 forward and backward at qkv (32, 606, 1440)",
+          flush=True)
+    k2v_kernel_phase(groups["calohad"], 606, 75)
+    k2v_kernel_phase(groups["calohad_tpu"], 606, 75, gemms=False, heads=4)
+    k1_ms["CaloHadronic training, 606 tokens, 6 heads x 80"] = k1_kernel_phase(
+        groups["calohad_train"], 32, 606)
+    torch.cuda.empty_cache()
     print("K2s and K5a-stack (fused_dit_stack) vs plain: x (256, 135, 480), depth 6, ungrouped "
           "and group 8; with the layer-causal mask of (15, 1, 9); x (64, 450, 480)", flush=True)
     stack_kernel_phase(groups["stack"], BATCH, 135, group=8)
@@ -3978,6 +4601,12 @@ def main() -> int:
         del generator
         torch.cuda.empty_cache()
 
+    for path, family, shape_cfg, requests, prof in FAMILY_SERVING:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(f"{path}: {family} two-stage generator at full width and depth", flush=True)
+            launches[path], _ = family_serving_phase(Path(tmp), family, shape_cfg, card,
+                                                     requests, prof)
+
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
         _binning_xml(Path(tmp) / "data", "ds2")
@@ -4072,6 +4701,22 @@ def main() -> int:
         launches.update(cinn_sampling_phase(shape_cfg, energy_exp, card))
         del energy_exp
         torch.cuda.empty_cache()
+
+    for family, parity_batch in FAMILY_TRAIN:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(f"{family}_train: the {family} energy and shape models at full width through "
+                  "the experiment on synthetic events", flush=True)
+            launches[f"{family}_train"], exp, energy_exp = family_train_phase(Path(tmp), family,
+                                                                             card)
+            if parity_batch:
+                print(f"{family}_parity: K1 against the plain attention from one state",
+                      flush=True)
+                _, launches[f"{family}_parity"] = family_parity_phase(family, parity_batch)
+            print(f"{family}_sampling: sample_n staged and fused, plot's inverse and evaluation",
+                  flush=True)
+            launches.update(family_sampling_phase(family, exp, energy_exp, card))
+            del exp, energy_exp
+            torch.cuda.empty_cache()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = []

@@ -220,7 +220,7 @@ def test_launcher_evaluates_as_jax_and_trains_the_fused_tier(tmp_path):
 
 def test_launcher_surface():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_experiment("calogan")
+        get_experiment("calogan_ft_cfm")
     with pytest.raises(ValueError):
         get_experiment("nope")
     if not torch.cuda.is_available():

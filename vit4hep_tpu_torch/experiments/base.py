@@ -234,6 +234,7 @@ class BaseExperiment:
         self.train_lr, self.train_loss, self.val_loss = [], [], []
         self.grad_norm_train, self.grad_norm_net, self.skipped = [], [], []
         self.step_times = []  # host seconds per step (each ends in a device sync)
+        self.fetch_times = []  # host seconds per step waiting for its batch
         self._make_steps()
         smallest_val_loss, smallest_val_loss_step, patience = 1e10, 0, 0
         tcfg = self.cfg.training
@@ -256,8 +257,10 @@ class BaseExperiment:
         for step in range(iterations):
             if profile_window and step == profile_window[0]:
                 prof = self._start_profile()
+            t_fetch = time.time()
             data = self._batch(next(self.train_iterator))
             t0 = time.time()
+            self.fetch_times.append(t0 - t_fetch)
             lr = self.state.lr()
             metrics = self._train_step(self.state, data)
             self._record(step, lr, metrics, log_every)

@@ -44,8 +44,21 @@ def _pad_batch(c, batch_size):
 class CaloChallenge(BaseExperiment):
     """Train a generative model on the CaloChallenge datasets."""
 
+    # the condition layout of the two-stage chain (experiments/fused_chain)
+    u_position = "first"
+    energy_cond_width = None
+
     def init_physics(self):
         pass
+
+    def build_transforms(self, transforms_cfg, run_dir):
+        """The transform steps of a ``data.transforms`` mapping."""
+        return build_pipeline(transforms_cfg, run_dir)
+
+    def _log_transforms(self):
+        LOGGER.info("init_data: list of preprocessing steps:")
+        for transform in self.transforms:
+            LOGGER.info(f"{transform.__class__.__name__}")
 
     def init_data(self):
         self.hdf5_train = self.cfg.data.training_file
@@ -54,10 +67,8 @@ class CaloChallenge(BaseExperiment):
         self.xml_filename = self.cfg.data.xml_filename
         self.train_val_frac = list(self.cfg.data.train_val_frac)
         LOGGER.info("init_data: preparing model training")
-        self.transforms = build_pipeline(self.cfg.data.transforms, self.cfg.run_dir)
-        LOGGER.info("init_data: list of preprocessing steps:")
-        for transform in self.transforms:
-            LOGGER.info(f"{transform.__class__.__name__}")
+        self.transforms = self.build_transforms(self.cfg.data.transforms, self.cfg.run_dir)
+        self._log_transforms()
         common = dict(particle_type=self.particle_type, xml_filename=self.xml_filename,
                       train_val_frac=self.train_val_frac, transform=self.transforms,
                       rank=self.rank, arrays=self.load_showers())
@@ -175,8 +186,22 @@ class CaloChallenge(BaseExperiment):
         for fn in self.transforms:
             if hasattr(fn, "cond_transform"):
                 dummy, transformed_cond = fn(dummy, transformed_cond)
-        batchsize_sample = int(self.cfg.training.batchsize_sample)
+        return self._sample_conditions(transformed_cond, noise, t_0)
 
+    def full_condition(self, u_samples, transformed_cond):
+        """The shape model's condition from the sampled u's (in this run's
+        basis) and the transformed condition."""
+        return np.concatenate([u_samples, transformed_cond], axis=1)
+
+    def truth_conditions(self):
+        """The shape model's conditions with the test set's own u's."""
+        return self.test_dataset().energy
+
+    def _sample_conditions(self, transformed_cond, noise, t_0):
+        """``sample_n``'s sampling for the transformed conditions: an energy
+        model's u's, or showers on the sampled u's (staged ``sample_us``, or
+        the fused chain with ``fused_generation``) or on the test set's."""
+        batchsize_sample = int(self.cfg.training.batchsize_sample)
         energy_noise, shape_noise = (None, None) if noise is None else noise
         model_noise = energy_noise if self.cfg.model_type == "energy" else shape_noise
         if self.cfg.model_type == "shape":
@@ -189,9 +214,9 @@ class CaloChallenge(BaseExperiment):
                         (LOGGER.debug if getattr(e, "cached", False) else LOGGER.warning)(
                             f"fused_generation: {e}; using the staged path")
                 u_samples = self.sample_us(transformed_cond, batchsize_sample, energy_noise)
-                transformed_cond = np.concatenate([u_samples, transformed_cond], axis=1)
-            else:  # the test set's truth u's
-                transformed_cond = self.test_dataset().energy
+                transformed_cond = self.full_condition(u_samples, transformed_cond)
+            else:
+                transformed_cond = self.truth_conditions()
 
         sample = self._sample_in_batches(self.model, transformed_cond, batchsize_sample,
                                          model_noise)
@@ -210,9 +235,9 @@ class CaloChallenge(BaseExperiment):
         if getattr(self, "_fused_gen_key", None) != key:
             self._fused_gen_key = key
             try:
-                self._fused_gen = make_fused_generate(self.model, self.energy_model,
-                                                      self.energy_model_transforms,
-                                                      self.transforms)
+                self._fused_gen = make_fused_generate(
+                    self.model, self.energy_model, self.energy_model_transforms,
+                    self.transforms, self.u_position, self.energy_cond_width)
             except UnsupportedTransform:
                 self._fused_gen = None
                 raise
@@ -269,8 +294,8 @@ class CaloChallenge(BaseExperiment):
         transform chain."""
         path = str(self.cfg.energy_model)
         energy_cfg = self.energy_run_config()
-        self.energy_model_transforms = build_pipeline(energy_cfg.data.transforms,
-                                                      str(energy_cfg.run_dir))
+        self.energy_model_transforms = self.build_transforms(energy_cfg.data.transforms,
+                                                             str(energy_cfg.run_dir))
         model_path = os.path.join(str(energy_cfg.run_dir), "models", "model_run0.pt")
         model = instantiate(energy_cfg.model)
         model.load_state_dict(load_checkpoint(model_path)["model"])

@@ -7,9 +7,9 @@
 
 The CLI is the root ``main.py``'s (``-cp``/``-cn`` and dotted overrides),
 plus ``device=cpu`` to run on the CPU (default: the CUDA device). Composing
-the YAML tree needs PyYAML and the CaloChallenge data needs h5py, so the
-launcher runs on a host that has both. Only ``exp_type: calochallenge`` is
-ported; the other experiment types raise.
+the YAML tree needs PyYAML and the data files need h5py, so the launcher
+runs on a host that has both. ``exp_type`` calochallenge, calogan, lemurs
+and calohadronic are ported; the fine-tuning types raise.
 """
 
 from __future__ import annotations
@@ -28,8 +28,21 @@ def get_experiment(exp_type: str):
         from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
 
         return CaloChallenge
+    if exp_type == "calogan":
+        from vit4hep_tpu_torch.experiments.calogan import CaloGAN
+
+        return CaloGAN
+    if exp_type == "lemurs":
+        from vit4hep_tpu_torch.experiments.lemurs import LEMURS
+
+        return LEMURS
+    if exp_type == "calohadronic":
+        from vit4hep_tpu_torch.experiments.calohadronic import CaloHadronic
+
+        return CaloHadronic
     if exp_type in _EXP_TYPES:
-        raise NotImplementedError(f"exp_type {exp_type} is not ported yet (ROADMAP.md queue 1)")
+        raise NotImplementedError(f"exp_type {exp_type} (fine-tuning) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 8)")
     raise ValueError(f"exp_type {exp_type} not implemented")
 
 

@@ -41,6 +41,9 @@ _CALO_CFM_DS1 = f"{_MODELS}.calochallenge.CaloChallengeCFM_DS1"
 _CALO_CINN = f"{_MODELS}.calochallenge.CaloChallengeCINN"
 _CALO_ENERGY_CINN = f"{_MODELS}.calochallenge.CaloChallengeEnergyCINN"
 _VIT1D = f"{_MODELS}.vit.ViT1D"
+_CALOGAN = f"{_MODELS}.calogan.CaloGANCFM"
+_LEMURS = f"{_MODELS}.lemurs.LEMURSCFM"
+_CALOHAD = f"{_MODELS}.calohadronic.CaloHadCFM"
 
 TARGET_REMAP = {
     # the shared configs' own targets
@@ -52,6 +55,9 @@ TARGET_REMAP = {
     "vit4hep_tpu.models.calochallenge.CaloChallengeCINN": _CALO_CINN,
     "vit4hep_tpu.models.calochallenge.CaloChallengeEnergyCINN": _CALO_ENERGY_CINN,
     "vit4hep_tpu.models.vit.ViT1D": _VIT1D,
+    "vit4hep_tpu.models.calogan.CaloGANCFM": _CALOGAN,
+    "vit4hep_tpu.models.lemurs.LEMURSCFM": _LEMURS,
+    "vit4hep_tpu.models.calohadronic.CaloHadCFM": _CALOHAD,
     # the reference's paths, as the JAX package maps them
     "models.base_model.CFM": _CFM,
     "nn.vit.ViT": _VIT,
@@ -65,6 +71,9 @@ TARGET_REMAP = {
     "experiments.calochallenge.model.CaloChallengeCINN": _CALO_CINN,
     "experiments.calochallenge.calochallenge_cinn.model.CaloChallengeEnergyCINN": _CALO_ENERGY_CINN,
     "experiments.calochallenge.model.CaloChallengeEnergy": _CALO_ENERGY_CINN,
+    "experiments.calogan.model.CaloGANCFM": _CALOGAN,
+    "experiments.lemurs.model.LEMURSCFM": _LEMURS,
+    "experiments.calohadronic.model.CaloHadCFM": _CALOHAD,
 }
 
 

@@ -19,17 +19,22 @@ from vit4hep_tpu_torch.experiments.fused_chain import make_fused_generate
 
 class Generator:
     """Fixed-batch two-stage generator over an energy model and a shape
-    model (a CaloChallenge CFM or cINN), with their transform pipelines (lists of the steps of
-    ``vit4hep_tpu_torch.data.calochallenge.transforms``)."""
+    model (a CFM or cINN of any family), with their transform pipelines.
+    ``u_position`` and ``energy_cond_width`` give the family's condition
+    layout (``experiments/fused_chain.make_fused_generate``); the condition
+    a call takes is the shape model's less the u's. :meth:`condition` and
+    :meth:`sample_showers` run CaloChallenge's array steps
+    (``vit4hep_tpu_torch.data.calochallenge.transforms``); the other
+    families' experiments reverse their dict steps themselves."""
 
     def __init__(self, shape_model, energy_model, energy_transforms, shape_transforms,
-                 batch: int):
+                 batch: int, u_position="first", energy_cond_width=None):
         self.shape_model = shape_model
         self.energy_model = energy_model
         self.shape_transforms = list(shape_transforms)
         self.batch = int(batch)
         self._generate = make_fused_generate(shape_model, energy_model, energy_transforms,
-                                             shape_transforms)
+                                             shape_transforms, u_position, energy_cond_width)
         self.cond_dim = int(shape_model.condition_dim) - int(energy_model.shape[0])
 
     @property
@@ -48,7 +53,7 @@ class Generator:
         return self._generate(cond, generator=self._generator(seed), noise=noise)
 
     def __call__(self, cond, seed: int = 0, noise=None):
-        """Showers in the shape model's training basis, (batch, C, L, A, R)."""
+        """Showers in the shape model's training basis, (batch, *x_shape)."""
         return self.generate(cond, seed, noise)[0]
 
     def condition(self, e_inc_mev) -> np.ndarray:
