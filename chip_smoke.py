@@ -9,7 +9,8 @@ evaluation through the CaloChallenge experiment (ds2, ds1 photons), the
 rest of the cINN (its training, the energy cINN, the nflows couplings, the
 ViT1D kernel twins), and the other three families (CaloGAN, LEMURS,
 CaloHadronic: serving, training, sampling and evaluation through their
-experiments), at full width, through the hand-written CUDA kernels.
+experiments) and cross-dataset fine-tuning (ds2 -> ds3, LEMURS ->
+CaloHadronic), at full width, through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -213,7 +214,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    256; no kernel on its path), which fits ``means_u.npy``/``stds_u.npy``.
 12. experiment sampling (``experiment_sampling_phase``): on the run dirs
    of ds2_train and energy, ``CaloChallenge.sample_n`` of SAMPLING_SHOWERS
-   showers (10 batches of 256, the last padded and cut), staged
+   showers (5 batches of 256), staged
    (``sample_us``) and through the fused chain (``fused_generation``), each
    with its exact K3 and K2v launches (paths ``experiment_sampling`` and
    ``experiment_sampling_fused``), the path that ran, and showers/s; the
@@ -277,20 +278,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and noise, exact launches, SAMPLING_U_TOL / SAMPLING_TOL, then
    ``to_showers`` and the evaluation on arrays: CaloGAN's DNN,
    LEMURS's ``all-cls``, CaloHadronic's feature DNN, one epoch each).
+16. cross-dataset fine-tuning (``models/finetuning.py``,
+   ``experiments/*_finetuning.py``; the backbones' configs handed in from
+   memory through ``backbone_run_config``). Kernel group ``ft_ds3``: K2v at
+   tokens (256, 450, 48), the embed product's K 48 after the 90 -> 48
+   x_mapper and the final one's N 90. ``ft_ds3_phase``:
+   calochallenge_ds2tods3_ft from a ds2 backbone (cfm_ds2_electrons, random
+   weights, written through ``save_checkpoint`` and again in the
+   reference's layout, which the experiment reads), FT_TRAIN_STEPS steps at
+   batch 64 on synthetic ds3 showers with the three-group optimizer (K1's
+   launches exact), a profiled step, 3 steps with K1 against the plain
+   attention with each group's first step moved by its own lr
+   (``ft_parity_phase``, FT_TRAIN_TOL), the net's kernel twin (x_mapper in
+   front of K2v) against the composed f32 net (``ft_net_hold``), a warm
+   start restoring the three groups exactly, then ``sample_n`` of
+   FT_SAMPLES behind a ds3 energy CFM staged and fused with K3's and K2v's
+   launches exact. ``ft_calohad_phase``: calohadronic_ft from a LEMURS
+   backbone (the embedders, positional frequencies and FinalLayer
+   reinitialised; 606 tokens x 75 on [u | E | theta, phi, labels]),
+   CALOHAD_FT_STEPS steps at batch 32 (K1 exact), then one request of BATCH
+   through ``Generator`` behind a CaloHadronic energy CFM (K2v exact, the
+   fixed conditions checked, the showers reversed to GeV), profiled.
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
 its main-path shape's numbers, its launches by path and their sum, and its
 numbers at the other shapes); the last line is ``{"ok": true, "device":
 {...}}``. Needs no network, no PyYAML, no h5py, no matplotlib, no sklearn and
 nothing of JAX or of the JAX package: the ds1, ds2, ds3, _tpu, nflows,
-energy-cINN and family configs are written out below
+energy-cINN, family and fine-tuning configs are written out below
 (tests/test_torch_chain.py, tests/test_torch_ds1.py,
-tests/test_torch_cinn_configs.py and the three family test files hold them
-equal to the YAML files).
+tests/test_torch_cinn_configs.py, the three family test files and
+tests/test_torch_finetuning.py hold them equal to the YAML files).
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import functools
 import json
 import math
@@ -309,9 +333,13 @@ from vit4hep_tpu_torch.data.calochallenge.transforms import build_pipeline
 from vit4hep_tpu_torch.data.lemurs.datasets import ArrayEvents
 from vit4hep_tpu_torch.experiments import train_state as ts
 from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
+from vit4hep_tpu_torch.experiments.calochallenge_finetuning import CaloChallengeFTCFM
 from vit4hep_tpu_torch.experiments.calogan import CaloGAN
 from vit4hep_tpu_torch.experiments.calohadronic import CaloHadronic
+from vit4hep_tpu_torch.experiments.calohadronic_finetuning import CaloHadronicFT
 from vit4hep_tpu_torch.experiments.lemurs import LEMURS
+from vit4hep_tpu_torch.models import finetuning as ft
+from vit4hep_tpu_torch.models.vit import sampling_variant
 from vit4hep_tpu_torch.ops import _cuda
 from vit4hep_tpu_torch.ops import attention as attn
 from vit4hep_tpu_torch.ops import flash_attention as fla
@@ -322,28 +350,33 @@ from vit4hep_tpu_torch.ops import fused_mlp as fmlp
 from vit4hep_tpu_torch.ops import fused_qkv_attention as fqa
 from vit4hep_tpu_torch.ops import fused_spline as fsp
 from vit4hep_tpu_torch.ops import vmem_attention as fva
-from vit4hep_tpu_torch.ops.pos_embed import layer_causal_mask
+from vit4hep_tpu_torch.ops.pos_embed import create_meshgrid, layer_causal_mask
 from vit4hep_tpu_torch.tools import megakernel_residue
 from vit4hep_tpu_torch.tools.timing import BF16_FLOPS, F32_FLOPS, card_name, time_ms, work_bound
+from vit4hep_tpu_torch.utils.checkpoint import save_checkpoint
 from vit4hep_tpu_torch.utils.config import Config, instantiate
 from vit4hep_tpu_torch.utils.serving import Generator
+from vit4hep_tpu_torch.utils.torch_migration import load_net_state_dict
 
 SEED = 0
 BATCH = 256
 DS1_TRAIN_STEPS = 10  # ds1_train: shape.yaml's batch 64, iterations 800,000
 DS1_SAMPLES = 1024  # ds1_train's sample_n: 1,024 of the 121,000 the spectrum gives
-REQUESTS = 3
+# the smoke's time (inside 1200 s, aiming at 1000; PERF.md §2) cuts these
+# depths: REQUESTS 3 -> 2, DS3_REQUESTS 2 -> 1, CINN_TRAIN_STEPS 20 -> 10 and
+# SAMPLING_SHOWERS 2500 -> 1280 when the fine-tuning phases came in
+REQUESTS = 2
 REFERENCE_BATCH = 8
 TRAIN_STEPS = 30
 VALIDATE_EVERY = 10
 WARM_START_STEPS = 5
 TRAIN_PARITY_STEPS = 3
 ENERGY_STEPS = 10
-CINN_TRAIN_STEPS = 20  # ds2_cinn_train: cinn/ds23.yaml's batch 64, iterations 100,000
+CINN_TRAIN_STEPS = 10  # ds2_cinn_train: cinn/ds23.yaml's batch 64, iterations 100,000
 CINN_SAMPLES = 512  # cinn_sampling's sample_n: 2 batches of 256 (n_samples 100,000)
 N_EVENTS = 2560  # synthetic showers: 39 training batches of 64, 25 validation events
 N_EVENTS_DS3 = 1280  # ds3 (40500 voxels): 19 training batches of 64 (cycled), 13 validation
-DS3_REQUESTS = 2  # requests of the composed ds3 serving paths (fused_block: false)
+DS3_REQUESTS = 1  # requests of the composed ds3 serving paths (fused_block: false)
 # ds3_long, the 13,500-token ViT: its cuts of batch (for the card's memory and
 # the smoke's time; nothing else of the config is cut), its steps, and the
 # parity batch (the xla reference holds (B, 6, N, N) f32 scores: 4.4 GB a
@@ -704,7 +737,7 @@ DS2_ENERGY_EVALUATION = {
     "eval_cls_batch_size": 1000, "eval_cls_n_epochs": 100, "eval_cls_save_mem": True,
 }
 # experiment_sampling_phase's cuts of the shipped settings (its docstring)
-SAMPLING_SHOWERS = 2500  # n_samples 100,000: 9 full batches of 256 and one of 196
+SAMPLING_SHOWERS = 1280  # n_samples 100,000: 5 full batches of 256
 EVAL_EPOCHS = 2  # eval_cls_n_epochs / eval_cls_resnet_n_epochs 50 (100 for the u's)
 # sampling_parity (its docstring): one full batch of 256 and one of 44
 # padded to 256
@@ -1212,6 +1245,9 @@ SHAPE_GROUPS = {
     "calohad_tpu": "cfm_calohad_tpu: K2v's attention and forward at (256, 606), 4 heads x 120",
     "calohad_train": "CaloHadronic training: K1 forward and backward at qkv (32, 606, 1440), 6 "
                      "heads x 80",
+    "ft_ds3": "calochallenge_ds2tods3_ft: K2v at tokens (256, 450, 48) after the 90 -> 48 "
+              "x_mapper (qkv (256, 450, 1440); the embed product's K 48, the final one's N 90), "
+              "6 heads x 80",
 }
 
 
@@ -4324,6 +4360,428 @@ FAMILY_SERVING = (("calogan_serving", "calogan", CALOGAN_SHAPE_MODEL, REQUESTS, 
 FAMILY_TRAIN = (("calogan", 0), ("lemurs", 64), ("calohadronic", 32))
 
 
+# ---------------------------------------------------------------------------
+# cross-dataset fine-tuning: calochallenge_ds2tods3_ft, calohadronic_ft
+# ---------------------------------------------------------------------------
+# the finetuning: blocks of configs/calochallenge/finetuning/calochallenge_ds2tods3_ft.yaml
+# and configs/calohadronic/calohadronic_ft.yaml (the backbone's config is handed
+# in from memory: backbone_run_config)
+DS2TODS3_FINETUNING = {
+    "backbone_cfg": "./runs/CaloChallenge/calochallenge_ds2/config_0.yaml", "backbone_lr": 1e-4,
+    "head_lr": 5e-4, "embedder_lr": 5e-4, "map_x_embedding": True, "map_c_embedding": False,
+    "reinitialize_x_embedding": True, "reinitialize_c_embedding": False,
+    "reinitialize_pos_embedding": True, "reinitialize_final_layer": True, "interpolate": True}
+CALOHAD_FINETUNING = dict(
+    DS2TODS3_FINETUNING, backbone_cfg="./runs/lemurs_all/lemurs_00000/config_1.yaml",
+    map_x_embedding=False, reinitialize_c_embedding=True, interpolate=False)
+LEMURS_CONDITIONS = {"gen_theta": 0.5, "gen_phi": 0.5, "gen_label": [0.2, 0.2, 0.2, 0.2, 0.2]}
+# data.transforms of calochallenge_ds2tods3_ft.yaml: calochallenge_ds3.yaml's,
+# the standardization fitted with the zeros
+DS2TODS3_TRANSFORMS = dict(DS3_SHAPE_TRANSFORMS, GlobalStandardizeFromFile={
+    "model_dir": None, "exclude_zeros": False})
+# configs/model/cfm_calohad/cfm_calohad_ft.yaml: cfm_calohad on 66 conditions
+# [58 u's | E | theta, phi, 5 labels]; the data.transforms of calohadronic_ft.yaml
+CALOHAD_FT_MODEL = _with_net_param(CALOHAD_SHAPE_MODEL, condition_dim=66)
+CALOHAD_FT_TRANSFORMS = {**CALOHAD_SHAPE_TRANSFORMS, "AddLEMURSConditions": {
+    "theta": "${gen_theta}", "phi": "${gen_phi}", "label": "${gen_label}"}}
+# the fine-tune parity: TRAIN_TOL's reasoning, its parameter bound (half of one
+# step's lr) taken per group at the group's own lr (5e-4 for the head and the
+# embedders: a key bias's noise moves 5x as far there)
+FT_PARAM_TOL = TRAIN_TOL["param_abs"] / DS2_SHAPE_TRAINING["lr"]
+FT_TRAIN_TOL = {"loss": TRAIN_TOL["loss"], "param_abs_over_lr": FT_PARAM_TOL,
+                "update_rel": TRAIN_TOL["update_rel"]}
+FT_TRAIN_STEPS = 10  # ds2tods3_ft: cfm/shape.yaml's batch 64 (iterations 800,000)
+FT_SAMPLES = 512  # ds2tods3_ft's sample_n: 2 batches of 256 (n_samples 100,000)
+CALOHAD_FT_STEPS = 5  # calohadronic_ft: shape_calohadronic.yaml's batch 32 (1,200,000)
+
+
+class _BackboneInMemory:
+    """The backbone run's config from memory (the card's machine has no
+    PyYAML to read its ``config_<idx>.yaml``)."""
+
+    backbone_cfg_mem = None
+
+    def backbone_run_config(self):
+        return Config(self.backbone_cfg_mem.to_container(resolve=False))
+
+
+class SyntheticFTDS3(_BackboneInMemory, _EnergyRunInMemory, CaloChallengeFTCFM,
+                     SyntheticCaloChallengeDS3):
+    """calochallenge_ds2tods3_ft on synthetic ds3 showers."""
+
+
+class SyntheticCaloHadronicFT(_BackboneInMemory, _SyntheticLazyFamily, CaloHadronicFT):
+    """calohadronic_ft on synthetic CaloHadronic events."""
+
+    family = "calohadronic"
+
+
+def backbone_run(tmp: Path, name, model_cfg, seed):
+    """A backbone run at full width with random weights from ``seed``: its
+    config (run dir, run 0, the model) and ``models/model_run0.pt`` written
+    through ``save_checkpoint``, and the same weights in the reference's
+    layout (``module.net.`` prefixes, the positional grids as buffers) in a
+    second run dir. Returns (the port run's config, the reference run's,
+    the net's weights on the host)."""
+    run, ref = tmp / f"{name}_run", tmp / f"{name}_reference"
+    model = _on_card(model_cfg)
+    _randomize(model, torch.Generator(device="cuda").manual_seed(seed))
+    cfg = Config({"exp_name": name, "exp_type": "calochallenge", "run_name": "run",
+                  "run_dir": str(run), "run_idx": 0, "ema": False, "model": model_cfg})
+    save_checkpoint(run / "models" / "model_run0.pt",
+                    ts.create_train_state(model, Config(DS2_SHAPE_TRAINING), False))
+    weights = {k: v.detach().cpu().clone() for k, v in model.net.state_dict().items()}
+    sd = {f"module.net.{k}": v for k, v in weights.items()}
+    grids = create_meshgrid(tuple(tuple(g) for g in model_cfg["net"]["param"]["num_patches"]))
+    sd.update({f"module.net.{k}": torch.from_numpy(g)
+               for k, g in zip(("pos_z", "pos_y", "pos_x"), grids)})
+    (ref / "models").mkdir(parents=True)
+    torch.save({"model": sd, "optimizer": {}, "scheduler": {}, "ema": None},
+               ref / "models" / "model_run0.pt")
+    ref_cfg = Config(cfg.to_container(resolve=False))
+    ref_cfg.run_dir = str(ref)
+    for label, c, migrated in (("port", cfg, False), ("reference", ref_cfg, True)):
+        got, was = load_net_state_dict(c.model, Path(c.run_dir) / "models" / "model_run0.pt")
+        if was != migrated or got.keys() != weights.keys() or \
+                not all(torch.equal(got[k].cpu(), v) for k, v in weights.items()):
+            raise PhaseError(f"{name}: the {label} checkpoint does not read back bit for bit")
+    del model
+    return cfg, ref_cfg, weights
+
+
+def energy_run(tmp: Path, geometry, model_cfg, transforms):
+    """An energy run dir of the geometry: its config, ``model_run0.pt`` with
+    random weights (through ``save_checkpoint``) and u statistics; the
+    config is handed to the shape experiment in memory."""
+    cfg = _experiment_config(tmp, model_cfg, transforms, DS2_ENERGY_TRAINING, "energy",
+                             [0.9999, 0.0001], geometry)
+    run = tmp / f"energy_{geometry}"
+    cfg.run_dir, cfg.run_idx = str(run), 0
+    model = _on_card(model_cfg)
+    _randomize(model, torch.Generator(device="cuda").manual_seed(SEED + 23))
+    save_checkpoint(run / "models" / "model_run0.pt",
+                    ts.create_train_state(model, Config(DS2_ENERGY_TRAINING), False))
+    rng = np.random.default_rng(SEED)
+    n_layers = len(GEOMETRY[geometry])
+    np.save(run / "means_u.npy", rng.normal(0.0, 0.3, n_layers).astype(np.float32))
+    np.save(run / "stds_u.npy", rng.uniform(0.8, 1.5, n_layers).astype(np.float32))
+    return cfg
+
+
+def _groups_moved(state, before, wd):
+    """Each group's largest parameter change in the first step over its own
+    lr: Adam's first update is lr x g / (|g| + eps) (+ lr x wd x p), so the
+    largest entry of a group with gradients well above eps moves by its lr
+    up to the decay term. Raises unless every group's ratio lies in [0.99,
+    1 + wd x max |p| + 0.01]."""
+    ratios = []
+    for group, lr in zip(state.optimizer.param_groups, state.schedule.base_lrs):
+        moved = max((p.detach() - before[id(p)]).abs().max().item() for p in group["params"])
+        top = max(before[id(p)].abs().max().item() for p in group["params"])
+        ratios.append(moved / lr)
+        if not 0.99 <= ratios[-1] <= 1 + wd * top + 0.01:
+            raise PhaseError(f"fine-tuning: a group of lr {lr:g} moved {moved:.3e} in its first "
+                             f"step ({ratios[-1]:.3f} x its lr)")
+    return ratios
+
+
+def ft_parity_phase(exp):
+    """TRAIN_PARITY_STEPS steps of the fine-tune model with K1 (attn_impl
+    auto) against the f32 plain attention (xla), from the trained run's
+    state, each with the three-group optimizer of the run's config, on the
+    same batches and (t, x_0): FT_TRAIN_TOL; K1's four kernels on every
+    block of every step; each group's first step moved by its own lr.
+    Returns (worst errors, K1 launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    init = {k: v.detach().clone() for k, v in exp.model.state_dict().items()}
+    tcfg = exp.cfg.training
+    models, states, steps = {}, {}, {}
+    for impl in ("auto", "xla"):
+        model = copy.deepcopy(exp.model)
+        for block in model.net.blocks:
+            block.attn.attn_impl = impl
+        models[impl] = model
+        states[impl] = ts.create_train_state(model, tcfg, False, ft.ft_param_groups(
+            model.net, tcfg, exp.cfg.finetuning))
+        steps[impl] = ts.make_train_step(
+            lambda x, c, t, x_0, model=model: model.batch_loss(x, c, t=t, x_0=x_0),
+            clip_grad_norm=float(tcfg.clip_grad_norm))
+    layers, energy = exp.train_dataset.layers, exp.train_dataset.energy
+    worst, ratios = {"loss": 0.0}, None
+    for c in TRAINING.values():
+        c.reset()
+    for i in range(TRAIN_PARITY_STEPS):
+        sl = slice(64 * i, 64 * (i + 1))
+        x = torch.as_tensor(layers[sl], device="cuda")
+        c = torch.as_tensor(energy[sl], device="cuda")
+        t = torch.rand((64, 1, 1, 1, 1), generator=gen, device="cuda")
+        x_0 = torch.randn(x.shape, generator=gen, device="cuda")
+        before = {id(p): p.detach().clone() for p in states["auto"].params} if i == 0 else None
+        m = {impl: steps[impl](states[impl], (x, c, t, x_0)) for impl in steps}
+        if before is not None:
+            ratios = _groups_moved(states["auto"], before, float(tcfg.weight_decay))
+        rel = abs(float(m["auto"]["loss"]) - float(m["xla"]["loss"])) / abs(float(m["xla"]["loss"]))
+        worst["loss"] = max(worst["loss"], rel)
+    launches = {k: c.launches for k, c in TRAINING.items()}
+    if launches != {k: 6 * TRAIN_PARITY_STEPS for k in TRAINING}:
+        raise PhaseError(f"fine-tune parity: K1 launches {launches}, expected 6 blocks x "
+                         f"{TRAIN_PARITY_STEPS} steps of each kernel")
+    pk, pp = (dict(models[i].named_parameters()) for i in ("auto", "xla"))
+    lr_of = {id(p): lr for g, lr in zip(states["xla"].optimizer.param_groups,
+                                        states["xla"].schedule.base_lrs) for p in g["params"]}
+    worst["param_abs_over_lr"] = max((pk[n] - pp[n]).abs().max().item() / lr_of[id(pp[n])]
+                                     for n in pp)
+    du = torch.cat([(pk[n] - init[n]).flatten() for n in pp])
+    dp = torch.cat([(pp[n] - init[n]).flatten() for n in pp])
+    worst["update_rel"] = ((du - dp).norm() / dp.norm()).item()
+    ok = all(worst[k] <= FT_TRAIN_TOL[k] for k in FT_TRAIN_TOL)
+    print(f"  {TRAIN_PARITY_STEPS} steps, three groups (lr {states['auto'].schedule.base_lrs}), "
+          f"K1 vs the plain attention: loss rel {worst['loss']:.3e}, param max abs over its "
+          f"group's lr {worst['param_abs_over_lr']:.3e}, update rel {worst['update_rel']:.3e} "
+          f"(bounds {FT_TRAIN_TOL}) {'ok' if ok else 'FAILED'}; first step's largest change over "
+          f"each group's lr "
+          f"(backbone, head, embedder): {[round(r, 4) for r in ratios]}", flush=True)
+    if not ok:
+        raise PhaseError("fine-tune parity: K1 training disagrees with the plain attention")
+    del models, states
+    return worst, launches
+
+
+def ft_net_hold(exp, n=8):
+    """The fine-tune net's kernel twin (x_mapper 90 -> 48 in front of K2v,
+    K2v's embedding product K 48, its final product N 90) against the
+    composed f32 net (attn_impl xla) on the same tokens: K2v's whole-forward
+    bound (TOL["fused_vit_forward"]), untimed and off the main path."""
+    net = exp.model.net
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    tokens = torch.randn(n, 450, net.cfg.in_patch_dim, generator=gen, device="cuda")
+    t = torch.rand(n, 1, generator=gen, device="cuda")
+    c = torch.rand(n, net.cfg.condition_dim, generator=gen, device="cuda")
+    plain = copy.deepcopy(net)
+    plain.cfg = dataclasses.replace(net.cfg, fused_block=False)
+    for block in plain.blocks:
+        block.attn.attn_impl = "xla"
+    with torch.no_grad():
+        twin = sampling_variant(net)
+        _hold("fused_vit_forward", f"the fine-tune net (x_mapper {net.cfg.in_patch_dim} -> "
+              f"{net.cfg.patch_dim}, final {net.cfg.out_patch_dim}) at tokens ({n}, 450, "
+              f"{net.cfg.in_patch_dim})", twin(tokens, t, c), plain(tokens, t, c))
+    del plain, twin
+
+
+def ft_ds3_phase(tmp: Path, card):
+    """calochallenge_ds2tods3_ft through the experiment at full width: a ds2
+    backbone (cfm_ds2_electrons, random weights) read from its reference-
+    layout copy, the fine-tune net (x_mapper 90 -> 48, the backbone's
+    embedder reinitialised as the config says, the FinalLayer back to 90)
+    trained FT_TRAIN_STEPS steps at batch 64 on synthetic ds3 showers (K1's
+    launches exact), held against the plain attention (``ft_parity_phase``)
+    and its net's kernel twin against the composed net (``ft_net_hold``);
+    then a warm start restores the three groups and ``sample_n`` draws
+    FT_SAMPLES showers behind a ds3 energy CFM (random weights), staged and
+    fused, K3's and K2v's launches exact and the path that ran the one asked
+    for. Returns {path: launches}."""
+    data = tmp / "data"
+    data.mkdir(exist_ok=True)
+    _binning_xml(data, "ds3")
+    bb_cfg, ref_cfg, bb_weights = backbone_run(tmp, "ds2_backbone", DS2_SHAPE_MODEL, SEED + 21)
+    energy_cfg = energy_run(tmp, "ds3", DS3_ENERGY_MODEL, DS3_ENERGY_TRANSFORMS)
+    training = dict(DS2_SHAPE_TRAINING, iterations=FT_TRAIN_STEPS,
+                    validate_every_n_steps=FT_TRAIN_STEPS // 2)
+    cfg = _experiment_config(tmp, DS3_SHAPE_MODEL, DS2TODS3_TRANSFORMS, training, "shape",
+                             [0.99, 0.01], "ds3")
+    cfg.exp_type, cfg.exp_name = "calochallenge_ft_cfm", "smoke_ds2tods3_ft"
+    cfg.finetuning = dict(DS2TODS3_FINETUNING)
+    cfg.sample_us, cfg.n_samples, cfg.energy_model = True, FT_SAMPLES, energy_cfg.run_dir
+    cfg.evaluation = {"eval_dataset": "3"}
+    exp = SyntheticFTDS3(cfg, device="cuda")
+    exp.backbone_cfg_mem, exp.energy_cfg = ref_cfg, energy_cfg
+    for c in TRAINING.values():
+        c.reset()
+    exp()
+    launches = {"ds2tods3_ft_train": {k: c.launches for k, c in TRAINING.items()}}
+    _check_training(exp, "ds2tods3_ft")
+    net = exp.model.net
+    shapes = (net.cfg.in_patch_dim, net.cfg.patch_dim, net.cfg.out_patch_dim)
+    if shapes != (90, 48, 90) or exp.state.schedule.base_lrs != [1e-4, 5e-4, 5e-4]:
+        raise PhaseError(f"ds2tods3_ft: net (in, patch, out) {shapes}, group lrs "
+                         f"{exp.state.schedule.base_lrs}")
+    if net.x_mapper.weight.device.type != "cuda":
+        raise PhaseError("ds2tods3_ft: the net is not on the card")
+    steps = len(exp.train_loss)
+    val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
+    want = {"qkv_attn_fwd": 6 * (steps + val_batches), "qkv_attn_bwd_delta": 6 * steps,
+            "qkv_attn_bwd_dkv": 6 * steps, "qkv_attn_bwd_dq": 6 * steps}
+    if steps != FT_TRAIN_STEPS or launches["ds2tods3_ft_train"] != want:
+        raise PhaseError(f"ds2tods3_ft: {steps} steps, K1 launches "
+                         f"{launches['ds2tods3_ft_train']}, expected {want}")
+    steady = exp.step_times[2:]
+    print(f"  backbone {sum(v.numel() for v in bb_weights.values())} params (read from its "
+          f"reference-layout copy); fine-tune net {exp.model.param_count()} params, x_mapper "
+          f"{shapes[0]} -> {shapes[1]}, out {shapes[2]}; {steps} steps, {len(exp.val_loss)} "
+          f"validations: loss {exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}; K1 launches "
+          f"{launches['ds2tods3_ft_train']}", flush=True)
+    print(f"ds2tods3_ft train: {steps / exp.train_seconds:.3f} steps/s over the whole train() "
+          f"loop, {len(steady) / sum(steady):.3f} steady step interior (steps 3-{steps}); batch "
+          f"{int(cfg.training.batchsize)}; on {card}", flush=True)
+    train_profile_phase(exp, card)
+    _, launches["ds2tods3_ft_parity"] = ft_parity_phase(exp)
+    ft_net_hold(exp)
+    torch.cuda.empty_cache()
+
+    # a warm start of the fine-tune run: the three groups restored exactly
+    run = Path(exp.cfg.run_dir)
+    saved = torch.load(run / "models" / "model_run0.pt", map_location="cpu", weights_only=True)
+    cfg1 = Config(exp.cfg.to_container(resolve=False))
+    cfg1.train = False
+    del exp
+    sexp = SyntheticFTDS3(cfg1, device="cuda")
+    sexp.backbone_cfg_mem, sexp.energy_cfg = ref_cfg, energy_cfg
+    sexp()
+    state = sexp.state
+    same = (state.step == saved["step"] == FT_TRAIN_STEPS
+            and state.schedule.base_lrs == saved["schedule"]["base_lrs"] == [1e-4, 5e-4, 5e-4]
+            and all(torch.equal(v.cpu(), saved["model"][k])
+                    for k, v in sexp.model.state_dict().items())
+            and all(torch.equal(m[key].cpu(), s[key])
+                    for m, s in zip(state.optimizer.state_dict()["state"].values(),
+                                    saved["optimizer"]["state"].values())
+                    for key in ("exp_avg", "exp_avg_sq")))
+    if not same:
+        raise PhaseError("ds2tods3_ft warm start: the restored state differs from model_run0.pt")
+    print("  warm start: the three groups' moments, lrs and schedule restored exactly", flush=True)
+
+    n, bs = FT_SAMPLES, int(sexp.cfg.training.batchsize_sample)
+    batches = -(-n // bs)
+    evals = sexp.model.net_evals_per_sample()
+    want = {k: batches * evals * per for k, per in CFM_PER_EVAL.items()}
+    rates = {}
+    for path, fused in (("ds2tods3_ft_sampling", False), ("ds2tods3_ft_sampling_fused", True)):
+        sexp.cfg.fused_generation = fused
+        samples, cond, got, seconds = _experiment_samples(sexp, path, card)
+        if samples.shape != (n, 1, 45, 50, 18) or cond.shape != (n, 46):
+            raise PhaseError(f"{path}: samples {samples.shape}, conditions {cond.shape}")
+        _finite(path, samples, cond)
+        if sexp.last_sampling_fused != fused:
+            raise PhaseError(f"{path}: fused_generation {fused}, but the "
+                             f"{'fused' if sexp.last_sampling_fused else 'staged'} path ran")
+        if got != want:
+            raise PhaseError(f"{path}: launches {got}, expected {want} ({batches} batches x "
+                             f"{evals} evals x CFM_PER_EVAL)")
+        launches[path], rates[path] = got, n / seconds
+        print(f"  launches on the main path: {got}", flush=True)
+    mev, _ = sexp.to_mev(samples, cond)
+    _finite("ds2tods3_ft to_mev", mev)
+    print(f"ds2tods3_ft sampling: staged {rates['ds2tods3_ft_sampling']:.2f} showers/s, fused "
+          f"{rates['ds2tods3_ft_sampling_fused']:.2f} (host clock, {n} showers); MeV showers "
+          f"{mev.shape}; on {card}", flush=True)
+    del sexp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ft_calohad_phase(tmp: Path, card):
+    """calohadronic_ft from a LEMURS backbone (cfm_lemurs, random weights):
+    the embedders, the positional frequencies and the FinalLayer
+    reinitialised (606 tokens x 75, 66 conditions), CALOHAD_FT_STEPS steps
+    at batch 32 through the experiment on synthetic events (K1's launches
+    exact), then one request of BATCH through ``utils/serving.Generator``
+    behind a CaloHadronic energy CFM (random weights): the conditions [u |
+    E | theta, phi, label], K2v's launches exact, the showers reversed to
+    GeV; the request again under torch.profiler for its device busy time.
+    Returns {path: launches}."""
+    data = tmp / "data"
+    data.mkdir(exist_ok=True)
+    bb_cfg, _, _ = backbone_run(tmp, "lemurs_backbone", LEMURS_SHAPE_MODEL, SEED + 29)
+    cfg = family_config(tmp, "calohadronic", "shape", CALOHAD_FT_STEPS, model=CALOHAD_FT_MODEL)
+    cfg.exp_type, cfg.exp_name = "calohadronic_ft", "smoke_calohadronic_ft"
+    cfg.finetuning = dict(CALOHAD_FINETUNING)
+    for k, v in LEMURS_CONDITIONS.items():
+        cfg[k] = v
+    cfg.data.transforms = dict(CALOHAD_FT_TRANSFORMS)
+    exp = SyntheticCaloHadronicFT(cfg, device="cuda")
+    exp.backbone_cfg_mem = bb_cfg
+    for c in TRAINING.values():
+        c.reset()
+    exp()
+    got = {k: c.launches for k, c in TRAINING.items()}
+    _check_training(exp, "calohadronic_ft")
+    steps = len(exp.train_loss)
+    val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
+    want = {k: 6 * (steps + (val_batches if k == "qkv_attn_fwd" else 0)) for k in TRAINING}
+    if steps != CALOHAD_FT_STEPS or got != want:
+        raise PhaseError(f"calohadronic_ft: {steps} steps, K1 launches {got}, expected {want}")
+    net = exp.model.net
+    if (exp.model.token_shape(1)[1:], net.cfg.condition_dim) != ((606, 75), 66):
+        raise PhaseError(f"calohadronic_ft: tokens {exp.model.token_shape(1)}, conditions "
+                         f"{net.cfg.condition_dim}")
+    steady = exp.step_times[2:]
+    fed = [s + f for s, f in zip(steady, exp.fetch_times[2:])]
+    print(f"calohadronic_ft train: {steps} steps of batch {int(exp.cfg.training.batchsize)}, loss "
+          f"{exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}; {steps / exp.train_seconds:.3f} "
+          f"steps/s over the whole train() loop, {len(steady) / sum(steady):.3f} steady step "
+          f"interior, {len(fed) / sum(fed):.3f} with each step's batch fetch; K1 launches {got}; "
+          f"on {card}", flush=True)
+    launches = {"calohad_ft_train": got}
+
+    f = FAMILIES["calohadronic"]
+    energy_dir = tmp / "calohad_energy_run"
+    energy_dir.mkdir()
+    rng = np.random.default_rng(SEED)
+    np.save(energy_dir / "means_u.npy", rng.normal(0.0, 0.3, f["n_us"]).astype(np.float32))
+    np.save(energy_dir / "stds_u.npy", rng.uniform(0.8, 1.5, f["n_us"]).astype(np.float32))
+    energy_tf = CaloHadronic.pipeline(f["energy_tf"], str(energy_dir))
+    energy_model = _on_card(f["energy"]).eval()
+    _randomize(energy_model, torch.Generator(device="cuda").manual_seed(SEED + 31))
+    exp.model.eval()
+    generator = Generator(exp.model, energy_model, energy_tf, exp.transforms, BATCH,
+                          u_position=exp.u_position, energy_cond_width=exp.energy_cond_width)
+    cond = exp.sampling_conditions(exp.draw_conditions(BATCH, np.random.default_rng(SEED + 3)))
+    evals = exp.model.net_evals_per_sample()
+
+    def request():
+        shower, full = generator.generate(cond, seed=SEED)
+        return exp.to_showers(shower.cpu().numpy(), full.cpu().numpy()), full
+
+    for c in SERVING.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data_out, full = request()
+    seconds = time.perf_counter() - t0
+    got = {k: c.launches for k, c in SERVING.items()}
+    want = {k: evals * FAMILY_PER_EVAL.get(k, 0) for k in SERVING}
+    if got != want:
+        raise PhaseError(f"calohadronic_ft serving: launches {got}, expected {want}")
+    voxels = _check_showers("calohadronic_ft request", data_out, "calohadronic")
+    extra = np.tile(np.float32([0.5, 0.5] + [0.2] * 5), (BATCH, 1))
+    if full.shape != (BATCH, 66) or not np.array_equal(full[:, 59:].cpu().numpy(), extra):
+        raise PhaseError(f"calohadronic_ft serving: conditions {tuple(full.shape)}, their last "
+                         "columns not the fixed LEMURS conditions")
+    launches["calohad_ft_serving"] = {k: v for k, v in got.items() if v}
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    print(f"  launches on the main path: {launches['calohad_ft_serving']}; torch.profiler: one "
+          f"request, wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in _grouped(rows, CFM_GROUPS).items()),
+          flush=True)
+    print(f"calohadronic_ft serving: one request of {BATCH} showers of {voxels} voxels in "
+          f"{seconds:.3f} s = {BATCH / seconds:.2f} showers/s (first request, the host inverse "
+          f"included); on {card}", flush=True)
+    del exp, generator, energy_model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU",
@@ -4463,6 +4921,11 @@ def main() -> int:
     k1_ms["CaloHadronic training, 606 tokens, 6 heads x 80"] = k1_kernel_phase(
         groups["calohad_train"], 32, 606)
     torch.cuda.empty_cache()
+    print("calochallenge_ds2tods3_ft: K2v at tokens (256, 450, 48) after the 90 -> 48 x_mapper, "
+          "the final product's N 90 (calohadronic_ft serves at cfm_calohad's shapes and trains "
+          "at CaloHadronic's K1 shape)", flush=True)
+    k2v_kernel_phase(groups["ft_ds3"], 450, 48, out=90)
+    torch.cuda.empty_cache()
     print("K2s and K5a-stack (fused_dit_stack) vs plain: x (256, 135, 480), depth 6, ungrouped "
           "and group 8; with the layer-causal mask of (15, 1, 9); x (64, 450, 480)", flush=True)
     stack_kernel_phase(groups["stack"], BATCH, 135, group=8)
@@ -4576,9 +5039,10 @@ def main() -> int:
                 Path(tmp), "ds3", _with_net_param(DS3_SHAPE_MODEL, fused_block=False, **param),
                 DS3_ENERGY_MODEL, DS3_SHAPE_TRANSFORMS, DS3_ENERGY_TRANSFORMS, DS3_REQUESTS,
                 COMPOSED, per_eval)
+            steady = "" if len(times) < 2 else \
+                f", {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady (first request excluded)"
             print(f"{path}: {BATCH * len(times) / sum(times):.2f} showers/s over all "
-                  f"{len(times)} requests, {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady "
-                  f"(first request excluded); batch {BATCH}, requests "
+                  f"{len(times)} requests{steady}; batch {BATCH}, requests "
                   f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
             del generator
             torch.cuda.empty_cache()
@@ -4593,10 +5057,11 @@ def main() -> int:
             DS3_ENERGY_TRANSFORMS, DS3_REQUESTS, COMPOSED, DS3_LONG_PER_EVAL,
             DS3_LONG_SERVE_BATCH,
             (1, DS3_LONG_REFERENCE_STEP, 1e-3))
+        steady = "" if len(times) < 2 else (
+            f", {DS3_LONG_SERVE_BATCH * (len(times) - 1) / sum(times[1:]):.4f} steady (first "
+            "request excluded)")
         print(f"ds3_long_cfm: {DS3_LONG_SERVE_BATCH * len(times) / sum(times):.4f} showers/s "
-              f"over all {len(times)} requests, "
-              f"{DS3_LONG_SERVE_BATCH * (len(times) - 1) / sum(times[1:]):.4f} steady (first "
-              f"request excluded); batch {DS3_LONG_SERVE_BATCH}, requests "
+              f"over all {len(times)} requests{steady}; batch {DS3_LONG_SERVE_BATCH}, requests "
               f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
         del generator
         torch.cuda.empty_cache()
@@ -4717,6 +5182,15 @@ def main() -> int:
             launches.update(family_sampling_phase(family, exp, energy_exp, card))
             del exp, energy_exp
             torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        print("ds2tods3_ft: calochallenge_ds2tods3_ft (a ds2 backbone fine-tuned on ds3) at full "
+              "width through the experiment: training, parity, warm start, sample_n", flush=True)
+        launches.update(ft_ds3_phase(Path(tmp), card))
+    with tempfile.TemporaryDirectory() as tmp:
+        print("calohadronic_ft: CaloHadronic fine-tuned from a LEMURS backbone at full width: "
+              "training through the experiment, one request", flush=True)
+        launches.update(ft_calohad_phase(Path(tmp), card))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = []

@@ -167,8 +167,9 @@ def test_xml_handler_matches_jax(tmp_path):
 
 
 def test_unported_steps_and_missing_statistics_raise(run_dir, tmp_path_factory):
-    with pytest.raises(NotImplementedError, match="ScaleVoxels"):
-        ttf.build_pipeline({"ScaleVoxels": {}}, str(run_dir))
+    # every CaloChallenge step is ported: a name of none raises
+    with pytest.raises(ValueError, match="NoSuchStep"):
+        ttf.build_pipeline({"NoSuchStep": {}}, str(run_dir))
     # no statistics yet: the step builds (a forward call fits them), and
     # reversing before that raises
     empty = tmp_path_factory.mktemp("untrained")

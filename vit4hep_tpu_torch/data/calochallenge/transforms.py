@@ -15,8 +15,10 @@ saturated logits) and rank 0 writes ``means.npy``/``stds.npy`` (or
 ``means_u.npy``/``stds_u.npy``), as training does in the JAX package.
 ``SelectiveUniformNoise`` (the cINN chains) draws its training noise from
 an explicit numpy ``Generator``. ``AddAngularBins`` pads ds1's irregular
-alpha binning to a regular grid. The other families' steps
-(``ScaleVoxels``, ``AddLEMURSConditions``) are not ported yet.
+alpha binning to a regular grid. ``ScaleVoxels`` scales the voxels by a
+constant; ``AddLEMURSConditions`` appends fixed (theta, phi, one-hot label)
+columns to the condition, for the shape model fine-tuned from a LEMURS
+backbone (``calochallenge_lemurstods2_ft``).
 """
 from __future__ import annotations
 
@@ -147,6 +149,14 @@ class LogEnergy:
         if rev:
             return shower, np.exp(energy) - self.alpha
         return shower, np.log(energy + self.alpha)
+
+
+class ScaleVoxels:
+    def __init__(self, factor):
+        self.factor = factor
+
+    def __call__(self, shower, energy, rev=False, rank=0):
+        return (shower / self.factor if rev else shower * self.factor), energy
 
 
 class ScaleTotalEnergy:
@@ -350,10 +360,28 @@ class AddAngularBins:
             shower.dtype), energy
 
 
+class AddLEMURSConditions:
+    """Append the fixed (theta, phi, label) columns of a LEMURS backbone's
+    conditioning to every condition; the reverse cuts them off."""
+
+    def __init__(self, theta=0.5, phi=0.5, label=(1, 0, 0, 0, 0)):
+        self.theta = theta
+        self.phi = phi
+        self.label = list(label)
+        self.n_conds = 2 + len(self.label)
+
+    def __call__(self, shower, energy, rev=False, rank=0):
+        if rev:
+            return shower, energy[:, :-self.n_conds]
+        extra = np.tile(np.asarray([self.theta, self.phi] + self.label, dtype=energy.dtype),
+                        (energy.shape[0], 1))
+        return shower, np.concatenate((energy, extra), axis=1)
+
+
 _STEPS = {cls.__name__: cls for cls in (
     GlobalStandardizeFromFile, StandardizeUsFromFile, SelectDims, AddFeaturesToCond,
     LogEnergy, ScaleTotalEnergy, ScaleEnergy, ExclusiveLogitTransform, SelectiveUniformNoise,
-    CutValues, Reshape, NormalizeByElayer, AddAngularBins)}
+    CutValues, Reshape, NormalizeByElayer, AddAngularBins, ScaleVoxels, AddLEMURSConditions)}
 
 
 def build_pipeline(transforms_cfg, run_dir: str):
@@ -363,7 +391,7 @@ def build_pipeline(transforms_cfg, run_dir: str):
     steps = []
     for name, kwargs in transforms_cfg.items():
         if name not in _STEPS:
-            raise NotImplementedError(f"transform {name} is not ported to vit4hep_tpu_torch yet")
+            raise ValueError(f"transform {name} not implemented")
         kwargs = dict(kwargs or {})
         if "FromFile" in name and kwargs.get("model_dir") is None:
             kwargs["model_dir"] = run_dir

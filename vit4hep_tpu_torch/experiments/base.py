@@ -8,8 +8,9 @@ and ``plot``. The run directory layout is the reference's:
 ``config_<idx>.yaml``, ``out_<idx>.log`` and ``models/model_run<idx>.pt``,
 so ``-cp runs/... -cn config warm_start_idx=K`` resumes a run as run K + 1.
 
-The JAX package's device mesh, multi-process logic and torch-checkpoint
-migration reduce to one device here: the model and the batches live on
+The JAX package's device mesh and multi-process logic reduce to one
+device here (the reference's torch checkpoints are read by
+``utils/torch_migration``): the model and the batches live on
 ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``; without CUDA
 the experiment raises). The step itself is
 ``experiments/train_state.make_train_step``.
@@ -191,8 +192,14 @@ class BaseExperiment:
         LOGGER.info(f"Instantiated model {type(self.model.net).__name__} "
                     f"with {num_parameters} learnable parameters")
 
+    def param_groups(self):
+        """``[(params, lr)]`` of the optimizer's groups; None: one group of
+        every trainable parameter at ``training.lr``."""
+        return None
+
     def _init_optimizer(self):
-        self.state = ts.create_train_state(self.model, self.cfg.training, self.use_ema)
+        self.state = ts.create_train_state(self.model, self.cfg.training, self.use_ema,
+                                           self.param_groups())
         self.lr_schedule = ts.make_schedule(self.cfg.training)
         if self.warm_start:
             path = self._model_path(f"model_run{self.cfg.warm_start_idx}")

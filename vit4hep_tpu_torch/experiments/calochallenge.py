@@ -29,9 +29,9 @@ from vit4hep_tpu_torch.data.calochallenge.transforms import build_pipeline
 from vit4hep_tpu_torch.experiments.base import BaseExperiment
 from vit4hep_tpu_torch.experiments.fused_chain import (UnsupportedTransform, chain_fingerprint,
                                                        make_fused_generate)
-from vit4hep_tpu_torch.utils.checkpoint import load_checkpoint
 from vit4hep_tpu_torch.utils.config import OmegaConf, instantiate
 from vit4hep_tpu_torch.utils.logger import LOGGER
+from vit4hep_tpu_torch.utils.torch_migration import load_net_state_dict
 
 
 def _pad_batch(c, batch_size):
@@ -181,12 +181,17 @@ class CaloChallenge(BaseExperiment):
             e_inc = 10 ** np.random.uniform(3, 6, size=int(self.cfg.n_samples))
         else:
             e_inc = self.generate_Einc_ds1()
+        return self._sample_conditions(self.sampling_conditions(e_inc), noise, t_0)
+
+    def sampling_conditions(self, e_inc):
+        """The incident energies (N,) through this run's ``cond_transform``
+        steps, (N, 1): the condition the u's are put in front of."""
         transformed_cond = e_inc.astype(np.float32)[:, None]
         dummy = None
         for fn in self.transforms:
             if hasattr(fn, "cond_transform"):
                 dummy, transformed_cond = fn(dummy, transformed_cond)
-        return self._sample_conditions(transformed_cond, noise, t_0)
+        return transformed_cond
 
     def full_condition(self, u_samples, transformed_cond):
         """The shape model's condition from the sampled u's (in this run's
@@ -267,13 +272,16 @@ class CaloChallenge(BaseExperiment):
         return sample, full_cond
 
     def sample_us(self, transformed_cond, batchsize_sample, noise=None):
-        """u-vectors from the separately trained energy model, mapped into this
-        model's u basis: the energy run's ``u_transform`` steps reversed, then
-        this run's forward. ``noise`` as in :meth:`_sample_in_batches`."""
+        """u-vectors from the separately trained energy model (on the first
+        ``energy_cond_width`` condition columns), mapped into this model's u
+        basis: the energy run's ``u_transform`` steps reversed, then this
+        run's forward. ``noise`` as in :meth:`_sample_in_batches`."""
         self._energy_model_for_cfg()
         t_0 = time.time()
-        u_samples = self._sample_in_batches(self.energy_model, transformed_cond,
-                                            batchsize_sample, noise)
+        e_cond = np.asarray(transformed_cond, np.float32)
+        if self.energy_cond_width is not None:
+            e_cond = e_cond[:, :self.energy_cond_width]
+        u_samples = self._sample_in_batches(self.energy_model, e_cond, batchsize_sample, noise)
         LOGGER.info(f"sample_us: Finished generating {len(u_samples)} energy samples after "
                     f"{time.time() - t_0} s.")
         for fn in self.energy_model_transforms[::-1]:
@@ -290,18 +298,22 @@ class CaloChallenge(BaseExperiment):
 
     def load_energy_model(self):
         """Instantiate the energy model of ``cfg.energy_model`` on the device
-        with its run's ``models/model_run0.pt`` weights, and build its
+        with its run's ``models/model_run0.pt`` weights (the port's, or the
+        reference's, migrated: ``utils/torch_migration``), and build its
         transform chain."""
         path = str(self.cfg.energy_model)
         energy_cfg = self.energy_run_config()
         self.energy_model_transforms = self.build_transforms(energy_cfg.data.transforms,
                                                              str(energy_cfg.run_dir))
         model_path = os.path.join(str(energy_cfg.run_dir), "models", "model_run0.pt")
+        # a reference energy net's Fourier weights go into its config first
+        sd, migrated = load_net_state_dict(energy_cfg.model, model_path)
         model = instantiate(energy_cfg.model)
-        model.load_state_dict(load_checkpoint(model_path)["model"])
+        model.net.load_state_dict(sd)
         self.energy_model = model.to(self.device).eval()
         self._energy_model_path = path
-        LOGGER.info(f"Loaded energy model from {model_path}")
+        LOGGER.info(f"Loaded energy model from {model_path}"
+                    + (" (a reference checkpoint, migrated)" if migrated else ""))
 
     def _energy_model_for_cfg(self):
         """Load the energy model unless the one of ``cfg.energy_model`` is

@@ -34,9 +34,6 @@ class DictFamilyExperiment(CaloChallenge):
         return type(self).pipeline(transforms_cfg, run_dir)
 
     def init_physics(self):
-        if self.cfg.get("finetuning", False):
-            raise NotImplementedError("fine-tuning is not ported yet (ROADMAP.md queue 1 "
-                                      "item 8)")
         if self.cfg.data.get("native_cache"):
             raise NotImplementedError("data.native_cache (the mmap record cache) is not ported "
                                       "yet (ROADMAP.md queue 1)")

@@ -8,42 +8,42 @@
 The CLI is the root ``main.py``'s (``-cp``/``-cn`` and dotted overrides),
 plus ``device=cpu`` to run on the CPU (default: the CUDA device). Composing
 the YAML tree needs PyYAML and the data files need h5py, so the launcher
-runs on a host that has both. ``exp_type`` calochallenge, calogan, lemurs
-and calohadronic are ported; the fine-tuning types raise.
+runs on a host that has both. Every ``exp_type`` of the root launcher is
+ported: calochallenge, calogan, lemurs, calohadronic and the fine-tuning
+types calochallenge_ft_cfm, calochallenge_ft_lem_cfm, calogan_ft_cfm and
+calohadronic_ft.
+
+    python -m vit4hep_tpu_torch.experiments.main \\
+        -cn calochallenge/finetuning/calochallenge_ds2tods3_ft \\
+        finetuning.backbone_cfg=runs/CaloChallenge/<ds2 run>/config_0.yaml data_dir=...
 """
 
 from __future__ import annotations
 
+import importlib
 import sys
 
 from vit4hep_tpu_torch.utils.config import compose_from_cli
 from vit4hep_tpu_torch.utils.logger import LOGGER
 
-_EXP_TYPES = ("calochallenge", "calochallenge_ft_cfm", "calochallenge_ft_lem_cfm", "calogan",
-              "calogan_ft_cfm", "lemurs", "calohadronic", "calohadronic_ft")
+# exp_type -> (module under vit4hep_tpu_torch.experiments, class), as the root launcher
+_EXPERIMENTS = {
+    "calochallenge": ("calochallenge", "CaloChallenge"),
+    "calochallenge_ft_cfm": ("calochallenge_finetuning", "CaloChallengeFTCFM"),
+    "calochallenge_ft_lem_cfm": ("calochallenge_finetuning", "CaloChallengeFT_fromLEM"),
+    "calogan": ("calogan", "CaloGAN"),
+    "calogan_ft_cfm": ("calogan_finetuning", "CaloGANFTCFM"),
+    "lemurs": ("lemurs", "LEMURS"),
+    "calohadronic": ("calohadronic", "CaloHadronic"),
+    "calohadronic_ft": ("calohadronic_finetuning", "CaloHadronicFT"),
+}
 
 
 def get_experiment(exp_type: str):
-    if exp_type == "calochallenge":
-        from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
-
-        return CaloChallenge
-    if exp_type == "calogan":
-        from vit4hep_tpu_torch.experiments.calogan import CaloGAN
-
-        return CaloGAN
-    if exp_type == "lemurs":
-        from vit4hep_tpu_torch.experiments.lemurs import LEMURS
-
-        return LEMURS
-    if exp_type == "calohadronic":
-        from vit4hep_tpu_torch.experiments.calohadronic import CaloHadronic
-
-        return CaloHadronic
-    if exp_type in _EXP_TYPES:
-        raise NotImplementedError(f"exp_type {exp_type} (fine-tuning) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 8)")
-    raise ValueError(f"exp_type {exp_type} not implemented")
+    if exp_type not in _EXPERIMENTS:
+        raise ValueError(f"exp_type {exp_type} not implemented")
+    module, name = _EXPERIMENTS[exp_type]
+    return getattr(importlib.import_module(f"vit4hep_tpu_torch.experiments.{module}"), name)
 
 
 def main(argv=None, device="cuda"):

@@ -26,11 +26,18 @@ ds2 default), ``Adam`` with torch's coupled L2 weight decay (optax chains
 ``optax.radam`` behind the same coupled L2, written out because torch's
 RAdam rectifies otherwise (eps added before the bias correction, and
 another rectification term) and drifts from optax once the rectified phase
-starts (step 6 at beta2 0.999). Schedules are the optax formulas
+starts (step 6 at beta2 0.999); :class:`Lion` (``optax.lion``: the sign
+of the interpolated momentum, weight decay decoupled and scaled by the lr);
+and :class:`Ranger`, JAX's RAdam(0.95, 0.999, eps 1e-5, coupled L2) inside
+its Lookahead (k = 6, alpha 0.5). Schedules are the optax formulas
 (``cosine_decay_schedule``, which holds its end value;
 ``cosine_onecycle_schedule``), driven by a ``LambdaLR`` whose counter
-advances with each applied update. ``Lion`` and ``Ranger`` are not ported
-yet.
+advances with each applied update. The optimizer may hold several
+parameter groups, each with its own initial lr and its own schedule from
+it (one lambda a group), as ``optax.multi_transform`` over per-group
+schedules does for fine-tuning's backbone, head and embedder groups
+(``models/finetuning.ft_param_groups``); gradient clipping stays global
+over every parameter.
 """
 
 from __future__ import annotations
@@ -60,8 +67,12 @@ class TrainState:
         self.lr_scale = 1.0
 
     def lr(self) -> float:
-        """The learning rate of the next applied update."""
-        return self.schedule.get_last_lr()[0] * self.lr_scale
+        """The learning rate of the next applied update (the first group's)."""
+        return self.lrs()[0]
+
+    def lrs(self) -> list[float]:
+        """Each parameter group's learning rate for the next applied update."""
+        return [lr * self.lr_scale for lr in self.schedule.get_last_lr()]
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
@@ -84,13 +95,27 @@ class TrainState:
         self.lr_scale = float(sd["lr_scale"])
 
 
-def create_train_state(model, training_cfg, use_ema: bool) -> TrainState:
-    lr = float(training_cfg.lr)
-    fn = make_schedule(training_cfg)
-    optimizer = make_optimizer(training_cfg, [p for p in model.parameters() if p.requires_grad])
-    schedule = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda count: fn(count) / lr if lr else 0.0)
-    return TrainState(model, optimizer, schedule, use_ema)
+def create_train_state(model, training_cfg, use_ema: bool, param_groups=None) -> TrainState:
+    """The train state of ``model``: one parameter group of every trainable
+    parameter at ``training.lr``, or ``param_groups``, a list of ``(params,
+    lr)``, each group scheduled from its own lr."""
+    if param_groups is None:
+        param_groups = [([p for p in model.parameters() if p.requires_grad],
+                         float(training_cfg.lr))]
+    optimizer = make_optimizer(training_cfg, [{"params": list(params), "lr": float(lr)}
+                                              for params, lr in param_groups])
+    return TrainState(model, optimizer, make_lr_schedule(optimizer, training_cfg), use_ema)
+
+
+def make_lr_schedule(optimizer, training_cfg):
+    """A ``LambdaLR`` that gives each group ``make_schedule(training_cfg,
+    lr=<the group's initial lr>)`` of the count of applied updates."""
+    lambdas = []
+    for group in optimizer.param_groups:
+        lr = float(group["lr"])
+        fn = make_schedule(training_cfg, lr=lr)
+        lambdas.append(lambda count, fn=fn, lr=lr: fn(count) / lr if lr else 0.0)
+    return torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -129,8 +154,7 @@ def make_train_step(loss_fn, *, clip_grad_value=None, clip_grad_norm=None, max_g
         ok = math.isfinite(norm) and (
             max_grad_norm is None or state.step <= MIN_STEP_SKIP or norm <= max_grad_norm)
         if ok:
-            lr = state.lr()
-            for group in state.optimizer.param_groups:
+            for group, lr in zip(state.optimizer.param_groups, state.lrs()):
                 group["lr"] = lr
             for p, g in zip(params, grads):
                 p.grad = g
@@ -198,6 +222,11 @@ def make_schedule(training_cfg, lr=None):
         return _cosine_onecycle(steps, lr * float(training_cfg.get("onecycle_max_lr", 10)),
                                 float(training_cfg.get("onecycle_pct_start", 0.2)))
     if name == "ReduceLROnPlateau":  # host-driven through TrainState.lr_scale
+        if training_cfg.get("optimizer") == "Ranger":
+            # lr_scale would scale Lookahead's sync step, whose parameters
+            # must land on the slow weights (JAX refuses the pair alike)
+            raise ValueError("ReduceLROnPlateau + Ranger is not supported: the host-driven "
+                             "lr_scale would break Lookahead's sync step")
         return lambda count: lr
     raise ValueError(f"Learning rate scheduler {name} not implemented")
 
@@ -234,7 +263,7 @@ class RAdam(torch.optim.Optimizer):
                     continue
                 g = p.grad + wd * p if wd else p.grad
                 st = self.state[p]
-                if not st:
+                if "step" not in st:  # (Ranger keeps its Lookahead state beside)
                     st["step"] = torch.zeros((), dtype=torch.float32)
                     st["exp_avg"] = torch.zeros_like(p)
                     st["exp_avg_sq"] = torch.zeros_like(p)
@@ -254,7 +283,76 @@ class RAdam(torch.optim.Optimizer):
         return loss
 
 
+class Lion(torch.optim.Optimizer):
+    """``optax.lion(lr, b1, b2, weight_decay=wd)``: with m the momentum, the
+    update is -lr * (sign((1 - b1) g + b1 m) + wd * p), then m = (1 - b2) g +
+    b2 m. Its state per parameter is ``step`` and ``exp_avg`` (m)."""
+
+    def __init__(self, params, lr=1e-4, betas=(0.9, 0.99), weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None if closure is None else closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            wd, lr = group["weight_decay"], group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                st["step"] += 1
+                m = st["exp_avg"]
+                upd = torch.sign((1.0 - b1) * g + b1 * m)
+                m.copy_((1.0 - b2) * g + b2 * m)
+                if wd:
+                    upd = upd + wd * p
+                p.add_(upd * -lr)
+        return loss
+
+
+class Ranger(RAdam):
+    """JAX's Ranger: :class:`RAdam` (b1 0.95, b2 0.999, eps 1e-5, coupled L2
+    weight decay) inside a Lookahead of sync period 6 and slow step 0.5.
+    Each parameter keeps its slow copy (``slow``, its value before the
+    first update) and a count (``lookahead_step``); every sixth update
+    moves the slow copy half way to the fast parameter, and the parameter
+    lands on it (p + (slow - p), as optax applies the update)."""
+
+    SYNC_PERIOD, SLOW_STEP = 6, 0.5
+
+    def __init__(self, params, lr=1e-3, weight_decay=0.0):
+        super().__init__(params, lr=lr, betas=(0.95, 0.999), eps=1e-5, weight_decay=weight_decay)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        syncing = []
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if "slow" not in st:
+                    st["slow"] = p.detach().clone()
+                    st["lookahead_step"] = torch.zeros((), dtype=torch.float32)
+                st["lookahead_step"] += 1
+                if int(st["lookahead_step"]) % self.SYNC_PERIOD == 0:
+                    syncing.append((p, p.detach().clone()))
+        loss = super().step(closure)
+        for p, before in syncing:
+            slow = self.state[p]["slow"]
+            slow.copy_(slow + self.SLOW_STEP * (p - slow))  # p is the fast parameter now
+            p.copy_(before + (slow - before))
+        return loss
+
+
 def make_optimizer(training_cfg, params) -> torch.optim.Optimizer:
+    """The optimizer ``training.optimizer`` names over ``params``: tensors,
+    or torch parameter-group dicts, each with its own ``lr``."""
     name = training_cfg.get("optimizer", "AdamW")
     lr = float(training_cfg.lr)
     betas = tuple(float(b) for b in training_cfg.get("betas", (0.9, 0.999)))
@@ -266,6 +364,8 @@ def make_optimizer(training_cfg, params) -> torch.optim.Optimizer:
         return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
     if name == "RAdam":
         return RAdam(params, lr=lr, betas=betas, eps=eps, weight_decay=wd)
-    if name in ("Lion", "Ranger"):
-        raise NotImplementedError(f"optimizer {name} is not ported yet (ROADMAP.md queue 1)")
+    if name == "Lion":
+        return Lion(params, lr=lr, betas=betas, weight_decay=wd)
+    if name == "Ranger":
+        return Ranger(params, lr=lr, weight_decay=wd)
     raise ValueError(f"Optimizer {name} not implemented")

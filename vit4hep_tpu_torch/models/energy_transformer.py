@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vit4hep_tpu_torch.models.vit import current_sampling_weights
 from vit4hep_tpu_torch.ops.attention import dot_product_attention
 from vit4hep_tpu_torch.ops.fused_energy_decoder import fused_energy_decoder
 from vit4hep_tpu_torch.ops.pos_embed import gaussian_fourier_projection
@@ -291,7 +292,7 @@ class ParallelTransformerNet(nn.Module):
             ca.out_proj(F.linear(m0, ca.in_proj_weight[2 * dm:], ca.in_proj_bias[2 * dm:]))
             for ca in (layer.multihead_attn for layer in self.transformer.decoder.layers)],
             dim=1)
-        weights = None if torch.is_grad_enabled() else self._sampling_weights
+        weights = None if torch.is_grad_enabled() else current_sampling_weights(self)
         if weights is None:  # training: the parameters themselves, autograd follows
             weights = self.kernel_weights()
         return fused_energy_decoder(tgt.contiguous(), t_feats.contiguous(), cross, *weights,

@@ -49,10 +49,17 @@ outputs per patch value. It shares ViTNet's trunk (``_FusedViT``): the
 composed path, whose attention reaches K1 from 128 tokens as in JAX, or
 with ``fused_block`` the same kernels as ViTNet (K2v over the 1-D
 embedding and the condition alone; K5a/K5b, K2b/K5c under a gradient).
-The fine-tuning mappers are not ported. With
-``learn_pos_embed: false`` both nets add the fixed sin-cos embedding
+With ``learn_pos_embed: false`` both nets add the fixed sin-cos embedding
 (``ops/pos_embed.get_sincos_pos_embed``, a non-persistent buffer) where
 JAX does, and have no ``pos_embed_freqs``.
+
+The fine-tuned ViT (``models/finetuning.py``) takes JAX's mapper layers:
+``in_patch_dim`` puts ``x_mapper`` (Linear(in_patch_dim -> patch_dim) and
+SiLU) in front of ``x_embedder``, ``in_condition_dim`` puts ``c_mapper``
+(Linear(in_condition_dim -> condition_dim) and SiLU) in front of
+``c_embedder``, and ``out_patch_dim`` sets the FinalLayer's width. The
+mappers are plain products in front of the trunk, composed or kernel, as
+in JAX; ViT1D takes none.
 """
 
 from __future__ import annotations
@@ -249,9 +256,6 @@ class ConditionEmbedder(nn.Sequential):
 
 
 def _check_ported(p: ViTParams):
-    if p.in_patch_dim is not None or p.in_condition_dim is not None \
-            or p.out_patch_dim is not None:
-        raise NotImplementedError("fine-tuning mappers are not ported yet (ROADMAP.md)")
     if p.compute_dtype not in ("float32", "fp32"):
         raise NotImplementedError("the port's ViT runs in float32")
 
@@ -347,7 +351,7 @@ class _FusedViT(nn.Module):
         if torch.is_grad_enabled():
             weights = self.kernel_weights(train=True)
         else:
-            weights = self._sampling_weights
+            weights = current_sampling_weights(self)
             if weights is None:
                 weights = self.kernel_weights()
         wemb, bemb, *blocks, wfin, bfin = weights
@@ -407,8 +411,12 @@ class ViTNet(_FusedViT):
         _check_ported(p)
         self.cfg = cfg
         h = p.hidden_dim
+        if p.in_patch_dim is not None:
+            self.x_mapper = _xavier_linear(p.in_patch_dim, p.patch_dim)
         self.x_embedder = _xavier_linear(p.patch_dim, h)
         self.t_embedder = TimestepEmbedder(h)
+        if p.in_condition_dim is not None:
+            self.c_mapper = _xavier_linear(p.in_condition_dim, p.condition_dim)
         self.c_embedder = ConditionEmbedder(p.condition_dim, h)
         if p.learn_pos_embed:
             self.pos_embed_freqs = nn.Parameter(torch.randn(h // 6))
@@ -418,7 +426,8 @@ class ViTNet(_FusedViT):
         self.blocks = nn.ModuleList(
             DiTBlock(h, p.num_heads, p.mlp_ratio, p.attn_impl, p.fused_mlp)
             for _ in range(p.depth))
-        self.final_layer = FinalLayer(h, p.out_channels * p.patch_dim)
+        out_patch = p.patch_dim if p.out_patch_dim is None else p.out_patch_dim
+        self.final_layer = FinalLayer(h, p.out_channels * out_patch)
         self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
 
     def pos_embedding(self):
@@ -429,7 +438,33 @@ class ViTNet(_FusedViT):
         return pe_ops.learnable_fourier_pos_embed_3d(self.pos_embed_freqs, pos_z, pos_y, pos_x)
 
     def forward(self, x, t, c):
-        return self._trunk(x.float(), self.t_embedder(t) + self.c_embedder(c.float()))
+        x, c = x.float(), c.float()
+        if self.cfg.in_patch_dim is not None:
+            x = F.silu(self.x_mapper(x))
+        if self.cfg.in_condition_dim is not None:
+            c = F.silu(self.c_mapper(c))
+        return self._trunk(x, self.t_embedder(t) + self.c_embedder(c))
+
+
+def _weight_stamp(net):
+    """Where each parameter lives and how often it was written in place
+    (an optimizer step, ``load_state_dict``, an EMA swap)."""
+    return tuple((p.data_ptr(), p._version) for p in net.parameters())
+
+
+def current_sampling_weights(net):
+    """A sampling twin's kernel layout (None for any other net), laid out
+    again when a parameter was written or replaced since it was made, so
+    that a twin held across a weight update never samples with the old
+    weights."""
+    if net._sampling_weights is None:
+        return None
+    stamp = _weight_stamp(net)
+    if stamp != net._sampling_stamp:
+        with torch.no_grad():
+            net._sampling_weights = net.kernel_weights()
+        net._sampling_stamp = stamp
+    return net._sampling_weights
 
 
 def sampling_variant(net):
@@ -437,8 +472,9 @@ def sampling_variant(net):
     sample``: the same parameters (a shallow copy shares them), with the
     kernel path enabled. Sampling does not change the weights, so the twin
     lays them out for the kernels once (``kernel_weights``), not on every
-    net eval; a twin made before a weight update is stale. Other nets are
-    returned as they are."""
+    net eval, and again only after a weight update
+    (:func:`current_sampling_weights`). Other nets are returned as they
+    are."""
     cfg = getattr(net, "cfg", None)
     if getattr(cfg, "fused_block", None) == "sample":
         kw = {"fused_block": True}
@@ -448,6 +484,7 @@ def sampling_variant(net):
         twin.cfg = dataclasses.replace(cfg, **kw)
         with torch.no_grad():
             twin._sampling_weights = twin.kernel_weights()
+        twin._sampling_stamp = _weight_stamp(twin)
         return twin
     return net
 
@@ -463,6 +500,8 @@ class ViT1DNet(_FusedViT):
         super().__init__()
         p = cfg
         _check_ported(p)
+        if (p.in_patch_dim, p.in_condition_dim, p.out_patch_dim) != (None, None, None):
+            raise ValueError("the fine-tuning mappers belong to the ViT; ViT1D takes none")
         self.cfg = cfg
         h = p.hidden_dim
         n = p.prod_num_patches

@@ -15,7 +15,8 @@ Unmapped entries raise, so no weight is dropped silently.
 A ``CaloChallengeCFM_DS1``'s net is a ViT whose positional grid spans the
 sections: its params take :func:`convert_vit_params` as any ViT's (the grid
 is not a parameter), and its energy model's :func:`convert_energy_params`.
-A ViT with ``learn_pos_embed: false`` has no ``pos_embed_freqs``.
+A ViT with ``learn_pos_embed: false`` has no ``pos_embed_freqs``; a
+fine-tuned ViT's ``x_mapper`` / ``c_mapper`` carry over as Linears.
 """
 
 from __future__ import annotations
@@ -66,6 +67,9 @@ def convert_vit_params(variables) -> dict[str, torch.Tensor]:
     if "t_embedder" in c.params:
         c.dense("t_embedder.mlp.0", "t_embedder", "Dense_0")
         c.dense("t_embedder.mlp.2", "t_embedder", "Dense_1")
+    for mapper in ("x_mapper", "c_mapper"):  # a fine-tuned ViT's mapper layers
+        if mapper in c.params:
+            c.dense(mapper, mapper)
     c.dense("x_embedder", "x_embedder")
     c.dense("c_embedder.0", "c_embedder", "Dense_0")
     c.dense("c_embedder.2", "c_embedder", "Dense_1")
