@@ -9,8 +9,11 @@ evaluation through the CaloChallenge experiment (ds2, ds1 photons), the
 rest of the cINN (its training, the energy cINN, the nflows couplings, the
 ViT1D kernel twins), and the other three families (CaloGAN, LEMURS,
 CaloHadronic: serving, training, sampling and evaluation through their
-experiments) and cross-dataset fine-tuning (ds2 -> ds3, LEMURS ->
-CaloHadronic), at full width, through the hand-written CUDA kernels.
+experiments), cross-dataset fine-tuning (ds2 -> ds3, LEMURS ->
+CaloHadronic), the ``torch.export`` serving artifacts of the ds2 CFM and
+cINN chains, CaloHadronic training over the mmap record cache and the
+autoregressive energy net, at full width, through the hand-written CUDA
+kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
 
@@ -236,10 +239,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 14. the rest of the cINN: ds2_cinn_train (cinn_ds2_electrons at full
    width, 90.7 M params, through the experiment with training/cinn/ds23:
    batch 64, AdamW, clip_grad_norm 1000; CINN_TRAIN_STEPS steps on
-   synthetic ds2 showers, validating every VALIDATE_EVERY; K1's forward on
+   synthetic ds2 showers, validating after the last; K1's forward on
    all 120 subnet blocks of every step and validation batch, its backward
    on every step's, no K4; steps/s and one profiled step); then from one
-   state (``parity_phase``, CINN_PARITY) K1 against the plain attention
+   state (``parity_phase``, CINN_PARITY, CINN_PARITY_STEPS steps) K1
+   against the plain attention
    (cinn_ds2_electrons, cinn_nflows, cinn_nflows_oneside: CINN_TRAIN_TOL),
    ``remat_spline: true`` against false, and the ViT1D twins' training
    (``fused_block: true``: K5a and K5b; ``fused_stack: false``: K2b and
@@ -278,6 +282,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and noise, exact launches, SAMPLING_U_TOL / SAMPLING_TOL, then
    ``to_showers`` and the evaluation on arrays: CaloGAN's DNN,
    LEMURS's ``all-cls``, CaloHadronic's feature DNN, one epoch each).
+   CaloHadronic's runs read their events from record caches
+   (``data.native_cache``: ``data/native_cache.py`` writes them from the
+   events in memory and gathers with its C++ library, built at first use
+   with the host's compiler); ``cache_phase`` holds both splits' cached
+   batches against the events' own, bit for bit, and times a batch's
+   gather, and gather and collator, from each.
+   Serving artifacts (``export_phase``, after the ds2_cfm and ds2_cinn
+   serving paths, ``EXPORTS``): the path's live ``Generator`` traced by
+   ``torch.export`` (utils/serving.trace_generator), saved and loaded
+   into a fresh ``LoadedSampler``; the program must hold each kernel's
+   registered op once for each launch the live path makes a request
+   (ops/library.py); REQUESTS requests through the artifact (launches
+   exact, counted from 0) must equal the live generator's on the same
+   seeds bit for bit (the same kernels on the same inputs in the same
+   order); the export, save and load seconds, the file's bytes and both
+   rates are printed. ``ar_phase``: ``ARtransformer`` at its defaults,
+   AR_STEPS train steps and one batch of BATCH sampled (45 dimensions one
+   after another), finite and repeatable from a seed.
 16. cross-dataset fine-tuning (``models/finetuning.py``,
    ``experiments/*_finetuning.py``; the backbones' configs handed in from
    memory through ``backbone_run_config``). Kernel group ``ft_ds3``: K2v at
@@ -354,6 +376,7 @@ from vit4hep_tpu_torch.ops.pos_embed import create_meshgrid, layer_causal_mask
 from vit4hep_tpu_torch.tools import megakernel_residue
 from vit4hep_tpu_torch.tools.timing import BF16_FLOPS, F32_FLOPS, card_name, time_ms, work_bound
 from vit4hep_tpu_torch.utils.checkpoint import save_checkpoint
+from vit4hep_tpu_torch.utils import serving
 from vit4hep_tpu_torch.utils.config import Config, instantiate
 from vit4hep_tpu_torch.utils.serving import Generator
 from vit4hep_tpu_torch.utils.torch_migration import load_net_state_dict
@@ -364,15 +387,18 @@ DS1_TRAIN_STEPS = 10  # ds1_train: shape.yaml's batch 64, iterations 800,000
 DS1_SAMPLES = 1024  # ds1_train's sample_n: 1,024 of the 121,000 the spectrum gives
 # the smoke's time (inside 1200 s, aiming at 1000; PERF.md §2) cuts these
 # depths: REQUESTS 3 -> 2, DS3_REQUESTS 2 -> 1, CINN_TRAIN_STEPS 20 -> 10 and
-# SAMPLING_SHOWERS 2500 -> 1280 when the fine-tuning phases came in
+# SAMPLING_SHOWERS 2500 -> 1280 when the fine-tuning phases came in;
+# CINN_TRAIN_STEPS 10 -> 6 and CINN_PARITY_STEPS 3 -> 2 when the serving
+# artifacts came in
 REQUESTS = 2
 REFERENCE_BATCH = 8
 TRAIN_STEPS = 30
 VALIDATE_EVERY = 10
 WARM_START_STEPS = 5
 TRAIN_PARITY_STEPS = 3
+CINN_PARITY_STEPS = 2  # the cINN parities' steps (host-bound: ~1 s a step a run)
 ENERGY_STEPS = 10
-CINN_TRAIN_STEPS = 10  # ds2_cinn_train: cinn/ds23.yaml's batch 64, iterations 100,000
+CINN_TRAIN_STEPS = 6  # ds2_cinn_train: cinn/ds23.yaml's batch 64, iterations 100,000
 CINN_SAMPLES = 512  # cinn_sampling's sample_n: 2 batches of 256 (n_samples 100,000)
 N_EVENTS = 2560  # synthetic showers: 39 training batches of 64, 25 validation events
 N_EVENTS_DS3 = 1280  # ds3 (40500 voxels): 19 training batches of 64 (cycled), 13 validation
@@ -2604,6 +2630,90 @@ def cinn_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_
     return launches, times, generator
 
 
+# the registered op of each counted kernel (ops/library.py): a traced
+# program holds one node for each launch the live path makes
+OP_COUNTER = {"energy_decoder": "energy_decoder", "vit_gemm": "vit_gemm",
+              "vit_modln": "vit_modln", "vit_attention": "vit_attention",
+              "binned_rqs_inverse": "binned_rqs_inverse", "qkv_attention_fwd": "qkv_attn_fwd"}
+EXPORTS = {"ds2_cfm": (SERVING, {k: 80 * v for k, v in CFM_PER_EVAL.items()}),
+           "ds2_cinn": (CINN, CINN_PER_REQUEST["ds2"])}
+
+
+def export_phase(tmp: Path, path, generator, card, requests=REQUESTS):
+    """The serving artifact of a live ``Generator`` (utils/serving): the
+    chain traced by ``torch.export``, saved, loaded into a fresh
+    ``LoadedSampler``; the program holds the kernels' registered ops, one
+    node for each launch the live path makes a request; then ``requests``
+    requests of BATCH through the artifact with the counters set to 0 just
+    before and read just after (exact), and the same requests (conditions,
+    seeds) through the live generator: the artifact runs the same kernels
+    on the same inputs in the same order, so its showers must equal the
+    live ones bit for bit. Returns the artifact's launches."""
+    counters, per_request = EXPORTS[path]
+    t0 = time.perf_counter()
+    program, header = serving.trace_generator(
+        generator.shape_model, generator.energy_model, generator.energy_transforms,
+        generator.shape_transforms, generator.batch, u_position=generator.u_position,
+        energy_cond_width=generator.energy_cond_width, meta={"path": path})
+    t_export = time.perf_counter() - t0
+    nodes = sum(1 for _ in program.graph.nodes)
+    ops = {}
+    for n in program.graph.nodes:
+        name = str(n.target)
+        if n.op == "call_function" and name.startswith("vit4hep."):
+            key = OP_COUNTER[name.split(".")[1]]
+            ops[key] = ops.get(key, 0) + 1
+    want = {k: v for k, v in per_request.items() if v}
+    if ops != want:
+        raise PhaseError(f"{path} export: the program holds ops {ops}, the live path launches "
+                         f"{want} a request")
+    t0 = time.perf_counter()
+    file = tmp / f"{path}.v4h"
+    file.write_bytes(serving.artifact_bytes(program, header))
+    t_save = time.perf_counter() - t0
+    del program
+    t0 = time.perf_counter()
+    artifact = serving.load_sampler(file)
+    t_load = time.perf_counter() - t0
+    print(f"  {path} artifact: {nodes} graph nodes, ops {ops}; export {t_export:.2f} s, save "
+          f"{t_save:.2f} s, load {t_load:.2f} s, file {file.stat().st_size} bytes", flush=True)
+
+    conds = [generator.condition(10 ** np.random.default_rng(SEED + 1 + i).uniform(3, 6, BATCH))
+             for i in range(requests)]
+
+    def run(fn):
+        outs, times = [], []
+        for i, cond in enumerate(conds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(fn(cond, seed=SEED + i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return outs, times
+
+    for c in counters.values():
+        c.reset()
+    art_out, art_times = run(artifact)
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: requests * per_request.get(k, 0) for k in counters}
+    if launches != want:
+        raise PhaseError(f"{path} artifact: launches {launches}, expected {want} ({requests} "
+                         "requests)")
+    live_out, live_times = run(generator)
+    for i, (a, b) in enumerate(zip(art_out, live_out)):
+        _finite(f"{path} artifact request {i}", a.cpu().numpy())
+        if a.shape != b.shape or not torch.equal(a, b):
+            err = (a - b).abs().max().item() if a.shape == b.shape else float("nan")
+            raise PhaseError(f"{path} artifact request {i}: differs from the live generator on "
+                             f"the same seed (max abs {err:.3e})")
+    rate = lambda times: BATCH * len(times) / sum(times)  # noqa: E731
+    print(f"  {path} artifact: {requests} requests equal the live generator's bit for bit; "
+          f"launches {launches}; artifact {rate(art_times):.2f} showers/s (requests "
+          f"{[round(t, 4) for t in art_times]} s), live {rate(live_times):.2f} (requests "
+          f"{[round(t, 4) for t in live_times]} s); batch {BATCH}, on {card}", flush=True)
+    return launches
+
+
 def _device_rows(prof):
     """(ms, count, name) of device-side events only (kernels, copies): a CPU
     op's device time repeats that of the kernels it launched."""
@@ -3078,10 +3188,10 @@ def _deviation(run, ref, names, init):
 
 
 def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL,
-                 training=DS2_SHAPE_TRAINING, data_shape=None):
+                 training=DS2_SHAPE_TRAINING, data_shape=None, steps=TRAIN_PARITY_STEPS):
     """The model of ``cfg`` against the one of ``ref_cfg`` from one state:
     per parameter tensor the relative L2 of the gradients of one batch, then
-    TRAIN_PARITY_STEPS train steps of each (``training``'s optimizer and
+    ``steps`` train steps of each (``training``'s optimizer and
     clipping) on the same random batches and draws (x ~ N(0, 1), c ~ U(0,
     1); a CFM's t ~ U(0, 1) and x_0 ~ N(0, 1); a cINN's x clipped to
     CINN_DRAW_CLIP), held to ``tol`` (of the loss, the gradients' relative
@@ -3107,7 +3217,7 @@ def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL
               torch.rand((batch, fused.condition_dim), generator=gen, device="cuda"),
               *((torch.rand(t_shape, generator=gen, device="cuda"),
                  torch.randn(shape, generator=gen, device="cuda")) if cfm else ()))
-             for _ in range(TRAIN_PARITY_STEPS)]
+             for _ in range(steps)]
     loss = lambda model, d: (model.batch_loss(d[0], d[1], t=d[2], x_0=d[3]) if cfm  # noqa: E731
                              else model.batch_loss(*d))
     names = [n for n, _ in fused.named_parameters()]
@@ -3139,7 +3249,7 @@ def parity_phase(label, cfg, ref_cfg, batch, counters, want, tol=FUSED_TRAIN_TOL
     print(f"  {label}, batch {batch}: gradient rel L2 worst {worst['grad_rel_l2']:.3e} "
           f"({worst_name}), median {float(np.median(list(rel.values()))):.3e}, of the whole "
           f"vector {worst['grad_rel_l2_all']:.3e}; "
-          f"{TRAIN_PARITY_STEPS} steps: loss rel {worst['loss']:.3e}, grad_norm rel "
+          f"{steps} steps: loss rel {worst['loss']:.3e}, grad_norm rel "
           f"{worst['grad_norm']:.3e}, param max abs {worst['param_abs']:.3e}"
           f"{' (equal bit for bit)' if same else ''}, update rel {worst['update_rel']:.3e} "
           f"(bounds {tol}) {'ok' if ok and probe is None else 'FAILED' if not ok else ''}",
@@ -3621,7 +3731,7 @@ def cinn_train_launches(subnets, depth, steps, val_batches):
     return n
 
 
-def cinn_fused_launches(variant, subnets=40, depth=3, steps=TRAIN_PARITY_STEPS):
+def cinn_fused_launches(variant, subnets=40, depth=3, steps=CINN_PARITY_STEPS):
     """The launches of a cINN's train steps whose ViT1D subnets run the
     megakernel tier: fused_launches of one subnet, times the subnets."""
     return {k: subnets * v for k, v in fused_launches(variant, steps, 0, depth).items()}
@@ -3639,16 +3749,16 @@ _PLAIN_ATTN = functools.partial(_vit_kw, attn_impl="xla")
 CINN_PARITY = [
     ("cinn_train_parity", "cinn_ds2_electrons, K1 against the plain attention", DS2_CINN_MODEL,
      _PLAIN_ATTN(DS2_CINN_MODEL), CINN_TRAIN_TOL, TRAINING,
-     cinn_train_launches(40, 3, TRAIN_PARITY_STEPS, 0)),
+     cinn_train_launches(40, 3, CINN_PARITY_STEPS, 0)),
     ("cinn_remat_parity", "cinn_ds2_electrons, remat_spline: true against false",
      dict(DS2_CINN_MODEL, cinn_kwargs=dict(DS2_CINN_MODEL["cinn_kwargs"], remat_spline=True)),
-     DS2_CINN_MODEL, CINN_TRAIN_TOL, TRAINING, cinn_train_launches(40, 3, TRAIN_PARITY_STEPS, 0)),
+     DS2_CINN_MODEL, CINN_TRAIN_TOL, TRAINING, cinn_train_launches(40, 3, CINN_PARITY_STEPS, 0)),
     ("nflows_parity", "cinn_nflows, K1 against the plain attention", NFLOWS_MODEL,
      _PLAIN_ATTN(NFLOWS_MODEL), CINN_TRAIN_TOL, TRAINING,
-     cinn_train_launches(16, 2, TRAIN_PARITY_STEPS, 0)),
+     cinn_train_launches(16, 2, CINN_PARITY_STEPS, 0)),
     ("nflows_oneside_parity", "cinn_nflows_oneside, K1 against the plain attention",
      NFLOWS_ONESIDE_MODEL, _PLAIN_ATTN(NFLOWS_ONESIDE_MODEL), CINN_TRAIN_TOL, TRAINING,
-     cinn_train_launches(10, 2, TRAIN_PARITY_STEPS, 0)),
+     cinn_train_launches(10, 2, CINN_PARITY_STEPS, 0)),
     ("vit1d_fused_parity", "cinn_ds2_electrons, fused_block: true against composed (K1)",
      _TWIN(fused_block=True), DS2_CINN_MODEL, CINN_FUSED_TRAIN_TOL, FUSED_TRAINING,
      cinn_fused_launches("true")),
@@ -3675,7 +3785,7 @@ def cinn_train_phase(tmp: Path, card):
     ``model_run0.pt`` written; steps/s; one step profiled. Returns
     (launches, the experiment)."""
     training = dict(CINN_TRAINING, iterations=CINN_TRAIN_STEPS,
-                    validate_every_n_steps=VALIDATE_EVERY)
+                    validate_every_n_steps=min(VALIDATE_EVERY, CINN_TRAIN_STEPS))
     cfg = _experiment_config(tmp, DS2_CINN_MODEL, DS2_CINN_TRANSFORMS, training, "shape",
                              [0.99, 0.01])
     cfg.exp_name = "smoke_cinn"
@@ -4037,9 +4147,10 @@ def _family_data(family, model_type):
             "train_val_frac": [0.99, 0.01], "transforms": transforms}
 
 
-def family_config(tmp: Path, family, model_type, steps, model=None):
+def family_config(tmp: Path, family, model_type, steps, model=None, native_cache=None):
     """The family's composed experiment config (shape or energy run) with
-    the run dir under ``tmp``, ``steps`` training steps validating twice."""
+    the run dir under ``tmp``, ``steps`` training steps validating twice;
+    ``native_cache`` a directory for the lazy families' record caches."""
     f = FAMILIES[family]
     energy = model_type == "energy"
     training = dict(DS2_ENERGY_TRAINING, batchsize=f["energy_batch"]) if energy \
@@ -4053,7 +4164,9 @@ def family_config(tmp: Path, family, model_type, steps, model=None):
         "sample_us": False, "finetuning": False, "n_samples": FAMILY_SAMPLES,
         "model": model or f["energy" if energy else "shape"],
         "training": dict(training, iterations=steps, validate_every_n_steps=max(1, steps // 2)),
-        "data": _family_data(family, model_type), "evaluation": dict(f["evaluation"]),
+        "data": dict(_family_data(family, model_type),
+                     **({} if native_cache is None else {"native_cache": str(native_cache)})),
+        "evaluation": dict(f["evaluation"]),
     })
 
 
@@ -4204,16 +4317,23 @@ def family_train_phase(tmp: Path, family, card):
     a validation batch, 6 of each backward kernel a step (LEMURS's 135 and
     CaloHadronic's 606 tokens; none for CaloGAN's 84: the plain attention
     under ``auto``, as in JAX). One step profiled (device busy beside the
-    host clock), and the collator's host seconds for one batch. Returns
-    (K1 launches, the shape experiment, the energy experiment)."""
+    host clock), and the collator's host seconds for one batch.
+    CaloHadronic's runs read their events from record caches
+    (``data.native_cache``, written from the events in memory by
+    ``data/native_cache.py``; ``cache_phase`` holds their batches against
+    the events'). Returns (K1 launches, the shape experiment, the energy
+    experiment)."""
     data = tmp / "data"
     data.mkdir(exist_ok=True)
     _binning_xml(data, "ds2")  # LEMURS's evaluation features
     cls = SYNTHETIC[family]
-    energy_exp = cls(family_config(tmp, family, "energy", FAMILY_ENERGY_STEPS), device="cuda")
+    cache = tmp / "cache" if family in CACHE_FAMILIES else None
+    energy_exp = cls(family_config(tmp, family, "energy", FAMILY_ENERGY_STEPS,
+                                   native_cache=cache), device="cuda")
     energy_exp()
     _check_training(energy_exp, f"{family} energy")
-    exp = cls(family_config(tmp, family, "shape", FAMILY_TRAIN_STEPS), device="cuda")
+    exp = cls(family_config(tmp, family, "shape", FAMILY_TRAIN_STEPS, native_cache=cache),
+              device="cuda")
     for c in TRAINING.values():
         c.reset()
     exp()
@@ -4243,7 +4363,102 @@ def family_train_phase(tmp: Path, family, card):
           f"steady with each step's batch fetch{collate}; K1 launches "
           f"{ {k: v for k, v in launches.items() if v} }; on {card}", flush=True)
     train_profile_phase(exp, card)
+    if cache is not None:
+        cache_phase(exp, card)
     return {k: v for k, v in launches.items() if v}, exp, energy_exp
+
+
+CACHE_FAMILIES = ("calohadronic",)
+
+
+def cache_phase(exp, card, fetches=3):
+    """The record caches a lazy family's run trained from (``data/
+    native_cache.py``, built from the events in memory with the host's C++
+    compiler): both splits' batches gathered from the caches equal the
+    events' own (``ArrayEvents``, made again), bit for bit, classes
+    included; the seconds of ``fetches`` gathers of a training batch, and of
+    gather and collator, from each."""
+    batch = int(exp.cfg.training.batchsize)
+    rng = np.random.default_rng(SEED)
+    plains = {}
+    for split, files in (("train", exp.hdf5_dict_train), ("validation", exp.hdf5_dict_test)):
+        cached = exp.train_dataset if split == "train" else exp.val_dataset
+        if getattr(cached, "_native_cache", None) is None:
+            raise PhaseError(f"cache: the {split} split does not read from a record cache")
+        plain = plains[split] = exp.open_events(files)
+        idx = rng.permutation(len(plain))[:batch]
+        (got, got_cls), (want, want_cls) = cached.read_indices(idx), plain.read_indices(idx)
+        if not np.array_equal(got_cls, want_cls) or got.keys() != want.keys() or not all(
+                got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want):
+            raise PhaseError(f"cache: a {split} batch differs from the events'")
+    collator = exp._val_iterator.collator
+    times = {}
+    for name, ds in (("cache", exp.train_dataset), ("events in memory", plains["train"])):
+        gather, fetch = [], []
+        for i in range(fetches):
+            idx = np.random.default_rng(SEED + i).permutation(len(ds))[:batch]
+            t0 = time.perf_counter()
+            read = ds.read_indices(idx)
+            t1 = time.perf_counter()
+            collator(*read)
+            gather.append(t1 - t0)
+            fetch.append(time.perf_counter() - t0)
+        times[name] = (min(gather), min(fetch))
+    print(f"  cache: batches of both splits equal the events' bit for bit; a batch of {batch}: "
+          + ", ".join(f"{k} gather {g:.4f} s, gather and collate {f:.3f} s"
+                      for k, (g, f) in times.items())
+          + f" (best of {fetches}, host); {exp.train_dataset._native_cache.n_records} records of "
+          f"{exp.train_dataset._native_cache.record_size} bytes; on {card}", flush=True)
+
+
+# the autoregressive energy net at its defaults (models/ar_transformer.py:
+# shape 45, 64 wide, 4 heads, 2 + 2 layers, RK4 step 0.05 a dimension); no
+# shipped config names it
+AR_STEPS = 5
+AR_TRAIN_BATCH = 256
+
+
+def ar_phase(card):
+    """``ARtransformer`` at its defaults on the card: AR_STEPS train steps
+    (cfm/energy.yaml's optimizer) on synthetic u-vectors, then one batch of
+    BATCH sampled, 45 dimensions one after another, each a 1-D RK4 solve of
+    80 evals; the samples finite and of the model's shape, the draws
+    repeatable from a seed."""
+    from vit4hep_tpu_torch.models.ar_transformer import ARtransformer
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.device("cuda"):
+        model = ARtransformer({})
+    d = model.cfg.dims_in
+    draws = [(torch.rand(AR_TRAIN_BATCH, d, generator=gen, device="cuda"),
+              torch.rand(AR_TRAIN_BATCH, 1, generator=gen, device="cuda"))
+             for _ in range(AR_STEPS)]
+    state = ts.create_train_state(model, Config(DS2_ENERGY_TRAINING), use_ema=False)
+    step = ts.make_train_step(lambda x, c: model.batch_loss(x, c, gen),
+                              clip_grad_norm=DS2_ENERGY_TRAINING["clip_grad_norm"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(state, batch)["loss"]) for batch in draws]
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    _finite("ar train loss", np.asarray(losses))
+    cond = torch.rand(BATCH, 1, generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    sample = model.sample_batch(cond, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t0
+    again = model.sample_batch(cond[:8], torch.Generator(device="cuda").manual_seed(SEED + 2))
+    if tuple(sample.shape) != (BATCH, d) or not torch.equal(
+            again, model.sample_batch(cond[:8],
+                                      torch.Generator(device="cuda").manual_seed(SEED + 2))):
+        raise PhaseError(f"ar: samples of shape {tuple(sample.shape)} (expected {(BATCH, d)}), "
+                         "or draws that do not repeat from a seed")
+    _finite("ar samples", sample.cpu().numpy())
+    print(f"ar: ARtransformer defaults ({model.param_count()} params, {d} dims, "
+          f"{model.net_evals_per_sample()} subnet evals a sample): {AR_STEPS} train steps of "
+          f"batch {AR_TRAIN_BATCH} in {t_train:.3f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"one batch of {BATCH} sampled in {t_sample:.3f} s ({BATCH / t_sample:.2f} "
+          f"samples/s); on {card}", flush=True)
 
 
 def family_parity_phase(family, batch):
@@ -5029,6 +5244,10 @@ def main() -> int:
             if prof_groups is not None:
                 print(f"{path} profile: one more request, by layer and by kernel", flush=True)
                 profile_phase(generator, card, groups=prof_groups)
+            if path in EXPORTS:
+                print(f"{path}_export: the same chain exported (torch.export), saved, loaded and "
+                      "served", flush=True)
+                launches[f"{path}_export"] = export_phase(Path(tmp), path, generator, card)
             del generator
             torch.cuda.empty_cache()
     for path, label, param, per_eval in DS3_SERVING:
@@ -5157,7 +5376,7 @@ def main() -> int:
               "against their reference paths from one state", flush=True)
         for path, label, cfg, ref, tol, counters, want in CINN_PARITY:
             _, launches[path] = parity_phase(label, cfg, ref, 64, counters, want, tol,
-                                             CINN_TRAINING)
+                                             CINN_TRAINING, steps=CINN_PARITY_STEPS)
             torch.cuda.empty_cache()
         print("energy_cinn: the energy cINN through the CaloChallenge experiment", flush=True)
         energy_exp = energy_cinn_phase(Path(tmp), card)
@@ -5182,6 +5401,10 @@ def main() -> int:
             launches.update(family_sampling_phase(family, exp, energy_exp, card))
             del exp, energy_exp
             torch.cuda.empty_cache()
+
+    print("ar: the autoregressive energy net (ARtransformer) at its defaults", flush=True)
+    ar_phase(card)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
         print("ds2tods3_ft: calochallenge_ds2tods3_ft (a ds2 backbone fine-tuned on ds3) at full "

@@ -19,7 +19,8 @@
   ``device=cpu`` (tiny nets, 3 steps, every file of the configs written
   with 4 or 8 events): training, ``plot`` on the test set's u's (cls-high one
   epoch), ``sample_n`` on the energy run's u's staged and fused on the same
-  noise (1e-5); ``data.native_cache`` raises.
+  noise (1e-5); the energy run again with ``data.native_cache`` set trains
+  to the same losses, bit for bit, from its record caches.
 - ``sample_n`` and ``plot`` against the JAX experiment built over the
   same runs, both packages' nets stubbed by the same fixed draws: the
   conditions each net is given ([E, theta, phi] to the energy net, [u | E,
@@ -375,9 +376,17 @@ def test_launcher_trains_samples_and_plots_lemurs(runs):
     assert data["showers"].shape == (n, H, W, L) and np.isfinite(data["showers"]).all()
     np.testing.assert_allclose(data["incident_energy"], conds[0], rtol=1e-4)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["-cn", "lemurs/lemurs_energy_ODD", *_common(tmp_path, "C", 4),
-              "data.native_cache=/tmp/cache"], device="cpu")
+    # the energy run again with data.native_cache: its batches come from the
+    # record caches, so its training is the first run's, bit for bit
+    cache = tmp_path / "cache"
+    cached = main(["-cn", "lemurs/lemurs_energy_ODD", *_common(tmp_path, "C", 4), "plot=false",
+                   "model.net.param.nhead=2", "model.net.param.num_encoder_layers=1",
+                   "model.net.param.num_decoder_layers=1", "model.net.param.dim_feedforward=32",
+                   "model.net.param.encode_t_dim=16", f"data.native_cache={cache}"],
+                  device="cpu")
+    assert cached.state.step == 3 and cached.train_loss == energy.train_loss
+    assert cached.val_loss == energy.val_loss
+    assert sorted(p.suffix for p in cache.iterdir()) == [".v4cache", ".v4cache"]
 
 
 # the sampling and plot of the port's experiment against JAX's: both nets

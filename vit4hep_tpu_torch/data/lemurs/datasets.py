@@ -8,12 +8,15 @@ the transform pipeline on each batch; :class:`CollatedBatchIterator`
 groups a batch's shuffled indices by file (a few contiguous HDF5 reads a
 batch) and prepares the next batch on a background thread while the
 device is busy. :class:`ArrayEvents` holds events in memory with the same
-``read_indices``. h5py is imported where a file is opened. The mmap record
-cache (``data.native_cache``) is not ported (ROADMAP.md).
+``read_indices``. h5py is imported where a file is opened.
+:func:`enable_native_cache` switches either dataset's ``read_indices`` to
+the mmap record cache (``data/native_cache.py``).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import queue
 import threading
 from collections import OrderedDict
@@ -154,6 +157,10 @@ class ArrayEvents:
         idx = np.asarray(indices)
         return {k: v[idx] for k, v in self.fields.items()}, self.classes[idx]
 
+    def spec(self) -> dict:
+        """``{field: per-event shape}`` of the events."""
+        return {k: tuple(v.shape[1:]) for k, v in self.fields.items()}
+
 
 class LEMURSCollator:
     """The transform pipeline on each batch and the one-hot detector label
@@ -245,3 +252,75 @@ class CollatedBatchIterator:
         if not hasattr(self, "_iter"):
             self._iter = iter(self)
         return next(self._iter)
+
+
+def _cache_name(dataset, spec) -> str:
+    """``{type}_{records}_{sha1[:12]}.v4cache``: for a file-backed dataset the
+    JAX package's fingerprint of its record set (file paths with their
+    per-file counts, and the spec's fields), so that one cache directory
+    serves both packages; for events in memory the labels with their
+    counts, the fields and the events' bytes."""
+    if isinstance(dataset, ArrayEvents):
+        h = hashlib.sha1(repr((list(dataset.label_to_idx), np.bincount(
+            dataset.classes, minlength=dataset.num_classes).tolist(),
+            sorted(map(str, spec)))).encode())
+        for k in sorted(spec):
+            h.update(np.ascontiguousarray(dataset.fields[k], np.float32).tobytes())
+        fingerprint, n = h.hexdigest()[:12], len(dataset)
+    else:
+        counts: dict = {}
+        for file_path, _, _ in dataset.index_map:
+            counts[file_path] = counts.get(file_path, 0) + 1
+        fingerprint = hashlib.sha1(
+            repr((sorted(counts.items()), sorted(map(str, spec)))).encode()).hexdigest()[:12]
+        n = len(dataset.index_map)
+    return f"{type(dataset).__name__}_{n}_{fingerprint}.v4cache"
+
+
+def _event_blocks(dataset, spec):
+    """The dataset's events as ``{field: (n, -1)}`` blocks in global index
+    order: one block per file (read with h5py) or the events in memory."""
+    if isinstance(dataset, ArrayEvents):
+        yield {k: dataset.fields[k].reshape(len(dataset), -1) for k in spec}
+        return
+    import h5py  # host-side reader; the card's machine has none
+
+    for file_path in dict.fromkeys(fp for fp, _, _ in dataset.index_map):
+        with h5py.File(file_path, "r") as f:
+            events = f["events"][:]
+        yield {k: np.asarray(events[k], np.float32).reshape(len(events), -1) for k in spec}
+
+
+def enable_native_cache(dataset, cache_dir, spec: dict):
+    """Switch a lazy dataset's ``read_indices`` (:class:`LEMURSDataset`, its
+    CaloHadronic subclass or :class:`ArrayEvents`) to the native mmap record
+    cache. The cache is built once in ``cache_dir`` (from the HDF5 files in
+    index-map order, or from the events in memory, so that global indices
+    line up) and reused across runs; class indices stay host-side numpy."""
+    from vit4hep_tpu_torch.data.native_cache import NativeRecordCache, build_cache
+
+    os.makedirs(cache_dir, exist_ok=True)
+    cache_path = os.path.join(str(cache_dir), _cache_name(dataset, spec))
+    if isinstance(dataset, ArrayEvents):
+        classes = dataset.classes
+    else:
+        classes = np.asarray([c for (_, _, c) in dataset.index_map], np.int32)
+    if not os.path.exists(cache_path):
+        # written aside and renamed: a crash mid-build leaves no half cache,
+        # and two builders do not interleave
+        tmp_path = f"{cache_path}.tmp.{os.getpid()}"
+        build_cache(tmp_path, _event_blocks(dataset, spec), spec)
+        os.replace(tmp_path, cache_path)
+    cache = NativeRecordCache(cache_path, spec)
+    if len(cache) != len(classes):
+        raise ValueError(f"native cache has {len(cache)} records, the dataset {len(classes)}: "
+                         f"delete {cache_path} to rebuild")
+
+    def read_indices(indices):
+        idx = np.asarray(indices)
+        return cache.gather(idx), classes[idx]
+
+    dataset.read_indices = read_indices
+    dataset._native_cache = cache  # keeps the mapping open
+    LOGGER.info(f"Using native record cache {cache_path}")
+    return dataset

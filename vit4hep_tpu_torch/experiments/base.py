@@ -9,8 +9,10 @@ and ``plot``. The run directory layout is the reference's:
 so ``-cp runs/... -cn config warm_start_idx=K`` resumes a run as run K + 1.
 
 The JAX package's device mesh and multi-process logic reduce to one
-device here (the reference's torch checkpoints are read by
-``utils/torch_migration``): the model and the batches live on
+device here. A warm start reads the port's checkpoint, or a reference
+run's ``model_run<i>.pt`` (model and EMA converted by
+``utils/torch_migration``, the optimizer fresh, a cINN rebuilt with the
+checkpoint's permutations): the model and the batches live on
 ``device`` (``"cuda"`` unless the caller asks for ``"cpu"``; without CUDA
 the experiment raises). The step itself is
 ``experiments/train_state.make_train_step``.
@@ -31,6 +33,7 @@ from vit4hep_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from vit4hep_tpu_torch.utils.config import MissingMandatoryValue, instantiate
 from vit4hep_tpu_torch.utils.logger import LOGGER, flush_buffered_logs, init_logging
 from vit4hep_tpu_torch.utils.misc import count_parameters, flatten_dict, get_dtype
+from vit4hep_tpu_torch.utils import torch_migration as tm
 from vit4hep_tpu_torch.utils.tracking import Tracker
 
 
@@ -198,13 +201,51 @@ class BaseExperiment:
         return None
 
     def _init_optimizer(self):
+        payload = None
+        if self.warm_start:
+            path = self._model_path(f"model_run{self.cfg.warm_start_idx}")
+            payload = load_checkpoint(path)
+            if tm.is_reference_checkpoint(payload):
+                LOGGER.info(f"Migrating reference checkpoint {path} (model and EMA; the "
+                            "optimizer starts fresh)")
+                payload = self._migrate(payload)
+            else:
+                LOGGER.info(f"Loading model/optimizer/EMA state from {path}")
         self.state = ts.create_train_state(self.model, self.cfg.training, self.use_ema,
                                            self.param_groups())
         self.lr_schedule = ts.make_schedule(self.cfg.training)
-        if self.warm_start:
-            path = self._model_path(f"model_run{self.cfg.warm_start_idx}")
-            LOGGER.info(f"Loading model/optimizer/EMA state from {path}")
-            load_checkpoint(path, self.state)
+        if payload is None:
+            return
+        if "step" in payload:
+            self.state.load_state_dict(payload)
+            return
+        ema_sd = payload["ema"]
+        with torch.no_grad():
+            if self.use_ema and ema_sd is not None:
+                names = [n.removeprefix("net.") for n, p in self.model.named_parameters()
+                         if p.requires_grad]
+                for e, n in zip(self.state.ema, names, strict=True):
+                    e.copy_(ema_sd[n])
+                self.state.ema_updates = payload["ema_updates"]
+            elif self.use_ema:
+                for e, p in zip(self.state.ema, self.state.params):
+                    e.copy_(p)
+
+    def _migrate(self, payload) -> dict:
+        """A reference checkpoint's model and EMA in the port's names, the
+        model loaded into the net: a cINN is rebuilt with the checkpoint's
+        permutations, an energy net with its Fourier weights, and the config
+        is saved again with them, so that a later resume builds the same
+        model. Returns ``{"ema": net state dict or None, "ema_updates"}``."""
+        net_sd, ema_sd = tm.convert_reference_checkpoint(self.cfg.model, payload)
+        if tm.model_kind(self.cfg.model) in ("cinn", "energy"):
+            self.model = instantiate(self.cfg.model).to(self.device)
+            self._save_config("config.yaml")
+            self._save_config(f"config_{self.cfg.run_idx}.yaml")
+        self.model.net.load_state_dict(net_sd)
+        ema = payload.get("ema")
+        return {"ema": ema_sd,
+                "ema_updates": int((ema or {}).get("num_updates") or 0)}
 
     def _init_scheduler(self):
         # schedules live in the train state; ReduceLROnPlateau is host-driven

@@ -34,8 +34,7 @@ class CaloHadronic(LazyFamilyExperiment):
         self.return_us = bool(self.cfg.data.return_us)
         self.transforms = self.build_transforms(self.cfg.data.transforms, self.cfg.run_dir)
         self._log_transforms()
-        self.train_dataset = self.open_events(self.hdf5_dict_train)
-        self.val_dataset = self.open_events(self.hdf5_dict_test)
+        self.open_datasets()
 
     def open_events(self, files_dict):
         """The lazy dataset over one split's files."""

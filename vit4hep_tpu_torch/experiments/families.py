@@ -16,7 +16,8 @@ from pathlib import Path
 
 import numpy as np
 
-from vit4hep_tpu_torch.data.lemurs.datasets import CollatedBatchIterator, read_first_file
+from vit4hep_tpu_torch.data.lemurs.datasets import (ArrayEvents, CollatedBatchIterator,
+                                                     enable_native_cache, read_first_file)
 from vit4hep_tpu_torch.data.pipeline import reverse_until
 from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
 from vit4hep_tpu_torch.utils.logger import LOGGER
@@ -32,11 +33,6 @@ class DictFamilyExperiment(CaloChallenge):
 
     def build_transforms(self, transforms_cfg, run_dir):
         return type(self).pipeline(transforms_cfg, run_dir)
-
-    def init_physics(self):
-        if self.cfg.data.get("native_cache"):
-            raise NotImplementedError("data.native_cache (the mmap record cache) is not ported "
-                                      "yet (ROADMAP.md queue 1)")
 
     def forward_conditions(self, data_dict):
         """``data_dict`` through this run's ``cond_transform`` steps."""
@@ -100,7 +96,9 @@ class LazyFamilyExperiment(DictFamilyExperiment):
     ``open_events``, ``collator(files, return_us, **kw)``, ``u_dict``,
     ``energy_eval_inputs`` and ``to_showers``, and name ``ratio_step`` (the
     step whose u's the energy evaluation reads), ``evaluation`` (the module
-    of ``run_from_py``) and ``sample_keys`` (its arrays)."""
+    of ``run_from_py``) and ``sample_keys`` (its arrays). With
+    ``data.native_cache`` set, both splits read their events from record
+    caches in that directory (:meth:`open_datasets`)."""
 
     ratio_step = None
     evaluation = None
@@ -111,6 +109,28 @@ class LazyFamilyExperiment(DictFamilyExperiment):
         ``load_data`` reads it: a pipeline's file-backed state is fitted on
         them where its statistics are missing."""
         return read_first_file(files_dict, self.load_data)
+
+    def open_datasets(self):
+        """Both splits' datasets (``open_events``), each reading from a
+        record cache under ``data.native_cache`` when it is set."""
+        self.train_dataset = self.open_events(self.hdf5_dict_train)
+        self.val_dataset = self.open_events(self.hdf5_dict_test)
+        cache_dir = self.cfg.data.get("native_cache")
+        if cache_dir:
+            spec = self.event_spec()
+            enable_native_cache(self.train_dataset, cache_dir, spec)
+            enable_native_cache(self.val_dataset, cache_dir, spec)
+
+    def event_spec(self) -> dict:
+        """``{field: per-event shape}`` of the training events: of the events
+        in memory, or of the first event of the first training file."""
+        if isinstance(self.train_dataset, ArrayEvents):
+            return self.train_dataset.spec()
+        import h5py  # host-side reader; the card's machine has none
+
+        with h5py.File(next(iter(self.hdf5_dict_train.values()))[0], "r") as f:
+            sample = self.load_data(f, local_index=0)
+        return {k: tuple(v.shape[1:]) for k, v in sample.items()}
 
     def load_energy_model(self):
         super().load_energy_model()

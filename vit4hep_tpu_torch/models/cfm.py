@@ -14,6 +14,7 @@ from torch import nn
 from vit4hep_tpu_torch.models.trajectories import get_trajectory
 from vit4hep_tpu_torch.models.vit import sampling_variant
 from vit4hep_tpu_torch.ops.ode import NET_EVALS_PER_STEP, grid_steps, odeint, parse_odeint_kwargs
+from vit4hep_tpu_torch.utils.misc import without_grad
 
 
 class CFM(nn.Module):
@@ -81,7 +82,7 @@ class CFM(nn.Module):
         in token space; None integrates in x-space."""
         return None
 
-    @torch.no_grad()
+    @without_grad
     def sample_batch(self, c, generator=None, x_T=None):
         """Integrate the learned velocity field t: 0 -> 1 from x_T ~ N(0, 1).
 
@@ -96,9 +97,14 @@ class CFM(nn.Module):
         net = self.sample_net
 
         if tshape is None:
+            # a net that encodes its condition (the energy transformer) does so
+            # once: the condition is the same at every eval
+            memory = net.condition_memory(c) if hasattr(net, "condition_memory") else None
+            extra = {} if memory is None else {"memory": memory}
+
             def f(t, x_t):
                 t_b = torch.full((x_t.shape[0], 1), t, dtype=x_t.dtype, device=x_t.device)
-                return self._net_out(net(*self._net_args(x_t, t_b, c)), x_t.shape)
+                return self._net_out(net(*self._net_args(x_t, t_b, c), **extra), x_t.shape)
 
             return odeint(f, x_T, t0=0.0, t1=1.0, **self.ode_kwargs)
 

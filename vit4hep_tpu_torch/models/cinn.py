@@ -18,6 +18,8 @@ import math
 import torch
 from torch import nn
 
+from vit4hep_tpu_torch.utils.misc import without_grad
+
 
 class CINN(nn.Module):
     """Base cINN over x of shape ``(B, *shape)``; subclasses set ``self.net``
@@ -66,7 +68,7 @@ class CINN(nn.Module):
     def batch_loss(self, x, c, generator=None):
         return -self.log_prob(x, c)
 
-    @torch.no_grad()
+    @without_grad
     def sample_batch(self, c, generator=None, z=None):
         """x for the condition ``c``: the flow's inverse at ``z`` (x shape),
         drawn from ``generator`` unless given."""

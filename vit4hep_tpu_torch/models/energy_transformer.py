@@ -33,6 +33,7 @@ from vit4hep_tpu_torch.models.vit import current_sampling_weights
 from vit4hep_tpu_torch.ops.attention import dot_product_attention
 from vit4hep_tpu_torch.ops.fused_energy_decoder import fused_energy_decoder
 from vit4hep_tpu_torch.ops.pos_embed import gaussian_fourier_projection
+from vit4hep_tpu_torch.utils.misc import f32
 
 _LN_EPS = 1e-5
 
@@ -105,7 +106,7 @@ class GaussianFourierProjection(nn.Module):
                              persistent=False)
 
     def forward(self, t):
-        return gaussian_fourier_projection(t.reshape(t.shape[0], 1).float(), self.W)
+        return gaussian_fourier_projection(f32(t.reshape(t.shape[0], 1)), self.W)
 
 
 class MultiheadAttention(nn.Module):
@@ -125,7 +126,8 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q_in, kv_in):
+    def forward(self, q_in, kv_in, mask=None):
+        """``mask``: an optional (Nq, Nk) bool, True = attend."""
         b, nq, dm = q_in.shape
         nk = kv_in.shape[1]
         hd = dm // self.nhead
@@ -134,7 +136,7 @@ class MultiheadAttention(nn.Module):
         q = q.reshape(b, nq, self.nhead, hd).transpose(1, 2)
         k = k.reshape(b, nk, self.nhead, hd).transpose(1, 2)
         v = v.reshape(b, nk, self.nhead, hd).transpose(1, 2)
-        out = dot_product_attention(q, k, v, impl=self.attn_impl)
+        out = dot_product_attention(q, k, v, mask, impl=self.attn_impl)
         return self.out_proj(out.transpose(1, 2).reshape(b, nq, dm))
 
 
@@ -169,8 +171,8 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.act = _activation(activation)
 
-    def forward(self, x, memory):
-        x = self.norm1(x + self.self_attn(x, x))
+    def forward(self, x, memory, self_mask=None):
+        x = self.norm1(x + self.self_attn(x, x, self_mask))
         x = self.norm2(x + self.multihead_attn(x, memory))
         return self.norm3(x + self.linear2(self.act(self.linear1(x))))
 
@@ -235,18 +237,25 @@ class ParallelTransformerNet(nn.Module):
         pad = c.new_zeros((b, n, p.dim_embedding - p.dims_c - 1))
         return torch.cat([c[..., None], one_hot.expand(b, n, p.dims_c), pad], dim=-1)
 
-    def forward(self, x, t, condition=None):
+    def condition_memory(self, condition):
+        """The encoder's memory of ``condition`` (None without one). A
+        sampling ODE evaluates the net at one condition: it makes the memory
+        once and hands it to every eval (``memory``)."""
+        if condition is None:
+            return None
+        src = self._embed_c(f32(condition))
+        for layer in self.transformer.encoder.layers:
+            src = layer(src)
+        return self.transformer.encoder.norm(src)
+
+    def forward(self, x, t, condition=None, memory=None):
         p = self.cfg
-        x = x.float()
+        x = f32(x)
         t_feats = self.time_embed(t)
         tgt = self._embed_x(x, t_feats)
-        if condition is None:
-            memory = x.new_zeros((x.shape[0], x.shape[1], p.d_model))
-        else:
-            src = self._embed_c(condition.float())
-            for layer in self.transformer.encoder.layers:
-                src = layer(src)
-            memory = self.transformer.encoder.norm(src)
+        if memory is None:
+            memory = x.new_zeros((x.shape[0], x.shape[1], p.d_model)) if condition is None \
+                else self.condition_memory(condition)
 
         # the decoder kernel is valid when the cross-attention memory is one
         # effective token: a 1-token encoder or the all-zero memory

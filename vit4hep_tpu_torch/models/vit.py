@@ -75,10 +75,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from vit4hep_tpu_torch.ops import _cuda
 from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import pos_embed as pe_ops
 from vit4hep_tpu_torch.ops.attention import qkv_attention
 from vit4hep_tpu_torch.ops.fused_mlp import fused_mlp_half
+from vit4hep_tpu_torch.utils.misc import f32, no_grad
 
 _LN_EPS = 1e-6
 
@@ -438,7 +440,7 @@ class ViTNet(_FusedViT):
         return pe_ops.learnable_fourier_pos_embed_3d(self.pos_embed_freqs, pos_z, pos_y, pos_x)
 
     def forward(self, x, t, c):
-        x, c = x.float(), c.float()
+        x, c = f32(x), f32(c)
         if self.cfg.in_patch_dim is not None:
             x = F.silu(self.x_mapper(x))
         if self.cfg.in_condition_dim is not None:
@@ -456,9 +458,13 @@ def current_sampling_weights(net):
     """A sampling twin's kernel layout (None for any other net), laid out
     again when a parameter was written or replaced since it was made, so
     that a twin held across a weight update never samples with the old
-    weights."""
+    weights. Traced (``torch.export``), the layout is the graph's own
+    function of the parameters, made where the twin is made, so a traced
+    program lays out whatever parameters it holds."""
     if net._sampling_weights is None:
         return None
+    if _cuda.tracing():
+        return net._sampling_weights
     stamp = _weight_stamp(net)
     if stamp != net._sampling_stamp:
         with torch.no_grad():
@@ -482,9 +488,10 @@ def sampling_variant(net):
             kw["checkpoint_grads"] = False
         twin = copy.copy(net)
         twin.cfg = dataclasses.replace(cfg, **kw)
-        with torch.no_grad():
+        with no_grad():
             twin._sampling_weights = twin.kernel_weights()
-        twin._sampling_stamp = _weight_stamp(twin)
+        # a traced parameter has no storage to stamp
+        twin._sampling_stamp = None if _cuda.tracing() else _weight_stamp(twin)
         return twin
     return net
 
@@ -526,7 +533,7 @@ class ViT1DNet(_FusedViT):
         return pe_ops.learnable_fourier_pos_embed_1d(self.pos_embed_freqs, self._grid)
 
     def forward(self, x, c):
-        return self._trunk(x.float(), self.c_embedder(c.float()))
+        return self._trunk(f32(x), self.c_embedder(f32(c)))
 
 
 def ViT(param: dict) -> ViTNet:

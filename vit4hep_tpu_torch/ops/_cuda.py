@@ -161,6 +161,15 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def tracing() -> bool:
+    """Whether the call is being traced (``torch.export``, ``torch.compile``)
+    rather than run. A wrapper that is traced records its registered custom
+    op (``ops/library.py``) in the graph, on any device, and launches
+    nothing: the op launches the kernel, and counts it, when the graph
+    runs."""
+    return torch.compiler.is_compiling()
+
+
 def require_cuda(name: str, *tensors, dtype=torch.float32):
     """Raise unless every tensor is a contiguous ``dtype`` CUDA tensor on
     one device."""

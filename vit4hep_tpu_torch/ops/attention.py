@@ -33,6 +33,7 @@ from vit4hep_tpu_torch.ops.flash_attention import flash_attention
 from vit4hep_tpu_torch.ops.flash_qkv_attention import flash_qkv_attention, flash_qkv_fits
 from vit4hep_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
 from vit4hep_tpu_torch.ops.vmem_attention import check_shapes, vmem_attention
+from vit4hep_tpu_torch.utils.misc import f32
 
 _NEG_INF = -1e30
 _IMPLS = ("auto", "xla", "fused", "flash", "vmem")
@@ -47,12 +48,13 @@ def xla_attention(q, k, v, mask=None, scale=None):
     """softmax(q k^T * scale) v on (B, H, N, D) tensors; mask True = attend."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(f32(q), f32(k).transpose(-1, -2)) * scale
     if mask is not None:
         logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
     weights = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     weights = weights / weights.sum(dim=-1, keepdim=True)
-    return torch.matmul(weights, v.float()).to(v.dtype)
+    out = torch.matmul(weights, f32(v))
+    return out if out.dtype == v.dtype else out.to(v.dtype)
 
 
 def dot_product_attention(q, k, v, mask=None, impl="auto", scale=None):

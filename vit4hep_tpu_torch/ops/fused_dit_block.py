@@ -625,7 +625,16 @@ def linear(a, w, bias, epilogue, out=None, pos=None, gate=None, n_tok=1, resid=N
     with TMA: an f32 A is cast to bf16 once, and A and W are zero-padded to
     8-column multiples where they are not (ds3's 90-wide patches and final
     layer; :func:`tma_operands`), which leaves the product unchanged. A
-    shape or buffer it cannot take raises ValueError (:func:`gemm_plan`)."""
+    shape or buffer it cannot take raises ValueError (:func:`gemm_plan`).
+    Returns the output. Traced, it records ``vit4hep::vit_gemm``, which
+    writes a new output (the gated residual reads ``resid``, else
+    ``out``)."""
+    if _cuda.tracing():
+        if epilogue == EPI_GATED_RESID:
+            resid = out if resid is None else resid
+        elif out is not None:
+            raise ValueError("linear: a traced call writes a new output; pass no out")
+        return torch.ops.vit4hep.vit_gemm(a, w, bias, epilogue, pos, gate, resid, n_tok)
     return _gemm(GEMM, "linear", a, w, bias, epilogue, out, pos, gate, resid, None, n_tok)
 
 
@@ -657,7 +666,10 @@ def _modln(counter, x, shift, scale, n_tok):
 
 def modln(x, shift, scale, n_tok):
     """bf16 ``LN(x) * (1 + scale[r // n_tok]) + shift[r // n_tok]``; x (M, H)
-    f32, shift/scale (M // n_tok, H) views (rows may be strided, equally)."""
+    f32, shift/scale (M // n_tok, H) views (rows may be strided, equally).
+    Traced, it records ``vit4hep::vit_modln``."""
+    if _cuda.tracing():
+        return torch.ops.vit4hep.vit_modln(x, shift, scale, n_tok)
     return _modln(MODLN, x, shift, scale, n_tok)
 
 
@@ -667,7 +679,9 @@ def attention(qkv, num_heads, scale, mask=None):
     The kernel (``vit_attn_wgmma_kernel``, csrc/vit_attention_wgmma.cuh)
     takes bf16 multiplicands with f32 statistics and accumulation, as the
     TPU kernel; its plain version is :func:`attention_plain` with
-    ``mm_dtype`` bfloat16."""
+    ``mm_dtype`` bfloat16. Traced, it records ``vit4hep::vit_attention``."""
+    if _cuda.tracing():
+        return torch.ops.vit4hep.vit_attention(qkv, num_heads, float(scale), mask)
     _cuda.require_cuda("attention", qkv)
     b, n, d = check_kernel_args("attention", qkv, num_heads)
     mask, mask_ptr = mask_arg("attention", mask, n, qkv.device)
@@ -900,8 +914,33 @@ def _bf(w):
     return w.to(torch.bfloat16).contiguous()
 
 
+def _as(t, dtype):
+    """``t`` as a contiguous ``dtype`` tensor; ``t`` itself when it is one
+    (a traced forward then records no conversion)."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
+
+
+def _mmw(w):
+    """A weight matrix as the sampling forward's products take it: bf16 on
+    the card, f32 on the CPU (a traced forward's CPU ops compute in f32)."""
+    return _as(w, _mm_dtype(w))
+
+
 def _f32(t):
-    return t.float().contiguous()
+    return _as(t, torch.float32)
+
+
+_LAYERS: list = []  # [(the stacked weights of the last call, their per-layer slices)]
+
+
+def _per_layer(ws):
+    """Each layer's slices of the stacked block weights ``ws``, made once for
+    the weights of the last call: a sampling twin hands the same tensors to
+    every net eval, so a traced ODE records the slices once."""
+    if not (_LAYERS and len(_LAYERS[0][0]) == len(ws)
+            and all(a is b for a, b in zip(_LAYERS[0][0], ws))):
+        _LAYERS[:] = [(ws, [tuple(w[li] for w in ws) for li in range(ws[0].shape[0])])]
+    return _LAYERS[0][1]
 
 
 def _block_fwd_kernel(x, mod6, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale):
@@ -912,11 +951,12 @@ def _block_fwd_kernel(x, mod6, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num
     h = modln(xr, mod6[:, 0], mod6[:, 1], n)
     qkv = linear(h, wqkv, bqkv, EPI_BIAS, n_tok=n)
     ctx = attention(qkv.view(b, n, -1), num_heads, scale, mask)
-    x1 = linear(ctx.view(b * n, hdim), wout, bout, EPI_GATED_RESID, out=torch.empty_like(xr),
-                resid=xr, gate=mod6[:, 2], n_tok=n)
+    out = None if _cuda.tracing() else torch.empty_like(xr)  # a traced GEMM makes its own
+    x1 = linear(ctx.view(b * n, hdim), wout, bout, EPI_GATED_RESID, out=out, resid=xr,
+                gate=mod6[:, 2], n_tok=n)
     h2 = modln(x1, mod6[:, 3], mod6[:, 4], n)
     hid = linear(h2, w1, b1, EPI_BIAS_GELU, n_tok=n)
-    linear(hid, w2, b2, EPI_GATED_RESID, out=x1, gate=mod6[:, 5], n_tok=n)
+    x1 = linear(hid, w2, b2, EPI_GATED_RESID, out=x1, gate=mod6[:, 5], n_tok=n)
     return x1.view(b, n, hdim)
 
 
@@ -1155,32 +1195,42 @@ def vit_fwd_train(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w
 def _stack_forward(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale):
     """K2s: the L blocks in order, no residuals: the plain f32 blocks on the
     CPU, K2b's block body (``vit_gemm``, ``vit_modln``, ``vit_attention``)
-    per block on the card."""
-    if x.device.type == "cpu":
+    per block on the card. Traced, it is K2b's block body on any device, each
+    launch a registered op."""
+    traced = _cuda.tracing()
+    if x.device.type == "cpu" and not traced:
         return stack_reference(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads,
                                scale)
     x, mods = _f32(x), _f32(mods)
-    _cuda.require_cuda("fused_dit_stack", x, mods)
-    ws = _cast_weights(wqkv, bqkv, wout, bout, w1, b1, w2, b2)
-    for li in range(wqkv.shape[0]):
-        x = _block_fwd_kernel(x, mods[:, li], *(w[li] for w in ws), mask, num_heads, scale)
+    if not traced:
+        _cuda.require_cuda("fused_dit_stack", x, mods)
+    ws = (_mmw(wqkv), _f32(bqkv), _mmw(wout), _f32(bout), _mmw(w1), _f32(b1), _mmw(w2),
+          _f32(b2))
+    for li, layer in enumerate(_per_layer(ws)):
+        x = _block_fwd_kernel(x, mods[:, li], *layer, mask, num_heads, scale)
     return x
 
 
 def _vit_forward(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv, wout, bout, w1, b1, w2, b2,
                  wfin, bfin, mask, num_heads, scale):
-    """K2v: the sampling forward (the plain version on the CPU)."""
-    if tokens.device.type == "cpu":
+    """K2v: the sampling forward (the plain version on the CPU). Traced, it
+    is the card's sequence of launches on any device, each a registered op
+    (``vit4hep::vit_gemm``, ``vit_modln``, ``vit_attention``), whose CPU
+    implementations compute in f32 what :func:`vit_forward_reference`
+    does, in the same order."""
+    traced = _cuda.tracing()
+    if tokens.device.type == "cpu" and not traced:
         return vit_forward_reference(tokens, pos, mods, fmod, wemb, bemb, wqkv, bqkv,
                                      wout, bout, w1, b1, w2, b2, wfin, bfin, mask,
                                      num_heads, scale)
     b, n, pdim = tokens.shape
-    _cuda.require_cuda("fused_vit_forward", tokens, pos, mods, fmod)
-    x = linear(tokens.reshape(b * n, pdim), _bf(wemb), bemb.contiguous(), EPI_BIAS_POS,
+    if not traced:
+        _cuda.require_cuda("fused_vit_forward", tokens, pos, mods, fmod)
+    x = linear(tokens.reshape(b * n, pdim), _mmw(wemb), bemb.contiguous(), EPI_BIAS_POS,
                pos=pos, n_tok=n).view(b, n, -1)
     x = _stack_forward(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_heads, scale)
     h = modln(x.view(b * n, -1), fmod[:, 0], fmod[:, 1], n)
-    out = linear(h, _bf(wfin), bfin.contiguous(), EPI_BIAS, n_tok=n)
+    out = linear(h, _mmw(wfin), bfin.contiguous(), EPI_BIAS, n_tok=n)
     return out.reshape(b, n, -1)
 
 
@@ -1400,3 +1450,66 @@ def fused_dit_stack(x, mods, wqkv, bqkv, wout, bout, w1, b1, w2, b2, mask, num_h
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _FusedDiTStack.apply(*args, mask, num_heads, scale, bwd)
     return _stack_forward(*args, mask, num_heads, scale)
+
+
+# ---------------------------------------------------------------------------
+# the sampling forward's launches as registered ops (what a traced K2v
+# records): the kernel, counted, on CUDA tensors; on CPU tensors the plain
+# product in the weights' type (f32 in a CPU trace, whose weights are f32)
+# ---------------------------------------------------------------------------
+@torch.library.custom_op(
+    "vit4hep::vit_gemm", mutates_args=(),
+    schema="(Tensor a, Tensor w, Tensor bias, int epilogue, Tensor? pos, Tensor? gate, "
+           "Tensor? resid, int n_tok) -> Tensor")
+def vit_gemm_op(a, w, bias, epilogue, pos, gate, resid, n_tok):
+    """:func:`linear` into a new output; the gated residual adds to
+    ``resid``."""
+    if a.device.type == "cpu":
+        y = a.to(w.dtype).float() @ w.float() + bias
+        if epilogue == EPI_BIAS_POS:
+            return y + pos.repeat(a.shape[0] // n_tok, 1)
+        if epilogue == EPI_BIAS_GELU:
+            return _gelu(y).to(w.dtype)
+        if epilogue == EPI_GATED_RESID:
+            return resid + gate.repeat_interleave(n_tok, dim=0) * y
+        return y
+    out = torch.empty(resid.shape, dtype=torch.float32, device=a.device) \
+        if epilogue == EPI_GATED_RESID else None
+    return _gemm(GEMM, "linear", a, w, bias, epilogue, out, pos, gate, resid, None, n_tok)
+
+
+@vit_gemm_op.register_fake
+def _(a, w, bias, epilogue, pos, gate, resid, n_tok):
+    dt = w.dtype if epilogue == EPI_BIAS_GELU else torch.float32
+    return a.new_empty((a.shape[0], w.shape[1]), dtype=dt)
+
+
+@torch.library.custom_op("vit4hep::vit_modln", mutates_args=(),
+                         schema="(Tensor x, Tensor shift, Tensor scale, int n_tok) -> Tensor")
+def vit_modln_op(x, shift, scale, n_tok):
+    """:func:`modln`; in f32 on CPU tensors."""
+    if x.device.type == "cpu":
+        rows = lambda m: m.repeat_interleave(n_tok, dim=0)  # noqa: E731
+        return _ln(x) * (1.0 + rows(scale)) + rows(shift)
+    return _modln(MODLN, x, shift, scale, n_tok)
+
+
+@vit_modln_op.register_fake
+def _(x, shift, scale, n_tok):
+    return x.new_empty(x.shape, dtype=_mm_dtype(x))
+
+
+@torch.library.custom_op(
+    "vit4hep::vit_attention", mutates_args=(),
+    schema="(Tensor qkv, int num_heads, float scale, Tensor? mask) -> Tensor")
+def vit_attention_op(qkv, num_heads, scale, mask):
+    """:func:`attention`; the plain f32 attention on CPU tensors."""
+    if qkv.device.type == "cpu":
+        return qkv_attention(qkv, num_heads, mask, impl="xla", scale=scale)
+    return attention(qkv, num_heads, scale, mask)
+
+
+@vit_attention_op.register_fake
+def _(qkv, num_heads, scale, mask):
+    b, n, width = qkv.shape
+    return qkv.new_empty((b, n, width // 3), dtype=_mm_dtype(qkv))

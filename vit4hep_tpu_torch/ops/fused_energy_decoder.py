@@ -120,6 +120,8 @@ def fused_energy_decoder(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
             fs, fb, hw0, hb0, hw1, hb1)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _FusedEnergyDecoder.apply(num_heads, activation, *args)
+    if _cuda.tracing():
+        return torch.ops.vit4hep.energy_decoder(*args, num_heads, activation)
     return _forward(*args, num_heads=num_heads, activation=activation)
 
 
@@ -186,3 +188,23 @@ def energy_decoder_kernel(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo,
     ENERGY_DECODER.add()
     return out
 
+
+
+@torch.library.custom_op(
+    "vit4hep::energy_decoder", mutates_args=(),
+    schema="(Tensor tgt, Tensor tf, Tensor cross, Tensor ln_s, Tensor ln_b, Tensor wqkv, "
+           "Tensor bqkv, Tensor wo, Tensor bo, Tensor w1, Tensor b1, Tensor w2, Tensor b2, "
+           "Tensor fs, Tensor fb, Tensor hw0, Tensor hb0, Tensor hw1, Tensor hb1, "
+           "int num_heads, str activation) -> Tensor")
+def energy_decoder_op(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2, b2, fs, fb,
+                      hw0, hb0, hw1, hb1, num_heads, activation):
+    """The forward as a registered op (what a traced
+    :func:`fused_energy_decoder` records): the plain version on CPU tensors,
+    the kernel (counted) on CUDA tensors."""
+    return _forward(tgt, tf, cross, ln_s, ln_b, wqkv, bqkv, wo, bo, w1, b1, w2, b2, fs, fb, hw0,
+                    hb0, hw1, hb1, num_heads=num_heads, activation=activation)
+
+
+@energy_decoder_op.register_fake
+def _(tgt, *_args):
+    return tgt.new_empty(tgt.shape[:2], dtype=torch.float32)

@@ -279,9 +279,33 @@ def fused_qkv_attention(qkv, num_heads, mask=None, scale=None):
     differentiable. ``mask``: optional shared (N, N) bool on qkv's device,
     True = attend; ``scale`` overrides 1/sqrt(D)."""
     _, n, d = _dims(qkv, num_heads)
+    traced = _cuda.tracing() and not (torch.is_grad_enabled() and qkv.requires_grad)
     if mask is not None:
         if mask.ndim != 2:
             raise ValueError("fused_qkv_attention supports a shared (N, N) mask")
-        mask_arg("fused_qkv_attention", mask, n, qkv.device)
+        if not traced:
+            mask_arg("fused_qkv_attention", mask, n, qkv.device)
     scale = d ** -0.5 if scale is None else float(scale)
+    if traced:  # a traced forward without gradients records the forward's op
+        return torch.ops.vit4hep.qkv_attention_fwd(qkv.contiguous(), num_heads, scale, mask)[0]
     return _FusedQKVAttention.apply(qkv.contiguous(), num_heads, scale, mask)
+
+
+@torch.library.custom_op(
+    "vit4hep::qkv_attention_fwd", mutates_args=(),
+    schema="(Tensor qkv, int num_heads, float scale, Tensor? mask) -> (Tensor, Tensor)")
+def qkv_attention_fwd_op(qkv, num_heads, scale, mask):
+    """The forward as a registered op (what a traced
+    :func:`fused_qkv_attention` records without gradients): (context, lse)
+    of the plain version on CPU tensors, of the kernel (counted) on CUDA
+    tensors."""
+    if qkv.device.type == "cpu":
+        return attention_fwd_plain(qkv, num_heads, scale, mask)
+    return attention_fwd_kernel(qkv, num_heads, scale, mask)
+
+
+@qkv_attention_fwd_op.register_fake
+def _(qkv, num_heads, scale, mask):
+    b, n, width = qkv.shape
+    return (qkv.new_empty((b, n, width // 3)),
+            qkv.new_empty((b, num_heads, n), dtype=torch.float32))

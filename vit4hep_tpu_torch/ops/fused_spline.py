@@ -155,9 +155,36 @@ def fused_binned_rqs_inverse(y, theta, bins, min_bin_sizes=(0.01, 0.01),
     identity_tails)``."""
     del group  # the TPU kernel's batch tiling; no counterpart here
     args = (y, theta, bins, min_bin_sizes, default_domain, identity_tails, domain_clamping)
+    if _cuda.tracing():
+        return torch.ops.vit4hep.binned_rqs_inverse(
+            y, theta, int(bins), [float(v) for v in min_bin_sizes],
+            [float(v) for v in default_domain], bool(identity_tails),
+            None if domain_clamping is None else float(domain_clamping))
     if y.device.type == "cpu":
         return inverse_plain(*args)
     return binned_rqs_inverse_kernel(*args)
+
+
+@torch.library.custom_op(
+    "vit4hep::binned_rqs_inverse", mutates_args=(),
+    schema="(Tensor y, Tensor theta, int bins, float[] min_bin_sizes, float[] default_domain, "
+           "bool identity_tails, float? domain_clamping) -> (Tensor, Tensor)")
+def binned_rqs_inverse_op(y, theta, bins, min_bin_sizes, default_domain, identity_tails,
+                          domain_clamping):
+    """:func:`fused_binned_rqs_inverse` as a registered op (what a traced call
+    records): the plain version on CPU tensors, the kernel (counted) on
+    CUDA tensors. The kernel's scratch and its epoch are taken here, at
+    each call, so that two calls of a traced graph never share an epoch."""
+    args = (y, theta, bins, tuple(min_bin_sizes), tuple(default_domain), identity_tails,
+            domain_clamping)
+    if y.device.type == "cpu":
+        return inverse_plain(*args)
+    return binned_rqs_inverse_kernel(*args)
+
+
+@binned_rqs_inverse_op.register_fake
+def _(y, theta, *_args):
+    return torch.empty_like(y), y.new_empty(y.shape[:1], dtype=torch.float32)
 
 
 def binned_rqs_inverse_kernel(y, theta, bins, min_bin_sizes, default_domain, identity_tails,

@@ -44,6 +44,7 @@ _VIT1D = f"{_MODELS}.vit.ViT1D"
 _CALOGAN = f"{_MODELS}.calogan.CaloGANCFM"
 _LEMURS = f"{_MODELS}.lemurs.LEMURSCFM"
 _CALOHAD = f"{_MODELS}.calohadronic.CaloHadCFM"
+_AR = f"{_MODELS}.ar_transformer.ARtransformer"
 
 TARGET_REMAP = {
     # the shared configs' own targets
@@ -58,6 +59,7 @@ TARGET_REMAP = {
     "vit4hep_tpu.models.calogan.CaloGANCFM": _CALOGAN,
     "vit4hep_tpu.models.lemurs.LEMURSCFM": _LEMURS,
     "vit4hep_tpu.models.calohadronic.CaloHadCFM": _CALOHAD,
+    "vit4hep_tpu.models.ar_transformer.ARtransformer": _AR,
     # the reference's paths, as the JAX package maps them
     "models.base_model.CFM": _CFM,
     "nn.vit.ViT": _VIT,
@@ -74,6 +76,7 @@ TARGET_REMAP = {
     "experiments.calogan.model.CaloGANCFM": _CALOGAN,
     "experiments.lemurs.model.LEMURSCFM": _LEMURS,
     "experiments.calohadronic.model.CaloHadCFM": _CALOHAD,
+    "nn.cfm.transformer.ARtransformer": _AR,
 }
 
 

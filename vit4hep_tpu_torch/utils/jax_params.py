@@ -124,18 +124,31 @@ def convert_cinn_params(variables) -> dict[str, torch.Tensor]:
     return c.finish()
 
 
+def _mha(c, key, *path):
+    """A Flax ``_MHA``'s q/k/v Denses packed into ``in_proj_weight`` rows,
+    and its ``out_proj``."""
+    n = c.node(*path)
+    c.sd[f"{key}.in_proj_weight"] = torch.cat(
+        [_t(n[p]["kernel"]).T for p in ("q_proj", "k_proj", "v_proj")]).contiguous()
+    c.sd[f"{key}.in_proj_bias"] = torch.cat(
+        [_t(n[p]["bias"]) for p in ("q_proj", "k_proj", "v_proj")])
+    c.dense(f"{key}.out_proj", *path, "out_proj")
+
+
+def _transformer_layer(c, key, side, src):
+    """A Flax ``_EncoderLayer`` / ``_DecoderLayer`` -> the port's layer."""
+    _mha(c, f"{key}.self_attn", src, "self_attn")
+    if side == "decoder":
+        _mha(c, f"{key}.multihead_attn", src, "cross_attn")
+    c.dense(f"{key}.linear1", src, "_FeedForward_0", "Dense_0")
+    c.dense(f"{key}.linear2", src, "_FeedForward_0", "Dense_1")
+    for j in range(3 if side == "decoder" else 2):
+        c.layer_norm(f"{key}.norm{j + 1}", src, f"LayerNorm_{j}")
+
+
 def convert_energy_params(variables) -> dict[str, torch.Tensor]:
     """Flax ``ParallelTransformerNet`` params -> the port's state dict."""
     c = _Converter(variables)
-
-    def mha(key, *path):
-        n = c.node(*path)
-        c.sd[f"{key}.in_proj_weight"] = torch.cat(
-            [_t(n[p]["kernel"]).T for p in ("q_proj", "k_proj", "v_proj")]).contiguous()
-        c.sd[f"{key}.in_proj_bias"] = torch.cat(
-            [_t(n[p]["bias"]) for p in ("q_proj", "k_proj", "v_proj")])
-        c.dense(f"{key}.out_proj", *path, "out_proj")
-
     c.dense("time_embed.1", "time_embed")
     for ours, theirs in (("x_embed", "x_embed"), ("c_embed", "c_embed"),
                          ("head_0", "layers.0"), ("head_1", "layers.2")):
@@ -144,20 +157,38 @@ def convert_energy_params(variables) -> dict[str, torch.Tensor]:
     for name in ("pos_embed_x", "pos_embed_c"):
         if name in c.params:
             c.sd[f"{name}.weight"] = _t(c.node(name, "embedding"))
-    for side, n_norms in (("encoder", 2), ("decoder", 3)):
+    for side in ("encoder", "decoder"):
         i = 0
         while f"{side}_{i}" in c.params:
-            src, t = f"{side}_{i}", f"transformer.{side}.layers.{i}"
-            mha(f"{t}.self_attn", src, "self_attn")
-            if side == "decoder":
-                mha(f"{t}.multihead_attn", src, "cross_attn")
-            c.dense(f"{t}.linear1", src, "_FeedForward_0", "Dense_0")
-            c.dense(f"{t}.linear2", src, "_FeedForward_0", "Dense_1")
-            for j in range(n_norms):
-                c.layer_norm(f"{t}.norm{j + 1}", src, f"LayerNorm_{j}")
+            _transformer_layer(c, f"transformer.{side}.layers.{i}", side, f"{side}_{i}")
             i += 1
         if f"{side}_norm" in c.params:
             c.layer_norm(f"transformer.{side}.norm", f"{side}_norm")
+    return c.finish()
+
+
+def convert_ar_transformer_params(variables) -> dict[str, torch.Tensor]:
+    """Flax ``ARTransformerNet`` params -> the port's ``ARTransformerNet``
+    state dict: ``encoder_i`` / ``decoder_i`` -> ``encoders.i`` /
+    ``decoders.i``, the subnet's ``Dense_k`` -> ``subnet.{2k}`` (its
+    activations between), ``x_embed_k`` / ``c_embed_k`` -> ``x_embed.k`` /
+    ``c_embed.k``."""
+    c = _Converter(variables)
+    c.dense("time_embed", "time_embed")
+    for side in ("encoder", "decoder"):
+        i = 0
+        while f"{side}_{i}" in c.params:
+            _transformer_layer(c, f"{side}s.{i}", side, f"{side}_{i}")
+            i += 1
+        c.layer_norm(f"{side}_norm", f"{side}_norm")
+    k = 0
+    while f"Dense_{k}" in c.params.get("subnet", {}):
+        c.dense(f"subnet.{2 * k}", "subnet", f"Dense_{k}")
+        k += 1
+    for name in ("x_embed", "c_embed"):
+        for j in range(2):
+            if f"{name}_{j}" in c.params:
+                c.dense(f"{name}.{j}", f"{name}_{j}")
     return c.finish()
 
 

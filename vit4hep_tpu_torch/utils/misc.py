@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 
@@ -14,6 +17,29 @@ def get_dtype(name: str | None) -> torch.dtype:
     if name not in dtypes:
         raise ValueError(f"dtype {name} not supported")
     return dtypes[name]
+
+
+def f32(t):
+    """``t`` in float32; ``t`` itself when it is (a traced program then
+    records no conversion)."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def no_grad():
+    """``torch.no_grad()``, or nothing where gradients are off already: a
+    program traced without gradients (``torch.export``) then records no
+    grad-mode switch, which export would have to split the graph at."""
+    return torch.no_grad() if torch.is_grad_enabled() else contextlib.nullcontext()
+
+
+def without_grad(fn):
+    """``fn`` called under :func:`no_grad` (a decorator)."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with no_grad():
+            return fn(*args, **kwargs)
+
+    return call
 
 
 def flatten_dict(d, parent_key: str = "", sep: str = "."):

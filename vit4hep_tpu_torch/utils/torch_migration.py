@@ -1,5 +1,5 @@
-"""Nets' weights from the reference's own torch checkpoints (port of the
-ViT and energy-net parts of ``vit4hep_tpu/utils/torch_migration.py``).
+"""Nets' weights from the reference's own torch checkpoints (port of
+``vit4hep_tpu/utils/torch_migration.py``).
 
 The reference saves ``torch.save({"model": state_dict, "optimizer",
 "scheduler", "ema"})``; its model keys are ``net.<param>``, with
@@ -21,10 +21,19 @@ reference's parameter names, so migrating is key handling:
   not store them), and the ``layer.*`` alias of ``layers.0`` is dropped
   once it is seen to equal it.
 
-Whatever is left must load into the net with ``strict=True``. The cINN and
-EMA converters of the JAX module are not ported (ROADMAP.md, queue 1 item
-10). A port checkpoint (``utils/checkpoint``, with its ``step``) loads as
-it is: :func:`load_net_state_dict` reads either.
+A cINN's checkpoint is a FrEIA ``GraphINN``: one ``module_list.{i}``
+entry per graph node, [coupling, permute] x nblocks, the permutations
+told apart by their ``perm`` leaf (:func:`convert_cinn_state_dict`). The
+couplings' subnets (ViT1Ds, or the energy cINN's MLPs) become the flow's
+``blocks.{2k}.subnet{1,2}``; the permutations go into the config
+(``permutations``), from which the port builds the flow. The EMA section
+(torch_ema's ``shadow_params``, in the order of the reference model's
+trainable parameters) converts through the same converters
+(:func:`convert_ema_state_dict`).
+
+Whatever is left must load into the net with ``strict=True``. A port
+checkpoint (``utils/checkpoint``, with its ``step``) loads as it is:
+:func:`load_net_state_dict` reads either.
 """
 
 from __future__ import annotations
@@ -70,8 +79,8 @@ def load_torch_checkpoint(path, section="model"):
 
 def net_kind_from_target(target: str) -> str:
     """``energy`` or ``vit`` for a ``net._target_`` (the shared configs', the
-    port's or the reference's path). A ViT1D is a cINN's subnet, whose
-    converter is not ported."""
+    port's or the reference's path). A ViT1D is a cINN's subnet: a cINN's
+    checkpoint converts as a whole (:func:`model_kind`)."""
     if "transformer_cfm" in target or "ParallelTransformer" in target \
             or "MLPTransformer" in target:
         return "energy"
@@ -79,6 +88,15 @@ def net_kind_from_target(target: str) -> str:
         return "vit"
     raise ValueError(f"No torch-checkpoint converter for net target '{target}' "
                      "(supported: ViT, ParallelTransformer)")
+
+
+def model_kind(model_cfg) -> str:
+    """``cinn`` for a cINN's model config (its flow converts as a whole),
+    else the kind of its net (:func:`net_kind_from_target`)."""
+    if "CINN" in str(model_cfg.get("_target_", "")) or "CaloChallengeEnergy" in \
+            str(model_cfg.get("_target_", "")):
+        return "cinn"
+    return net_kind_from_target(str(model_cfg.net._target_))
 
 
 def expected_buffers(param: dict) -> dict[str, np.ndarray]:
@@ -150,22 +168,186 @@ def convert_energy_state_dict(sd) -> tuple[dict, dict]:
     return sd, patch
 
 
-def convert_net_checkpoint(model_cfg, payload):
-    """The net state dict of a reference checkpoint's payload for the model
-    of ``model_cfg`` (an energy net's ``fourier_w`` is written into
-    ``model_cfg.net.param``: call it before building the model), or None for
-    a port checkpoint."""
-    if not is_reference_checkpoint(payload):
-        return None
+# non-trainable leaves of a FrEIA GraphINN checkpoint: the permutations'
+# indices and the binned spline's buffers
+CINN_BUFFER_LEAVES = ("perm", "perm_inv", "bins", "min_bin_sizes", "default_domain",
+                      "identity_tails", "default_width")
+# where each reference coupling block keeps its subnets: (the port's name,
+# the reference's key prefix)
+CINN_SUBNET_PREFIXES = {
+    "CaloRQSplineFrEIA": (("subnet1", "subnet1.vit."), ("subnet2", "subnet2.vit.")),
+    "CaloRQSplineNFlows": (("subnet1", "_spline1.subnet.vit."),
+                           ("subnet2", "_spline2.subnet.vit.")),
+    "OneSidedCaloRQSplineNFlows": (("subnet1", "_spline.subnet.vit."),),
+    "RQSplineNFlows": (("subnet1", "_spline1.subnet.mlp."), ("subnet2", "_spline2.subnet.mlp.")),
+}
+
+
+def _convert_vit1d(sd) -> dict:
+    """A reference ViT1D subnet's state dict -> the port's: the time
+    embedder it inherits and never calls is dropped (the port's ViT1D has
+    none); its ``grid`` buffer must be arange(T) / T, which the port
+    computes; its other buffers are the config's and are dropped."""
+    out = {}
+    for k, v in sd.items():
+        leaf = k.split(".")[-1]
+        if k.startswith("t_embedder."):
+            continue
+        if leaf == "grid":
+            n = v.numel()
+            _check_buffer(k, v, np.arange(n, dtype=np.float32) / np.float32(n))
+            continue
+        if leaf in BUFFER_KEYS:
+            continue
+        out[k] = v
+    return out
+
+
+def _convert_mlp(sd) -> dict:
+    """A reference ``SubnetMLP``'s ``nn.Sequential`` (Linears at sequence
+    indices between activations) -> the port's ``layers.{j}``, the j-th
+    Linear."""
+    idx = sorted({int(k.split(".")[0]) for k in sd})
+    return {f"layers.{j}.{k.split('.', 1)[1]}": v
+            for j, i in enumerate(idx) for k, v in sd.items() if k.split(".")[0] == str(i)}
+
+
+def _convert_cinn_coupling(group, coupling_block) -> dict:
+    if coupling_block not in CINN_SUBNET_PREFIXES:
+        raise ValueError(f"no cINN checkpoint converter for coupling block '{coupling_block}'")
+    out, seen = {}, set()
+    for ours, theirs in CINN_SUBNET_PREFIXES[coupling_block]:
+        sub = {k[len(theirs):]: v for k, v in group.items() if k.startswith(theirs)}
+        seen.update(theirs + k for k in sub)
+        sub = _convert_mlp(sub) if coupling_block == "RQSplineNFlows" else _convert_vit1d(sub)
+        out.update({f"{ours}.{k}": v for k, v in sub.items()})
+    stray = [k for k in group if k not in seen and k.split(".")[-1] not in CINN_BUFFER_LEAVES]
+    if stray:
+        raise ValueError(f"reference {coupling_block} entries with no port counterpart: "
+                         f"{stray[:5]}")
+    return out
+
+
+def convert_cinn_state_dict(model_sd, coupling_block) -> tuple[dict, list]:
+    """A prefix-stripped FrEIA ``GraphINN`` state dict -> (the port's flow
+    state dict, the permutations as index lists, one a block). The graph's
+    ``module_list.{i}`` indices follow FrEIA's topological sort, so each
+    module is told by its content (a ``perm`` leaf marks a permutation) and
+    the couplings are taken in index order: the graph is [coupling,
+    permute] x nblocks, the couplings the flow's ``blocks.{2k}``."""
+    import re
+
+    groups: dict = {}
+    for k, v in model_sd.items():
+        m = re.match(r"module_list\.(\d+)\.(.+)", k)
+        if not m:
+            raise ValueError(f"unexpected non-GraphINN key '{k}' in a cINN checkpoint")
+        groups.setdefault(int(m.group(1)), {})[m.group(2)] = v
+    permutations, couplings = [], []
+    for idx in sorted(groups):
+        g = groups[idx]
+        if "perm" in g:
+            permutations.append([int(x) for x in g["perm"].reshape(-1).tolist()])
+        else:
+            couplings.append(g)
+    if len(couplings) != len(permutations):
+        raise ValueError(f"cINN checkpoint has {len(couplings)} coupling blocks but "
+                         f"{len(permutations)} permutations: not a [coupling, permute] graph")
+    sd = {}
+    for k, g in enumerate(couplings):
+        sd.update({f"blocks.{2 * k}.{key}": v
+                   for key, v in _convert_cinn_coupling(g, coupling_block).items()})
+    return sd, permutations
+
+
+def trainable_param_names(model_sd, kind) -> list[str]:
+    """The names of the reference model's trainable parameters in
+    ``model.parameters()`` order (the order of torch_ema's shadows), from
+    its state dict: registration order, without buffers, the cINN's
+    permutation and spline leaves, the energy net's frozen Fourier weights
+    and the ``layers.0`` alias of its ``layer``."""
+    names = []
+    for k in model_sd:
+        leaf = k.split(".")[-1]
+        if leaf in BUFFER_KEYS:
+            continue
+        if kind == "cinn" and leaf in CINN_BUFFER_LEAVES:
+            continue
+        if kind == "energy" and (k == "time_embed.0.W" or k.startswith("layers.0.")):
+            continue
+        names.append(k)
+    return names
+
+
+def convert_ema_state_dict(ema_sd, model_sd, kind, coupling_block=None, param=None) -> dict:
+    """torch_ema's state (``shadow_params`` over the trainable parameters)
+    -> the port's net (flow) state dict of the shadows: each shadow paired
+    with its parameter's name (:func:`trainable_param_names` of the
+    prefix-stripped model state dict of the same checkpoint), then the
+    model's own converter. ``kind``: ``vit``, ``energy`` or ``cinn`` (with
+    ``coupling_block``); ``param`` is a ViT's ``net.param``."""
+    shadows = ema_sd["shadow_params"]
+    names = trainable_param_names(model_sd, kind)
+    if len(names) != len(shadows):
+        raise ValueError(f"EMA shadow count {len(shadows)} != trainable-parameter count "
+                         f"{len(names)}: unknown architecture variant?")
+    shadow_sd = {}
+    for name, tensor in zip(names, shadows):
+        if tuple(tensor.shape) != tuple(model_sd[name].shape):
+            raise ValueError(f"EMA shadow shape mismatch at {name}")
+        shadow_sd[name] = tensor
+    if kind == "cinn":
+        # the permutations are structural, never averaged
+        shadow_sd.update({k: v for k, v in model_sd.items()
+                          if k.split(".")[-1] in ("perm", "perm_inv")})
+        return convert_cinn_state_dict(shadow_sd, coupling_block)[0]
+    if kind == "energy":
+        # the head's first Linear is registered as `layer`: the converter
+        # reads it under its `layers.0` name
+        for suffix in ("weight", "bias"):
+            shadow_sd[f"layers.0.{suffix}"] = shadow_sd.pop(f"layer.{suffix}")
+        shadow_sd["time_embed.0.W"] = model_sd["time_embed.0.W"]
+        return convert_energy_state_dict(shadow_sd)[0]
+    return convert_vit_state_dict(shadow_sd, param)
+
+
+def _net_param(model_cfg) -> dict:
+    param = model_cfg.net.param
+    return param.to_container(resolve=True) if hasattr(param, "to_container") else dict(param)
+
+
+def convert_reference_checkpoint(model_cfg, payload) -> tuple[dict, dict | None]:
+    """(the net state dict, the EMA's net state dict or None) of a reference
+    checkpoint's payload for the model of ``model_cfg``. What the port
+    builds from the config and the reference stores as weights is written
+    into ``model_cfg``: an energy net's ``fourier_w`` (``net.param``), a
+    cINN's ``permutations``. Call it before building the model."""
     sd = strip_state_dict_prefixes(payload["model"])
-    if net_kind_from_target(str(model_cfg.net._target_)) == "energy":
-        sd, patch = convert_energy_state_dict(sd)
+    kind = model_kind(model_cfg)
+    coupling = str(model_cfg.coupling_block) if kind == "cinn" else None
+    if kind == "cinn":
+        net_sd, model_cfg.permutations = convert_cinn_state_dict(sd, coupling)
+    elif kind == "energy":
+        net_sd, patch = convert_energy_state_dict(sd)
         for k, v in patch.items():
             model_cfg.net.param[k] = v
-        return sd
-    param = model_cfg.net.param
-    param = param.to_container(resolve=True) if hasattr(param, "to_container") else dict(param)
-    return convert_vit_state_dict(sd, param)
+    else:
+        net_sd = convert_vit_state_dict(sd, _net_param(model_cfg))
+    ema = payload.get("ema")
+    ema_sd = None if ema is None else convert_ema_state_dict(
+        ema, sd, kind, coupling, None if kind != "vit" else _net_param(model_cfg))
+    return net_sd, ema_sd
+
+
+def convert_net_checkpoint(model_cfg, payload):
+    """The net state dict of a reference checkpoint's payload for the model
+    of ``model_cfg`` (:func:`convert_reference_checkpoint`'s model part: an
+    energy net's ``fourier_w`` and a cINN's ``permutations`` go into
+    ``model_cfg``; call it before building the model), or None for a port
+    checkpoint."""
+    if not is_reference_checkpoint(payload):
+        return None
+    return convert_reference_checkpoint(model_cfg, dict(payload, ema=None))[0]
 
 
 def load_net_state_dict(model_cfg, path) -> tuple[dict, bool]:
