@@ -11,8 +11,11 @@ ViT1D kernel twins), and the other three families (CaloGAN, LEMURS,
 CaloHadronic: serving, training, sampling and evaluation through their
 experiments), cross-dataset fine-tuning (ds2 -> ds3, LEMURS ->
 CaloHadronic), the ``torch.export`` serving artifacts of the ds2 CFM and
-cINN chains, CaloHadronic training over the mmap record cache and the
-autoregressive energy net, at full width, through the hand-written CUDA
+cINN chains, CaloHadronic training over the mmap record cache, the
+autoregressive energy net and the parallel layer (data-parallel training
+through the launcher's ``distributed: true``, NCCL, Megatron tensor
+parallelism, the GPipe pipeline and ring attention, in ranks of this
+script on the one card), at full width, through the hand-written CUDA
 kernels.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a GPU
@@ -22,6 +25,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 1. device: requires CUDA (no CPU path); prints the card's name and power limit;
 2. build: compiles every kernel of the port from ``vit4hep_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together) and prints the seconds;
+   the kernel phase starts once all but LATE_SOURCES (K8's, K6's and K7's,
+   the longest builds) are built, and waits for those before K6;
 3. kernels: calls each kernel's wrapper at the shapes of its main paths and
    holds it against its plain PyTorch version on the same inputs, with the
    tolerance stated in ``TOL``; times the kernel, the plain version and,
@@ -242,8 +247,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    synthetic ds2 showers, validating after the last; K1's forward on
    all 120 subnet blocks of every step and validation batch, its backward
    on every step's, no K4; steps/s and one profiled step); then from one
-   state (``parity_phase``, CINN_PARITY, CINN_PARITY_STEPS steps) K1
-   against the plain attention
+   state (``parity_phase``, CINN_PARITY, CINN_PARITY_STEPS steps; the
+   ds2 cINN cut to CINN_CUT_BLOCKS couplings) K1 against the plain
+   attention
    (cinn_ds2_electrons, cinn_nflows, cinn_nflows_oneside: CINN_TRAIN_TOL),
    ``remat_spline: true`` against false, and the ViT1D twins' training
    (``fused_block: true``: K5a and K5b; ``fused_stack: false``: K2b and
@@ -289,10 +295,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    batches against the events' own, bit for bit, and times a batch's
    gather, and gather and collator, from each.
    Serving artifacts (``export_phase``, after the ds2_cfm and ds2_cinn
-   serving paths, ``EXPORTS``): the path's live ``Generator`` traced by
-   ``torch.export`` (utils/serving.trace_generator), saved and loaded
-   into a fresh ``LoadedSampler``; the program must hold each kernel's
-   registered op once for each launch the live path makes a request
+   serving paths, ``EXPORTS``): the path's live ``Generator``, its CFMs
+   at 2 RK4 steps (COARSE_STEP), the cINN at CINN_CUT_BLOCKS couplings,
+   traced by ``torch.export``
+   (utils/serving.trace_generator), saved and loaded into a fresh
+   ``LoadedSampler``; the program must hold each kernel's registered op
+   once for each launch the live path makes a request
    (ops/library.py); REQUESTS requests through the artifact (launches
    exact, counted from 0) must equal the live generator's on the same
    seeds bit for bit (the same kernels on the same inputs in the same
@@ -321,6 +329,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CALOHAD_FT_STEPS steps at batch 32 (K1 exact), then one request of BATCH
    through ``Generator`` behind a CaloHadronic energy CFM (K2v exact, the
    fixed conditions checked, the showers reversed to GeV), profiled.
+17. the parallel layer (``parallel_phase``; ``vit4hep_tpu_torch/parallel/``),
+   the kernels built before any rank starts. Each rank is a child of this
+   script (``python3 chip_smoke.py --parallel-child <task> <dir>`` with the
+   torchrun variables; CHILD_TIMEOUT seconds each, its log's tail printed
+   when it fails), counts its kernel launches from 0 and hands them back
+   with its results, so that the ``kernels`` line counts them (paths
+   ``parallel_*``). Two ranks share cuda:0, where NCCL refuses them, so
+   they run over gloo: all-reduce and broadcast take the CUDA tensors, and
+   ``ppermute`` stages through host copies (``parallel/_comm.transport``,
+   printed per rank). Each check is held against the same work on one rank
+   in this process (PARALLEL_TOL), and the times are overhead on one card,
+   not scaling. (a) ``experiments.main.main`` with ``distributed: true``
+   and ``backend=gloo`` over 2 ranks trains the ds2 shape model
+   (cfm_ds2_electrons, hidden 480, depth 6, 6 heads x 80, 135 tokens x 48,
+   ``attn_impl: auto``: K1) PARALLEL_STEPS steps at global batch 64 (32 a
+   rank, each gradient all-reduced in one flat buffer) on synthetic
+   showers with ``save: true`` (the card has no PyYAML: the config is
+   handed to the launcher as a dict, the experiment class is the smoke's
+   ``SyntheticCaloChallenge``): its losses and validation loss against
+   the one-rank run's, equal on both ranks, K1's launches exact on each,
+   only rank 0's files, and its checkpoint warm-starting a one-rank
+   experiment exactly, held against (b), the same launcher over NCCL as
+   one rank (its all-reduces on NCCL; run first): the one-rank run; then
+   on the same 2 ranks (the launcher leaves a process group it did not
+   make to its caller): (c) ``model_parallel=2``: one train step of the ds2 shape
+   model with K1 on 3 heads a rank (loss, the whole gradient, the
+   parameters after it) and one ``sample_batch`` of PARALLEL_SAMPLE_BATCH
+   through the energy model (K3) and the shape model's K2v twin on its
+   gathered weights (``__graft_entry__.py:156-216``), against one rank;
+   (d) ``spmd_pipeline`` over 2 stages of the full-width DiT stack (depth
+   6, each rank holding its 3 blocks; batch PIPE_BATCH of 135 tokens in
+   PIPE_MICRO microbatches, K1), forward and the gradients of sum(out^2)
+   against the 6 blocks in sequence; (e) ``ring_attention`` over 2 ranks
+   at ds3's attention shape RING_SHAPE, forward and gradients against the
+   plain attention. A failed or hung rank, or a check out of its bound,
+   fails the run.
 
 The line before the last is the ``{"kernels": [...]}`` summary (per kernel:
 its main-path shape's numbers, its launches by path and their sum, and its
@@ -351,7 +395,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vit4hep_tpu_torch.data.calochallenge.transforms import build_pipeline
+from vit4hep_tpu_torch.data.calochallenge.transforms import apply_pipeline, build_pipeline
 from vit4hep_tpu_torch.data.lemurs.datasets import ArrayEvents
 from vit4hep_tpu_torch.experiments import train_state as ts
 from vit4hep_tpu_torch.experiments.calochallenge import CaloChallenge
@@ -385,14 +429,27 @@ SEED = 0
 BATCH = 256
 DS1_TRAIN_STEPS = 10  # ds1_train: shape.yaml's batch 64, iterations 800,000
 DS1_SAMPLES = 1024  # ds1_train's sample_n: 1,024 of the 121,000 the spectrum gives
-# the smoke's time (inside 1200 s, aiming at 1000; PERF.md §2) cuts these
-# depths: REQUESTS 3 -> 2, DS3_REQUESTS 2 -> 1, CINN_TRAIN_STEPS 20 -> 10 and
-# SAMPLING_SHOWERS 2500 -> 1280 when the fine-tuning phases came in;
-# CINN_TRAIN_STEPS 10 -> 6 and CINN_PARITY_STEPS 3 -> 2 when the serving
-# artifacts came in
+# the smoke's time (inside 1200 s on the slowest card machine seen, ~1.25x
+# the fastest; PERF.md §2) cuts these depths: REQUESTS 3 -> 2, DS3_REQUESTS
+# 2 -> 1, CINN_TRAIN_STEPS 20 -> 10 and SAMPLING_SHOWERS 2500 -> 1280 when
+# the fine-tuning phases came in; CINN_TRAIN_STEPS 10 -> 6 and
+# CINN_PARITY_STEPS 3 -> 2 when the serving artifacts came in; with the
+# parallel phase TRAIN_STEPS 30 -> 20, the plain versions' timing trials
+# 10 -> 3 (PLAIN_TRIALS), the exported chains, the plain reference
+# generators and the ds3 opt-in serving paths 80 -> 8 net evals a CFM
+# (COARSE_STEP), the ds2 cINN's parities and export 20 -> 5 couplings
+# (CINN_CUT_BLOCKS); the profiles sum the raw kineto events, and the
+# kernel phase starts before the longest builds end (LATE_SOURCES)
 REQUESTS = 2
 REFERENCE_BATCH = 8
-TRAIN_STEPS = 30
+# a cut RK4 step: 2 steps, 8 net evals a CFM (the served models' 0.05
+# gives 80), for the exported chains (export, save and load scale with the
+# graph's nodes), the plain reference generators and the ds3 opt-in
+# serving paths
+COARSE_STEP = 0.5
+COARSE_EVALS = 8
+COARSE_ODE = {"method": "rk4", "options": {"step_size": COARSE_STEP}}
+TRAIN_STEPS = 20
 VALIDATE_EVERY = 10
 WARM_START_STEPS = 5
 TRAIN_PARITY_STEPS = 3
@@ -475,6 +532,12 @@ DS2_CINN_MODEL = {
         "checkpoint_grads": False,
     },
 }
+
+# cinn_ds2_electrons at a cut depth, CINN_CUT_BLOCKS of its 20 couplings (a
+# step is host-bound, ~70 ms a coupling): its parities and its export
+CINN_CUT_BLOCKS = 5
+DS2_CINN_CUT_MODEL = dict(DS2_CINN_MODEL, nblocks=CINN_CUT_BLOCKS,
+                          is_spatial=[False] * CINN_CUT_BLOCKS)
 
 # data.transforms of configs/calochallenge/cinn/calochallenge_ds2_noise.yaml
 DS2_CINN_TRANSFORMS = {
@@ -1277,6 +1340,13 @@ SHAPE_GROUPS = {
 }
 
 
+# the longest kernel builds (K8, K6, K7): the kernel phase starts without them
+LATE_SOURCES = ("vmem_attention", "flash_qkv_attention", "flash_attention")
+# trials of a plain version's timing (median): context for the kernel's,
+# and the slowest calls of the smoke (the N = 13,500 plain attention)
+PLAIN_TRIALS = {"reps": 3, "warmup": 1}
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -1309,7 +1379,9 @@ def _check(name, out, ref, results, kernel_fn, plain_fn, bound, library_fn=None)
     b_ms, _ = bound
     res = {"max_abs_err": max(prev["max_abs_err"], err),
            "ms": prev["ms"] + time_ms(kernel_fn),
-           "plain_ms": prev["plain_ms"] + time_ms(plain_fn),
+           # the plain versions (full f32, some one batch element at a time)
+           # are timed as context, on fewer trials than the kernels
+           "plain_ms": prev["plain_ms"] + time_ms(plain_fn, **PLAIN_TRIALS),
            "ok": prev["ok"] and ok, "bound_ms": prev["bound_ms"] + b_ms,
            "bytes_ms": prev["bytes_ms"] + (b_ms if bound[1] == "bytes" else 0.0),
            "ops_ms": prev["ops_ms"] + (b_ms if bound[1] == "operations" else 0.0),
@@ -1606,7 +1678,8 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
     # the graph the backward reuses
     sdpa_out = F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, g_heads, retain_graph=True)  # noqa: E731
-    return {"K1": time_ms(k1_run), "plain": time_ms(plain_run), "sdpa": time_ms(sdpa_run),
+    return {"K1": time_ms(k1_run), "plain": time_ms(plain_run, **PLAIN_TRIALS),
+            "sdpa": time_ms(sdpa_run),
             "sdpa_bwd": time_ms(sdpa_bwd),
             "bwd": sum(results[k]["ms"] for k in ("qkv_attn_bwd_delta", "qkv_attn_bwd_dkv",
                                                   "qkv_attn_bwd_dq"))}
@@ -1918,7 +1991,7 @@ def k68_kernel_phase(results, b, n, heads=6, d=80, mask=None):
         F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale).backward(g_bf)
 
     return {"K6": time_ms(lambda: run("flash")), "K8": time_ms(lambda: run("vmem")),
-            "plain": time_ms(lambda: run("xla")), "sdpa": time_ms(sdpa_run)}
+            "plain": time_ms(lambda: run("xla"), **PLAIN_TRIALS), "sdpa": time_ms(sdpa_run)}
 
 
 def k9_kernel_phase(results, b, n, h=480, fdim=1920):
@@ -2074,7 +2147,8 @@ def k7_kernel_phase(results, b, n, mask=None, chunk=None):
             t.grad = None
         F.scaled_dot_product_attention(*xs, attn_mask=mask, scale=scale).backward(gc)
 
-    return {"K7": time_ms(k7_run), "plain": time_ms(plain_run), "sdpa": time_ms(sdpa_run)}
+    return {"K7": time_ms(k7_run), "plain": time_ms(plain_run, **PLAIN_TRIALS),
+            "sdpa": time_ms(sdpa_run)}
 
 
 PADDED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
@@ -2491,7 +2565,8 @@ def _compare_generators(kern, plain, noise, counters, geometry, shower_tol=5e-2)
     batch): u 1e-3 absolute, the shower in the training basis ``shower_tol``
     of its scale, layer energies in MeV (the geometry's layers) 1e-3
     relative. The plain generator must launch none of the ``counters``'
-    kernels."""
+    kernels. Each chain runs once: the MeV voxels are its showers reversed
+    through the shape transforms, as ``Generator.sample_showers`` does."""
     nb = noise[0].shape[0]
     e_inc = 10 ** np.random.default_rng(SEED).uniform(3, 6, nb)
     cond = kern.condition(e_inc)
@@ -2502,8 +2577,9 @@ def _compare_generators(kern, plain, noise, counters, geometry, shower_tol=5e-2)
         raise PhaseError("the plain reference generator launched a kernel")
     u_err = (full_k - full_p).abs().max().item()
     s_err, s_scale = _rel_err(basis_k, basis_p)
-    mev_k = kern.sample_showers(e_inc, noise=noise)
-    mev_p = plain.sample_showers(e_inc, noise=noise)
+    mev_k, mev_p = (apply_pipeline(g.shape_transforms, b.cpu().numpy()[:, 0], f.cpu().numpy(),
+                                   rev=True)[0]
+                    for g, b, f in ((kern, basis_k, full_k), (plain, basis_p, full_p)))
     starts = np.cumsum([0] + _layer_sizes(geometry)[:-1])
     layer_k, layer_p = (np.add.reduceat(m, starts, axis=1) for m in (mev_k, mev_p))
     layer_rel = float(np.abs(layer_k - layer_p).max() / max(1e-30, np.abs(layer_p).max()))
@@ -2527,7 +2603,7 @@ def _models(shape_cfg, energy_cfg, seed):
 
 def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_tf_cfg,
               requests=REQUESTS, counters=SERVING, per_eval=CFM_PER_EVAL, batch=BATCH,
-              reference=(REFERENCE_BATCH, None, 5e-2)):
+              reference=(REFERENCE_BATCH, COARSE_STEP, 5e-2)):
     """A CFM shape model (ds2, ds3, or ds2 with ``causal_attn``; or ds3
     composed with an opt-in kernel; or ds3_long) behind its energy model at
     full width: ``requests`` requests of ``batch`` with every kernel of
@@ -2536,8 +2612,9 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
     masked where the model is: ``auto`` would launch K1 from 128 tokens; no
     fused MLP) on the same noise. ``reference`` = (its batch, an RK4 step
     size for both shape models there or None for the model's, the shower
-    bound). Energy stage: f32 kernel vs f32 composed -> u and layer energies
-    agree to ~1e-4; shape stage: bf16 multiplicands over 80 evals -> 5e-2 of
+    bound); the step is COARSE_STEP by default, 8 shape evals. Energy
+    stage: f32 kernel vs f32 composed -> u and layer energies agree to
+    ~1e-4; shape stage: bf16 multiplicands over 8-80 evals -> 5e-2 of
     scale."""
     shape_tf, energy_tf = _run_dirs(tmp, geometry, shape_tf_cfg, energy_tf_cfg)
     shape_model, energy_model, gen = _models(shape_cfg, energy_cfg, SEED)
@@ -2559,7 +2636,7 @@ def cfm_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_t
 
     nb, step, shower_tol = reference
     ref_cfg, kern_shape = shape_cfg, shape_model
-    if step is not None:
+    if step is not None and step != shape_model.ode_kwargs["step_size"]:
         ref_cfg = dict(shape_cfg, odeint_kwargs={"method": "rk4", "options": {"step_size": step}})
         kern_shape = _on_card(ref_cfg).eval()
         kern_shape.load_state_dict(shape_model.state_dict())
@@ -2635,21 +2712,49 @@ def cinn_phase(tmp: Path, geometry, shape_cfg, energy_cfg, shape_tf_cfg, energy_
 OP_COUNTER = {"energy_decoder": "energy_decoder", "vit_gemm": "vit_gemm",
               "vit_modln": "vit_modln", "vit_attention": "vit_attention",
               "binned_rqs_inverse": "binned_rqs_inverse", "qkv_attention_fwd": "qkv_attn_fwd"}
-EXPORTS = {"ds2_cfm": (SERVING, {k: 80 * v for k, v in CFM_PER_EVAL.items()}),
-           "ds2_cinn": (CINN, CINN_PER_REQUEST["ds2"])}
+# the exported chains: (counters, launches a request, the shape model's
+# config where the chain exports its own cut twin of the live one, else None)
+EXPORTS = {"ds2_cfm": (SERVING, {k: COARSE_EVALS * v for k, v in CFM_PER_EVAL.items()}, None),
+           "ds2_cinn": (CINN, {"binned_rqs_inverse": 2 * CINN_CUT_BLOCKS,
+                               "qkv_attn_fwd": 6 * CINN_CUT_BLOCKS,
+                               "energy_decoder": COARSE_EVALS}, DS2_CINN_CUT_MODEL)}
 
 
 def export_phase(tmp: Path, path, generator, card, requests=REQUESTS):
     """The serving artifact of a live ``Generator`` (utils/serving): the
-    chain traced by ``torch.export``, saved, loaded into a fresh
-    ``LoadedSampler``; the program holds the kernels' registered ops, one
+    chain, its CFMs' RK4 step set to COARSE_STEP for the export and for
+    both runs below (a cINN chain with its shape model cut to
+    CINN_CUT_BLOCKS couplings: EXPORTS), traced by ``torch.export``,
+    saved, loaded into a fresh ``LoadedSampler``; the program holds the kernels' registered ops, one
     node for each launch the live path makes a request; then ``requests``
     requests of BATCH through the artifact with the counters set to 0 just
     before and read just after (exact), and the same requests (conditions,
     seeds) through the live generator: the artifact runs the same kernels
     on the same inputs in the same order, so its showers must equal the
     live ones bit for bit. Returns the artifact's launches."""
-    counters, per_request = EXPORTS[path]
+    counters, per_request, cut_shape = EXPORTS[path]
+    if cut_shape is not None:  # the live chain's energy model and transforms, a cut shape model
+        shape_model = _on_card(cut_shape).eval()
+        _randomize(shape_model, torch.Generator(device="cuda").manual_seed(SEED + 5))
+        generator = Generator(shape_model, generator.energy_model, generator.energy_transforms,
+                              generator.shape_transforms, generator.batch,
+                              u_position=generator.u_position,
+                              energy_cond_width=generator.energy_cond_width)
+    cfms = [m for m in (generator.shape_model, generator.energy_model) if hasattr(m, "ode_kwargs")]
+    served = [m.ode_kwargs for m in cfms]
+    for m in cfms:
+        m.ode_kwargs = dict(m.ode_kwargs, step_size=COARSE_STEP)
+        if m.net_evals_per_sample() != COARSE_EVALS:
+            raise PhaseError(f"{path} export: {m.net_evals_per_sample()} evals at step "
+                             f"{COARSE_STEP}, expected {COARSE_EVALS}")
+    try:
+        return _export(tmp, path, generator, card, requests, counters, per_request)
+    finally:
+        for m, kw in zip(cfms, served):
+            m.ode_kwargs = kw
+
+
+def _export(tmp, path, generator, card, requests, counters, per_request):
     t0 = time.perf_counter()
     program, header = serving.trace_generator(
         generator.shape_model, generator.energy_model, generator.energy_transforms,
@@ -2716,12 +2821,17 @@ def export_phase(tmp: Path, path, generator, card, requests=REQUESTS):
 
 def _device_rows(prof):
     """(ms, count, name) of device-side events only (kernels, copies): a CPU
-    op's device time repeats that of the kernels it launched."""
+    op's device time repeats that of the kernels it launched. Summed from
+    the raw kineto events: the same sums as ``key_averages()``, which
+    builds the whole event tree first (~0.3 ms an event on the host)."""
     from torch.autograd import DeviceType
 
-    return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages() if e.device_type != DeviceType.CPU),
-                  reverse=True)
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            ms, count = acc.get(e.name(), (0.0, 0))
+            acc[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    return sorted(((ms, count, name) for name, (ms, count) in acc.items()), reverse=True)
 
 
 def _clock(fn):
@@ -3746,25 +3856,30 @@ def _vit_kw(cfg: dict, **kw) -> dict:
 
 _TWIN = functools.partial(_vit_kw, DS2_CINN_MODEL)
 _PLAIN_ATTN = functools.partial(_vit_kw, attn_impl="xla")
+_CUT_TWIN = functools.partial(_vit_kw, DS2_CINN_CUT_MODEL)
 CINN_PARITY = [
-    ("cinn_train_parity", "cinn_ds2_electrons, K1 against the plain attention", DS2_CINN_MODEL,
-     _PLAIN_ATTN(DS2_CINN_MODEL), CINN_TRAIN_TOL, TRAINING,
-     cinn_train_launches(40, 3, CINN_PARITY_STEPS, 0)),
-    ("cinn_remat_parity", "cinn_ds2_electrons, remat_spline: true against false",
-     dict(DS2_CINN_MODEL, cinn_kwargs=dict(DS2_CINN_MODEL["cinn_kwargs"], remat_spline=True)),
-     DS2_CINN_MODEL, CINN_TRAIN_TOL, TRAINING, cinn_train_launches(40, 3, CINN_PARITY_STEPS, 0)),
+    ("cinn_train_parity", f"cinn_ds2_electrons ({CINN_CUT_BLOCKS} couplings), K1 against the "
+     "plain attention", DS2_CINN_CUT_MODEL, _PLAIN_ATTN(DS2_CINN_CUT_MODEL), CINN_TRAIN_TOL,
+     TRAINING, cinn_train_launches(2 * CINN_CUT_BLOCKS, 3, CINN_PARITY_STEPS, 0)),
+    ("cinn_remat_parity", f"cinn_ds2_electrons ({CINN_CUT_BLOCKS} couplings), remat_spline: "
+     "true against false",
+     dict(DS2_CINN_CUT_MODEL, cinn_kwargs=dict(DS2_CINN_MODEL["cinn_kwargs"], remat_spline=True)),
+     DS2_CINN_CUT_MODEL, CINN_TRAIN_TOL, TRAINING,
+     cinn_train_launches(2 * CINN_CUT_BLOCKS, 3, CINN_PARITY_STEPS, 0)),
     ("nflows_parity", "cinn_nflows, K1 against the plain attention", NFLOWS_MODEL,
      _PLAIN_ATTN(NFLOWS_MODEL), CINN_TRAIN_TOL, TRAINING,
      cinn_train_launches(16, 2, CINN_PARITY_STEPS, 0)),
     ("nflows_oneside_parity", "cinn_nflows_oneside, K1 against the plain attention",
      NFLOWS_ONESIDE_MODEL, _PLAIN_ATTN(NFLOWS_ONESIDE_MODEL), CINN_TRAIN_TOL, TRAINING,
      cinn_train_launches(10, 2, CINN_PARITY_STEPS, 0)),
-    ("vit1d_fused_parity", "cinn_ds2_electrons, fused_block: true against composed (K1)",
-     _TWIN(fused_block=True), DS2_CINN_MODEL, CINN_FUSED_TRAIN_TOL, FUSED_TRAINING,
-     cinn_fused_launches("true")),
-    ("vit1d_nostack_parity", "cinn_ds2_electrons, fused_block: true, fused_stack: false "
-     "against composed (K1)", _TWIN(fused_block=True, fused_stack=False), DS2_CINN_MODEL,
-     CINN_FUSED_TRAIN_TOL, FUSED_TRAINING, cinn_fused_launches("nostack")),
+    ("vit1d_fused_parity", f"cinn_ds2_electrons ({CINN_CUT_BLOCKS} couplings), fused_block: "
+     "true against composed (K1)", _CUT_TWIN(fused_block=True), DS2_CINN_CUT_MODEL,
+     CINN_FUSED_TRAIN_TOL, FUSED_TRAINING,
+     cinn_fused_launches("true", subnets=2 * CINN_CUT_BLOCKS)),
+    ("vit1d_nostack_parity", f"cinn_ds2_electrons ({CINN_CUT_BLOCKS} couplings), fused_block: "
+     "true, fused_stack: false against composed (K1)",
+     _CUT_TWIN(fused_block=True, fused_stack=False), DS2_CINN_CUT_MODEL, CINN_FUSED_TRAIN_TOL,
+     FUSED_TRAINING, cinn_fused_launches("nostack", subnets=2 * CINN_CUT_BLOCKS)),
 ]
 # device-time groups of a cINN train step
 CINN_TRAIN_GROUPS = [("K1 forward", _is_k1_fwd), ("K1 backward", _is_k1_bwd),
@@ -4997,6 +5112,492 @@ def ft_calohad_phase(tmp: Path, card):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# the parallel layer (parallel/): data parallelism through the launcher,
+# NCCL, tensor parallelism, the GPipe pipeline and ring attention, each in
+# child processes (ranks) of this script on the one card
+# ---------------------------------------------------------------------------
+PARALLEL_STEPS = 10  # the launcher runs: shape.yaml's batch 64 (the global one)
+PARALLEL_SAMPLE_BATCH = 256  # the TP sample: batchsize_sample
+PIPE_BATCH, PIPE_MICRO = 4, 2  # the pipeline: 2 stages of 3 blocks, 2 microbatches
+RING_SHAPE = (8, 6, 450, 80)  # ds3's attention: B 8, 6 heads, 450 tokens, 80
+CHILD_TIMEOUT = 300  # seconds a rank may take (the build is done before)
+# the checks of the phase, each a one-rank run on the same card against the
+# ranks' (f32 both sides; the ranks run the same kernels on parts of the same
+# work, so they differ by summation order only: a row-parallel product
+# summed as two halves and an all-reduce, a gradient averaged over two
+# halves of the batch):
+# - losses per step within TRAIN_TOL's 1e-4 relative, the gradients of the
+#   TP step within 1e-4 relative L2 over the whole vector, its parameters
+#   within TRAIN_TOL's param_abs and update_rel;
+# - the TP sample (the gathered weights are the one-rank weights bit for
+#   bit, through the same K3 and K2v) within 1e-5 of its scale;
+# - the pipeline (the same K1 and cuBLAS products on microbatches of 2)
+#   within 1e-4 of the output's scale and 1e-3 relative L2 per block's
+#   gradient (through up to 6 blocks);
+# - ring attention (f32 products, the softmax online over 2 blocks) within
+#   1e-5 of the output's scale and 1e-4 relative L2 for each gradient.
+PARALLEL_TOL = {"loss": TRAIN_TOL["loss"], "grad_rel_l2": 1e-4,
+                "param_abs": TRAIN_TOL["param_abs"], "update_rel": TRAIN_TOL["update_rel"],
+                "sample": 1e-5, "pipe_out": 1e-4, "pipe_grad_rel_l2": 1e-3, "ring_out": 1e-5,
+                "ring_grad_rel_l2": 1e-4}
+COUNTERS = {**COMPOSED, **FUSED_TRAINING, "binned_rqs_inverse": fsp.INVERSE}
+
+
+def _counts():
+    return {k: c.launches for k, c in COUNTERS.items() if c.launches}
+
+
+def _reset():
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def _parallel_config(tmp: Path):
+    """ds2 shape training at full width on synthetic showers (train_phase's
+    config at PARALLEL_STEPS steps, validating after the last)."""
+    training = dict(DS2_SHAPE_TRAINING, iterations=PARALLEL_STEPS,
+                    validate_every_n_steps=PARALLEL_STEPS)
+    (tmp / "data").mkdir(parents=True, exist_ok=True)
+    _binning_xml(tmp / "data", "ds2")
+    # 64 validation events: one batch of 64, whole on one rank and on two
+    cfg = _experiment_config(tmp, DS2_SHAPE_MODEL, DS2_SHAPE_TRANSFORMS, training, "shape",
+                             [0.975, 0.025])
+    cfg.distributed = True
+    return cfg
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _scaled(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def _flat(tensors):
+    return torch.cat([t.detach().float().reshape(-1).cpu() for t in tensors])
+
+
+def _tp_inputs():
+    """The TP step's batch (x, c, t, x_0) at the ds2 training shape, and the
+    sample's noise, from a seeded generator on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    x = torch.randn((64, 1, 45, 16, 9), generator=gen, device="cuda")
+    c = torch.rand((64, 46), generator=gen, device="cuda")
+    t = torch.rand((64, 1, 1, 1, 1), generator=gen, device="cuda")
+    x_0 = torch.randn(x.shape, generator=gen, device="cuda")
+    b = PARALLEL_SAMPLE_BATCH
+    e_cond = torch.rand((b, 1), generator=gen, device="cuda")
+    e_noise = torch.randn((b, 45), generator=gen, device="cuda")
+    s_noise = torch.randn((b, 135, 48), generator=gen, device="cuda")
+    return (x, c, t, x_0), (e_cond, e_noise, s_noise)
+
+
+def _tp_models():
+    """The ds2 shape model (random weights from a seed, as every rank and
+    the one-rank reference draw them) and its energy model."""
+    shape_model = _on_card(DS2_SHAPE_MODEL)
+    energy_model = _on_card(DS2_ENERGY_MODEL).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    _randomize(shape_model, gen)
+    _randomize(energy_model, gen)
+    return shape_model, energy_model
+
+
+def _tp_run(mesh=None):
+    """The TP checks' work on this rank (or on one): the gradient of the
+    step's loss (whole), one train step (its metrics, the whole parameters
+    after it, its ms and K1's launches) and one sample of the energy and
+    shape models (K3, K2v: the gathered weights)."""
+    from vit4hep_tpu_torch.parallel import mesh as mesh_lib
+    from vit4hep_tpu_torch.parallel.sharding_rules import gather_state_dict, shard_tree
+
+    shape_model, energy_model = _tp_models()
+    state = ts.create_train_state(shape_model, Config(DS2_SHAPE_TRAINING), use_ema=False)
+    if mesh is not None:
+        state = mesh_lib.shard_state(state, mesh)
+    batch, (e_cond, e_noise, s_noise) = _tp_inputs()
+    loss = shape_model.batch_loss(batch[0], batch[1], t=batch[2], x_0=batch[3])
+    grads = torch.autograd.grad(loss, state.params)
+    with torch.no_grad():
+        whole = _flat(g if getattr(p, "tp_shard", None) is None else p.tp_shard.gather(g)
+                      for g, p in zip(grads, state.params))
+    step = ts.make_train_step(
+        lambda x, c, t, x_0: shape_model.batch_loss(x, c, t=t, x_0=x_0),
+        clip_grad_norm=DS2_SHAPE_TRAINING["clip_grad_norm"], mesh=mesh)
+    _reset()
+    metrics = step(state, batch)
+    step_launches = _counts()
+    params = _flat(gather_state_dict(state)["model"].values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)  # the second step, timed
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    sampler, _ = _tp_models()
+    if mesh is not None:
+        shard_tree(sampler, mesh)
+    sampler.eval()
+    _reset()
+    u = energy_model.sample_batch(e_cond, x_T=e_noise)
+    showers = sampler.sample_batch(torch.cat([u, e_cond], 1), x_T=s_noise)
+    torch.cuda.synchronize()
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+            "grads": whole, "params": params, "step_ms": step_ms,
+            "step_launches": step_launches, "sample_launches": _counts(),
+            "u": u.cpu(), "showers": showers.cpu(),
+            "local_qkv": tuple(shape_model.net.blocks[0].attn.qkv.weight.shape)}
+
+
+def _dit_blocks(indices):
+    """The full-width DiT blocks ``indices`` of a depth-6 stack (hidden 480,
+    6 heads x 80, attn_impl auto), each with its own random weights drawn
+    on the host from one seeded stream, on the card."""
+    from vit4hep_tpu_torch.models.vit import DiTBlock
+
+    gen = torch.Generator().manual_seed(SEED + 51)
+    shapes = {k: v.shape for k, v in DiTBlock(480, 6, 4.0, "auto").state_dict().items()}
+    blocks = {}
+    for i in range(6):  # every block's draws, so that each block's weights are the same
+        sd = {k: 0.02 * torch.randn(shape, generator=gen) for k, shape in shapes.items()}
+        if i in indices:
+            blocks[i] = DiTBlock(480, 6, 4.0, "auto")
+            blocks[i].load_state_dict(sd)
+            blocks[i].cuda()
+    return blocks
+
+
+def _pipe_inputs():
+    gen = torch.Generator().manual_seed(SEED + 52)
+    x = torch.randn((PIPE_BATCH, 135, 480), generator=gen).cuda()
+    c = torch.randn((PIPE_BATCH, 480), generator=gen).cuda()
+    return x, c
+
+
+def _ring_inputs():
+    gen = torch.Generator().manual_seed(SEED + 53)
+    return [torch.randn(RING_SHAPE, generator=gen).cuda() for _ in range(3)]
+
+
+def _pipe_run(group, rank):
+    """This rank's stage of the 6-block stack through spmd_pipeline:
+    (output, {block: its gradients of sum(out^2)}, ms, launches)."""
+    from vit4hep_tpu_torch.parallel.pipeline import spmd_pipeline, stack_stage_params
+
+    mine = list(range(3 * rank, 3 * rank + 3))
+    blocks = _dit_blocks(mine)
+    module = blocks[mine[0]]
+    per_block = [{n: p for n, p in blocks[i].named_parameters()} for i in mine]
+
+    def block_fn(p, xx, cc):
+        return torch.func.functional_call(module, p, (xx, cc))
+
+    x, c = _pipe_inputs()
+    mb = PIPE_BATCH // PIPE_MICRO
+    for warm in (True, False):  # the second pass is timed and counted
+        for b in blocks.values():
+            b.zero_grad(set_to_none=True)
+        stage = {k: v[0] for k, v in stack_stage_params(per_block, 1).items()}
+        _reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = spmd_pipeline(block_fn, stage, x.reshape(PIPE_MICRO, mb, 135, 480),
+                            c.reshape(PIPE_MICRO, mb, 480), group=group).reshape(x.shape)
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    grads = {i: _flat(p.grad for p in blocks[i].parameters()) for i in mine}
+    return out.detach().cpu(), grads, ms, _counts()
+
+
+def _ring_run(group):
+    """ring_attention at RING_SHAPE: (output, gradients of sum(out^2), ms)."""
+    from vit4hep_tpu_torch.parallel.sequence_parallel import ring_attention
+
+    q, k, v = (t.requires_grad_() for t in _ring_inputs())
+    for _ in range(2):  # the second pass is timed
+        q.grad = k.grad = v.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_attention(q, k, v, group)
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return out.detach().cpu(), [t.grad.cpu() for t in (q, k, v)], ms
+
+
+def parallel_child(task: str, out: Path) -> int:
+    """One rank of the parallel checks (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_*`` in the environment) over ``task``'s backend ("nccl": the
+    launcher run; "gloo": the launcher run, then, with 2 ranks, the TP
+    step and sample, the pipeline and the ring); writes its results to
+    ``out/<task>_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from vit4hep_tpu_torch.experiments import main as launcher
+    from vit4hep_tpu_torch.parallel import _comm
+    from vit4hep_tpu_torch.parallel import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = {"nccl": None, "gloo": "gloo"}[task]
+    rank, world, device = mesh_lib.init_distributed(backend, "cuda")
+    res = {"rank": rank, "device": str(device), "backend": dist.get_backend(),
+           "transport": _comm.transport(dist.group.WORLD, device)}
+    # the launcher on this process group (it leaves the group to its caller)
+    cfg = _parallel_config(out / task)
+    _reset()
+    exp = launcher.main([f"backend={backend}"] if backend else [], device="cuda", cfg=cfg,
+                        experiment_cls=SyntheticCaloChallenge)
+    res["dp"] = dict(launches=_counts(), train_loss=exp.train_loss, val_loss=exp.val_loss,
+                     skipped=exp.skipped, step_times=exp.step_times, save=exp.cfg.save,
+                     run_dir=exp.cfg.run_dir, grid=exp.mesh.shape,
+                     cfg=exp.cfg.to_container(resolve=False),
+                     allreduce_bytes=4 * (sum(p.numel() for p in exp.state.params) + 1))
+    del exp
+    torch.cuda.empty_cache()
+    if world > 1:
+        mesh = mesh_lib.create_mesh(model_parallel=world)
+        res["grid"] = mesh.shape
+        res["tp"] = _tp_run(mesh)
+        if rank:  # the whole gradients and parameters are rank 0's too
+            res["tp"].update(grads=None, params=None)
+        res["pipe"] = _pipe_run(dist.group.WORLD, rank)
+        res["ring"] = _ring_run(dist.group.WORLD)
+    dist.destroy_process_group()
+    torch.save(res, out / f"{task}_rank{rank}.pt")
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(task: str, world: int, out: Path):
+    """``world`` children of this script, ranks of one process group on the
+    card (cuda:0), running ``task``; each must end within CHILD_TIMEOUT
+    seconds. Returns their results by rank."""
+    import os
+
+    port, procs = _free_port(), []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world))
+        log = open(out / f"{task}_rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                        "--parallel-child", task, str(out)],
+                                       env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    failed = []
+    try:
+        for r, (p, _) in enumerate(procs):
+            left = CHILD_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} still running after {CHILD_TIMEOUT} s")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            failed.append(f"rank {r} exit {p.returncode}:\n"
+                          + (out / f"{task}_rank{r}.log").read_text()[-3000:])
+    if failed:
+        raise PhaseError(f"parallel {task}: " + "\n".join(failed))
+    print(f"  {task}: {world} rank(s) in {time.perf_counter() - t0:.1f} s", flush=True)
+    return [torch.load(out / f"{task}_rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _hold_par(what, err, bound):
+    ok = err <= bound
+    print(f"  {what}: {err:.3e} (bound {bound:g}) {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
+def _steady_ms(step_times):
+    steady = step_times[2:] or step_times
+    return 1e3 * sum(steady) / len(steady)
+
+
+def parallel_phase(tmp: Path, card):
+    """(b) the launcher over NCCL as one rank; then 2 gloo ranks on the
+    card: (a) the launcher's data-parallel run, held against (b), and on
+    the same ranks tensor parallelism (a train step and a sample), the
+    pipeline and ring attention, each against its one-rank run in this
+    process. Returns the ranks' launches by path (summed over ranks)."""
+    t_phase = time.perf_counter()
+    launches, ok = {}, True
+
+    print("parallel (b): the launcher with distributed=true, 1 rank over NCCL: the one-rank "
+          "run that (a) is held against", flush=True)
+    (res1,) = _ranks("nccl", 1, tmp)
+    one = dict(res1["dp"], device=res1["device"], backend=res1["backend"])
+    steps, vb = len(one["train_loss"]), len(one["val_loss"])
+    want_each = {"qkv_attn_fwd": 6 * (steps + vb), "qkv_attn_bwd_delta": 6 * steps,
+                 "qkv_attn_bwd_dkv": 6 * steps, "qkv_attn_bwd_dq": 6 * steps}
+    print(f"  rank 0: {one['device']}, backend {one['backend']}, grid {one['grid']}, K1 launches "
+          f"{one['launches']}; loss {one['train_loss'][0]:.5f} -> {one['train_loss'][-1]:.5f}, "
+          f"val {one['val_loss']}", flush=True)
+    if one["backend"] != "nccl" or one["launches"] != want_each or any(one["skipped"]) or \
+            not all(math.isfinite(v) for v in one["train_loss"] + one["val_loss"]):
+        raise PhaseError(f"parallel (b): backend {one['backend']}, launches {one['launches']} "
+                         f"(expected {want_each}), skipped {one['skipped']}, losses "
+                         f"{one['train_loss']}")
+    launches["parallel_nccl"] = one["launches"]
+    print(f"  (b) step {_steady_ms(one['step_times']):.2f} ms with its NCCL all-reduce of "
+          f"{one['allreduce_bytes']:,} bytes a step (steady, steps 3-{steps}); on {card}",
+          flush=True)
+
+    print("parallel (a), (c)-(e): 2 ranks on cuda:0 over gloo: (a) the launcher with "
+          "distributed=true backend=gloo, ds2 shape model at full width, global batch 64; then "
+          "model_parallel=2: a TP train step and sample, the pipeline, ring attention", flush=True)
+    ranks = _ranks("gloo", 2, tmp)
+    dp = [dict(r["dp"], rank=r["rank"]) for r in ranks]
+    for r in ranks:
+        print(f"  rank {r['rank']}: {r['device']}, backend {r['backend']}, ppermute transport "
+              f"{r['transport']}; (a) grid {r['dp']['grid']}, save {r['dp']['save']}, K1 "
+              f"launches {r['dp']['launches']}; (c)-(e) grid {r['grid']}, qkv weight held "
+              f"{r['tp']['local_qkv']} of (1440, 480)", flush=True)
+    r0, r1 = dp
+    if any(r["launches"] != want_each for r in dp):
+        raise PhaseError(f"parallel (a): K1 launches {[r['launches'] for r in dp]}, expected "
+                         f"{want_each} on each")
+    launches["parallel_dp"] = {k: r0["launches"][k] + r1["launches"][k] for k in want_each}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["train_loss"], one["train_loss"]))
+    ok &= _hold_par(f"(a) {steps} steps' losses, 2 ranks against 1 (rel)", loss_rel,
+                    PARALLEL_TOL["loss"])
+    val_rel = abs(r0["val_loss"][-1] - one["val_loss"][-1]) / abs(one["val_loss"][-1])
+    ok &= _hold_par("(a) validation loss, 2 ranks against 1 (rel)", val_rel,
+                    PARALLEL_TOL["loss"])
+    ok &= _hold_par("(a) rank 1's losses against rank 0's (abs)",
+                    max(abs(a - b) for a, b in zip(r0["train_loss"] + r0["val_loss"],
+                                                   r1["train_loss"] + r1["val_loss"])), 0.0)
+    if any(r0["skipped"]) or not all(math.isfinite(v) for v in r0["train_loss"]):
+        raise PhaseError("parallel (a): a skipped step or a non-finite loss")
+    run2, run1 = Path(r0["run_dir"]), Path(one["run_dir"])
+    files = lambda d: sorted(str(p.relative_to(d)) for p in d.rglob("*"))  # noqa: E731
+    if not r0["save"] or r1["save"] or files(run2) != files(run1):
+        raise PhaseError(f"parallel (a): rank 0 must write the run dir alone: save "
+                         f"{r0['save']}/{r1['save']}, files {files(run2)} vs {files(run1)}")
+    saved = torch.load(run2 / "models" / "model_run0.pt", map_location="cpu", weights_only=True)
+    cfg_w = Config(r0["cfg"])
+    cfg_w.train, cfg_w.distributed = False, False
+    warm = SyntheticCaloChallenge(cfg_w, device="cuda")
+    warm()
+    same = warm.state.step == steps and all(
+        torch.equal(v.cpu(), saved["model"][k]) for k, v in warm.model.state_dict().items())
+    print(f"  (a) rank 0 wrote {len(files(run2))} files, rank 1 none; the 2-rank checkpoint "
+          f"warm-starts a 1-rank experiment at step {warm.state.step}: "
+          f"{'exact' if same else 'DIFFERS'}", flush=True)
+    ok &= same
+    ms1, ms2 = _steady_ms(one["step_times"]), _steady_ms(r0["step_times"])
+    print(f"  (a) overhead, not scaling (two ranks share one card over gloo, host-staged): "
+          f"per-step all-reduce {r0['allreduce_bytes']:,} bytes (26,042,528 f32 gradients and "
+          f"the loss); step {ms1:.2f} ms on 1 rank (NCCL), {ms2:.2f} ms on 2 ranks of batch 32 "
+          f"(steady, steps 3-{steps}); on {card}", flush=True)
+    del warm
+    torch.cuda.empty_cache()
+
+    ref = _tp_run()
+    tp0, tp1 = (r["tp"] for r in ranks)
+    want_step = {"qkv_attn_fwd": 6, "qkv_attn_bwd_delta": 6, "qkv_attn_bwd_dkv": 6,
+                 "qkv_attn_bwd_dq": 6}
+    per = {k: 80 * v for k, v in CFM_PER_EVAL.items()}
+    if any(t["step_launches"] != want_step or t["sample_launches"] != per for t in (tp0, tp1)):
+        raise PhaseError(f"parallel (c): launches {[t['step_launches'] for t in (tp0, tp1)]}, "
+                         f"{[t['sample_launches'] for t in (tp0, tp1)]}; expected {want_step}, "
+                         f"{per}")
+    launches["parallel_tp_step"] = {k: 2 * v for k, v in want_step.items()}
+    launches["parallel_tp_sample"] = {k: 2 * v for k, v in per.items()}
+    ok &= _hold_par("(c) TP step loss against 1 rank (rel)",
+                 abs(tp0["loss"] - ref["loss"]) / abs(ref["loss"]), PARALLEL_TOL["loss"])
+    ok &= _hold_par("(c) TP gradients against 1 rank (rel L2, all 26,042,528)",
+                 _rel_l2(tp0["grads"], ref["grads"]), PARALLEL_TOL["grad_rel_l2"])
+    ok &= _hold_par("(c) TP parameters after the step (max abs)",
+                 (tp0["params"] - ref["params"]).abs().max().item(), PARALLEL_TOL["param_abs"])
+    init = _flat(_tp_models()[0].state_dict().values())
+    ok &= _hold_par("(c) TP update against 1 rank (rel L2)",
+                 _rel_l2(tp0["params"] - init, ref["params"] - init), PARALLEL_TOL["update_rel"])
+    ok &= _hold_par("(c) TP sample, energy u's through K3 (scaled)", _scaled(tp0["u"], ref["u"]),
+                 PARALLEL_TOL["sample"])
+    ok &= _hold_par("(c) TP sample, showers through the gathered K2v (scaled)",
+                 max(_scaled(t["showers"], ref["showers"]) for t in (tp0, tp1)),
+                 PARALLEL_TOL["sample"])
+    print(f"  (c) overhead, not scaling: the second train step {ref['step_ms']:.2f} ms on 1 "
+          f"rank, {tp0['step_ms']:.2f} / {tp1['step_ms']:.2f} ms on 2 TP ranks (K1 on 3 heads a "
+          f"rank; 24 all-reduces of (64, 135, 480) f32 a step, host-staged by gloo); on {card}",
+          flush=True)
+
+    blocks = _dit_blocks(range(6))
+    x, c = _pipe_inputs()
+    params = [list(blocks[i].parameters()) for i in range(6)]
+    for _ in range(2):  # the second pass is timed
+        for b in blocks.values():
+            b.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = x
+        for i in range(6):
+            h = blocks[i](h, c)
+        (h ** 2).sum().backward()
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    (out0, g0, ms0, l0), (out1, g1, ms1, l1) = (r["pipe"] for r in ranks)
+    want_pipe = {"qkv_attn_fwd": 3 * (PIPE_MICRO + 1), "qkv_attn_bwd_delta": 3 * (PIPE_MICRO + 1),
+                 "qkv_attn_bwd_dkv": 3 * (PIPE_MICRO + 1), "qkv_attn_bwd_dq": 3 * (PIPE_MICRO + 1)}
+    if l0 != want_pipe or l1 != want_pipe:
+        raise PhaseError(f"parallel (d): launches {l0}, {l1}; expected {want_pipe} a rank")
+    launches["parallel_pipe"] = {k: 2 * v for k, v in want_pipe.items()}
+    ok &= _hold_par("(d) pipeline output, 2 stages x 3 blocks against the 6 in sequence (scaled)",
+                 max(_scaled(o, h.detach().cpu()) for o in (out0, out1)), PARALLEL_TOL["pipe_out"])
+    ok &= _hold_par("(d) pipeline gradients per block (worst rel L2)",
+                 max(_rel_l2(g, _flat(p.grad for p in params[i]))
+                     for g_r in (g0, g1) for i, g in g_r.items()),
+                 PARALLEL_TOL["pipe_grad_rel_l2"])
+    print(f"  (d) forward + backward (the second pass): {seq_ms:.2f} ms in sequence on 1 rank, "
+          f"{ms0:.2f} / {ms1:.2f} ms through {PIPE_MICRO + 1} ticks on 2 stages (overhead, not "
+          f"scaling); on {card}", flush=True)
+    del blocks, params, h
+    torch.cuda.empty_cache()
+
+    q, k, v = (t.requires_grad_() for t in _ring_inputs())
+    for _ in range(2):  # the second pass is timed
+        q.grad = k.grad = v.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = attn.xla_attention(q, k, v)
+        (plain ** 2).sum().backward()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    (ro0, rg0, rms0), (ro1, rg1, rms1) = (r["ring"] for r in ranks)
+    ok &= _hold_par(f"(e) ring attention at {RING_SHAPE}, 2 ranks, against the plain attention "
+                 "(scaled)", max(_scaled(o, plain.detach().cpu()) for o in (ro0, ro1)),
+                 PARALLEL_TOL["ring_out"])
+    ok &= _hold_par("(e) ring gradients of q, k, v (worst rel L2)",
+                 max(_rel_l2(g, t.grad.cpu()) for rg in (rg0, rg1) for g, t in zip(rg, (q, k, v))),
+                 PARALLEL_TOL["ring_grad_rel_l2"])
+    print(f"  (e) forward + backward (the second pass): plain {plain_ms:.2f} ms on 1 rank, ring "
+          f"{rms0:.2f} / {rms1:.2f} ms on 2 ranks (overhead, not scaling); on {card}",
+          flush=True)
+    del q, k, v, plain
+    torch.cuda.empty_cache()
+    if not ok:
+        raise PhaseError("parallel: a rank disagrees with its one-rank run")
+    print(f"parallel: (a)-(e) in {time.perf_counter() - t_phase:.1f} s; on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU",
@@ -5009,53 +5610,67 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    compiled = _cuda.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s ({compiled or 'all current'})", flush=True)
 
-    # kernel results by shape group; "main" holds each kernel's first shape
-    groups = {g: {} for g in SHAPE_GROUPS}
-    print("kernels vs plain versions (ds2 sampling shapes, batch 256):", flush=True)
-    k3_kernel_phase(groups["main"])
-    k2v_kernel_phase(groups["main"], *VIT_TOKENS["ds2"])
-    print("K1 vs plain, ds2 training shape: qkv (64, 135, 1440) f32, 6 heads x 80", flush=True)
-    k1_ms = {"ds2 training shape": k1_kernel_phase(groups["main"], 64, 135)}
-    print("K1 vs plain, ds3 token count: qkv (16, 450, 1440) f32, 6 heads x 80", flush=True)
-    k1_ms["N=450"] = k1_kernel_phase(groups["n450"], 16, 450)
-    print("K4 vs plain, ds2 cINN sampling shape: y (256, 3240), theta (256, 3240, 31) f32",
-          flush=True)
-    k4_kernel_phase(groups["main"], 3240)
-    print("K1 forward vs plain, ds2 cINN subnet shape: qkv (256, 135, 576) f32, 4 heads x 48",
-          flush=True)
-    k1_fwd_phase(groups["cinn"], BATCH, 135, 4, 48)
-    print("K2v vs plain versions, ds3 sampling shapes: tokens (256, 450, 90), qkv (256, 450, "
-          "1440), unmasked", flush=True)
-    k2v_kernel_phase(groups["ds3"], *VIT_TOKENS["ds3"])
-    print("K1 forward vs plain, ds3 cINN subnet shape: qkv (256, 225, 576) f32, 4 heads x 48",
-          flush=True)
-    k1_fwd_phase(groups["ds3"], BATCH, 225, 4, 48)
-    print("K4 vs plain, ds3 cINN sampling shape: y (256, 20250), theta (256, 20250, 31) f32",
-          flush=True)
-    k4_kernel_phase(groups["ds3"], 20250, other_branch=False)
-    mask = _causal_mask((15, 1, 9))
-    print("K2v attention and forward vs plain, ds2 with the layer-causal mask of (15, 1, 9)",
-          flush=True)
-    k2v_kernel_phase(groups["causal"], 135, 48, mask=mask, gemms=False)
-    print("K1 vs plain, ds2 training shape with the layer-causal mask of (15, 1, 9)", flush=True)
-    k1_ms["ds2 training shape, masked"] = k1_kernel_phase(groups["causal"], 64, 135, mask=mask)
-    print("K5 tier vs plain, ds2 training shape: x (64, 135, 480), 6 heads x 80, F 1920: the "
-          "training GEMM epilogues, NT and split-K TN products, row passes, K5b (a1 saved), K2b, "
-          "K5c, K5a", flush=True)
-    k5_kernel_phase(groups["main"], 64, 135)
-    print("K5b without a1, ds2 training shape", flush=True)
-    k5_kernel_phase(groups["noa1"], 64, 135, primitives=False, save_a1=False, composites=False)
-    print("K5b without a1, N = 450: x (16, 450, 480)", flush=True)
-    k5_kernel_phase(groups["n450"], 16, 450, primitives=False, save_a1=False, composites=False)
-    print("K5b (a1 saved, and without), K2b, K5c, K5a with the layer-causal mask of (15, 1, 9)",
-          flush=True)
-    k5_kernel_phase(groups["causal"], 64, 135, mask=mask, primitives=False)
-    k5_kernel_phase(groups["causal_noa1"], 64, 135, mask=mask, primitives=False, save_a1=False,
-                    composites=False)
-    del mask
+    def stamp(what):  # the smoke's clock at the end of each group of phases
+        print(f"[smoke {time.perf_counter() - t0:.1f} s] {what} done", flush=True)
+
+    # every nvcc starts now; the first kernel phases wait only for their own
+    # libraries while K6's, K8's and K7's (the longest builds) go on
+    _cuda.start()
+    try:
+        compiled = _cuda.finish([n for n in _cuda.SOURCES if n not in LATE_SOURCES])
+        print(f"build: {time.perf_counter() - t0:.2f} s for the first kernels "
+              f"({compiled or 'all current'})", flush=True)
+
+        # kernel results by shape group; "main" holds each kernel's first shape
+        groups = {g: {} for g in SHAPE_GROUPS}
+        print("kernels vs plain versions (ds2 sampling shapes, batch 256):", flush=True)
+        k3_kernel_phase(groups["main"])
+        k2v_kernel_phase(groups["main"], *VIT_TOKENS["ds2"])
+        print("K1 vs plain, ds2 training shape: qkv (64, 135, 1440) f32, 6 heads x 80", flush=True)
+        k1_ms = {"ds2 training shape": k1_kernel_phase(groups["main"], 64, 135)}
+        print("K1 vs plain, ds3 token count: qkv (16, 450, 1440) f32, 6 heads x 80", flush=True)
+        k1_ms["N=450"] = k1_kernel_phase(groups["n450"], 16, 450)
+        print("K4 vs plain, ds2 cINN sampling shape: y (256, 3240), theta (256, 3240, 31) f32",
+              flush=True)
+        k4_kernel_phase(groups["main"], 3240)
+        print("K1 forward vs plain, ds2 cINN subnet shape: qkv (256, 135, 576) f32, 4 heads x 48",
+              flush=True)
+        k1_fwd_phase(groups["cinn"], BATCH, 135, 4, 48)
+        print("K2v vs plain versions, ds3 sampling shapes: tokens (256, 450, 90), qkv (256, 450, "
+              "1440), unmasked", flush=True)
+        k2v_kernel_phase(groups["ds3"], *VIT_TOKENS["ds3"])
+        print("K1 forward vs plain, ds3 cINN subnet shape: qkv (256, 225, 576) f32, 4 heads x 48",
+              flush=True)
+        k1_fwd_phase(groups["ds3"], BATCH, 225, 4, 48)
+        print("K4 vs plain, ds3 cINN sampling shape: y (256, 20250), theta (256, 20250, 31) f32",
+              flush=True)
+        k4_kernel_phase(groups["ds3"], 20250, other_branch=False)
+        mask = _causal_mask((15, 1, 9))
+        print("K2v attention and forward vs plain, ds2 with the layer-causal mask of (15, 1, 9)",
+              flush=True)
+        k2v_kernel_phase(groups["causal"], 135, 48, mask=mask, gemms=False)
+        print("K1 vs plain, ds2 training shape with the layer-causal mask of (15, 1, 9)",
+              flush=True)
+        k1_ms["ds2 training shape, masked"] = k1_kernel_phase(groups["causal"], 64, 135, mask=mask)
+        print("K5 tier vs plain, ds2 training shape: x (64, 135, 480), 6 heads x 80, F 1920: "
+              "the training GEMM epilogues, NT and split-K TN products, row passes, K5b (a1 "
+              "saved), K2b, K5c, K5a", flush=True)
+        k5_kernel_phase(groups["main"], 64, 135)
+        print("K5b without a1, ds2 training shape", flush=True)
+        k5_kernel_phase(groups["noa1"], 64, 135, primitives=False, save_a1=False, composites=False)
+        print("K5b without a1, N = 450: x (16, 450, 480)", flush=True)
+        k5_kernel_phase(groups["n450"], 16, 450, primitives=False, save_a1=False, composites=False)
+        print("K5b (a1 saved, and without), K2b, K5c, K5a with the layer-causal mask of (15, 1, 9)",
+              flush=True)
+        k5_kernel_phase(groups["causal"], 64, 135, mask=mask, primitives=False)
+        k5_kernel_phase(groups["causal_noa1"], 64, 135, mask=mask, primitives=False, save_a1=False,
+                        composites=False)
+        del mask
+    finally:
+        late = _cuda.finish()
+    print(f"build: the rest ready at {time.perf_counter() - t0:.2f} s ({late or 'all current'}; "
+          "built during the phases above)", flush=True)
     mask3 = _causal_mask((15, 5, 6))
     for group, b, causal, label in K68_SHAPES:
         print(f"K6 (flash_qkv_attention) and K8 (vmem_attention) vs plain, {label}: qkv ({b}, "
@@ -5180,6 +5795,7 @@ def main() -> int:
 
     print("megakernel_residue (K10): the DiT block body by kernel", flush=True)
     residue_phase(card)
+    stamp("build and kernels")
 
     # each path runs with the counters set to 0 just before and read just
     # after; launches[path] = {kernel: launches}
@@ -5250,14 +5866,16 @@ def main() -> int:
                 launches[f"{path}_export"] = export_phase(Path(tmp), path, generator, card)
             del generator
             torch.cuda.empty_cache()
+        stamp(path)
     for path, label, param, per_eval in DS3_SERVING:
         with tempfile.TemporaryDirectory() as tmp:
             print(f"{path}: ds3 CFM two-stage generator at full width, fused_block: false, "
-                  f"{label}", flush=True)
+                  f"{label}, both CFMs at {COARSE_EVALS} net evals", flush=True)
             launches[path], times, generator = cfm_phase(
-                Path(tmp), "ds3", _with_net_param(DS3_SHAPE_MODEL, fused_block=False, **param),
-                DS3_ENERGY_MODEL, DS3_SHAPE_TRANSFORMS, DS3_ENERGY_TRANSFORMS, DS3_REQUESTS,
-                COMPOSED, per_eval)
+                Path(tmp), "ds3", dict(_with_net_param(DS3_SHAPE_MODEL, fused_block=False,
+                                                       **param), odeint_kwargs=COARSE_ODE),
+                dict(DS3_ENERGY_MODEL, odeint_kwargs=COARSE_ODE), DS3_SHAPE_TRANSFORMS,
+                DS3_ENERGY_TRANSFORMS, DS3_REQUESTS, COMPOSED, per_eval)
             steady = "" if len(times) < 2 else \
                 f", {BATCH * (len(times) - 1) / sum(times[1:]):.2f} steady (first request excluded)"
             print(f"{path}: {BATCH * len(times) / sum(times):.2f} showers/s over all "
@@ -5265,6 +5883,7 @@ def main() -> int:
                   f"{[round(t, 4) for t in times]} s; on {card}", flush=True)
             del generator
             torch.cuda.empty_cache()
+        stamp(path)
     with tempfile.TemporaryDirectory() as tmp:
         print(f"ds3_long_cfm: ds3_long (13,500 tokens of (3, 1, 1) patches, fused_block: false, "
               f"attn_impl auto: K7) two-stage generator, batch {DS3_LONG_SERVE_BATCH}", flush=True)
@@ -5290,6 +5909,8 @@ def main() -> int:
             print(f"{path}: {family} two-stage generator at full width and depth", flush=True)
             launches[path], _ = family_serving_phase(Path(tmp), family, shape_cfg, card,
                                                      requests, prof)
+        stamp(path)
+    stamp("serving paths")
 
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
@@ -5302,6 +5923,7 @@ def main() -> int:
         print("causal_train: train parity of the layer-causal ViT, K1 masked against the plain "
               "masked attention", flush=True)
         _, launches["causal_train"] = train_parity_phase(exp, causal=True)
+        stamp("ds2_train and its parities")
         print("train profile: one ds2 train step", flush=True)
         train_profile_phase(exp, card)
         print("ds2_fused_train: ds2 shape model, fused_block: true, through the experiment",
@@ -5311,6 +5933,7 @@ def main() -> int:
         for path, label, cfg, batch, variant in FUSED_PARITY:
             _, launches[path] = fused_parity_phase(label, cfg, batch, variant)
             torch.cuda.empty_cache()
+        stamp("ds2_fused_train and the fused parities")
         print("fused train profile: one ds2 fused train step", flush=True)
         train_profile_phase(fexp, card, groups=FUSED_TRAIN_GROUPS)
         shape_cfg = Config(exp.cfg.to_container(resolve=False))
@@ -5324,6 +5947,7 @@ def main() -> int:
             launches[path], rates[path] = ds3_train_phase(Path(tmp), card, path, label, setting,
                                                           param)
             torch.cuda.empty_cache()
+            stamp(path)
         print(f"ds3_long_train: ds3_long at full width (13,500 tokens, K7), batch "
               f"{DS3_LONG_TRAIN_BATCH}, {DS3_LONG_STEPS} steps and one validation batch, through "
               "the CaloChallenge experiment", flush=True)
@@ -5331,6 +5955,7 @@ def main() -> int:
             Path(tmp), card, "ds3_long_train", "13,500 tokens, attn_impl auto (K7)", "k7", {},
             DS3_LONG_MODEL, DS3_LONG_STEPS, DS3_LONG_STEPS, DS3_LONG_TRAIN_BATCH)
         torch.cuda.empty_cache()
+        stamp("ds3_long_train")
         print("ds3 training, steps/s over the whole train() loop / steady step interior: "
               + ", ".join(f"{p} {a:.3f} / {b:.3f}" for p, (a, b) in rates.items())
               + f"; on {card}", flush=True)
@@ -5350,19 +5975,23 @@ def main() -> int:
             DS3_LONG_PARITY_BATCH, COMPOSED, composed_launches("k7", TRAIN_PARITY_STEPS, 0),
             K7_TRAIN_TOL)
         torch.cuda.empty_cache()
+        stamp("the ds3 parities")
         print("energy: ds2 energy model at full width", flush=True)
         energy_exp = energy_phase(Path(tmp))
         torch.cuda.empty_cache()
+        stamp("energy")
         print("experiment sampling: sample_n (staged and fused), the inverse pipeline and the "
               "evaluation core of plot, on the ds2_train and energy run dirs", flush=True)
         launches.update(experiment_sampling_phase(shape_cfg, energy_exp, card))
         del energy_exp
         torch.cuda.empty_cache()
+    stamp("ds2 and ds3 training, energy, experiment sampling")
     with tempfile.TemporaryDirectory() as tmp:
         print("ds1_train: ds1 photons (energy and shape models) through the CaloChallenge "
               "experiment, then sample_n, to_mev and the evaluation core of eval_sample",
               flush=True)
         launches.update(ds1_train_phase(Path(tmp), card))
+    stamp("ds1_train")
     with tempfile.TemporaryDirectory() as tmp:
         (Path(tmp) / "data").mkdir()
         _binning_xml(Path(tmp) / "data", "ds2")
@@ -5372,12 +6001,14 @@ def main() -> int:
         shape_cfg = Config(cexp.cfg.to_container(resolve=False))
         del cexp
         torch.cuda.empty_cache()
+        stamp("ds2_cinn_train")
         print("cINN train parity: K1, remat_spline, the nflows couplings and the ViT1D twins "
               "against their reference paths from one state", flush=True)
         for path, label, cfg, ref, tol, counters, want in CINN_PARITY:
             _, launches[path] = parity_phase(label, cfg, ref, 64, counters, want, tol,
                                              CINN_TRAINING, steps=CINN_PARITY_STEPS)
             torch.cuda.empty_cache()
+            stamp(path)
         print("energy_cinn: the energy cINN through the CaloChallenge experiment", flush=True)
         energy_exp = energy_cinn_phase(Path(tmp), card)
         print("cinn_sampling: sample_n of the ds2_cinn_train run behind the energy-cINN run, "
@@ -5385,6 +6016,7 @@ def main() -> int:
         launches.update(cinn_sampling_phase(shape_cfg, energy_exp, card))
         del energy_exp
         torch.cuda.empty_cache()
+    stamp("the cINN's training, parities and sampling")
 
     for family, parity_batch in FAMILY_TRAIN:
         with tempfile.TemporaryDirectory() as tmp:
@@ -5401,7 +6033,9 @@ def main() -> int:
             launches.update(family_sampling_phase(family, exp, energy_exp, card))
             del exp, energy_exp
             torch.cuda.empty_cache()
+        stamp(family)
 
+    stamp("the families")
     print("ar: the autoregressive energy net (ARtransformer) at its defaults", flush=True)
     ar_phase(card)
     torch.cuda.empty_cache()
@@ -5410,10 +6044,18 @@ def main() -> int:
         print("ds2tods3_ft: calochallenge_ds2tods3_ft (a ds2 backbone fine-tuned on ds3) at full "
               "width through the experiment: training, parity, warm start, sample_n", flush=True)
         launches.update(ft_ds3_phase(Path(tmp), card))
+    stamp("ds2tods3_ft")
     with tempfile.TemporaryDirectory() as tmp:
         print("calohadronic_ft: CaloHadronic fine-tuned from a LEMURS backbone at full width: "
               "training through the experiment, one request", flush=True)
         launches.update(ft_calohad_phase(Path(tmp), card))
+    stamp("ar and fine-tuning")
+    with tempfile.TemporaryDirectory() as tmp:
+        print("parallel: the parallel layer (data parallelism through the launcher, NCCL, tensor "
+              "parallelism, the pipeline, ring attention) in ranks of this script on the card",
+              flush=True)
+        launches.update(parallel_phase(Path(tmp), card))
+    stamp("parallel")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = []
@@ -5435,4 +6077,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(sys.argv[2], Path(sys.argv[3])))
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""Experiment lifecycle on one device: run management, the training loop,
-checkpoints (port of ``vit4hep_tpu/experiments/base.py``).
+"""Experiment lifecycle: run management, the training loop, checkpoints
+(port of ``vit4hep_tpu/experiments/base.py``).
 
 Keeps the template-method surface of the JAX ``BaseExperiment``: subclasses
 implement ``init_data``, ``_init_dataloader``, ``val_batches``, ``evaluate``
@@ -8,8 +8,23 @@ and ``plot``. The run directory layout is the reference's:
 ``config_<idx>.yaml``, ``out_<idx>.log`` and ``models/model_run<idx>.pt``,
 so ``-cp runs/... -cn config warm_start_idx=K`` resumes a run as run K + 1.
 
-The JAX package's device mesh and multi-process logic reduce to one
-device here. A warm start reads the port's checkpoint, or a reference
+A run of several processes (``distributed: true``, one rank per device,
+``experiments/main.py``) lays its ranks out on the (data, model) grid of
+``parallel/mesh.create_mesh`` (``model_parallel``): every rank reads the
+same host batches and keeps its rows (``_batch``), draws ``t`` and ``x_0``
+for the global batch and keeps its rows (``loss``), and the step averages
+the gradients over the data group (``train_state.make_train_step``), so a
+step over N ranks is the one-rank step. With ``model_parallel`` above 1 the
+state's transformer products are split over the model group
+(``parallel/sharding_rules``) after any warm start or backbone surgery,
+and whole again before sampling. Only rank 0 writes the run directory and
+logs (JAX ``:97``); every rank enters ``_save_model`` (the gather of split
+tensors is a collective) and the validation loss is the data group's mean,
+so that early stopping decides alike everywhere. The other ranks build
+(and fit) their transforms before rank 0 writes the fitted statistics, so
+no rank reads a file another is writing.
+
+A warm start reads the port's checkpoint, or a reference
 run's ``model_run<i>.pt`` (model and EMA converted by
 ``utils/torch_migration``, the optimizer fresh, a cINN rebuilt with the
 checkpoint's permutations): the model and the batches live on
@@ -29,6 +44,8 @@ import numpy as np
 import torch
 
 from vit4hep_tpu_torch.experiments import train_state as ts
+from vit4hep_tpu_torch.parallel import mesh as mesh_lib
+from vit4hep_tpu_torch.parallel import sharding_rules
 from vit4hep_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from vit4hep_tpu_torch.utils.config import MissingMandatoryValue, instantiate
 from vit4hep_tpu_torch.utils.logger import LOGGER, flush_buffered_logs, init_logging
@@ -48,9 +65,6 @@ def resolve_device(device) -> torch.device:
 
 class BaseExperiment:
     def __init__(self, cfg, rank=0, world_size=1, device="cuda"):
-        if world_size != 1:
-            raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md "
-                                      "queue 1, the parallel layer)")
         self.cfg = cfg
         self.rank = rank
         self.world_size = world_size
@@ -88,16 +102,21 @@ class BaseExperiment:
                 str(Path(self.cfg.base_dir) / "runs" / self.cfg.exp_name / "tracking"),
                 self.cfg.exp_name, run_name)
         init_logging(self.cfg.run_dir if self.cfg.save else None, run_idx=self.cfg.run_idx,
-                     debug=self.cfg.get("debug", False))
+                     rank=self.rank, debug=self.cfg.get("debug", False))
         self._init_backend()
         return run_name
 
     def _init_experiment(self):
         self.warm_start = self.cfg.get("warm_start_idx") is not None
+        # checkpoints are saved by every rank (a collective), the rest of the
+        # run dir by rank 0 alone
+        self.save_requested = bool(self.cfg.save)
+        self.cfg.save = self.save_requested and self.rank == 0
         if not self.warm_start:
             run_name = self.cfg.get("run_name")
             if run_name is None:
-                run_name = f"{self.cfg.exp_type}_{np.random.randint(0, 99999):05}"
+                run_name = mesh_lib.broadcast_object(
+                    f"{self.cfg.exp_type}_{np.random.randint(0, 99999):05}")
             run_dir = os.path.join(self.cfg.base_dir, "runs", self.cfg.exp_name, run_name)
             run_idx = 0
             LOGGER.info(f"Creating new experiment {self.cfg.exp_name}/{run_name}")
@@ -142,6 +161,10 @@ class BaseExperiment:
             raise NotImplementedError("the port trains in float32 (compute_dtype float32)")
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         LOGGER.info(f"Using device {self.device} ({name}), dtype {self.dtype}")
+        self.mesh = mesh_lib.create_mesh(num_devices=self.cfg.get("num_devices"),
+                                         model_parallel=self.cfg.get("model_parallel", 1))
+        if self.world_size > 1:
+            LOGGER.info(f"Rank {self.rank} of {self.world_size}: grid {self.mesh.shape}")
         if self.cfg.get("debug", False):
             torch.autograd.set_detect_anomaly(True)
             LOGGER.info("debug: autograd anomaly detection enabled")
@@ -155,7 +178,11 @@ class BaseExperiment:
         t0 = time.time()
         self.init_physics()
         self.init_model()
+        if self.rank == 0:  # the other ranks fit their transforms first
+            mesh_lib.barrier()
         self.init_data()
+        if self.rank != 0:
+            mesh_lib.barrier()
         self._init_dataloader()
         self._init_loss()
         if self.cfg.save:
@@ -171,6 +198,8 @@ class BaseExperiment:
             if self.cfg.save and self.cfg.get("plotting", {}) and \
                     self.cfg.plotting.get("loss", False):
                 self._plot_training_curves()
+        # rank 0 samples and evaluates alone, on the whole weights
+        sharding_rules.unshard_state(self.state)
         if self.cfg.evaluate:
             self.evaluate()
         if self.cfg.plot and self.cfg.save:
@@ -214,8 +243,13 @@ class BaseExperiment:
         self.state = ts.create_train_state(self.model, self.cfg.training, self.use_ema,
                                            self.param_groups())
         self.lr_schedule = ts.make_schedule(self.cfg.training)
-        if payload is None:
-            return
+        if payload is not None:
+            self._restore(payload)
+        self.state = mesh_lib.shard_state(self.state, self.mesh)
+
+    def _restore(self, payload):
+        """Load a warm start's checkpoint (the port's, or a reference run's
+        migrated) into the whole state."""
         if "step" in payload:
             self.state.load_state_dict(payload)
             return
@@ -260,12 +294,28 @@ class BaseExperiment:
 
     # ------------------------------------------------------------------ train
     def _batch(self, batch):
-        return tuple(torch.as_tensor(a, device=self.device) for a in batch)
+        """This rank's rows of a host batch, on the device."""
+        return tuple(torch.as_tensor(a, device=self.device)
+                     for a in mesh_lib.shard_batch(batch, self.mesh))
+
+    def _rows(self, x) -> dict:
+        """``batch_loss``'s ``rows`` for this rank's ``x`` ({} on one data
+        row)."""
+        return {} if self.mesh.data == 1 else {"rows": self.mesh.rows(len(x) * self.mesh.data)}
+
+    def global_batch(self, batch_size: int) -> int:
+        """``batch_size`` rounded down to a multiple of the data axis, as JAX
+        rounds it (``calochallenge.py:70-75``)."""
+        n = self.mesh.data
+        if batch_size % n:
+            batch_size = batch_size // n * n
+            LOGGER.warning(f"Rounded global batch size to {batch_size} (data axis {n})")
+        return batch_size
 
     def loss(self, x, c):
         """The training objective of one batch; the draws come from the
-        experiment's generator on its device."""
-        return self.model.batch_loss(x, c, generator=self._rng)
+        experiment's generator on its device, made for the global batch."""
+        return self.model.batch_loss(x, c, generator=self._rng, **self._rows(x))
 
     def _make_steps(self):
         tcfg = self.cfg.training
@@ -276,6 +326,7 @@ class BaseExperiment:
             clip_grad_norm=tcfg.get("clip_grad_norm"),
             max_grad_norm=tcfg.get("max_grad_norm"),
             ema_decay=float(tcfg.get("ema_decay", 0.9999)) if self.use_ema else None,
+            mesh=self.mesh,
         )
 
     def train(self):
@@ -421,8 +472,8 @@ class BaseExperiment:
         with self.eval_params(), torch.no_grad():
             for batch in self.val_batches():
                 x, c = self._batch(batch)
-                losses.append(self.model.batch_loss(x, c, generator=val_rng))
-        val_loss = float(torch.stack(losses).mean())
+                losses.append(self.model.batch_loss(x, c, generator=val_rng, **self._rows(x)))
+        val_loss = float(self.mesh.data_mean(torch.stack(losses).mean()))
         self.val_loss.append(val_loss)
         self._log("val.loss", val_loss, step=step)
         return val_loss
@@ -460,9 +511,12 @@ class BaseExperiment:
                         "gradient norm", logy=True)
 
     def _save_model(self, filename=None):
-        if not self.cfg.save:
+        # every rank enters: a split tensor is gathered over its group
+        if not self.save_requested:
             return
-        save_checkpoint(self._model_path(filename or f"model_run{self.cfg.run_idx}"), self.state)
+        save_checkpoint(self._model_path(filename or f"model_run{self.cfg.run_idx}"), self.state,
+                        write=self.cfg.save)
+        mesh_lib.barrier()  # the file exists before any rank reads it
 
     # ------------------------------------------------------------------ abstract
     def init_physics(self):

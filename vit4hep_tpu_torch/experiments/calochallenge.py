@@ -82,14 +82,16 @@ class CaloChallenge(BaseExperiment):
         return load_data(self.hdf5_train, self.particle_type, self.xml_filename)
 
     def _init_dataloader(self):
-        self.batch_size = int(self.cfg.training.batchsize)
+        self.batch_size = self.global_batch(int(self.cfg.training.batchsize))
+        n_data = self.mesh.data
         seed = self.cfg.get("seed") or 0
         self.train_iterator = BatchIterator(
             (self.train_dataset.layers, self.train_dataset.energy), self.batch_size, seed=seed)
         self.batches_per_epoch = self.train_iterator.batches_per_epoch
         self._val_iterator = BatchIterator(
             (self.val_dataset.layers, self.val_dataset.energy),
-            min(self.batch_size, len(self.val_dataset)), seed=seed, shuffle=False)
+            min(self.batch_size, len(self.val_dataset)) // n_data * n_data or n_data, seed=seed,
+            shuffle=False)
         LOGGER.info(f"init_dataloader: created training iterator with "
                     f"{self.batches_per_epoch} batches")
         LOGGER.info(f"init_dataloader: created validation iterator with "

@@ -10,7 +10,10 @@ its own lr and schedule). The backbone run is read through
 :meth:`FTMixin.backbone_run_config` (its ``config_<idx>.yaml``, which names
 its run dir and index) and its ``models/model_run<idx>.pt``: the port's
 checkpoint or the reference's, migrated (``utils/torch_migration``).
-``use_ema`` follows the backbone's config first.
+``use_ema`` follows the backbone's config first. On a grid with a model
+axis the state is split after the surgery, as JAX shards it there
+(``:95-97``): the base experiment's ``_init_optimizer`` splits whatever
+the model holds once the transfer is done.
 
 :class:`CaloChallengeFT_fromLEM` samples behind a LEMURS backbone: the
 shape model's condition is ``[u | E | theta, phi, label]``, the energy

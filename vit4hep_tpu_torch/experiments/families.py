@@ -140,7 +140,7 @@ class LazyFamilyExperiment(DictFamilyExperiment):
 
     def _init_dataloader(self):
         collator = self.collator(self.hdf5_dict_train, self.return_us)
-        self.batch_size = int(self.cfg.training.batchsize)
+        self.batch_size = self.global_batch(int(self.cfg.training.batchsize))
         seed = self.cfg.get("seed") or 0
         self.train_iterator = CollatedBatchIterator(self.train_dataset, collator,
                                                     self.batch_size, seed=seed)

@@ -47,6 +47,8 @@ import math
 import numpy as np
 import torch
 
+from vit4hep_tpu_torch.parallel import _comm
+
 # the spike-skip is only active after this many steps
 MIN_STEP_SKIP = 1000
 
@@ -118,9 +120,28 @@ def make_lr_schedule(optimizer, training_cfg):
     return torch.optim.lr_scheduler.LambdaLR(optimizer, lambdas)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+def global_norm(tensors, split=(), group=None) -> torch.Tensor:
+    """sqrt(sum of squares) over all tensors (optax.global_norm). The
+    tensors flagged in ``split`` are this rank's parts of tensors split over
+    ``group``: their squares are summed over it, the others' counted once."""
+    squares = [torch.sum(t.float() ** 2) for t in tensors]
+    if not any(split):
+        return torch.sqrt(sum(squares))
+    whole = sum(q for q, s in zip(squares, split) if not s)
+    parts = sum(q for q, s in zip(squares, split) if s)
+    return torch.sqrt(whole + _comm.all_reduce_(parts.clone(), group))
+
+
+def _data_mean(grads, loss, group, n):
+    """The gradients and the loss averaged over the data group, in one
+    all-reduce of one flat buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+    _comm.all_reduce_(flat, group).div_(n)
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return out, flat[-1]
 
 
 def _ema_decay(base_decay: float, num_updates: int) -> float:
@@ -129,10 +150,19 @@ def _ema_decay(base_decay: float, num_updates: int) -> float:
 
 
 def make_train_step(loss_fn, *, clip_grad_value=None, clip_grad_norm=None, max_grad_norm=None,
-                    ema_decay=None):
+                    ema_decay=None, mesh=None):
     """``train_step(state, batch) -> metrics``, with ``loss_fn(*batch)`` the
     scalar loss of the state's model. Metrics are tensors on the model's
-    device: ``loss``, ``grad_norm``, ``grad_norm_net`` and ``skipped``."""
+    device: ``loss``, ``grad_norm``, ``grad_norm_net`` and ``skipped``.
+
+    On a ``mesh`` (``parallel/mesh.Mesh``) ``loss_fn`` is the mean over this
+    rank's rows of the global batch: the gradients and the loss are
+    averaged over the data group (one all-reduce of one flat buffer) before
+    anything reads them, and the norms count each tensor-parallel part
+    once, so every rank clips, skips and logs on the global batch's
+    numbers, as JAX's SPMD step does."""
+    data_group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
 
     def train_step(state: TrainState, batch) -> dict:
         if state.ema is not None and ema_decay is None:
@@ -141,11 +171,14 @@ def make_train_step(loss_fn, *, clip_grad_value=None, clip_grad_norm=None, max_g
         loss = loss_fn(*batch)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        if data_group is not None:
+            grads, loss = _data_mean(grads, loss, data_group, mesh.data)
+        split = [getattr(p, "tp_shard", None) is not None for p in params]
 
-        grad_norm_net = global_norm(grads)
+        grad_norm_net = global_norm(grads, split, model_group)
         if clip_grad_value is not None:
             grads = [g.clamp(-clip_grad_value, clip_grad_value) for g in grads]
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, split, model_group)
         if clip_grad_norm is not None:
             scale = torch.clamp(clip_grad_norm / (grad_norm + 1e-6), max=1.0)
             grads = [g * scale for g in grads]

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vit4hep_tpu_torch.models.cfm import draw
 from vit4hep_tpu_torch.models.energy_transformer import DecoderLayer, EncoderLayer
 from vit4hep_tpu_torch.ops.ode import NET_EVALS_PER_STEP, grid_steps, odeint, parse_odeint_kwargs
 from vit4hep_tpu_torch.ops.pos_embed import gaussian_fourier_projection
@@ -201,17 +202,17 @@ class ARtransformerModel(nn.Module):
     def x_shape(self, batch_size: int) -> tuple:
         return (batch_size, *self.shape)
 
-    def batch_loss(self, x, c, generator=None, t=None, x_0=None):
+    def batch_loss(self, x, c, generator=None, t=None, x_0=None, rows=None):
         """The teacher-forced CFM loss over every dimension: t ~ U(0, 1) of
         shape (B, dims_in, 1) and x_0 ~ N(0, 1) of x's shape (B, dims_in, 1)
-        are drawn from ``generator`` unless given."""
+        are drawn from ``generator`` unless given (``rows`` as in
+        ``CFM.batch_loss``)."""
         c = c[..., None] if c.ndim == 2 else c
         x = x[..., None] if x.ndim == 2 else x
         if t is None:
-            t = torch.rand((x.shape[0], x.shape[1], 1), generator=generator, device=x.device,
-                           dtype=x.dtype)
+            t = draw(torch.rand, (x.shape[0], x.shape[1], 1), generator, x, rows)
         if x_0 is None:
-            x_0 = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            x_0 = draw(torch.randn, x.shape, generator, x, rows)
         x_t = (1 - t) * x_0 + t * x
         v = self.net(c, x_t, t, x)
         return torch.mean((v - (x - x_0)) ** 2)

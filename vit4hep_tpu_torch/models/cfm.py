@@ -17,6 +17,17 @@ from vit4hep_tpu_torch.ops.ode import NET_EVALS_PER_STEP, grid_steps, odeint, pa
 from vit4hep_tpu_torch.utils.misc import without_grad
 
 
+def draw(fn, shape, generator, like, rows=None):
+    """``fn`` (``torch.rand`` / ``torch.randn``) of ``shape`` from
+    ``generator`` on ``like``'s device and dtype; with ``rows``, of the
+    global batch's shape, cut to ``rows``: each rank of a data-parallel
+    step keeps its rows of the draws a one-rank step makes."""
+    if rows is None:
+        return fn(shape, generator=generator, device=like.device, dtype=like.dtype)
+    out = fn((rows.total, *shape[1:]), generator=generator, device=like.device, dtype=like.dtype)
+    return out[rows.start:rows.stop]
+
+
 class CFM(nn.Module):
     """Base CFM over flat vectors (the energy model: shape=[n_layers])."""
 
@@ -61,15 +72,17 @@ class CFM(nn.Module):
         """Velocity field. x: (B, *shape); t: (B, 1); c: (B, K)."""
         return self._net_out(self.net(*self._net_args(x, t, c)), x.shape)
 
-    def batch_loss(self, x, c, generator=None, t=None, x_0=None):
+    def batch_loss(self, x, c, generator=None, t=None, x_0=None, rows=None):
         """Flow-matching loss of one batch: t ~ U(0, 1) per element (shape
         (B, 1, ...) broadcasting over x) and x_0 ~ N(0, 1) are drawn from
-        ``generator`` unless given, as ``sample_batch`` takes ``x_T``."""
+        ``generator`` unless given, as ``sample_batch`` takes ``x_T``.
+        ``rows`` (``parallel/mesh.Rows``): x is these rows of a global batch,
+        whose draws are made and these rows of them kept."""
         bcast = (x.shape[0],) + (1,) * (x.ndim - 1)
         if t is None:
-            t = torch.rand(bcast, generator=generator, device=x.device, dtype=x.dtype)
+            t = draw(torch.rand, bcast, generator, x, rows)
         if x_0 is None:
-            x_0 = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            x_0 = draw(torch.randn, x.shape, generator, x, rows)
         if tuple(t.shape) != bcast or x_0.shape != x.shape:
             raise ValueError(f"t {tuple(t.shape)} / x_0 {tuple(x_0.shape)} do not fit x "
                              f"{tuple(x.shape)}")

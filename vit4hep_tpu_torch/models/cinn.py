@@ -65,7 +65,9 @@ class CINN(nn.Module):
         lp = -0.5 * (z**2).sum(1) + log_jac - d / 2 * math.log(2 * math.pi)
         return lp.mean()
 
-    def batch_loss(self, x, c, generator=None):
+    def batch_loss(self, x, c, generator=None, rows=None):
+        """The negative mean log-likelihood (no draws: ``generator`` and
+        ``rows`` are the CFM's surface)."""
         return -self.log_prob(x, c)
 
     @without_grad

@@ -10,7 +10,7 @@ from vit4hep_tpu_torch.models.calochallenge import CaloChallengeCFM
 
 
 class LEMURSCFM(CaloChallengeCFM):
-    def batch_loss(self, x, c, generator=None, t=None, x_0=None):
+    def batch_loss(self, x, c, generator=None, t=None, x_0=None, rows=None):
         """CaloChallengeCFM's loss on ``x`` (B, H, W, L) moved to (B, 1, L,
         W, H); ``t`` and ``x_0``, when given, are in the moved layout."""
-        return super().batch_loss(x.permute(0, 3, 2, 1)[:, None], c, generator, t, x_0)
+        return super().batch_loss(x.permute(0, 3, 2, 1)[:, None], c, generator, t, x_0, rows)

@@ -53,6 +53,12 @@ With ``learn_pos_embed: false`` both nets add the fixed sin-cos embedding
 (``ops/pos_embed.get_sincos_pos_embed``, a non-persistent buffer) where
 JAX does, and have no ``pos_embed_freqs``.
 
+Under tensor parallelism (``parallel/sharding_rules.shard_tree``) each
+block's ``Attention`` and ``MlpBlock`` hold this rank's part of their
+weights and run Megatron's pair of collectives around it; the kernel tier
+and K9 take the weights gathered whole (``sharding_rules.full``), as K2v's
+sampling twin does once per ``sample_batch``.
+
 The fine-tuned ViT (``models/finetuning.py``) takes JAX's mapper layers:
 ``in_patch_dim`` puts ``x_mapper`` (Linear(in_patch_dim -> patch_dim) and
 SiLU) in front of ``x_embedder``, ``in_condition_dim`` puts ``c_mapper``
@@ -80,6 +86,8 @@ from vit4hep_tpu_torch.ops import fused_dit_block as fdb
 from vit4hep_tpu_torch.ops import pos_embed as pe_ops
 from vit4hep_tpu_torch.ops.attention import qkv_attention
 from vit4hep_tpu_torch.ops.fused_mlp import fused_mlp_half
+from vit4hep_tpu_torch.parallel import _comm
+from vit4hep_tpu_torch.parallel.sharding_rules import full
 from vit4hep_tpu_torch.utils.misc import f32, no_grad
 
 _LN_EPS = 1e-6
@@ -172,18 +180,39 @@ def _xavier_linear(din, dout, zero=False):
     return lin
 
 
+def _row_parallel(lin, x, group):
+    """A row-parallel product: this rank's partial sums, summed over
+    ``group``, then the (replicated) bias."""
+    return _comm.all_reduce(F.linear(x, lin.weight), group) + lin.bias
+
+
 class MlpBlock(nn.Module):
+    """fc1 -> GELU -> fc2. With ``tp_group`` set (``parallel/sharding_rules
+    .shard_tree``) fc1 holds this rank's rows and fc2 its columns
+    (Megatron: the input's gradient summed over the group before fc1, the
+    output summed after fc2)."""
+
+    tp_group = None
+
     def __init__(self, dim, hidden):
         super().__init__()
         self.fc1 = _xavier_linear(dim, hidden)
         self.fc2 = _xavier_linear(hidden, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        if self.tp_group is None:
+            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(self.fc1(_comm.copy_to(x, self.tp_group)), approximate="tanh")
+        return _row_parallel(self.fc2, h, self.tp_group)
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention on the qkv projection's native layout."""
+    """Multi-head self-attention on the qkv projection's native layout.
+    With ``tp_group`` set the qkv projection holds this rank's heads and
+    ``proj`` their columns, so the attention (K1 under ``auto``) runs on
+    ``num_heads / tp`` heads."""
+
+    tp_group = None
 
     def __init__(self, hidden, num_heads, attn_impl="auto"):
         super().__init__()
@@ -194,9 +223,12 @@ class Attention(nn.Module):
 
     def forward(self, x, mask=None):
         head_dim = x.shape[-1] // self.num_heads
-        out = qkv_attention(self.qkv(x), self.num_heads, mask=mask,
+        heads = self.num_heads // _comm.size(self.tp_group)
+        out = qkv_attention(self.qkv(_comm.copy_to(x, self.tp_group)), heads, mask=mask,
                             impl=self.attn_impl, scale=float(head_dim) ** -0.5)
-        return self.proj(out)
+        if self.tp_group is None:
+            return self.proj(out)
+        return _row_parallel(self.proj, out, self.tp_group)
 
 
 class DiTBlock(nn.Module):
@@ -218,8 +250,8 @@ class DiTBlock(nn.Module):
         x = x + gate_msa[:, None, :] * self.attn(modulate(_ln(x), shift_msa, scale_msa), mask)
         if self.fused_mlp:
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-            return fused_mlp_half(x, shift_mlp, scale_mlp, gate_mlp, fc1.weight.t(), fc1.bias,
-                                  fc2.weight.t(), fc2.bias)
+            return fused_mlp_half(x, shift_mlp, scale_mlp, gate_mlp, full(fc1.weight).t(),
+                                  full(fc1.bias), full(fc2.weight).t(), fc2.bias)
         return x + gate_mlp[:, None, :] * self.mlp(modulate(_ln(x), shift_mlp, scale_mlp))
 
 
@@ -380,23 +412,24 @@ class _FusedViT(nn.Module):
             lins = (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)
             x = fdb.fused_dit_block(
                 x, blk.adaLN_modulation[1](c_act).reshape(b, 6, p.hidden_dim),
-                *(w for lin in lins for w in (lin.weight.t(), lin.bias)), mask, p.num_heads,
-                float(p.hidden_dim // p.num_heads) ** -0.5)
+                *(w for lin in lins for w in (full(lin.weight).t(), full(lin.bias))),
+                mask, p.num_heads, float(p.hidden_dim // p.num_heads) ** -0.5)
         return x
 
     def kernel_weights(self, train=False):
         """The weights in fused_vit_forward's layout: the embedder, the block
         weights stacked (L, ...), the FinalLayer projection; matrices (in,
-        out). For sampling, in bf16 on the card (the kernels'
-        multiplicands) and f32 on the CPU (the plain version's); with
+        out), a tensor-parallel weight gathered whole
+        (``sharding_rules.full``). For sampling, in bf16 on the card (the
+        kernels' multiplicands) and f32 on the CPU (the plain version's); with
         ``train``, the f32 parameters themselves, through views and stacks
         that autograd follows back to them."""
         dt = torch.bfloat16 if self.x_embedder.weight.is_cuda and not train else torch.float32
-        mat = lambda lin: lin.weight.t().to(dt).contiguous()  # noqa: E731
+        mat = lambda lin: full(lin.weight).t().to(dt).contiguous()  # noqa: E731
         blocks = []  # wqkv, bqkv, wout, bout, w1, b1, w2, b2
         for lins in zip(*((k.attn.qkv, k.attn.proj, k.mlp.fc1, k.mlp.fc2) for k in self.blocks)):
             blocks += [torch.stack([mat(lin) for lin in lins]),
-                       torch.stack([lin.bias for lin in lins])]
+                       torch.stack([full(lin.bias) for lin in lins])]
         return (mat(self.x_embedder), self.x_embedder.bias, *blocks,
                 mat(self.final_layer.linear), self.final_layer.linear.bias)
 

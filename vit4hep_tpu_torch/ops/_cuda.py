@@ -37,6 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# builds under way: name -> (nvcc process, its log, temporary and final
+# library paths, start time)
+_PENDING: dict[str, tuple] = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
@@ -76,25 +79,32 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=SOURCES) -> dict[str, float]:
-    """Compile every named source that has no current library, one ``nvcc``
-    process per source, all started together. Returns {name: seconds} for
-    the sources compiled (empty when all were current). The compiler's
-    ``-Xptxas -v`` report goes to ``_build/<name>.log``."""
+def start(names=SOURCES) -> None:
+    """Start one ``nvcc`` process for every named source that has no
+    current library and none under way, all together; :func:`finish` (or
+    :func:`load`) waits for them. The compiler's ``-Xptxas -v`` report goes
+    to ``_build/<name>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
     for name in names:
         out = _lib_path(name)
-        if out.exists():
+        if out.exists() or name in _PENDING:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(BUILD_DIR / f"{name}.log", "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                       log, tmp, out, time.perf_counter())
+        _PENDING[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                          log, tmp, out, time.perf_counter())
+
+
+def finish(names=None) -> dict[str, float]:
+    """Wait for the started builds of ``names`` (all started ones by
+    default) and install their libraries. Returns {name: seconds from the
+    start to this wait's end} for those builds; raises if one failed."""
+    names = list(_PENDING) if names is None else [n for n in names if n in _PENDING]
     seconds, failed = {}, []
-    for name, (proc, log, tmp, out, t0) in procs.items():
+    for name in names:
+        proc, log, tmp, out, t0 = _PENDING.pop(name)
         rc = proc.wait()
         log.close()
         seconds[name] = time.perf_counter() - t0
@@ -108,6 +118,15 @@ def build(names=SOURCES) -> dict[str, float]:
     return seconds
 
 
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile every named source that has no current library, one ``nvcc``
+    process per source, all started together, and wait for them. Returns
+    {name: seconds} for the sources compiled (empty when all were
+    current)."""
+    start(names)
+    return finish(names)
+
+
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built if needed), with
     ``argtypes``/``restype`` set from ``signatures`` {function: argtypes}."""
@@ -116,7 +135,7 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             raise RuntimeError(f"kernel library '{name}' needs a CUDA device")
         path = _lib_path(name)
         if not path.exists():
-            build((name,))
+            build((name,))  # or waits for the build under way
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes

@@ -25,13 +25,27 @@ _BUFFER = logging.handlers.MemoryHandler(capacity=1000, flushLevel=logging.CRITI
 LOGGER.addHandler(_BUFFER)
 
 
-def init_logging(run_dir: str | None, run_idx: int = 0, debug: bool = False):
+class RankFilter(logging.Filter):
+    """Drop every record on a rank other than 0 (JAX ``utils/logger.py:32-37``)."""
+
+    def __init__(self, rank):
+        super().__init__()
+        self.rank = rank
+
+    def filter(self, record):
+        return self.rank == 0
+
+
+def init_logging(run_dir: str | None, run_idx: int = 0, debug: bool = False, rank: int = 0):
     """Attach a stream handler and, with a run dir, the run's log file; flush
-    the records buffered before."""
+    the records buffered before. On a rank other than 0 the records after
+    that flush are dropped."""
     for h in list(LOGGER.handlers):
         if h is not _BUFFER:
             LOGGER.removeHandler(h)
             h.close()
+    for f in list(LOGGER.filters):
+        LOGGER.removeFilter(f)
     LOGGER.setLevel(logging.DEBUG if debug else logging.INFO)
     stream = logging.StreamHandler()
     stream.setFormatter(FORMATTER)
@@ -48,6 +62,7 @@ def init_logging(run_dir: str | None, run_idx: int = 0, debug: bool = False):
         if record.levelno >= LOGGER.level:
             for h in handlers:
                 h.handle(record)
+    LOGGER.addFilter(RankFilter(rank))
     LOGGER.debug("Logger initialized")
 
 
