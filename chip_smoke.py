@@ -962,6 +962,21 @@ TOL.update({"vmem_attn_fwd": 2e-3, "vmem_attn_bwd_dq": 4e-3, "vmem_attn_bwd_dkv"
 # version's (0: bit for bit).
 TOL.update({"flash_attn_fwd": 1e-4, "flash_attn_bwd_dkv": 1e-4, "flash_attn_bwd_dq": 1e-4,
             "flash_attn_split": 0.0, "fused_dit_stack": 2e-2, "stack_fwd_train": 2e-2})
+# K1's bf16 arm (a bf16 qkv panel, compute_dtype: bfloat16) against its
+# plain versions on the same bf16 values with mm_dtype bf16 (p and ds rounded
+# to bf16 before their products, f32 accumulation and statistics): K6's
+# kernels on bf16 loads, so K6's bounds and their reasons hold for the f32
+# results -- the summation order and exp moving a p or ds element across a
+# bf16 rounding boundary, 2e-3 of the scale forward and 4e-3 backward --
+# and both sides then round the context and dqkv to bf16, where an f32
+# value near a rounding boundary lands one bf16 ulp apart: up to 2^-7 =
+# 7.8e-3 of the scale (an element of [1, 2) has an ulp of 2^-7; the first
+# card run, NVIDIA H100 80GB HBM3, 700.00 W, measured exactly such flips,
+# 2^-8 and 2^-7). So 1e-2 forward and 1.2e-2 backward. The delta pre-pass
+# sums the same bf16 products in f32 in another order, and the lse comes
+# from f32 sums only: 1e-4.
+TOL.update({"qkv_attn_fwd_bf16": 1e-2, "qkv_attn_bwd_delta_bf16": 1e-4,
+            "qkv_attn_bwd_dkv_bf16": 1.2e-2, "qkv_attn_bwd_dq_bf16": 1.2e-2})
 # K7's forward against an f64 reference at every padded head dim: split
 # TF32 keeps ~2^-21 of each product term, so 2e-5 of the scale; a lo term
 # lost (one TF32 product) misses it by ~10x
@@ -1028,6 +1043,7 @@ CINN_PROBE_FACTOR = 10.0
 K1 = "vit4hep_tpu_torch/csrc/qkv_attention.cu"
 K1_BWD = "vit4hep_tpu_torch/csrc/qkv_bwd_tf32.cuh"
 K1_BWD_LIB = "vit4hep_tpu_torch/csrc/qkv_attention_bwd.cu"
+K1_BF16 = "vit4hep_tpu_torch/csrc/qkv_attention_bf16.cu"
 K2V = "vit4hep_tpu_torch/csrc/vit_forward.cu"
 K2V_GEMM = "vit4hep_tpu_torch/csrc/vit_forward.cu (gemm_wgmma_kernel; hopper.cuh)"
 K5 = "vit4hep_tpu_torch/csrc/vit_backward.cu"
@@ -1072,6 +1088,17 @@ REPLACES = {
                         K1_BWD_BODIES),
     "binned_rqs_inverse": ("vit4hep_tpu_torch/csrc/binned_rqs.cu: binned_rqs_inverse_kernel",
                            "vit4hep_tpu/ops/fused_spline.py:55"),
+    # K1's bf16 arm: K6's wgmma bodies on bf16 loads and stores
+    "qkv_attn_fwd_bf16": (f"{K1_BF16}: qkv_fwd_bf16_kernel (the body of "
+                          "vit4hep_tpu_torch/csrc/attention_wgmma.cuh)",
+                          "vit4hep_tpu/ops/fused_qkv_attention.py:58, :65, :94 and :156 on a "
+                          "bf16 panel"),
+    "qkv_attn_bwd_delta_bf16": (f"{K1_BF16}: bwd_delta_bf16_kernel",
+                                f"{K1_BWD_BODIES} on a bf16 panel"),
+    "qkv_attn_bwd_dkv_bf16": (f"{K1_BF16}: qkv_bwd_dkv_bf16_kernel (the body of {K6_BWD})",
+                              f"{K1_BWD_BODIES} on a bf16 panel"),
+    "qkv_attn_bwd_dq_bf16": (f"{K1_BF16}: qkv_bwd_dq_bf16_kernel (the body of {K6_BWD})",
+                             f"{K1_BWD_BODIES} on a bf16 panel"),
     # the megakernel tier's training kernels (K5a also runs modln and K1's
     # forward; K5b K1's backward; K5c K5a's block kernels, then K5b's)
     "vit_train_gemm": (K2V_GEMM, f"{K5A_BODY}; {K5A_STACK_BODY}; the products of {K5B_BODY} and "
@@ -1119,6 +1146,12 @@ REPLACES = {
 # line counts their kernels' launches, not their calls
 SERVING = {"energy_decoder": fed.ENERGY_DECODER, "vit_gemm": fdb.GEMM,
            "vit_modln": fdb.MODLN, "vit_attention": fdb.ATTENTION}
+# K1's bf16 arm (compute_dtype: bfloat16); empty for a package without it
+# (tree_compare.py runs this script's phases on an older checkout's package)
+BF16 = {k: getattr(fqa, c) for k, c in (
+    ("qkv_attn_fwd_bf16", "FWD_BF16"), ("qkv_attn_bwd_delta_bf16", "BWD_DELTA_BF16"),
+    ("qkv_attn_bwd_dkv_bf16", "BWD_DKV_BF16"), ("qkv_attn_bwd_dq_bf16", "BWD_DQ_BF16"))
+    if hasattr(fqa, c)}
 TRAINING = {"qkv_attn_fwd": fqa.FWD, "qkv_attn_bwd_delta": fqa.BWD_DELTA,
             "qkv_attn_bwd_dkv": fqa.BWD_DKV, "qkv_attn_bwd_dq": fqa.BWD_DQ}
 # the opt-in kernels of the composed block (attn_impl vmem / flash, fused_mlp)
@@ -1279,13 +1312,14 @@ K68_SHAPES = (("main", 64, False, "ds3 training shape"),
 # the kernel phase's shape groups: each kernel's main-path shape (ds2
 # sampling; K1 at the ds2 training shape), then the others it is held at
 SHAPE_GROUPS = {
-    "main": "main-path shape: ds2 sampling (K3, K2v, K4), the ds2 training shape (K1, the "
-            "tier), the ds3 training shape (K6, K8, K9), the ds3_long serving shape (K7: q/k/v "
+    "main": "main-path shape: ds2 sampling (K3, K2v, K4), the ds2 training shape (K1, its "
+            "bf16 arm, the tier), the ds3 training shape (K6, K8, K9), the ds3_long serving "
+            "shape (K7: q/k/v "
             "(2, 6, 13500, 80))",
     "n450": "K1 at qkv (16, 450, 1440); K5b without a1 at x (16, 450, 480)",
     "noa1": "ds2 training shape, K5b without a1 (recomputed): x (64, 135, 480)",
     "causal_noa1": "ds2 training shape with the layer-causal mask, K5b without a1",
-    "cinn": "K1 forward at the ds2 cINN subnet, qkv (256, 135, 576)",
+    "cinn": "K1 forward (f32 and the bf16 arm) at the ds2 cINN subnet, qkv (256, 135, 576)",
     "ds3": "ds3: K2v at tokens (256, 450, 90), K1 forward at qkv (256, 225, 576), K4 at "
            "(256, 20250)",
     "causal": "ds2 with the layer-causal mask: K2v at (256, 135), K1 at (64, 135, 1440), "
@@ -1340,8 +1374,9 @@ SHAPE_GROUPS = {
 }
 
 
-# the longest kernel builds (K8, K6, K7): the kernel phase starts without them
-LATE_SOURCES = ("vmem_attention", "flash_qkv_attention", "flash_attention")
+# the longest kernel builds (K8, K6, K7, K1's bf16 arm over K6's headers):
+# the kernel phase starts without them
+LATE_SOURCES = ("vmem_attention", "flash_qkv_attention", "flash_attention", "qkv_attention_bf16")
 # trials of a plain version's timing (median): context for the kernel's,
 # and the slowest calls of the smoke (the N = 13,500 plain attention)
 PLAIN_TRIALS = {"reps": 3, "warmup": 1}
@@ -1683,6 +1718,103 @@ def k1_kernel_phase(results, b, n, heads=6, d=80, mask=None):
             "sdpa_bwd": time_ms(sdpa_bwd),
             "bwd": sum(results[k]["ms"] for k in ("qkv_attn_bwd_delta", "qkv_attn_bwd_dkv",
                                                   "qkv_attn_bwd_dq"))}
+
+
+def k1_bf16_phase(results, b, n, heads=6, d=80, backward=True):
+    """K1's bf16 arm against its plain versions on the same bf16 values
+    (mm_dtype bf16) at qkv (b, n, 3 * heads * d) bf16, timed beside bf16
+    SDPA; with ``backward`` also the delta, dK/dV and dQ passes, then the
+    layer-causal mask and a wholly masked row (untimed), and K1's forward +
+    backward through autograd against bf16 SDPA's. Its bounds: bf16 bytes at
+    2 B an element (lse, delta f32), the products at the bf16 peak."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n + 1)
+    bf = torch.bfloat16
+    qkv = _rand(gen, b, n, 3 * heads * d).to(bf)
+    scale = d ** -0.5
+    out, lse = fqa.attention_fwd_bf16_kernel(qkv, heads, scale)
+    out_p, lse_p = fqa.attention_fwd_plain(qkv, heads, scale, mm_dtype=bf)
+    if out.dtype != bf or lse.dtype != torch.float32:
+        raise PhaseError(f"qkv_attn_fwd_bf16: context {out.dtype}, lse {lse.dtype}")
+    q, k, v = (t.contiguous() for t in qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+    _check("qkv_attn_fwd_bf16", (out, lse), (out_p, lse_p), results,
+           lambda: fqa.attention_fwd_bf16_kernel(qkv, heads, scale),
+           lambda: fqa.attention_fwd_plain(qkv, heads, scale, mm_dtype=bf),
+           work_bound(2 * (qkv.numel() + out.numel()) + 4 * lse.numel(),
+                      _attn_flops(b, heads, n, d, None), BF16_FLOPS),
+           lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    r = results["qkv_attn_fwd_bf16"]
+    print(f"  qkv_attn_fwd_bf16 at qkv ({b}, {n}, {3 * heads * d}) bf16: {r['ms']:.4f} ms, bf16 "
+          f"SDPA {r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x), bound "
+          f"{r['bound_ms']:.4f} ms", flush=True)
+    if not backward:
+        return None
+    g = _rand(gen, b, n, heads * d).to(bf)
+    hd = heads * d
+    pair_flops = _attn_flops(b, heads, n, d, None) // 4
+    delta = fqa.attention_bwd_delta_bf16_kernel(g, out, heads)
+    _check("qkv_attn_bwd_delta_bf16", delta, fqa.delta_plain(g, out, heads), results,
+           lambda: fqa.attention_bwd_delta_bf16_kernel(g, out, heads),
+           lambda: fqa.delta_plain(g, out, heads),
+           work_bound(2 * 2 * g.numel() + 4 * delta.numel(), 2 * g.numel(), F32_FLOPS))
+    # the oracle takes the kernels' delta, rowsum(dO O) of the bf16 context
+    want = fqa.attention_bwd_plain(qkv, g, lse, heads, scale, mm_dtype=bf, out=out)
+    dqkv = torch.zeros_like(qkv)
+    fqa.attention_bwd_dkv_bf16_kernel(qkv, g, lse, delta, heads, scale, dqkv)
+    fqa.attention_bwd_dq_bf16_kernel(qkv, g, lse, delta, heads, scale, dqkv)
+    small = 2 * (qkv.numel() + g.numel()) + 4 * 2 * lse.numel()  # what both passes read
+    for name, cols, flops, kernel, writes in (
+            ("qkv_attn_bwd_dkv_bf16", slice(hd, 3 * hd), 8 * pair_flops,
+             fqa.attention_bwd_dkv_bf16_kernel, 2 * b * n * hd),
+            ("qkv_attn_bwd_dq_bf16", slice(0, hd), 6 * pair_flops,
+             fqa.attention_bwd_dq_bf16_kernel, b * n * hd)):
+        _check(name, dqkv[..., cols], want[..., cols], results,
+               lambda kernel=kernel: kernel(qkv, g, lse, delta, heads, scale, dqkv),
+               lambda: fqa.attention_bwd_plain(qkv, g, lse, heads, scale, mm_dtype=bf, out=out),
+               work_bound(small + 2 * writes, flops, BF16_FLOPS))
+    # the layer-causal mask, and a row whose every key it closes (K1's rule:
+    # the mean of V forward, each key weighing 1 backward), untimed
+    mask = _causal_mask((15, 1, 9))
+    dead = mask.clone()
+    dead[7] = False
+    for m, what in ((mask, "layer-causal mask of (15, 1, 9)"),
+                    (dead, "that mask with row 7 wholly masked")):
+        o_m, l_m = fqa.attention_fwd_bf16_kernel(qkv, heads, scale, m)
+        o_p, l_p = fqa.attention_fwd_plain(qkv, heads, scale, m, mm_dtype=bf)
+        _hold("qkv_attn_fwd_bf16", what, (o_m, l_m), (o_p, l_p))
+        _hold("qkv_attn_bwd_dkv_bf16", what,
+              fqa.attention_bwd_bf16_kernel(qkv, g, o_m, l_m, heads, scale, m),
+              fqa.attention_bwd_plain(qkv, g, l_m, heads, scale, m, mm_dtype=bf, out=o_m))
+    del mask, dead, o_m, l_m, o_p, l_p
+
+    xk = qkv.clone().requires_grad_()
+    xs = q.clone().requires_grad_(), k.clone().requires_grad_(), v.clone().requires_grad_()
+    g_heads = g.reshape(b, n, heads, d).permute(0, 2, 1, 3).contiguous()
+
+    def k1_run():
+        xk.grad = None
+        fqa.fused_qkv_attention(xk, heads).backward(g)
+
+    def plain_run():
+        _, lse_run = fqa.attention_fwd_plain(qkv, heads, scale, mm_dtype=bf)
+        fqa.attention_bwd_plain(qkv, g, lse_run, heads, scale, mm_dtype=bf)
+
+    def sdpa_run():
+        for t in xs:
+            t.grad = None
+        F.scaled_dot_product_attention(*xs, scale=scale).backward(g_heads)
+
+    sdpa_out = F.scaled_dot_product_attention(*xs, scale=scale)
+    sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, xs, g_heads, retain_graph=True)  # noqa: E731
+    for c in (*BF16.values(), *TRAINING.values()):
+        c.reset()
+    k1_run()
+    if fqa.FWD_BF16.launches != 1 or fqa.BWD_DQ_BF16.launches != 1 or fqa.FWD.launches:
+        raise PhaseError("fused_qkv_attention on a bf16 panel did not run the bf16 arm")
+    return {"K1": time_ms(k1_run), "plain": time_ms(plain_run, **PLAIN_TRIALS),
+            "sdpa": time_ms(sdpa_run), "sdpa_bwd": time_ms(sdpa_bwd),
+            "bwd": sum(results[k]["ms"] for k in ("qkv_attn_bwd_delta_bf16",
+                                                  "qkv_attn_bwd_dkv_bf16",
+                                                  "qkv_attn_bwd_dq_bf16"))}
 
 
 def _block_weights(gen, h=480, fdim=1920, std=0.05):
@@ -2951,6 +3083,26 @@ def _synthetic_showers(n_events, seed, geometry="ds2"):
     return e_inc, showers.astype(np.float32), np.concatenate([[0], np.cumsum(sizes)])
 
 
+# compute_dtype: bfloat16 (the ViT, its ViT1D subnets and the energy net):
+# the models of the bf16 path
+DS2_BF16_SHAPE_MODEL = _with_net_param(DS2_SHAPE_MODEL, compute_dtype="bfloat16")
+DS2_BF16_ENERGY_MODEL = _with_net_param(DS2_ENERGY_MODEL, compute_dtype="bfloat16")
+DS2_BF16_CINN_MODEL = dict(DS2_CINN_CUT_MODEL,
+                           vit_kwargs=dict(DS2_CINN_CUT_MODEL["vit_kwargs"],
+                                           compute_dtype="bfloat16"))
+# a bf16 request against the f32 request of the same weights on the same
+# noise (the energy and shape stages both bf16): every Dense, LayerNorm and
+# activation rounds its result to bf16 (2^-9 relative), ~60 such roundings
+# a ViT eval (6 blocks of ~10) at random sign move the velocity by
+# ~sqrt(60) x 2^-9 = 1.5e-2 of its scale; the ODE integrates it over t in
+# [0, 1] without amplifying it (random weights of std 0.02), and the energy
+# stage's u's (its net bf16 too) move the shape stage's condition alike: the
+# u's and the shower in the training basis within 5e-2 of their scales (3x),
+# and each must differ from f32 (a silent f32 path gives 0). The cINN's
+# spline math is f32, its 5 couplings' subnets bf16: the same bound.
+BF16_SERVE_TOL = 5e-2
+
+
 class SyntheticCaloChallenge(CaloChallenge):
     """The port's CaloChallenge experiment with synthetic MeV showers on the
     ds2 geometry in place of the training and test files (the card's
@@ -3073,6 +3225,113 @@ def train_phase(tmp: Path, card):
     print(f"  warm start: restored step {TRAIN_STEPS} exactly (model, Adam moments, schedule, "
           f"counters); run 1 trained {WARM_START_STEPS} steps, loss {warm.train_loss}", flush=True)
     return launches, exp
+
+
+def bf16_train_phase(tmp: Path, card):
+    """The ds2 shape model with compute_dtype bfloat16 (and the experiment's
+    dtype bfloat16, which it logs) trained TRAIN_STEPS steps at full width
+    through the CaloChallenge experiment: its attention goes through K1's
+    bf16 arm, forward and backward, and never K1's f32 kernels."""
+    training = dict(DS2_SHAPE_TRAINING, iterations=TRAIN_STEPS,
+                    validate_every_n_steps=VALIDATE_EVERY)
+    cfg = _experiment_config(tmp, DS2_BF16_SHAPE_MODEL, DS2_SHAPE_TRANSFORMS, training, "shape",
+                             [0.99, 0.01])
+    cfg.exp_name = "smoke_bf16"
+    cfg.dtype = "bfloat16"
+    exp = SyntheticCaloChallenge(cfg, device="cuda")
+    counters = {**BF16, **TRAINING}
+    for c in counters.values():
+        c.reset()
+    exp()
+    launches = {k: c.launches for k, c in counters.items()}
+    _check_training(exp, "bf16_train")
+    steps = len(exp.train_loss)
+    val_batches = len(exp.val_loss) * exp._val_iterator.batches_per_epoch
+    want = {k: 0 for k in TRAINING}
+    want.update({"qkv_attn_fwd_bf16": 6 * (steps + val_batches),
+                 "qkv_attn_bwd_delta_bf16": 6 * steps, "qkv_attn_bwd_dkv_bf16": 6 * steps,
+                 "qkv_attn_bwd_dq_bf16": 6 * steps})
+    if steps != TRAIN_STEPS or launches != want or exp.dtype != torch.bfloat16:
+        raise PhaseError(f"bf16_train: {steps} steps, launches {launches}, expected {want}; "
+                         f"dtype {exp.dtype}")
+    steady = exp.step_times[2:]
+    print(f"  {steps} steps, loss {exp.train_loss[0]:.4f} -> {exp.train_loss[-1]:.4f}, val "
+          f"{exp.val_loss}; launches {launches}", flush=True)
+    print(f"bf16_train: {steps / exp.train_seconds:.3f} steps/s over the whole train() loop; "
+          f"step interior {len(steady) / sum(steady):.3f} steps/s steady (steps 3-{steps}); "
+          f"batch {int(exp.cfg.training.batchsize)}; on {card}", flush=True)
+    return {k: v for k, v in launches.items() if v}
+
+
+def _bf16_against_f32(what, gen16, shape_cfg, energy_cfg, noise):
+    """One request of the bf16 generator against the f32 generator of the
+    same weights on the same noise and condition: the u's and the shower
+    within BF16_SERVE_TOL of their scales, the shower not equal (the u's are
+    where the energy model is f32 in both)."""
+    shape32, energy32 = _on_card(shape_cfg).eval(), _on_card(energy_cfg).eval()
+    shape32.load_state_dict(gen16.shape_model.state_dict())
+    energy32.load_state_dict(gen16.energy_model.state_dict())
+    gen32 = Generator(shape32, energy32, gen16.energy_transforms, gen16.shape_transforms,
+                      batch=noise[0].shape[0])
+    cond = gen16.condition(10 ** np.random.default_rng(SEED).uniform(3, 6, noise[0].shape[0]))
+    basis16, full16 = gen16.generate(cond, noise=noise)
+    basis32, full32 = gen32.generate(cond, noise=noise)
+    _finite(what, basis16.cpu().numpy(), full16.cpu().numpy())
+    errs = [_rel_err(a, b) for a, b in ((full16, full32), (basis16, basis32))]
+    print(f"  {what} against f32 (same weights and noise): u max_abs_err {errs[0][0]:.3e} "
+          f"(scale {errs[0][1]:.3g}), shower max_abs_err {errs[1][0]:.3e} (scale "
+          f"{errs[1][1]:.3g}); bound {BF16_SERVE_TOL:g} x scale, the shower's not 0", flush=True)
+    if not (all(e <= BF16_SERVE_TOL * sc for e, sc in errs) and errs[1][0] > 0):
+        raise PhaseError(f"{what}: the bf16 request against f32 is off its bound (or equal)")
+    del shape32, energy32, gen32
+
+
+def bf16_serving_phase(tmp: Path, card):
+    """One ds2 CFM request (both models bf16, 80 evals each: K2v and K3) and
+    one ds2 cINN request (its CINN_CUT_BLOCKS couplings' subnets bf16: K1's
+    bf16 arm forward and K4) at full width, each against the f32 request of
+    the same weights. Returns {path: launches}."""
+    launches = {}
+    counters = {**SERVING, **BF16, **TRAINING}
+    (tmp / "cfm").mkdir()
+    shape_tf, energy_tf = _run_dirs(tmp / "cfm", "ds2", DS2_SHAPE_TRANSFORMS,
+                                    DS2_ENERGY_TRANSFORMS)
+    shape16, energy16, gen = _models(DS2_BF16_SHAPE_MODEL, DS2_BF16_ENERGY_MODEL, SEED)
+    generator = Generator(shape16, energy16, energy_tf, shape_tf, batch=BATCH)
+    evals = shape16.net_evals_per_sample()
+    got, times = _serve(generator, counters, _voxels("ds2"), 1)
+    want = {k: evals * CFM_PER_EVAL.get(k, 0) for k in counters}
+    if got != want:
+        raise PhaseError(f"bf16_cfm: launches {got}, expected {want}")
+    launches["bf16_cfm"] = {k: v for k, v in got.items() if v}
+    print(f"bf16_cfm: {BATCH / times[0]:.2f} showers/s (one request of {BATCH}, {evals} evals "
+          f"a model, {times[0]:.4f} s); launches {launches['bf16_cfm']}; on {card}", flush=True)
+    noise = (torch.randn(energy16.x_shape(BATCH), generator=gen, device="cuda"),
+             torch.randn(shape16.token_shape(BATCH), generator=gen, device="cuda"))
+    _bf16_against_f32("bf16_cfm", generator, DS2_SHAPE_MODEL, DS2_ENERGY_MODEL, noise)
+    del shape16, energy16, generator
+    torch.cuda.empty_cache()
+
+    (tmp / "cinn").mkdir()
+    shape_tf, energy_tf = _run_dirs(tmp / "cinn", "ds2", DS2_CINN_TRANSFORMS,
+                                    DS2_ENERGY_TRANSFORMS)
+    counters = {**CINN, **BF16}
+    cinn16, energy, gen = _models(DS2_BF16_CINN_MODEL, DS2_ENERGY_MODEL, SEED + 5)
+    generator = Generator(cinn16, energy, energy_tf, shape_tf, batch=BATCH)
+    got, times = _serve(generator, counters, _voxels("ds2"), 1)
+    want = {k: 0 for k in counters}
+    want.update({"binned_rqs_inverse": 2 * CINN_CUT_BLOCKS, "energy_decoder": 80,
+                 "qkv_attn_fwd_bf16": 6 * CINN_CUT_BLOCKS})
+    if got != want:
+        raise PhaseError(f"bf16_cinn: launches {got}, expected {want}")
+    launches["bf16_cinn"] = {k: v for k, v in got.items() if v}
+    print(f"bf16_cinn: {BATCH / times[0]:.2f} showers/s (one request of {BATCH}, "
+          f"{CINN_CUT_BLOCKS} couplings, {times[0]:.4f} s); launches {launches['bf16_cinn']}; "
+          f"on {card}", flush=True)
+    noise = (torch.randn(energy.x_shape(BATCH), generator=gen, device="cuda"),
+             torch.randn(cinn16.x_shape(BATCH), generator=gen, device="cuda"))
+    _bf16_against_f32("bf16_cinn", generator, DS2_CINN_CUT_MODEL, DS2_ENERGY_MODEL, noise)
+    return launches
 
 
 def train_parity_phase(exp, causal=False):
@@ -5678,6 +5937,13 @@ def main() -> int:
         k1_ms[f"K6/K8, {label}"] = k68_kernel_phase(groups[group], b, 450,
                                                     mask=mask3 if causal else None)
         torch.cuda.empty_cache()
+    print("K1's bf16 arm vs its bf16 plain versions, ds2 training shape: qkv (64, 135, 1440) "
+          "bf16, 6 heads x 80", flush=True)
+    k1_ms["bf16 arm, ds2 training shape"] = k1_bf16_phase(groups["main"], 64, 135)
+    print("K1's bf16 arm forward vs plain, ds2 cINN subnet shape: qkv (256, 135, 576) bf16, 4 "
+          "heads x 48", flush=True)
+    k1_bf16_phase(groups["cinn"], BATCH, 135, 4, 48, backward=False)
+    torch.cuda.empty_cache()
     for group, b in (("main", 64), ("ds3_serve", BATCH)):
         print(f"K9 (fused_mlp_half) vs plain: x ({b}, 450, 480), F 1920", flush=True)
         k9_kernel_phase(groups[group], b, 450)
@@ -5986,6 +6252,16 @@ def main() -> int:
         del energy_exp
         torch.cuda.empty_cache()
     stamp("ds2 and ds3 training, energy, experiment sampling")
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "data").mkdir()
+        _binning_xml(Path(tmp) / "data", "ds2")
+        print("bf16: compute_dtype bfloat16 -- the ds2 shape model trained through the "
+              "experiment (K1's bf16 arm), one ds2 CFM and one ds2 cINN request against f32",
+              flush=True)
+        launches["bf16_train"] = bf16_train_phase(Path(tmp), card)
+        launches.update(bf16_serving_phase(Path(tmp), card))
+        torch.cuda.empty_cache()
+    stamp("bf16")
     with tempfile.TemporaryDirectory() as tmp:
         print("ds1_train: ds1 photons (energy and shape models) through the CaloChallenge "
               "experiment, then sample_n, to_mev and the evaluation core of eval_sample",

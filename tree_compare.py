@@ -5,6 +5,7 @@ checkout's ``chip_smoke.py``, so that two trees can be compared on one
 card.
 
     python3 tree_compare.py kernels [--tree DIR] [--label NAME]
+    python3 tree_compare.py attention [--tree DIR] [--label NAME]
     python3 tree_compare.py paths [--tree DIR] [--label NAME] [--only PATH ...]
     python3 tree_compare.py k7 [--tree DIR] [--label NAME]
     python3 tree_compare.py sass --tree DIR
@@ -34,7 +35,10 @@ and where DIR has the pre-pass, the pre-pass alone and the passes on
 operands split beforehand, SDPA's f32 forward and backward (with the mask)
 beside them; K4 at the ds2 and ds3 cINN sampling shapes (y (256, 3240 or
 20250), theta (..., 31), the shipped spline); each the median device time
-of ``tools.timing.time_ms`` on inputs made from seed 0.
+of ``tools.timing.time_ms`` on inputs made from seed 0. ``attention``: the
+f32 attention kernels of ``kernels`` alone (K6's and K8's passes with K1's
+and K7's forwards at the ds3 shapes, K1's forward and backward passes at the
+ds2 training and cINN shapes), for a change to their shared headers.
 ``paths``: the smoke's
 ``train_phase`` (ds2 composed, 30 steps through the experiment) and
 ``fused_train_phase`` (the same with ``fused_block: true``),
@@ -109,6 +113,29 @@ def kernels(cs, torch) -> dict:
         times["sum"] = sum(times.values())
         res[f"gemm_{geometry}"] = times
         del x, a_of, h_bf
+    res.update(attention(cs, torch, rand))
+    heads, d, scale = 6, 80, 80 ** -0.5
+    # K3 at the energy net's sampling shape, batch 256 (the smoke's inputs)
+    res["k3"] = cs.time_ms(cs.k3_inputs()[0])
+    # K2v's attention at the ds2 and ds3 serving shapes, qkv (256, N, 1440)
+    res["k2v_attention"] = {}
+    for geometry, (n, _) in cs.VIT_TOKENS.items():
+        qkv = rand(cs.BATCH, n, 3 * heads * d)
+        res["k2v_attention"][f"{geometry} ({cs.BATCH}, {n}, 1440)"] = cs.time_ms(
+            lambda: fdb.attention(qkv, heads, scale))
+        del qkv
+    res["k5b"] = k5b_products(cs, torch, rand)
+    res["k7"] = k7_passes(cs, torch, rand)
+    res["k4"] = k4_times(cs, torch, rand)
+    return res
+
+
+def attention(cs, torch, rand) -> dict:
+    """The f32 attention kernels: K6's and K8's passes with K1's and K7's
+    forwards at the ds3 shapes (``K68_SHAPES``), K1's forward at the ds2
+    training and cINN subnet shapes, its backward passes at the ds2
+    training shape and 450 tokens with SDPA's f32 backward beside them."""
+    res = {}
     mask, heads, d, scale = cs._causal_mask((15, 5, 6)), 6, 80, 80 ** -0.5
     attn = {}
     for _, b, causal, label in cs.K68_SHAPES:
@@ -169,18 +196,6 @@ def kernels(cs, torch) -> dict:
             "sdpa_f32_bwd": cs.time_ms(lambda: torch.autograd.grad(o, xs, gh,
                                                                    retain_graph=True))}
         del qkv, g, out, lse, delta, dqkv, xs, o, gh
-    # K3 at the energy net's sampling shape, batch 256 (the smoke's inputs)
-    res["k3"] = cs.time_ms(cs.k3_inputs()[0])
-    # K2v's attention at the ds2 and ds3 serving shapes, qkv (256, N, 1440)
-    res["k2v_attention"] = {}
-    for geometry, (n, _) in cs.VIT_TOKENS.items():
-        qkv = rand(cs.BATCH, n, 3 * heads * d)
-        res["k2v_attention"][f"{geometry} ({cs.BATCH}, {n}, 1440)"] = cs.time_ms(
-            lambda: fdb.attention(qkv, heads, scale))
-        del qkv
-    res["k5b"] = k5b_products(cs, torch, rand)
-    res["k7"] = k7_passes(cs, torch, rand)
-    res["k4"] = k4_times(cs, torch, rand)
     return res
 
 
@@ -423,7 +438,7 @@ def sass(tree: Path) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("what", choices=("kernels", "paths", "sass", "k7"))
+    p.add_argument("what", choices=("kernels", "attention", "paths", "sass", "k7"))
     p.add_argument("--tree", default=str(HERE), help="the checkout whose package runs")
     p.add_argument("--label", default=None, help="a name for the tree in the output")
     p.add_argument("--only", nargs="+", choices=PATHS, default=PATHS,
@@ -443,10 +458,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # as the smoke runs
     torch.backends.cudnn.allow_tf32 = False
     cs._cuda.build()
-    if args.what == "k7":
+    if args.what in ("k7", "attention"):
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
-        res = {"k7": k7_passes(cs, torch, rand, K7_EDGE_SHAPES)}
+        res = {"k7": k7_passes(cs, torch, rand, K7_EDGE_SHAPES)} if args.what == "k7" else \
+            attention(cs, torch, rand)
     else:
         res = kernels(cs, torch) if args.what == "kernels" else paths(cs, torch, args.only)
     res = {"tree": args.label or str(tree), "card": cs.card_name(), **res}

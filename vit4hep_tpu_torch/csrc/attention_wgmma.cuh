@@ -39,8 +39,19 @@
 //
 // Its loader (load_tile, K only or K and V) and operand conversions
 // (convert_rows, convert_cols) serve K8's wgmma kernels too (vmem_wgmma.cuh).
+//
+// The loaders, the conversions, the Q fragments and the stores are
+// templated on the element type T of the global tensors: float (K6, K8) or
+// __nv_bfloat16 (K1's bf16 arm, qkv_attention_bf16.cu, which runs this
+// kernel's body on a bf16 panel). A bf16 tile is copied as it is into the
+// stage (half the bytes of an f32 one; its rows at the f32 stage's part
+// offsets, row stride ld_b16) and from there into the swizzled operand
+// layouts without a conversion; the context is stored in bf16. The f32
+// instantiations are the code they were.
 
 #pragma once
+
+#include <type_traits>
 
 #include "attention_mma.cuh"
 #include "hopper.cuh"
@@ -69,6 +80,11 @@ template <int DP>
 __host__ __device__ constexpr int ld_f32() {
   return DP + 4;
 }
+// a bf16 stage's row stride (elements): 16-byte rows, off the bank period
+template <int DP>
+__host__ __device__ constexpr int ld_b16() {
+  return DP + 8;
+}
 template <int DP>
 __host__ __device__ constexpr int stage_floats() {
   return 2 * KT * ld_f32<DP>();
@@ -94,10 +110,64 @@ __host__ __device__ constexpr size_t fwd_smem_q() {
   return fwd_smem<DP>() + (q_in_smem<DP, HAS_MASK>() ? (size_t)ROWS * DP * 2 : 0);
 }
 
+template <typename T>
+constexpr bool is_bf16 = std::is_same_v<T, __nv_bfloat16>;
+
+// a slab's (b, h) base as a T pointer (the slab's strides count elements)
+template <typename T>
+__device__ __forceinline__ const T* tbase(const amma::Slab& s, int b, int h) {
+  return reinterpret_cast<const T*>(s.p) + b * s.sb + h * s.sh;
+}
+template <typename T>
+__device__ __forceinline__ T* tbase(const amma::OutSlab& s, int b, int h) {
+  return reinterpret_cast<T*>(s.p) + b * s.sb + h * s.sh;
+}
+
+// an f32 value as a T
+template <typename T>
+__device__ __forceinline__ T to_t(float v) {
+  if constexpr (is_bf16<T>)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
 // (row, key) may attend: always without a mask, and for a row past n
 template <bool HAS_MASK>
 __device__ __forceinline__ bool attends(int row, int key, int n, const unsigned char* mask) {
   return !HAS_MASK || row >= n || mask[(size_t)row * n + key] != 0;
+}
+
+// tile [k0, k0 + 64) of bf16 K (and, for PARTS = 2, V) into a stage as bf16
+// rows (row stride ld_b16, each part at the f32 stage's part offset), zero
+// past n and past d
+template <int DP, int PARTS = 2>
+__device__ __forceinline__ void load_tile(float* st, const __nv_bfloat16* kb,
+                                          const __nv_bfloat16* vb, long long ldk, long long ldv,
+                                          int k0, int n, int d, bool vec) {
+  constexpr int LDF = ld_f32<DP>(), LDB = ld_b16<DP>();
+  if (vec) {  // 16-byte chunks of 8 values: d % 8 == 0 and every row start 16-byte aligned
+    constexpr int C = DP / 8, WARPS = THREADS / 32;
+    const int lane = threadIdx.x % 32, c = 8 * lane;
+    if (lane >= C) return;
+#pragma unroll 4
+    for (int rr = threadIdx.x / 32; rr < PARTS * KT; rr += WARPS) {
+      const int which = rr / KT, r = rr % KT, key = k0 + r;
+      const bool in = key < n && c < d;
+      const __nv_bfloat16* src =
+          (which ? vb : kb) + (in ? (long long)key * (which ? ldv : ldk) + c : 0);
+      hop::cp_async16(reinterpret_cast<__nv_bfloat16*>(st + which * KT * LDF) + r * LDB + c,
+                      src, in ? 16 : 0);
+    }
+  } else {  // value by value: cp.async copies 4 bytes at least, so plain loads and stores
+    for (int u = threadIdx.x; u < PARTS * KT * DP; u += THREADS) {
+      const int which = u / (KT * DP), r = u / DP % KT, c = u % DP, key = k0 + r;
+      const bool in = key < n && c < d;
+      reinterpret_cast<__nv_bfloat16*>(st + which * KT * LDF)[r * LDB + c] =
+          in ? (which ? vb : kb)[(long long)key * (which ? ldv : ldk) + c]
+             : __float2bfloat16_rn(0.f);
+    }
+  }
 }
 
 // tile [k0, k0 + 64) of K (and, for PARTS = 2, of V) into an f32 stage, zero
@@ -132,9 +202,20 @@ __device__ __forceinline__ void load_tile(float* st, const float* kb, const floa
 // 64 f32 rows of a stage (row stride ld_f32) into the K-major B (or A)
 // operand of a product over DP: row r, columns 8c .. 8c+7 to 16-column chunk
 // c / 2 (64 rows x 32 B), row r, 16-byte half (c % 2) ^ ((r / 4) % 2) (the
-// 32-byte swizzle)
-template <int DP>
+// 32-byte swizzle); bf16 rows (T) are copied as they are
+template <int DP, typename T = float>
 __device__ __forceinline__ void convert_rows(unsigned char* dst, const float* rows) {
+  if constexpr (is_bf16<T>) {
+    constexpr int LDB = ld_b16<DP>();
+    const __nv_bfloat16* rb = reinterpret_cast<const __nv_bfloat16*>(rows);
+    for (int u = threadIdx.x; u < KT * DP / 8; u += THREADS) {
+      const int r = u % KT, c = u / KT;
+      *reinterpret_cast<uint4*>(dst + (c / 2) * KT * 32 + r * 32 +
+                                (((c & 1) ^ ((r >> 2) & 1)) << 4)) =
+          *reinterpret_cast<const uint4*>(rb + r * LDB + 8 * c);
+    }
+    return;
+  }
   constexpr int LDF = ld_f32<DP>();
   for (int u = threadIdx.x; u < KT * DP / 8; u += THREADS) {
     const int r = u % KT, c = u / KT;
@@ -149,9 +230,23 @@ __device__ __forceinline__ void convert_rows(unsigned char* dst, const float* ro
 
 // 64 f32 rows of a stage transposed into the K-major B operand of a product
 // over the 64 rows: rows 8j .. 8j+7, column e to row e (128 B), 16-byte chunk
-// j ^ (e % 8) (the 128-byte swizzle)
-template <int DP>
+// j ^ (e % 8) (the 128-byte swizzle); bf16 rows (T) are gathered as they are
+template <int DP, typename T = float>
 __device__ __forceinline__ void convert_cols(unsigned char* dst, const float* rows) {
+  if constexpr (is_bf16<T>) {
+    constexpr int LDB = ld_b16<DP>();
+    const unsigned short* rb = reinterpret_cast<const unsigned short*>(rows);
+    for (int u = threadIdx.x; u < KT * DP / 8; u += THREADS) {
+      const int e = u % DP, j = u / DP;
+      const unsigned short* col = rb + 8 * j * LDB + e;
+      const uint4 v = make_uint4(col[0] | (uint32_t)col[LDB] << 16,
+                                 col[2 * LDB] | (uint32_t)col[3 * LDB] << 16,
+                                 col[4 * LDB] | (uint32_t)col[5 * LDB] << 16,
+                                 col[6 * LDB] | (uint32_t)col[7 * LDB] << 16);
+      *reinterpret_cast<uint4*>(dst + e * 128 + ((j ^ (e & 7)) << 4)) = v;
+    }
+    return;
+  }
   constexpr int LDF = ld_f32<DP>();
   for (int u = threadIdx.x; u < KT * DP / 8; u += THREADS) {
     const int e = u % DP, j = u / DP;
@@ -164,12 +259,12 @@ __device__ __forceinline__ void convert_cols(unsigned char* dst, const float* ro
   }
 }
 
-// an f32 stage into the bf16 operands: K as 16-column chunks, V as V^T
-template <int DP>
+// a stage into the bf16 operands: K as 16-column chunks, V as V^T
+template <int DP, typename T = float>
 __device__ __forceinline__ void convert_tile(unsigned char* kb16, unsigned char* vt16,
                                              const float* st) {
-  convert_rows<DP>(kb16, st);
-  convert_cols<DP>(vt16, st + KT * ld_f32<DP>());
+  convert_rows<DP, T>(kb16, st);
+  convert_cols<DP, T>(vt16, st + KT * ld_f32<DP>());
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -190,9 +285,17 @@ __device__ __forceinline__ uint32_t q_pair(const float* qb, long long ld, int ro
   const bool in = row < n;
   return hop::pack_bf16(in && c < d ? p[c] : 0.f, in && c + 1 < d ? p[c + 1] : 0.f);
 }
+// the same pair of a bf16 slab, its bits as they are
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qb, long long ld, int row, int c,
+                                           int n, int d) {
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(qb) + (long long)row * ld;
+  const bool in = row < n;
+  return (uint32_t)(in && c < d ? p[c] : 0) | (uint32_t)(in && c + 1 < d ? p[c + 1] : 0) << 16;
+}
 
-template <int DP, bool HAS_MASK>
-__global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
+// the forward's body on global tensors of element type T (the lse in f32)
+template <int DP, bool HAS_MASK, typename T>
+__device__ __forceinline__ void flash_fwd_body(Args a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
   unsigned char* kb16 = smem;
@@ -202,9 +305,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int n = a.n, d = a.d;
   const int r_lo = blockIdx.x * ROWS + wg * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
-  const float* kbase = amma::base(a.k, b, h);
-  const float* vbase = amma::base(a.v, b, h);
-  const bool vec = d % 4 == 0 && a.k.sn % 4 == 0 && a.v.sn % 4 == 0 &&
+  const T* kbase = tbase<T>(a.k, b, h);
+  const T* vbase = tbase<T>(a.v, b, h);
+  constexpr int VW = 16 / sizeof(T);  // values of a 16-byte vector
+  const bool vec = d % VW == 0 && a.k.sn % VW == 0 && a.v.sn % VW == 0 &&
                    ((reinterpret_cast<uintptr_t>(kbase) | reinterpret_cast<uintptr_t>(vbase)) &
                     15) == 0;
   const int tiles = (n + KT - 1) / KT;
@@ -220,7 +324,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
   // Q as the A operand: step c holds columns 16c .. 16c+15 of the two rows
   uint32_t qf[DP / 16][4];
   {
-    const float* qb = amma::base(a.q, b, h);
+    const T* qb = tbase<T>(a.q, b, h);
     const int c0 = 2 * (lane % 4);
 #pragma unroll
     for (int c = 0; c < DP / 16; ++c) {
@@ -262,7 +366,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
       load_tile<DP>(stages + (t + RING - 1) % RING * stage_floats<DP>(), kbase, vbase, a.k.sn,
                     a.v.sn, (t + RING - 1) * KT, n, d, vec);
     hop::cp_async_commit();
-    convert_tile<DP>(kb16, vt16, stages + t % RING * stage_floats<DP>());
+    convert_tile<DP, T>(kb16, vt16, stages + t % RING * stage_floats<DP>());
     hop::fence_proxy_async();
     __syncthreads();
 
@@ -343,30 +447,38 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
     hop::fence_regs(o);
   }
 
-  float* ob = amma::base(a.o, b, h);
+  T* ob = tbase<T>(a.o, b, h);
   float* lb = amma::base(a.lse_out, b, h);
   const float div_lo = l_lo == 0.f ? 1.f : l_lo, div_hi = l_hi == 0.f ? 1.f : l_hi;
   const bool pairs = d % 2 == 0 && a.o.sn % 2 == 0 &&
-                     (reinterpret_cast<uintptr_t>(ob) & 7) == 0;
+                     (reinterpret_cast<uintptr_t>(ob) & (2 * sizeof(T) - 1)) == 0;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = hh ? r_hi : r_lo;
     if (row >= n) continue;
     const float div = hh ? div_hi : div_lo;
-    float* orow = ob + (long long)row * a.o.sn;
+    T* orow = ob + (long long)row * a.o.sn;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int c = 8 * j + 2 * (lane % 4);
       const float v0 = o[4 * j + 2 * hh] / div, v1 = o[4 * j + 2 * hh + 1] / div;
       if (pairs && c < d) {
-        *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
+        if constexpr (is_bf16<T>)
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(v0, v1);
+        else
+          *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
       } else {
-        if (c < d) orow[c] = v0;
-        if (c + 1 < d) orow[c + 1] = v1;
+        if (c < d) orow[c] = to_t<T>(v0);
+        if (c + 1 < d) orow[c + 1] = to_t<T>(v1);
       }
     }
     if (lane % 4 == 0) lb[(long long)row * a.lse_out.sn] = (hh ? m_hi : m_lo) + logf(div);
   }
+}
+
+template <int DP, bool HAS_MASK>
+__global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(Args a) {
+  flash_fwd_body<DP, HAS_MASK, float>(a);
 }
 
 template <int DP>

@@ -1,6 +1,8 @@
 // K6's backward on wgmma, for Hopper (sm_90a): the dQ and the dK/dV passes
 // of `flash_qkv_attention` straight off the native (B, N, 3*H*D) f32 qkv
-// panel, writing the merged (B, N, 3*H*D) cotangent in place.
+// panel, writing the merged (B, N, 3*H*D) cotangent in place. Their bodies
+// also run K1's bf16 arm (qkv_attention_bf16.cu) on a bf16 panel, with K1's
+// dead-row rule (k6_p, k1_delta).
 //
 // Replaces the TPU kernels `_bwd_dq_kernel`
 // (vit4hep_tpu/ops/flash_qkv_attention.py:119, pallas_call :360) and
@@ -50,15 +52,28 @@ namespace aw {
 // exponential and 0 instead, ptxas reused the registers of dO's A fragments
 // as scratch inside the key loop of the masked dQ pass at DP = 64, and dQ
 // came out wrong (its SASS, read on the H100: PERF.md section 6).
-template <bool HAS_MASK>
+// With K1 the rule is K1's (qkv_bwd_tf32.cuh): a closed pair's exponent is
+// -1e30, so a wholly masked row (lse -1e30) weighs each key 1, and its
+// delta is scaled by n where the passes read it (k1_delta).
+template <bool HAS_MASK, bool K1 = false>
 __device__ __forceinline__ float k6_p(float s, int query, int key, int n,
                                       const unsigned char* mask, float scale, float lse) {
   if (query >= n || key >= n) return 0.f;
-  return __expf((attends<HAS_MASK>(query, key, n, mask) ? s * scale : -INFINITY) - lse);
+  return __expf((attends<HAS_MASK>(query, key, n, mask) ? s * scale : (K1 ? MASKED : -INFINITY)) -
+                lse);
 }
 
-template <int DP, bool HAS_MASK>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_wgmma_kernel(Args a) {
+// a row's delta as the passes use it: with K1's rule, times n on a wholly
+// masked row (JAX's rowsum(dP * P) over its n keys of weight 1)
+template <bool HAS_MASK, bool K1>
+__device__ __forceinline__ float k1_delta(float dl, float lse, int n) {
+  return K1 && HAS_MASK && lse == MASKED ? dl * (float)n : dl;
+}
+
+// the dQ pass's body on global tensors of element type T (lse and delta in
+// f32), with K6's dead-row rule or K1's
+template <int DP, bool HAS_MASK, typename T, bool K1>
+__device__ __forceinline__ void flash_bwd_dq_body(Args a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
   unsigned char* kc16 = smem;
@@ -68,20 +83,22 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_wgmma_kernel(Args a) {
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
   const int h = blockIdx.y, b = blockIdx.z, n = a.n, d = a.d;
   const int r_lo = blockIdx.x * ROWS + wg * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
-  const float* kb = amma::base(a.k, b, h);
-  const float* vb = amma::base(a.v, b, h);
-  const Ring<DP, RING, 2> kv{stages, kb, vb, a.k.sn, a.v.sn, n, d,
-                             vec_rows(d, a.k.sn, a.v.sn, kb, vb)};
+  const T* kb = tbase<T>(a.k, b, h);
+  const T* vb = tbase<T>(a.v, b, h);
+  const Ring<DP, RING, 2, T> kv{stages, kb, vb, a.k.sn, a.v.sn, n, d,
+                                vec_rows(d, a.k.sn, a.v.sn, kb, vb)};
   kv.start();
   uint32_t qf[DP / 16][4], gf[DP / 16][4];
-  a_rows<DP>(qf, amma::base(a.q, b, h), a.q.sn, r_lo, n, d);
-  a_rows<DP>(gf, amma::base(a.g, b, h), a.g.sn, r_lo, n, d);
+  a_rows<DP>(qf, tbase<T>(a.q, b, h), a.q.sn, r_lo, n, d);
+  a_rows<DP>(gf, tbase<T>(a.g, b, h), a.g.sn, r_lo, n, d);
   const float* lb = amma::base(a.lse, b, h);
   const float* rb = amma::base(a.rt, b, h);
   const float lse_lo = r_lo < n ? lb[(long long)r_lo * a.lse.sn] : 0.f;
   const float lse_hi = r_hi < n ? lb[(long long)r_hi * a.lse.sn] : 0.f;
-  const float dl_lo = r_lo < n ? rb[(long long)r_lo * a.rt.sn] : 0.f;
-  const float dl_hi = r_hi < n ? rb[(long long)r_hi * a.rt.sn] : 0.f;
+  const float dl_lo =
+      r_lo < n ? k1_delta<HAS_MASK, K1>(rb[(long long)r_lo * a.rt.sn], lse_lo, n) : 0.f;
+  const float dl_hi =
+      r_hi < n ? k1_delta<HAS_MASK, K1>(rb[(long long)r_hi * a.rt.sn], lse_hi, n) : 0.f;
   const uint32_t kc = hop::smem_u32(kc16), vc = hop::smem_u32(vc16), kt = hop::smem_u32(kt16);
   const int kq = 2 * (lane % 4);
 
@@ -89,9 +106,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_wgmma_kernel(Args a) {
   zero(dq);
   for (int t = 0; t < kv.tiles(); ++t) {
     const float* st = kv.wait(t);
-    convert_rows<DP>(kc16, st);
-    convert_rows<DP>(vc16, st + KT * ld_f32<DP>());
-    convert_cols<DP>(kt16, st);
+    convert_rows<DP, T>(kc16, st);
+    convert_rows<DP, T>(vc16, st + KT * ld_f32<DP>());
+    convert_cols<DP, T>(kt16, st);
     kv.release(t);
     float s[KT / 2], dp[KT / 2];
     s_dp<DP>(s, dp, qf, gf, kc, vc);
@@ -103,9 +120,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_wgmma_kernel(Args a) {
         const int key = t * KT + kq + 8 * j + e;
         float& lo = s[4 * j + e];
         float& hi = s[4 * j + 2 + e];
-        lo = k6_p<HAS_MASK>(lo, r_lo, key, n, a.mask, a.scale, lse_lo) *
+        lo = k6_p<HAS_MASK, K1>(lo, r_lo, key, n, a.mask, a.scale, lse_lo) *
              (dp[4 * j + e] - dl_lo) * a.scale;
-        hi = k6_p<HAS_MASK>(hi, r_hi, key, n, a.mask, a.scale, lse_hi) *
+        hi = k6_p<HAS_MASK, K1>(hi, r_hi, key, n, a.mask, a.scale, lse_hi) *
              (dp[4 * j + 2 + e] - dl_hi) * a.scale;
       }
     }
@@ -119,11 +136,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_wgmma_kernel(Args a) {
     hop::fence_regs(dq);
   }
 
-  store_acc<DP>(amma::base(a.dq, b, h), a.dq.sn, dq, r_lo, n, d, 1.f, 1.f);
+  store_acc<DP>(tbase<T>(a.dq, b, h), a.dq.sn, dq, r_lo, n, d, 1.f, 1.f);
 }
 
 template <int DP, bool HAS_MASK>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_wgmma_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_wgmma_kernel(Args a) {
+  flash_bwd_dq_body<DP, HAS_MASK, float, false>(a);
+}
+
+// the dK/dV pass's body on global tensors of element type T (lse and delta
+// in f32), with K6's dead-row rule or K1's
+template <int DP, bool HAS_MASK, typename T, bool K1>
+__device__ __forceinline__ void flash_bwd_dkv_body(Args a) {
   constexpr int TB = kb_bytes<DP>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
@@ -142,23 +166,23 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_wgmma_kernel(Args a) {
 
   // this CTA's K and V rows into their bf16 operands, 64 at a time
   {
-    const float* kb = amma::base(a.k, b, h);
-    const float* vb = amma::base(a.v, b, h);
+    const T* kb = tbase<T>(a.k, b, h);
+    const T* vb = tbase<T>(a.v, b, h);
     const bool vec = vec_rows(d, a.k.sn, a.v.sn, kb, vb);
     for (int half = 0; half < ROWS / KT; ++half) {
       load_tile<DP>(stages, kb, vb, a.k.sn, a.v.sn, k0 + half * KT, n, d, vec);
       hop::cp_async_commit();
       hop::cp_async_wait<0>();
       __syncthreads();
-      convert_rows<DP>(kc16 + half * TB, stages);
-      convert_rows<DP>(vc16 + half * TB, stages + KT * ld_f32<DP>());
+      convert_rows<DP, T>(kc16 + half * TB, stages);
+      convert_rows<DP, T>(vc16 + half * TB, stages + KT * ld_f32<DP>());
       __syncthreads();  // the stage is read before it is filled again
     }
   }
-  const float* qb = amma::base(a.q, b, h);
-  const float* gb = amma::base(a.g, b, h);
-  Ring<DP, dkv_ring<DP>(), 2> qg{stages, qb, gb, a.q.sn, a.g.sn, n, d,
-                                 vec_rows(d, a.q.sn, a.g.sn, qb, gb)};
+  const T* qb = tbase<T>(a.q, b, h);
+  const T* gb = tbase<T>(a.g, b, h);
+  Ring<DP, dkv_ring<DP>(), 2, T> qg{stages, qb, gb, a.q.sn, a.g.sn, n, d,
+                                    vec_rows(d, a.q.sn, a.g.sn, qb, gb)};
   qg.stat0 = amma::base(a.lse, b, h);
   qg.stat1 = amma::base(a.rt, b, h);
   qg.sld0 = a.lse.sn;
@@ -174,10 +198,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_wgmma_kernel(Args a) {
   zero(dv);
   for (int t = 0; t < qg.tiles(); ++t) {
     const float* st = qg.wait(t);
-    convert_rows<DP>(qc16, st);
-    convert_rows<DP>(gc16, st + KT * ld_f32<DP>());
-    convert_cols<DP>(qt16, st);
-    convert_cols<DP>(gt16, st + KT * ld_f32<DP>());
+    convert_rows<DP, T>(qc16, st);
+    convert_rows<DP, T>(gc16, st + KT * ld_f32<DP>());
+    convert_cols<DP, T>(qt16, st);
+    convert_cols<DP, T>(gt16, st + KT * ld_f32<DP>());
     if (threadIdx.x < 2 * KT) stats[threadIdx.x] = st[2 * KT * ld_f32<DP>() + threadIdx.x];
     qg.release(t);
 
@@ -203,11 +227,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_wgmma_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = kq + 8 * j + e, query = t * KT + col;
-        const float lse = stats[col], dl = stats[KT + col];
+        const float lse = stats[col], dl = k1_delta<HAS_MASK, K1>(stats[KT + col], lse, n);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int i = 4 * j + 2 * hh + e;
-          const float p = k6_p<HAS_MASK>(s[i], query, hh ? r_hi : r_lo, n, a.mask, a.scale, lse);
+          const float p =
+              k6_p<HAS_MASK, K1>(s[i], query, hh ? r_hi : r_lo, n, a.mask, a.scale, lse);
           s[i] = p;
           dp[i] = p * (dp[i] - dl) * a.scale;
         }
@@ -227,8 +252,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_wgmma_kernel(Args a) {
     hop::fence_regs(dk);
   }
 
-  store_acc<DP>(amma::base(a.dk, b, h), a.dk.sn, dk, r_lo, n, d, 1.f, 1.f);
-  store_acc<DP>(amma::base(a.dv, b, h), a.dv.sn, dv, r_lo, n, d, 1.f, 1.f);
+  store_acc<DP>(tbase<T>(a.dk, b, h), a.dk.sn, dk, r_lo, n, d, 1.f, 1.f);
+  store_acc<DP>(tbase<T>(a.dv, b, h), a.dv.sn, dv, r_lo, n, d, 1.f, 1.f);
+}
+
+template <int DP, bool HAS_MASK>
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_wgmma_kernel(Args a) {
+  flash_bwd_dkv_body<DP, HAS_MASK, float, false>(a);
 }
 
 template <int DP>

@@ -94,12 +94,13 @@ static_assert(vmem_dkv_smem<128>(1) <= SMEM_MAX && vmem_dq_smem<128>() <= SMEM_M
 // the streamed side: tiles of 64 rows of one or two slabs (PARTS), and for
 // the dK/dV pass the rows' lse and rt, through RING f32 stages. Each call of
 // load commits one cp.async group (empty past the last tile), so tile t is
-// group t and RING - 1 newer groups may be in flight while it is used.
-template <int DP, int RING_, int PARTS>
+// group t and RING - 1 newer groups may be in flight while it is used. T is
+// the rows' element type (K1's bf16 arm streams bf16 rows: load_tile's bf16 overload).
+template <int DP, int RING_, int PARTS, typename T = float>
 struct Ring {
   float* stages;
-  const float* rows0;
-  const float* rows1;
+  const T* rows0;
+  const T* rows1;
   long long ld0, ld1;
   int n, d;
   bool vec;
@@ -154,6 +155,12 @@ __device__ __forceinline__ bool vec_rows(int d, long long ld0, long long ld1, co
   return d % 4 == 0 && ld0 % 4 == 0 && ld1 % 4 == 0 &&
          ((reinterpret_cast<uintptr_t>(p0) | reinterpret_cast<uintptr_t>(p1)) & 15) == 0;
 }
+// bf16 rows: d % 8 == 0 and every row start 16-byte aligned
+__device__ __forceinline__ bool vec_rows(int d, long long ld0, long long ld1,
+                                         const __nv_bfloat16* p0, const __nv_bfloat16* p1) {
+  return d % 8 == 0 && ld0 % 8 == 0 && ld1 % 8 == 0 &&
+         ((reinterpret_cast<uintptr_t>(p0) | reinterpret_cast<uintptr_t>(p1)) & 15) == 0;
+}
 
 // descriptors of k16 step c of the two operand layouts
 __device__ __forceinline__ uint64_t rows_desc(uint32_t base, int c) {
@@ -165,8 +172,8 @@ __device__ __forceinline__ uint64_t cols_desc(uint32_t base, int c) {
 
 // rows r_lo and r_lo + 8 of a slab as the register A operand: step c holds
 // columns 16c .. 16c+15
-template <int DP>
-__device__ __forceinline__ void a_rows(uint32_t (&f)[DP / 16][4], const float* base, long long ld,
+template <int DP, typename T>
+__device__ __forceinline__ void a_rows(uint32_t (&f)[DP / 16][4], const T* base, long long ld,
                                        int r_lo, int n, int d) {
   const int c0 = 2 * (threadIdx.x % 4);
 #pragma unroll
@@ -211,6 +218,33 @@ __device__ __forceinline__ void store_acc(float* ob, long long ld, const float (
       } else {
         if (c < d) orow[c] = v0;
         if (c + 1 < d) orow[c + 1] = v1;
+      }
+    }
+  }
+}
+
+// the same rows stored in bf16, rounded to nearest
+template <int DP>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* ob, long long ld,
+                                          const float (&o)[DP / 2], int r_lo, int n, int d,
+                                          float div_lo, float div_hi) {
+  const int lane = threadIdx.x % 32;
+  const bool pairs = d % 2 == 0 && ld % 2 == 0 && (reinterpret_cast<uintptr_t>(ob) & 3) == 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r_lo + 8 * hh;
+    if (row >= n) continue;
+    const float div = hh ? div_hi : div_lo;
+    __nv_bfloat16* orow = ob + (long long)row * ld;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const float v0 = o[4 * j + 2 * hh] / div, v1 = o[4 * j + 2 * hh + 1] / div;
+      if (pairs && c < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (c < d) orow[c] = __float2bfloat16_rn(v0);
+        if (c + 1 < d) orow[c + 1] = __float2bfloat16_rn(v1);
       }
     }
   }

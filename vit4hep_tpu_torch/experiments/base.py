@@ -156,11 +156,12 @@ class BaseExperiment:
                     zf.write(path, path.relative_to(pkg_root.parent))
 
     def _init_backend(self):
+        # resolved and logged as the JAX experiment does; no module reads it
+        # (a net's compute dtype is its own ``compute_dtype``)
         self.dtype = get_dtype(self.cfg.get("dtype", "float32"))
-        if self.dtype != torch.float32:
-            raise NotImplementedError("the port trains in float32 (compute_dtype float32)")
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
-        LOGGER.info(f"Using device {self.device} ({name}), dtype {self.dtype}")
+        LOGGER.info(f"Using device {self.device} ({name})")
+        LOGGER.info(f"Using dtype {self.dtype}")
         self.mesh = mesh_lib.create_mesh(num_devices=self.cfg.get("num_devices"),
                                          model_parallel=self.cfg.get("model_parallel", 1))
         if self.world_size > 1:

@@ -17,6 +17,18 @@ to one token: ``dims_c == 1``, or no condition. With gradients enabled,
 ``fused_block: true`` trains through that kernel's forward, whose backward
 is the VJP of the plain decoder (as in JAX); the ds2 default
 (``fused_block: sample``) trains the composed layers.
+
+``compute_dtype: bfloat16`` (or ``bf16``) computes as JAX's ``dtype=``
+does: parameters f32, every Dense (``utils.misc.Dense`` /
+``utils.misc.dense``) and the embeddings in bf16, the LayerNorms' statistics
+in f32 with a bf16 result (``utils.misc.layer_norm``), the activations as
+JAX's formulas op by op (``utils.misc.silu``, ``gelu_tanh``), the input, the time
+features and the condition cast to bf16, the attention through
+``dot_product_attention`` (f32 logits, the weights rounded to bf16), the
+output cast to f32. The decoder kernel takes the bf16-valued target and time
+features cast to f32, and the per-layer cross terms in f32 from
+``memory[:, 0]`` cast to f32 (``vit4hep_tpu/models/energy_transformer.py:
+352-400``).
 """
 
 from __future__ import annotations
@@ -33,7 +45,8 @@ from vit4hep_tpu_torch.models.vit import current_sampling_weights
 from vit4hep_tpu_torch.ops.attention import dot_product_attention
 from vit4hep_tpu_torch.ops.fused_energy_decoder import fused_energy_decoder
 from vit4hep_tpu_torch.ops.pos_embed import gaussian_fourier_projection
-from vit4hep_tpu_torch.utils.misc import f32
+from vit4hep_tpu_torch.utils.misc import (Dense, SiLU, compute_dtype, dense, f32, gelu_tanh,
+                                          layer_norm, set_compute_dtype, silu, to_dtype)
 
 _LN_EPS = 1e-5
 
@@ -91,9 +104,7 @@ class EnergyTransformerParams:
 
 
 def _activation(name: str):
-    return {"relu": F.relu,
-            "gelu": lambda x: F.gelu(x, approximate="tanh"),
-            "silu": F.silu}[name]
+    return {"relu": F.relu, "gelu": gelu_tanh, "silu": silu}[name]
 
 
 class GaussianFourierProjection(nn.Module):
@@ -117,6 +128,8 @@ class MultiheadAttention(nn.Module):
     routes alike in both packages (``fused``, the qkv-panel kernel, raises
     ``ValueError`` there too)."""
 
+    dt = torch.float32
+
     def __init__(self, d_model: int, nhead: int, attn_impl: str = "xla"):
         super().__init__()
         self.nhead = nhead
@@ -131,50 +144,60 @@ class MultiheadAttention(nn.Module):
         b, nq, dm = q_in.shape
         nk = kv_in.shape[1]
         hd = dm // self.nhead
-        q = F.linear(q_in, self.in_proj_weight[:dm], self.in_proj_bias[:dm])
-        k, v = F.linear(kv_in, self.in_proj_weight[dm:], self.in_proj_bias[dm:]).chunk(2, -1)
+        q = dense(q_in, self.in_proj_weight[:dm], self.in_proj_bias[:dm], self.dt)
+        k, v = dense(kv_in, self.in_proj_weight[dm:], self.in_proj_bias[dm:], self.dt).chunk(2, -1)
         q = q.reshape(b, nq, self.nhead, hd).transpose(1, 2)
         k = k.reshape(b, nk, self.nhead, hd).transpose(1, 2)
         v = v.reshape(b, nk, self.nhead, hd).transpose(1, 2)
         out = dot_product_attention(q, k, v, mask, impl=self.attn_impl)
-        return self.out_proj(out.transpose(1, 2).reshape(b, nq, dm))
+        return dense(out.transpose(1, 2).reshape(b, nq, dm), self.out_proj.weight,
+                     self.out_proj.bias, self.dt)
+
+
+def _norm(norm, x, dt):
+    """An nn.LayerNorm's affine normalisation computed for ``dt``."""
+    return layer_norm(x, dt, norm.eps, norm.weight, norm.bias)
 
 
 class EncoderLayer(nn.Module):
     """Post-LN encoder layer (torch TransformerEncoderLayer, norm_first=False)."""
 
+    dt = torch.float32
+
     def __init__(self, d_model, nhead, dim_feedforward, activation, attn_impl):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead, attn_impl)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Dense(d_model, dim_feedforward)
+        self.linear2 = Dense(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.act = _activation(activation)
 
     def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x))
-        return self.norm2(x + self.linear2(self.act(self.linear1(x))))
+        x = _norm(self.norm1, x + self.self_attn(x, x), self.dt)
+        return _norm(self.norm2, x + self.linear2(self.act(self.linear1(x))), self.dt)
 
 
 class DecoderLayer(nn.Module):
     """Post-LN decoder layer: self-attention, cross-attention, feed-forward."""
 
+    dt = torch.float32
+
     def __init__(self, d_model, nhead, dim_feedforward, activation, attn_impl):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, nhead, attn_impl)
         self.multihead_attn = MultiheadAttention(d_model, nhead, attn_impl)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Dense(d_model, dim_feedforward)
+        self.linear2 = Dense(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.act = _activation(activation)
 
     def forward(self, x, memory, self_mask=None):
-        x = self.norm1(x + self.self_attn(x, x, self_mask))
-        x = self.norm2(x + self.multihead_attn(x, memory))
-        return self.norm3(x + self.linear2(self.act(self.linear1(x))))
+        x = _norm(self.norm1, x + self.self_attn(x, x, self_mask), self.dt)
+        x = _norm(self.norm2, x + self.multihead_attn(x, memory), self.dt)
+        return _norm(self.norm3, x + self.linear2(self.act(self.linear1(x))), self.dt)
 
 
 class _Stack(nn.Module):
@@ -197,31 +220,31 @@ class ParallelTransformerNet(nn.Module):
     None) -> (B, dims_in) velocity."""
 
     _sampling_weights = None  # kernel_weights() of a sampling twin, made once
+    dt = torch.float32  # the compute dtype (``compute_dtype``)
 
     def __init__(self, cfg: EnergyTransformerParams):
         super().__init__()
-        if cfg.compute_dtype not in ("float32", "fp32"):
-            raise NotImplementedError("the port's energy transformer runs in float32")
         self.cfg = cfg
         p = cfg
         dm = p.d_model
         self.time_embed = nn.Sequential(GaussianFourierProjection(p.fourier_weights()),
-                                        nn.Linear(p.encode_t_dim, p.encode_t_dim))
+                                        Dense(p.encode_t_dim, p.encode_t_dim))
         if p.embeds:
-            self.x_embed = nn.Linear(1, p.dim_embedding)
+            self.x_embed = Dense(1, p.dim_embedding)
             self.pos_embed_x = nn.Embedding(p.dims_in, p.dim_embedding)
-            self.c_embed = nn.Linear(1, 2 * p.dim_embedding)
+            self.c_embed = Dense(1, 2 * p.dim_embedding)
             self.pos_embed_c = nn.Embedding(p.dims_c, 2 * p.dim_embedding)
         self.transformer = _Transformer(p)
-        self.layers = nn.Sequential(nn.Linear(p.encode_t_dim + dm, p.dim_feedforward),
-                                    nn.SiLU(), nn.Linear(p.dim_feedforward, 1))
+        self.layers = nn.Sequential(Dense(p.encode_t_dim + dm, p.dim_feedforward),
+                                    SiLU(), Dense(p.dim_feedforward, 1))
+        set_compute_dtype(self, compute_dtype(p.compute_dtype))
 
     def _embed_x(self, x, t_feats):
         p = self.cfg
         b, n = x.shape
         if p.embeds:
             idx = torch.arange(n, device=x.device)
-            xe = self.x_embed(x[..., None]) + self.pos_embed_x(idx)[None]
+            xe = self.x_embed(x[..., None]) + to_dtype(self.pos_embed_x(idx), self.dt)[None]
             return torch.cat([t_feats[:, None, :].expand(b, n, t_feats.shape[1]), xe], dim=-1)
         one_hot = torch.eye(p.dims_in, dtype=x.dtype, device=x.device)[None, :n, :]
         pad = x.new_zeros((b, n, p.dim_embedding - p.dims_in - 1))
@@ -232,7 +255,7 @@ class ParallelTransformerNet(nn.Module):
         b, n = c.shape
         if p.embeds:
             idx = torch.arange(n, device=c.device)
-            return self.c_embed(c[..., None]) + self.pos_embed_c(idx)[None]
+            return self.c_embed(c[..., None]) + to_dtype(self.pos_embed_c(idx), self.dt)[None]
         one_hot = torch.eye(p.dims_c, dtype=c.dtype, device=c.device)[None, :n, :]
         pad = c.new_zeros((b, n, p.dim_embedding - p.dims_c - 1))
         return torch.cat([c[..., None], one_hot.expand(b, n, p.dims_c), pad], dim=-1)
@@ -243,14 +266,14 @@ class ParallelTransformerNet(nn.Module):
         once and hands it to every eval (``memory``)."""
         if condition is None:
             return None
-        src = self._embed_c(f32(condition))
+        src = self._embed_c(to_dtype(condition, self.dt))
         for layer in self.transformer.encoder.layers:
             src = layer(src)
-        return self.transformer.encoder.norm(src)
+        return _norm(self.transformer.encoder.norm, src, self.dt)
 
     def forward(self, x, t, condition=None, memory=None):
         p = self.cfg
-        x = f32(x)
+        x = to_dtype(x, self.dt)
         t_feats = self.time_embed(t)
         tgt = self._embed_x(x, t_feats)
         if memory is None:
@@ -265,9 +288,9 @@ class ParallelTransformerNet(nn.Module):
         h = tgt
         for layer in self.transformer.decoder.layers:
             h = layer(h, memory)
-        h = self.transformer.decoder.norm(h)
+        h = _norm(self.transformer.decoder.norm, h, self.dt)
         head_in = torch.cat([t_feats[:, None, :].expand(-1, h.shape[1], -1), h], dim=-1)
-        return self.layers(head_in)[..., 0]
+        return f32(self.layers(head_in)[..., 0])
 
     def kernel_weights(self):
         """The decoder's weights in fused_energy_decoder's layout: per layer
@@ -294,18 +317,19 @@ class ParallelTransformerNet(nn.Module):
         """Decoder stack + final LN + head through ops/fused_energy_decoder."""
         p = self.cfg
         dm = p.d_model
-        m0 = memory[:, 0, :]
+        m0 = f32(memory[:, 0, :])
         # cross-attention output per element and layer: out_proj(v_proj(memory)),
-        # computed outside the kernel as the JAX code does
+        # computed outside the kernel in f32 as the JAX code does
         cross = torch.stack([
-            ca.out_proj(F.linear(m0, ca.in_proj_weight[2 * dm:], ca.in_proj_bias[2 * dm:]))
+            F.linear(F.linear(m0, ca.in_proj_weight[2 * dm:], ca.in_proj_bias[2 * dm:]),
+                     ca.out_proj.weight, ca.out_proj.bias)
             for ca in (layer.multihead_attn for layer in self.transformer.decoder.layers)],
             dim=1)
         weights = None if torch.is_grad_enabled() else current_sampling_weights(self)
         if weights is None:  # training: the parameters themselves, autograd follows
             weights = self.kernel_weights()
-        return fused_energy_decoder(tgt.contiguous(), t_feats.contiguous(), cross, *weights,
-                                    p.nhead, p.activation, p.fused_group)
+        return fused_energy_decoder(f32(tgt).contiguous(), f32(t_feats).contiguous(), cross,
+                                    *weights, p.nhead, p.activation, p.fused_group)
 
 
 def ParallelTransformer(param: dict) -> ParallelTransformerNet:

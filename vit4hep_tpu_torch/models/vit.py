@@ -66,6 +66,22 @@ SiLU) in front of ``x_embedder``, ``in_condition_dim`` puts ``c_mapper``
 ``c_embedder``, and ``out_patch_dim`` sets the FinalLayer's width. The
 mappers are plain products in front of the trunk, composed or kernel, as
 in JAX; ViT1D takes none.
+
+``compute_dtype: bfloat16`` (or ``bf16``; :func:`utils.misc.compute_dtype`
+maps it as JAX's ``ViTParams.dtype`` does) runs the nets as flax's
+``dtype=`` does, without ``torch.autocast``: the parameters stay f32 and
+every Dense (``utils.misc.Dense``) casts its input and parameters to bf16,
+so the gradients reach the f32 parameters; the LayerNorms take their
+statistics in f32 and return bf16 (``utils.misc.layer_norm``); SiLU and the
+tanh GELU follow JAX's formulas op by op in bf16 (``utils.misc.silu``,
+``gelu_tanh``). The input, condition and t features are cast to bf16, the
+residual stream, the adaLN modulations and the qkv panel are bf16 (so the
+attention, K1 under ``auto``, sees a bf16 panel), and the net returns
+f32. The kernel tiers (K2v, K5a/K5b, K2b/K5c) take the tokens and
+the residual stream cast to f32 and the bf16-rounded modulations cast to
+f32, as JAX hands them to its kernels (``vit4hep_tpu/models/vit.py:529-604``);
+K9 (``fused_mlp``) takes its block's inputs in f32 and returns f32, which
+then carries the residual stream in f32, as in JAX.
 """
 
 from __future__ import annotations
@@ -88,7 +104,8 @@ from vit4hep_tpu_torch.ops.attention import qkv_attention
 from vit4hep_tpu_torch.ops.fused_mlp import fused_mlp_half
 from vit4hep_tpu_torch.parallel import _comm
 from vit4hep_tpu_torch.parallel.sharding_rules import full
-from vit4hep_tpu_torch.utils.misc import f32, no_grad
+from vit4hep_tpu_torch.utils.misc import (Dense, SiLU, compute_dtype, f32, gelu_tanh,
+                                          layer_norm, no_grad, set_compute_dtype, silu, to_dtype)
 
 _LN_EPS = 1e-6
 
@@ -161,8 +178,8 @@ class ViTParams:
         return sum(int(np.prod(s)) for s in self.num_patches)
 
 
-def _ln(x):
-    return F.layer_norm(x, (x.shape[-1],), eps=_LN_EPS)
+def _ln(x, dt):
+    return layer_norm(x, dt, _LN_EPS)
 
 
 def modulate(x, shift, scale):
@@ -171,7 +188,7 @@ def modulate(x, shift, scale):
 
 
 def _xavier_linear(din, dout, zero=False):
-    lin = nn.Linear(din, dout)
+    lin = Dense(din, dout)
     if zero:
         nn.init.zeros_(lin.weight)
     else:
@@ -201,8 +218,8 @@ class MlpBlock(nn.Module):
 
     def forward(self, x):
         if self.tp_group is None:
-            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
-        h = F.gelu(self.fc1(_comm.copy_to(x, self.tp_group)), approximate="tanh")
+            return self.fc2(gelu_tanh(self.fc1(x)))
+        h = gelu_tanh(self.fc1(_comm.copy_to(x, self.tp_group)))
         return _row_parallel(self.fc2, h, self.tp_group)
 
 
@@ -235,63 +252,67 @@ class DiTBlock(nn.Module):
     """adaLN-Zero transformer block. With ``fused_mlp`` its MLP half runs
     through ``ops/fused_mlp.fused_mlp_half`` (kernel K9) on the same
     ``mlp.fc1``/``mlp.fc2`` parameters, as JAX's ``FusedMlpHalf`` keeps
-    ``MlpBlock``'s param tree."""
+    ``MlpBlock``'s param tree (its inputs in f32, as JAX casts them)."""
+
+    dt = torch.float32
 
     def __init__(self, hidden, num_heads, mlp_ratio=4.0, attn_impl="auto", fused_mlp=False):
         super().__init__()
         self.fused_mlp = fused_mlp
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), _xavier_linear(hidden, 6 * hidden, zero=True))
+        self.adaLN_modulation = nn.Sequential(SiLU(), _xavier_linear(hidden, 6 * hidden, zero=True))
         self.attn = Attention(hidden, num_heads, attn_impl)
         self.mlp = MlpBlock(hidden, int(hidden * mlp_ratio))
 
     def forward(self, x, c, mask=None):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
             self.adaLN_modulation(c).chunk(6, dim=-1)
-        x = x + gate_msa[:, None, :] * self.attn(modulate(_ln(x), shift_msa, scale_msa), mask)
+        x = x + gate_msa[:, None, :] * self.attn(
+            modulate(_ln(x, self.dt), shift_msa, scale_msa), mask)
         if self.fused_mlp:
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-            return fused_mlp_half(x, shift_mlp, scale_mlp, gate_mlp, full(fc1.weight).t(),
-                                  full(fc1.bias), full(fc2.weight).t(), fc2.bias)
-        return x + gate_mlp[:, None, :] * self.mlp(modulate(_ln(x), shift_mlp, scale_mlp))
+            return fused_mlp_half(f32(x), f32(shift_mlp), f32(scale_mlp), f32(gate_mlp),
+                                  full(fc1.weight).t(), full(fc1.bias), full(fc2.weight).t(),
+                                  fc2.bias)
+        return x + gate_mlp[:, None, :] * self.mlp(
+            modulate(_ln(x, self.dt), shift_mlp, scale_mlp))
 
 
 class FinalLayer(nn.Module):
     """adaLN + zero-init output projection."""
 
+    dt = torch.float32
+
     def __init__(self, hidden, out_dim):
         super().__init__()
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), _xavier_linear(hidden, 2 * hidden, zero=True))
+        self.adaLN_modulation = nn.Sequential(SiLU(), _xavier_linear(hidden, 2 * hidden, zero=True))
         self.linear = _xavier_linear(hidden, out_dim, zero=True)
 
     def forward(self, x, c):
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
-        return self.linear(modulate(_ln(x), shift, scale))
+        return self.linear(modulate(_ln(x, self.dt), shift, scale))
 
 
 class TimestepEmbedder(nn.Module):
     """Sinusoidal frequency embedding -> MLP."""
 
+    dt = torch.float32
+
     def __init__(self, hidden, freq_dim=256):
         super().__init__()
         self.freq_dim = freq_dim
-        self.mlp = nn.Sequential(_xavier_linear(freq_dim, hidden), nn.SiLU(),
+        self.mlp = nn.Sequential(_xavier_linear(freq_dim, hidden), SiLU(),
                                  _xavier_linear(hidden, hidden))
 
     def forward(self, t):
-        return self.mlp(pe_ops.timestep_embedding(t, self.freq_dim))
+        return self.mlp(to_dtype(pe_ops.timestep_embedding(t, self.freq_dim), self.dt))
 
 
 class ConditionEmbedder(nn.Sequential):
     """Dense -> SiLU -> Dense on the condition vector."""
 
     def __init__(self, condition_dim, hidden):
-        super().__init__(_xavier_linear(condition_dim, hidden), nn.SiLU(),
+        super().__init__(_xavier_linear(condition_dim, hidden), SiLU(),
                          _xavier_linear(hidden, hidden))
-
-
-def _check_ported(p: ViTParams):
-    if p.compute_dtype not in ("float32", "fp32"):
-        raise NotImplementedError("the port's ViT runs in float32")
 
 
 def _sincos(p: ViTParams):
@@ -355,33 +376,37 @@ class _FusedViT(nn.Module):
 
     _sampling_weights = None  # kernel_weights() of a sampling twin, made once
 
+    dt = torch.float32  # the compute dtype (``compute_dtype``)
+
     def _trunk(self, x, cond):
         """The embedder, the blocks and the FinalLayer on tokens x (B, T,
-        patch_dim) f32 under the conditioning vector cond (B, hidden)."""
+        patch_dim) under the conditioning vector cond (B, hidden), both in
+        the compute dtype; the output in f32."""
         p = self.cfg
         mask = _checked_mask(self)
         fused = p.fused_block in (True, "hybrid") and not p.checkpoint_grads \
             and not p.pad_attn_heads
         if fused and p.fused_stack and _fit_group(p, x.shape[1]) > 0:
-            return self._fused_vit(x, cond, mask)
+            return self._fused_vit(f32(x), cond, mask)
 
-        x = self.x_embedder(x) + self.pos_embedding()
+        x = self.x_embedder(x) + to_dtype(self.pos_embedding(), self.dt)
         if fused:
-            x = self._fused_blocks(x, cond, mask)
+            x = self._fused_blocks(f32(x), cond, mask)
         else:
             x = _run_blocks(self.blocks, x, cond, mask, p.checkpoint_grads)
-        return self.final_layer(x, cond)
+        return f32(self.final_layer(x, cond))
 
     def _fused_vit(self, tokens, cond, mask):
         """Embedder + pos-embed + every block + FinalLayer through
         ops/fused_dit_block.fused_vit_forward; the adaLN products of the
-        conditioning run here in plain PyTorch, as in JAX."""
+        conditioning run here in plain PyTorch in the compute dtype, as in
+        JAX, and reach the kernel in f32."""
         p = self.cfg
         b, n, _ = tokens.shape
-        c_act = F.silu(cond)
-        mods = torch.stack([blk.adaLN_modulation[1](c_act).reshape(b, 6, p.hidden_dim)
-                            for blk in self.blocks], dim=1)
-        fmod = self.final_layer.adaLN_modulation(cond).reshape(b, 2, p.hidden_dim)
+        c_act = silu(cond)
+        mods = f32(torch.stack([blk.adaLN_modulation[1](c_act).reshape(b, 6, p.hidden_dim)
+                                for blk in self.blocks], dim=1))
+        fmod = f32(self.final_layer.adaLN_modulation(cond).reshape(b, 2, p.hidden_dim))
         if torch.is_grad_enabled():
             weights = self.kernel_weights(train=True)
         else:
@@ -407,11 +432,11 @@ class _FusedViT(nn.Module):
                           "the whole-ViT path; the per-block kernel (fused_stack: false, or no "
                           "fitting group) trains with its kernel backward K5c", stacklevel=2)
         b = x.shape[0]
-        c_act = F.silu(cond)
+        c_act = silu(cond)
         for blk in self.blocks:
             lins = (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2)
             x = fdb.fused_dit_block(
-                x, blk.adaLN_modulation[1](c_act).reshape(b, 6, p.hidden_dim),
+                x, f32(blk.adaLN_modulation[1](c_act).reshape(b, 6, p.hidden_dim)),
                 *(w for lin in lins for w in (full(lin.weight).t(), full(lin.bias))),
                 mask, p.num_heads, float(p.hidden_dim // p.num_heads) ** -0.5)
         return x
@@ -443,7 +468,6 @@ class ViTNet(_FusedViT):
     def __init__(self, cfg: ViTParams):
         super().__init__()
         p = cfg
-        _check_ported(p)
         self.cfg = cfg
         h = p.hidden_dim
         if p.in_patch_dim is not None:
@@ -464,6 +488,7 @@ class ViTNet(_FusedViT):
         out_patch = p.patch_dim if p.out_patch_dim is None else p.out_patch_dim
         self.final_layer = FinalLayer(h, p.out_channels * out_patch)
         self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
+        set_compute_dtype(self, compute_dtype(p.compute_dtype))
 
     def pos_embedding(self):
         if not self.cfg.learn_pos_embed:
@@ -473,11 +498,11 @@ class ViTNet(_FusedViT):
         return pe_ops.learnable_fourier_pos_embed_3d(self.pos_embed_freqs, pos_z, pos_y, pos_x)
 
     def forward(self, x, t, c):
-        x, c = f32(x), f32(c)
+        x, c = to_dtype(x, self.dt), to_dtype(c, self.dt)
         if self.cfg.in_patch_dim is not None:
-            x = F.silu(self.x_mapper(x))
+            x = silu(self.x_mapper(x))
         if self.cfg.in_condition_dim is not None:
-            c = F.silu(self.c_mapper(c))
+            c = silu(self.c_mapper(c))
         return self._trunk(x, self.t_embedder(t) + self.c_embedder(c))
 
 
@@ -539,7 +564,6 @@ class ViT1DNet(_FusedViT):
     def __init__(self, cfg: ViTParams):
         super().__init__()
         p = cfg
-        _check_ported(p)
         if (p.in_patch_dim, p.in_condition_dim, p.out_patch_dim) != (None, None, None):
             raise ValueError("the fine-tuning mappers belong to the ViT; ViT1D takes none")
         self.cfg = cfg
@@ -559,6 +583,7 @@ class ViT1DNet(_FusedViT):
             for _ in range(p.depth))
         self.final_layer = FinalLayer(h, p.out_channels * (p.x_out or 1) * p.patch_dim)
         self.register_buffer("attn_mask", _attn_mask(p), persistent=False)
+        set_compute_dtype(self, compute_dtype(p.compute_dtype))
 
     def pos_embedding(self):
         if not self.cfg.learn_pos_embed:
@@ -566,7 +591,7 @@ class ViT1DNet(_FusedViT):
         return pe_ops.learnable_fourier_pos_embed_1d(self.pos_embed_freqs, self._grid)
 
     def forward(self, x, c):
-        return self._trunk(f32(x), self.c_embedder(f32(c)))
+        return self._trunk(to_dtype(x, self.dt), self.c_embedder(to_dtype(c, self.dt)))
 
 
 def ViT(param: dict) -> ViTNet:

@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("energy_decoder", "vit_forward", "vit_backward", "qkv_attention", "qkv_attention_bwd",
-           "binned_rqs", "vmem_attention", "flash_qkv_attention", "flash_attention")
+           "binned_rqs", "vmem_attention", "flash_qkv_attention", "flash_attention",
+           "qkv_attention_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90

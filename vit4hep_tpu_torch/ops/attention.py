@@ -2,7 +2,10 @@
 
 ``xla`` is the plain version everywhere: matmul, softmax in float32, matmul,
 with no fused library operator, so that it stays an independent oracle for
-the hand-written kernels (the energy transformer's default).
+the hand-written kernels (the energy transformer's default). On bf16 inputs
+(``compute_dtype: bfloat16``) it keeps JAX's ``xla_attention``: f32 logits,
+the weights rounded to bf16 for the f32-accumulated P . V, the output in
+bf16; the kernels take a bf16 panel as their modules say.
 
 :func:`qkv_attention` keeps the JAX dispatch on the native (B, N, 3*H*D)
 layout: ``auto`` picks ``fused`` (``ops/fused_qkv_attention``, kernel K1,
@@ -53,7 +56,7 @@ def xla_attention(q, k, v, mask=None, scale=None):
         logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
     weights = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     weights = weights / weights.sum(dim=-1, keepdim=True)
-    out = torch.matmul(weights, f32(v))
+    out = torch.matmul(f32(weights.to(v.dtype)), f32(v))
     return out if out.dtype == v.dtype else out.to(v.dtype)
 
 

@@ -340,7 +340,12 @@ def flash_attention(q, k, v, mask=None, block_q=256, block_k=256, scale=None):
     ``scale`` overrides 1/sqrt(D). ``block_q``/``block_k`` are the TPU
     kernel's blocks, accepted for its signature: the CUDA kernels keep 64
     rows a warpgroup and stream 32 (or 16) rows a tile, and the function
-    does not depend on the blocking."""
+    does not depend on the blocking. bf16 q, k, v run the f32 arm on their
+    values and the result is rounded to bf16: JAX's kernel casts its
+    operands to f32 and stores in the input's dtype."""
+    if q.dtype == torch.bfloat16:
+        return flash_attention(q.float(), k.float(), v.float(), mask,
+                               scale=scale).to(torch.bfloat16)
     del block_q, block_k
     _, _, n, d = check_shapes("flash_attention", q, k, v, mask)
     if mask is not None:

@@ -208,7 +208,13 @@ def flash_qkv_attention(qkv, num_heads, mask=None, scale=None, block_q=512, bloc
     True = attend; ``scale`` overrides 1/sqrt(D); ``block_q``/``block_k``
     are the TPU kernel's blocks: the plain version's key blocks follow
     ``block_k`` as JAX's do (the query blocks do not change its function),
-    and the kernels stream :data:`TILE`-row tiles whatever they say."""
+    and the kernels stream :data:`TILE`-row tiles whatever they say. A bf16
+    panel runs the f32 arm on its values and the context is rounded to bf16,
+    as JAX's kernel stores it: that arm already multiplies in bf16 on the
+    card."""
+    if qkv.dtype == torch.bfloat16:
+        return flash_qkv_attention(qkv.float(), num_heads, mask, scale, block_q,
+                                   block_k).to(torch.bfloat16)
     _, n, d = fqa._dims(qkv, num_heads)
     if mask is not None:
         if mask.ndim != 2:

@@ -219,7 +219,12 @@ def check_shapes(name, q, k, v, mask=None):
 def vmem_attention(q, k, v, mask=None, scale=None):
     """softmax(q k^T * scale) v on (B, H, N, D) tensors, differentiable;
     ``mask`` an optional shared (N, N) bool on q's device, True = attend;
-    ``scale`` overrides 1/sqrt(D)."""
+    ``scale`` overrides 1/sqrt(D). bf16 q, k, v (a ViT with
+    ``compute_dtype: bfloat16``) run the f32 arm on their values and the
+    result is rounded to bf16, as JAX's kernel stores it: that arm already
+    multiplies in bf16 on the card."""
+    if q.dtype == torch.bfloat16:
+        return vmem_attention(q.float(), k.float(), v.float(), mask, scale).to(torch.bfloat16)
     _, _, n, d = check_shapes("vmem_attention", q, k, v, mask)
     if mask is not None:
         mask_arg("vmem_attention", mask, n, q.device)
